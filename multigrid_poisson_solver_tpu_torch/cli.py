@@ -1,0 +1,202 @@
+"""Command-line entry point.
+
+PyTorch port of ``multigrid_poisson_solver_tpu/cli.py``, a drop-in for the
+reference binaries' invocation (``./MG_GPU N_THREADS cycle_file.txt``):
+
+    python -m multigrid_poisson_solver_tpu_torch [N_THREADS] cycle_file.txt [options]
+
+The thread-count argument is accepted and ignored. Output: the reference's
+final-result block (mean |U − analytic| and wall ms) and a
+``Sol_GPU_<cyclefile>`` (``Sol_CPU_`` with ``--device cpu``) CSV. The run
+uses ``--device`` (default ``cuda``) and never falls back to the CPU.
+Deep-solve mode (``--tol``) and ``--dim 3`` are not yet ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+
+import torch
+
+from .models.problems import BUILTIN_PROBLEMS
+from .schedule import parse_cycle_path
+from .solver import MultigridSolver, SolveReport, SolverConfig, synchronize
+from .utils.io import solution_filename, write_solution_csv
+
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="multigrid_poisson_solver_tpu_torch",
+        description="geometric-multigrid Poisson solver (PyTorch, CUDA kernels)",
+    )
+    p.add_argument("args", nargs="+",
+                   help="[N_THREADS] cycle_file.txt — thread count accepted for "
+                        "reference compatibility and ignored")
+    p.add_argument("--problem", default="reference",
+                   help="built-in problem family (default: the reference's "
+                        "manufactured solution): " + ", ".join(sorted(BUILTIN_PROBLEMS)))
+    p.add_argument("--dim", type=int, default=2, choices=[2, 3],
+                   help="spatial dimension (3 is not yet ported)")
+    p.add_argument("--dtype", default="f32", choices=sorted(DTYPES),
+                   help="level-array precision (default f32; the CUDA kernels take f32)")
+    p.add_argument("--smoother", default="jacobi", choices=["jacobi", "rbgs"])
+    p.add_argument("--restriction", default="sampling",
+                   choices=["sampling", "full_weighting"],
+                   help="restriction operator (rb-GS smoothing needs "
+                        "full_weighting, which needs 2:1 vertex-aligned "
+                        "levels, e.g. con_N=3 schedules)")
+    p.add_argument("--omega", type=float, default=1.0,
+                   help="Jacobi damping factor (reference: 1.0; 0.8 converges deeper)")
+    p.add_argument("--repeat", type=int, default=1,
+                   help="run the schedule this many times (warm restart chaining)")
+    p.add_argument("--trigger-batch", default="auto",
+                   type=lambda s: s if s == "auto" else int(s),
+                   help="trigger sweeps per pass: 'auto' or 1 (the exact "
+                        "per-sweep loop); > 1 is not yet ported to CUDA")
+    p.add_argument("--kernels", default="auto", choices=["auto", "cuda", "torch"],
+                   help="hot-path routing: the CUDA kernels (auto = on a CUDA "
+                        "device) or plain PyTorch")
+    p.add_argument("--halo", default="ppermute", choices=["ppermute", "rdma"],
+                   help="sharded halo exchange (no effect on one device)")
+    p.add_argument("--trigger", type=float, default=0.01,
+                   help="error-trigger slope threshold (reference hardcodes 0.01)")
+    p.add_argument("--error-metric", default="cpu", choices=["cpu", "clean", "gpu"],
+                   help="trigger-mode smoothing-error metric: cpu (the CPU "
+                        "reference's color-bugged sum), clean (mean |residual| "
+                        "over the interior), gpu (the GPU reference's "
+                        "|dU|*4/h^2 of the final sweep)")
+    p.add_argument("--output", default=None,
+                   help="solution CSV path (default Sol_GPU_<cyclefile>, "
+                        "Sol_CPU_ with --device cpu)")
+    p.add_argument("--no-output", action="store_true", help="skip the CSV dump")
+    p.add_argument("--quiet", action="store_true", help="suppress per-node narration")
+    p.add_argument("--stats", action="store_true",
+                   help="print per-node reports (grid size, sweeps, error)")
+    p.add_argument("--engine", default="auto", choices=["auto", "interpreted", "compiled"],
+                   help="interpreted: per-node dispatch with live stats; "
+                        "compiled: the whole-schedule engine with the CUDA kernels "
+                        "(auto: compiled unless --stats/per-node narration is on)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the solve runs (default cuda)")
+    p.add_argument("--tol", type=float, default=None,
+                   help="deep-solve mode (iterative refinement; not yet ported)")
+    p.add_argument("--state", default="df32", choices=["df32", "tw32", "f64"],
+                   help="refinement state precision for --tol (not yet ported)")
+    p.add_argument("--max-cycles", type=int, default=60,
+                   help="refinement cycle cap for --tol (not yet ported)")
+    p.add_argument("--checkpoint", default=None,
+                   help="directory for --tol checkpoints (not yet ported)")
+    return p
+
+
+def _run_compiled(problem, program, config, device) -> SolveReport:
+    """Execute via the whole-schedule engine (compiled.CompiledCycle)."""
+    from .compiled import compile_program
+    from .ops.stencils import mean_abs_error
+
+    cc = compile_program(program, problem, config, device=device)
+    u, f = cc.init()
+    synchronize(cc.device)
+    start = time.perf_counter()
+    u1, _ = cc(u, f)
+    synchronize(cc.device)
+    wall = time.perf_counter() - start
+
+    err = None
+    if problem.analytic is not None:
+        ua = problem.analytic_grid(cc.finest_spec, config.dtype, cc.device)
+        err = float(mean_abs_error(u1, ua))
+    return SolveReport(u=u1, spec=cc.finest_spec, wall_time_s=wall,
+                       nodes=[], error_vs_analytic=err)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    positional = list(args.args)
+    if len(positional) == 2 and positional[0].lstrip("-").isdigit():
+        print(f"OpenMP threads argument ({positional[0]}) ignored")
+        positional = positional[1:]
+    if len(positional) != 1:
+        print("[ ERROR ]: expected [N_THREADS] cycle_file.txt", file=sys.stderr)
+        return 1
+    if args.tol is not None or args.dim == 3:
+        print("[ ERROR ]: " + ("--tol (iterative refinement)" if args.tol is not None
+                               else "--dim 3") + " is not yet ported", file=sys.stderr)
+        return 1
+    cycle_path = positional[0]
+    print(f"Cycle structure file name = {cycle_path}")
+
+    try:
+        program = parse_cycle_path(cycle_path)
+    except OSError as e:
+        print(f"[ ERROR ]: Cannot open file {cycle_path}: {e}", file=sys.stderr)
+        return 1
+    except ValueError as e:
+        print(f"[ ERROR ]: Bad cycle file: {e}", file=sys.stderr)
+        return 1
+
+    if args.repeat > 1:
+        from .schedule import repeat as repeat_program
+
+        program = repeat_program(program, args.repeat)
+
+    if not args.quiet:
+        logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    if args.problem not in BUILTIN_PROBLEMS:
+        print(f"[ ERROR ]: unknown problem {args.problem!r} "
+              f"(choose from {sorted(BUILTIN_PROBLEMS)})", file=sys.stderr)
+        return 1
+
+    if args.smoother == "rbgs" and args.restriction == "sampling":
+        print("[ WARNING ]: rb-GS smoothing with sampling restriction "
+              "aliases the one-color residual (degraded convergence); "
+              "use --restriction full_weighting on a 2:1-aligned schedule",
+              file=sys.stderr)
+
+    config = SolverConfig(
+        dtype=DTYPES[args.dtype],
+        smoother=args.smoother,
+        restriction=args.restriction,
+        omega=args.omega,
+        trigger=args.trigger,
+        compat_error={"cpu": True, "clean": False, "gpu": "gpu"}[args.error_metric],
+        kernels=args.kernels,
+        halo=args.halo,
+        trigger_batch=args.trigger_batch,
+        collect_node_stats=args.stats or not args.quiet,
+    )
+    problem = BUILTIN_PROBLEMS[args.problem]
+
+    engine = args.engine
+    if engine == "auto":
+        engine = "interpreted" if (args.stats or not args.quiet) else "compiled"
+
+    if engine == "compiled":
+        report = _run_compiled(problem, program, config, args.device)
+    else:
+        report = MultigridSolver(problem, config, args.device).run(program)
+        if args.stats:
+            for node in report.nodes:
+                print(f"  {node.kind:<12} N={node.n:<6} steps={node.steps} "
+                      f"error={node.error}")
+
+    print()
+    print(report.summary())
+
+    if not args.no_output:
+        prefix = "Sol_GPU_" if args.device == "cuda" else "Sol_CPU_"
+        out = args.output or solution_filename(cycle_path, prefix)
+        write_solution_csv(report.u, out)
+        print(f"Output file name = {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,103 @@
+"""Build and load the port's CUDA kernels (``ops/csrc``) as one shared library.
+
+No counterpart in the JAX package: Pallas kernels compile inside ``jit``.
+Here the sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface and loaded with ``ctypes``; no
+PyTorch header is compiled, so a cold build takes seconds.
+
+The build runs at first use, from the sources in the checkout, into
+``build/torch_kernels/`` beside the package. The library's file name carries
+a hash of the sources and flags, so an edited source rebuilds and a current
+one is reused. Every entry point returns a ``cudaError_t``; ``ops.kernels``
+raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (pointers and the stream as void*).
+SIGNATURES = {
+    "mg_num_tiles": ([_I], _I),
+    "mg_error_string": ([_I], ctypes.c_char_p),
+    "mg_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
+    "mg_residual": ([_P, _P, _P, _I, _F, _I, _P], _I),
+    "mg_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+                   _I),
+    "mg_ascend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P], _I),
+    "mg_chain_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
+    "mg_chain_ascend": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _F, _P], _I),
+    "mg_trigger": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P], _I),
+}
+
+_lib = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile the sources unless the current library exists; return its path.
+    nvcc's report (registers, shared memory, spills) goes to ``<lib>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_lib = Path(tmp) / out.name
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib),
+               *[str(s) for s in sources() if s.suffix == ".cu"]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = out.with_suffix(".log")
+        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc {proc.returncode}); see {log}:\n"
+                               + proc.stderr[-4000:])
+        os.replace(tmp_lib, out)   # atomic: a concurrent loader never sees a partial file
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), signatures declared."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib

@@ -1,0 +1,184 @@
+// The work of one tile for each fused operation: the smoother (jacobi.cu,
+// trigger.cu), the descend leg (descend.cu, chain_descend.cu) and the ascend
+// leg (ascend.cu, chain_ascend.cu). A one-launch kernel runs one tile per
+// block; a persistent kernel walks many tiles per block and levels or sweeps
+// between grid barriers. Both run this same code, so the chain and trigger
+// kernels reproduce the per-level launches bit for bit.
+//
+// `smem` holds tile_smem_bytes(halo): f, then two ping-pong buffers. Every
+// function starts with a barrier, so a block may call them back to back.
+#pragma once
+
+#include "common.cuh"
+
+namespace mgk {
+
+// Stage the starting iterate into buf: u's window, or with from_zero the
+// closed-form first sweep from u ≡ 0, zero_coef·f on the interior (u unread).
+static __device__ void stage_iterate(float* buf, const float* sf, const float* u, int n,
+                                     const Tile& t, int from_zero, float zero_coef) {
+  if (!from_zero) {
+    load_tile(buf, u, n, t);
+    return;
+  }
+  __syncthreads();  // sf complete
+  for (int i = threadIdx.y; i < t.rows; i += BLOCK_Y)
+    for (int j = threadIdx.x; j < t.cols; j += BLOCK_X) {
+      const int k = i * t.cols + j;
+      buf[k] = interior(t.gr0 + i, t.gc0 + j, n) ? __fmul_rn(zero_coef, sf[k]) : 0.0f;
+    }
+}
+
+// n_sweeps (after the closed-form one when from_zero) Jacobi sweeps of tile
+// (tx, ty) into out; with err_mode, the tile's error partial into *partial.
+static __device__ void jacobi_tile(float* smem, const float* u, const float* f,
+                                   float* __restrict__ out, float* partial, int tx, int ty,
+                                   int n, int n_sweeps, int halo, int from_zero, int err_mode,
+                                   float h2, float omega, float inv_h2, float zero_coef) {
+  __syncthreads();
+  const Tile t = make_tile(halo, tx, ty);
+  const int cells = t.rows * t.cols;
+  float* sf = smem;
+  float* bufs[2] = {smem + cells, smem + 2 * cells};
+
+  load_tile(sf, f, n, t);
+  stage_iterate(bufs[0], sf, u, n, t, from_zero, zero_coef);
+  __syncthreads();
+
+  const int fin = run_sweeps(bufs, sf, t, n_sweeps, n, h2, omega);
+  store_owned(out, bufs[fin], n, t, halo);
+  if (err_mode != ERR_NONE) {
+    // gpu metric of a closed-form-only pass: Δ from the implicit zero iterate
+    const float* prev = n_sweeps > 0 ? bufs[fin ^ 1] : nullptr;
+    error_partial(partial, bufs[fin], prev, sf, t, halo, n, err_mode, inv_h2);
+  }
+}
+
+// The descend leg of tile (tx, ty) on the level n = 2m − 1: sweeps into out,
+// then −r of the final iterate restricted (sampling or full weighting) into
+// the tile's 16 x 64 window of the m x m coarse right-hand side fc.
+static __device__ void descend_tile(float* smem, const float* u, const float* f,
+                                    float* __restrict__ out, float* __restrict__ fc,
+                                    float* partial, int tx, int ty, int n, int n_sweeps,
+                                    int halo, int from_zero, int full_weighting, int err_mode,
+                                    float h2, float omega, float inv_h2, float zero_coef) {
+  __syncthreads();
+  const Tile t = make_tile(halo, tx, ty);
+  const int cells = t.rows * t.cols;
+  float* sf = smem;
+  float* bufs[2] = {smem + cells, smem + 2 * cells};
+
+  load_tile(sf, f, n, t);
+  stage_iterate(bufs[0], sf, u, n, t, from_zero, zero_coef);
+  __syncthreads();
+
+  const int fin_i = run_sweeps(bufs, sf, t, n_sweeps, n, h2, omega);
+  const float* fin = bufs[fin_i];
+  float* d = bufs[fin_i ^ 1];
+  store_owned(out, fin, n, t, halo);
+  if (err_mode != ERR_NONE) {
+    const float* prev = n_sweeps > 0 ? d : nullptr;
+    error_partial(partial, fin, prev, sf, t, halo, n, err_mode, inv_h2);
+  }
+  __syncthreads();  // the error pass may still read the spare buffer
+
+  // d = −r(fin) on the owned window plus the ring full weighting reads
+  const int e = full_weighting ? 1 : 0;
+  for (int i = halo - e + threadIdx.y; i < halo + TILE_H + e; i += BLOCK_Y) {
+    const int gi = t.gr0 + i;
+    for (int j = halo - e + threadIdx.x; j < halo + TILE_W + e; j += BLOCK_X) {
+      const int k = i * t.cols + j;
+      d[k] = interior(gi, t.gc0 + j, n)
+                 ? -residual_point(nb_sum(fin, t.cols, i, j), fin[k], sf[k], inv_h2)
+                 : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  const int m = (n + 1) / 2;
+  for (int ci = threadIdx.y; ci < TILE_H / 2; ci += BLOCK_Y) {
+    const int I = ty * (TILE_H / 2) + ci;
+    const int li = halo + 2 * ci;
+    for (int cj = threadIdx.x; cj < TILE_W / 2; cj += BLOCK_X) {
+      const int J = tx * (TILE_W / 2) + cj;
+      if (I >= m || J >= m) continue;
+      float v = 0.0f;
+      if (interior(I, J, m)) {
+        const int k = li * t.cols + halo + 2 * cj;
+        if (full_weighting) {
+          // rows (¼·d[i−1] + ½·d[i]) + ¼·d[i+1], then the same across columns
+          float sy[3];
+          for (int c = 0; c < 3; ++c) {
+            const int kc = k + c - 1;
+            sy[c] = __fadd_rn(__fadd_rn(__fmul_rn(0.25f, d[kc - t.cols]), __fmul_rn(0.5f, d[kc])),
+                              __fmul_rn(0.25f, d[kc + t.cols]));
+          }
+          v = __fadd_rn(__fadd_rn(__fmul_rn(0.25f, sy[0]), __fmul_rn(0.5f, sy[1])),
+                        __fmul_rn(0.25f, sy[2]));
+        } else {
+          v = d[k];
+        }
+      }
+      fc[(size_t)I * m + J] = v;
+    }
+  }
+}
+
+// Coarse row I interpolated to fine column gj (the prolongation's column pass).
+static __device__ __forceinline__ float wide(const float* c, int m, int I, int gj) {
+  const int J = gj >> 1;
+  const float a = __ldcg(c + (size_t)I * m + J);
+  if (!(gj & 1)) return a;
+  return __fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, __ldcg(c + (size_t)I * m + J + 1)));
+}
+
+// The ascend leg of tile (tx, ty) on the level n = 2m − 1: u plus the
+// prolonged m x m correction c on the interior, then `steps` sweeps into out.
+static __device__ void ascend_tile(float* smem, const float* u, const float* f,
+                                   const float* c, float* __restrict__ out, float* partial,
+                                   int tx, int ty, int n, int steps, int halo, int err_mode,
+                                   float h2, float omega, float inv_h2) {
+  __syncthreads();
+  const Tile t = make_tile(halo, tx, ty);
+  const int cells = t.rows * t.cols;
+  float* sf = smem;
+  float* bufs[2] = {smem + cells, smem + 2 * cells};
+  const int m = (n + 1) / 2;
+
+  load_tile(sf, f, n, t);
+  for (int i = threadIdx.y; i < t.rows; i += BLOCK_Y) {
+    const int gi = t.gr0 + i;
+    for (int j = threadIdx.x; j < t.cols; j += BLOCK_X) {
+      const int gj = t.gc0 + j;
+      float v = 0.0f;
+      if (in_grid(gi, gj, n)) {
+        v = __ldcg(u + (size_t)gi * n + gj);
+        if (interior(gi, gj, n)) {
+          const int I = gi >> 1;
+          const float p = (gi & 1) ? __fadd_rn(__fmul_rn(0.5f, wide(c, m, I, gj)),
+                                               __fmul_rn(0.5f, wide(c, m, I + 1, gj)))
+                                   : wide(c, m, I, gj);
+          v = __fadd_rn(v, p);
+        }
+      }
+      bufs[0][i * t.cols + j] = v;
+    }
+  }
+  __syncthreads();
+
+  const int fin = run_sweeps(bufs, sf, t, steps, n, h2, omega);
+  store_owned(out, bufs[fin], n, t, halo);
+  if (err_mode != ERR_NONE)
+    error_partial(partial, bufs[fin], bufs[fin ^ 1], sf, t, halo, n, err_mode, inv_h2);
+}
+
+// Halo of each tile operation (see the header of common.cuh).
+static inline int jacobi_halo(int n_sweeps, int err_mode) {
+  return n_sweeps + ((err_mode == ERR_CPU || err_mode == ERR_CLEAN) ? 1 : 0);
+}
+
+static inline int descend_halo(int n_sweeps, int full_weighting) {
+  return n_sweeps + 1 + (full_weighting ? 1 : 0);
+}
+
+}  // namespace mgk

@@ -1,0 +1,496 @@
+"""The hot-path kernels: hand-written CUDA for Hopper, each with a plain twin.
+
+PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_kernels.py`` and
+``ops/pallas_chain.py`` (the seven kernels the 2-D fixed-step V-cycle and the
+trigger schedules reach):
+
+  * ``fused_jacobi``, ``fused_jacobi_err``: ``csrc/jacobi.cu``, replaces
+    ``_fused_jacobi_kernel`` (its Jacobi modes);
+  * ``residual``: ``csrc/residual.cu``, replaces ``_residual_kernel``;
+  * ``fused_descend``: ``csrc/descend.cu``, replaces ``_fused_descend_kernel``;
+  * ``fused_ascend``: ``csrc/ascend.cu``, replaces ``_fused_ascend_kernel``;
+  * ``chain_descend``: ``csrc/chain_descend.cu``, replaces
+    ``_descend_chain_kernel``;
+  * ``chain_ascend``: ``csrc/chain_ascend.cu``, replaces
+    ``_ascend_chain_kernel``;
+  * ``trigger_smooth``: ``csrc/trigger.cu``, replaces ``_trigger_vmem_kernel``.
+
+Routing is by the tensors' device and nothing else: CPU tensors run the
+plain PyTorch twin (``*_torch``, built from the oracle ops in
+``ops.stencils`` and ``ops.transfers``); CUDA tensors launch the kernel, and
+a build or launch failure, or an input the kernel does not take (not fp32,
+not contiguous, wrong shape), raises. There is no fallback.
+
+``launches`` counts kernel launches per kernel (the ``sum_partials`` second
+pass of an error reduction belongs to the launch it finishes); it lets a run
+show that the main path went through the kernels.
+
+Grids are plain contiguous (n, n) tensors. Every function returns new
+tensors and leaves its arguments untouched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import stencils
+from . import transfers as T
+
+MAX_FUSED_SWEEPS = 8
+MAX_CHAIN_LEVELS = 16       # MAX_CHAIN in chain_descend.cu / chain_ascend.cu
+CHAIN_MAX_ROOT = 1025       # pallas_chain.CHAIN_MAX_ROOT
+_ERR_CODES = {None: 0, "cpu": 1, "clean": 2, "gpu": 3}
+
+launches = {"jacobi": 0, "residual": 0, "descend": 0, "ascend": 0,
+            "chain_descend": 0, "chain_ascend": 0, "trigger": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def err_mode_of(compat) -> str:
+    """SolverConfig.compat_error → the fused error mode."""
+    return "gpu" if compat == "gpu" else ("cpu" if compat else "clean")
+
+
+def _err_scale(mode: str, n: int, h: float) -> float:
+    # the kernels sum |r| (cpu, clean) or |Δu| (gpu); JAX's kernels sum
+    # |Δ| = (ω/4)h²|r| and scale by 4/(ωh²) instead: the same metric
+    if mode == "gpu":
+        return 4.0 / (h * h) / (n * n)
+    return (2.0 if mode == "cpu" else 1.0) / (n * n)
+
+
+def _zero_coef(h: float, omega: float) -> float:
+    """The closed-form first sweep from u ≡ 0: u₁ = zero_coef · f."""
+    return -0.25 * omega * h * h
+
+
+def chain_fits(sizes) -> bool:
+    """Whether a V-ladder runs as the two chain kernels: JAX's admission rule
+    (``pallas_chain.chain_fits``), so a schedule reaches the same operations
+    in both packages. At least one transition, a root of at most
+    CHAIN_MAX_ROOT, every transition 2:1 (JAX's VMEM budget admits every
+    such ladder)."""
+    return (2 <= len(sizes) <= MAX_CHAIN_LEVELS + 1 and sizes[0] <= CHAIN_MAX_ROOT
+            and all(a == 2 * b - 1 for a, b in zip(sizes, sizes[1:])))
+
+
+def trigger_fits(n: int) -> bool:
+    """Whether a trigger node runs as the whole-loop kernel: JAX's admission
+    bound (``pallas_chain.trigger_fits``: five level-sized buffers in 96 MiB
+    of VMEM, on the TPU's ×16-row / ×128-lane padded shape), kept so a
+    schedule reaches the same operations; it admits n ≤ 2176."""
+    rp, cp = -(-n // 16) * 16, -(-n // 128) * 128
+    return 5 * rp * cp * 4 <= 96 * 1024 * 1024
+
+
+def _level_h(h0: float, k: int) -> float:
+    """Spacing of level k of a 2:1 ladder (exactly GridSpec.h of that level)."""
+    return h0 * 2 ** k
+
+
+# --- plain PyTorch twins ------------------------------------------------------
+
+def _from_zero_iterate(f: torch.Tensor, h: float, omega: float) -> torch.Tensor:
+    u = torch.zeros_like(f)
+    u[1:-1, 1:-1] = _zero_coef(h, omega) * f[1:-1, 1:-1]
+    return u
+
+
+def fused_jacobi_torch(u, f, h: float, steps: int, omega: float = 1.0,
+                       from_zero: bool = False):
+    """``steps`` Jacobi sweeps; ``from_zero``: u is known to be 0 (not read)."""
+    if steps <= 0:
+        return u
+    if from_zero:
+        u = _from_zero_iterate(f, h, omega)
+        steps -= 1
+    for _ in range(steps):
+        u = stencils.jacobi_sweep(u, f, h, omega)
+    return u
+
+
+def fused_jacobi_err_torch(u, f, h: float, steps: int, omega: float = 1.0,
+                           compat=True, from_zero: bool = False):
+    """``steps`` sweeps and the smoothing error of the result: (u, err)."""
+    if steps <= 0:
+        return u, torch.zeros((), dtype=f.dtype, device=f.device)
+    if compat == "gpu":
+        if steps == 1:
+            prev = torch.zeros_like(f) if from_zero else u
+        else:
+            prev = fused_jacobi_torch(u, f, h, steps - 1, omega, from_zero)
+        new = fused_jacobi_torch(prev, f, h, 1, omega, from_zero and steps == 1)
+        return new, stencils.gpu_smoothing_error(new, prev, h)
+    u = fused_jacobi_torch(u, f, h, steps, omega, from_zero)
+    return u, stencils.smoothing_error(u, f, h, compat=compat)
+
+
+def residual_torch(u, f, h: float, negate: bool = False):
+    r = stencils.residual(u, f, h)
+    return -r if negate else r
+
+
+def fused_descend_torch(u, f, h: float, steps: int, omega: float = 1.0,
+                        restriction: str = "sampling", compat=True,
+                        want_err: bool = False, from_zero: bool = False):
+    """Sweeps, residual, 2:1 restriction of −r: (u, f_coarse, err or None)."""
+    m = (f.shape[0] + 1) // 2
+    err = None
+    if want_err:
+        u, err = fused_jacobi_err_torch(u, f, h, steps, omega, compat, from_zero)
+    else:
+        u = fused_jacobi_torch(u, f, h, steps, omega, from_zero)
+    d = -stencils.residual(u, f, h)
+    if restriction == "full_weighting":
+        return u, T.full_weighting_restrict(d, m), err
+    return u, T.sample_restrict(d, m), err
+
+
+def fused_ascend_torch(u, f, uc, h: float, steps: int, omega: float = 1.0,
+                       compat=True, want_err: bool = False):
+    """Prolong uc, add on the interior, post-sweeps: (u, err or None)."""
+    u = T.add_correction(u, T.prolong(uc, f.shape[0]))
+    if want_err:
+        return fused_jacobi_err_torch(u, f, h, steps, omega, compat)
+    return fused_jacobi_torch(u, f, h, steps, omega), None
+
+
+def chain_descend_torch(u0, f0, sizes, h0: float, pre_steps, omega: float = 1.0,
+                        restriction: str = "sampling", entry_from_zero: bool = False):
+    """The descend legs of levels 0..c−1 in turn: (u_list, f_list), u_list[k]
+    level k after its pre-sweeps, f_list[k] the right-hand side of level k+1."""
+    u_list, f_list = [], []
+    u, f = u0, f0
+    for k, steps in enumerate(pre_steps):
+        fz = entry_from_zero or k > 0
+        u, f, _ = fused_descend_torch(torch.zeros_like(f) if fz else u, f, _level_h(h0, k),
+                                      steps, omega, restriction, from_zero=fz)
+        u_list.append(u)
+        f_list.append(f)
+    return u_list, f_list
+
+
+def chain_ascend_torch(u_list, f_list, uc, sizes, h0: float, post_steps, omega: float = 1.0,
+                       compat=True, want_err: bool = False):
+    """The ascend legs of levels c−1..0 in turn from the coarse solution uc;
+    f_list[k] is level k's right-hand side. Returns (u_0, level 0's error or
+    None)."""
+    child, err = uc, None
+    for k in reversed(range(len(post_steps))):
+        child, err = fused_ascend_torch(u_list[k], f_list[k], child, _level_h(h0, k),
+                                        post_steps[k], omega, compat, want_err and k == 0)
+    return child, err
+
+
+def trigger_smooth_torch(u, f, h: float, omega: float = 1.0, compat=True,
+                         trigger: float = 0.01, max_sweeps: int = 100_000):
+    """Error-triggered smoothing, one fused sweep-plus-error step at a time
+    with a host stop test per sweep: (u, err, sweeps)."""
+    from ..solver import trigger_loop
+
+    u, err, sweeps = trigger_loop(
+        lambda v: fused_jacobi_err_torch(v, f, h, 1, omega, compat), u, trigger, max_sweeps)
+    return u, err, torch.tensor(sweeps, dtype=torch.int32, device=f.device)
+
+
+# --- CUDA launches ---------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _grid_args(f: torch.Tensor, aligned: bool = False):
+    """Validate the level's f and return (n, device, library, stream)."""
+    from . import build
+
+    if not f.is_cuda:
+        raise ValueError(f"CUDA kernel called on a {f.device} tensor")
+    n = f.shape[0]
+    if f.dim() != 2 or f.shape[1] != n or n < 3 or (aligned and n % 2 == 0):
+        raise ValueError(f"expected an (n, n) level with n >= 3"
+                         f"{' odd (2:1-aligned)' if aligned else ''}, got {tuple(f.shape)}")
+    _check("f", f, (n, n), f.device)
+    if f.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {f.device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return n, f.device, build.load(), torch.cuda.current_stream(f.device).cuda_stream
+
+
+def _check_steps(steps: int) -> None:
+    if not 1 <= steps <= MAX_FUSED_SWEEPS:
+        raise ValueError(f"a fused leg runs 1..{MAX_FUSED_SWEEPS} sweeps, got {steps}")
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel failed: CUDA error {rc} "
+                           f"({lib.mg_error_string(rc).decode()})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _err_buffers(lib, mode, n: int, device):
+    """(per-tile partials, the 1-element metric), or Nones without an error."""
+    if mode is None:
+        return None, None
+    return (torch.empty(lib.mg_num_tiles(n), dtype=torch.float32, device=device),
+            torch.empty(1, dtype=torch.float32, device=device))
+
+
+def _jacobi_cuda(u, f, h: float, steps: int, omega: float, from_zero: bool, mode):
+    """One ≤8-sweep launch; returns (u, err or None)."""
+    n, dev, lib, stream = _grid_args(f)
+    if not from_zero:
+        _check("u", u, (n, n), dev)
+    out = torch.empty_like(f)
+    partials, err = _err_buffers(lib, mode, n, dev)
+    rc = lib.mg_jacobi(_ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
+                       _ptr(partials), _ptr(err), n, steps, int(from_zero),
+                       _ERR_CODES[mode], h * h, omega, 1.0 / (h * h), _zero_coef(h, omega),
+                       _err_scale(mode, n, h) if mode else 0.0, stream)
+    _raise_on(lib, rc, "jacobi")
+    launches["jacobi"] += 1
+    return out, (None if err is None else err.reshape(()))
+
+
+def _chunked(u, f, h: float, steps: int, omega: float, from_zero: bool, mode):
+    """``steps`` sweeps as ≤8-sweep launches; the error rides on the last."""
+    err = None
+    first = True
+    while steps > 0:
+        k = min(steps, MAX_FUSED_SWEEPS)
+        steps -= k
+        u, err = _jacobi_cuda(u, f, h, k, omega, from_zero and first,
+                              mode if steps == 0 else None)
+        first = False
+    return u, err
+
+
+# --- public entry points ------------------------------------------------------
+
+def fused_jacobi(u, f, h: float, steps: int, omega: float = 1.0,
+                 from_zero: bool = False):
+    """``steps`` damped-Jacobi sweeps, ≤8 per pass over memory (counterpart of
+    ``fused_jacobi_padded``). ``from_zero``: the caller guarantees u ≡ 0."""
+    if not f.is_cuda:
+        return fused_jacobi_torch(u, f, h, steps, omega, from_zero)
+    if steps <= 0:
+        return u
+    return _chunked(u, f, h, steps, omega, from_zero, None)[0]
+
+
+def fused_jacobi_err(u, f, h: float, steps: int, omega: float = 1.0, compat=True,
+                     from_zero: bool = False):
+    """``steps`` sweeps with the smoothing-error metric fused into the last
+    pass (counterpart of ``fused_jacobi_err_padded``): (u, err)."""
+    if not f.is_cuda:
+        return fused_jacobi_err_torch(u, f, h, steps, omega, compat, from_zero)
+    if steps <= 0:
+        return u, torch.zeros((), dtype=f.dtype, device=f.device)
+    return _chunked(u, f, h, steps, omega, from_zero, err_mode_of(compat))
+
+
+def residual(u, f, h: float, negate: bool = False):
+    """5-point residual, 0 off the interior, optionally negated (counterpart
+    of ``residual_pallas``)."""
+    if not f.is_cuda:
+        return residual_torch(u, f, h, negate)
+    n, dev, lib, stream = _grid_args(f)
+    _check("u", u, (n, n), dev)
+    r = torch.empty_like(f)
+    rc = lib.mg_residual(u.data_ptr(), f.data_ptr(), r.data_ptr(), n, 1.0 / (h * h),
+                         int(negate), stream)
+    _raise_on(lib, rc, "residual")
+    launches["residual"] += 1
+    return r
+
+
+def fused_descend(u, f, h: float, steps: int, omega: float = 1.0,
+                  restriction: str = "sampling", compat=True, want_err: bool = False,
+                  from_zero: bool = False):
+    """The descend leg on an aligned level n = 2m − 1: ``steps`` sweeps, the
+    residual, and its 2:1 restriction (sampling or full weighting) of −r in
+    one pass (counterpart of ``fused_descend_padded`` + ``restrict_lanes_p``).
+    Returns (u, f_coarse (m, m), err or None)."""
+    if restriction not in ("sampling", "full_weighting"):
+        raise ValueError(f"unknown restriction {restriction!r}")
+    if not f.is_cuda:
+        return fused_descend_torch(u, f, h, steps, omega, restriction, compat,
+                                   want_err, from_zero)
+    _check_steps(steps)
+    n, dev, lib, stream = _grid_args(f, aligned=True)
+    if not from_zero:
+        _check("u", u, (n, n), dev)
+    m = (n + 1) // 2
+    out = torch.empty_like(f)
+    fc = torch.empty((m, m), dtype=f.dtype, device=dev)
+    mode = err_mode_of(compat) if want_err else None
+    partials, err = _err_buffers(lib, mode, n, dev)
+    rc = lib.mg_descend(_ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
+                        fc.data_ptr(), _ptr(partials), _ptr(err), n, steps, int(from_zero),
+                        int(restriction == "full_weighting"), _ERR_CODES[mode], h * h, omega,
+                        1.0 / (h * h), _zero_coef(h, omega),
+                        _err_scale(mode, n, h) if mode else 0.0, stream)
+    _raise_on(lib, rc, "descend")
+    launches["descend"] += 1
+    return out, fc, (None if err is None else err.reshape(()))
+
+
+def fused_ascend(u, f, uc, h: float, steps: int, omega: float = 1.0, compat=True,
+                 want_err: bool = False):
+    """The ascend leg on an aligned level n = 2m − 1: prolong the coarse
+    (m, m) correction ``uc``, add it on the interior, ``steps`` post-sweeps,
+    in one pass (counterpart of ``prolong_lanes_p`` + ``fused_ascend_padded``).
+    Returns (u, err or None)."""
+    if not f.is_cuda:
+        return fused_ascend_torch(u, f, uc, h, steps, omega, compat, want_err)
+    _check_steps(steps)
+    n, dev, lib, stream = _grid_args(f, aligned=True)
+    m = (n + 1) // 2
+    _check("u", u, (n, n), dev)
+    _check("uc", uc, (m, m), dev)
+    out = torch.empty_like(f)
+    mode = err_mode_of(compat) if want_err else None
+    partials, err = _err_buffers(lib, mode, n, dev)
+    rc = lib.mg_ascend(u.data_ptr(), f.data_ptr(), uc.data_ptr(), out.data_ptr(),
+                       _ptr(partials), _ptr(err), n, steps, _ERR_CODES[mode], h * h, omega,
+                       1.0 / (h * h), _err_scale(mode, n, h) if mode else 0.0, stream)
+    _raise_on(lib, rc, "ascend")
+    launches["ascend"] += 1
+    return out, (None if err is None else err.reshape(()))
+
+
+def _c_array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def _check_ladder(sizes, steps, lo: int, what: str):
+    c = len(sizes) - 1
+    if not 1 <= c <= MAX_CHAIN_LEVELS or len(steps) != c:
+        raise ValueError(f"{what}: expected 1..{MAX_CHAIN_LEVELS} transitions and one "
+                         f"sweep count per level, got sizes {sizes}, steps {steps}")
+    if any(a != 2 * b - 1 for a, b in zip(sizes, sizes[1:])):
+        raise ValueError(f"{what}: every transition must be 2:1 (n = 2m − 1), got {sizes}")
+    if not all(lo <= s <= MAX_FUSED_SWEEPS for s in steps):
+        raise ValueError(f"{what}: sweep counts must lie in {lo}..{MAX_FUSED_SWEEPS}, "
+                         f"got {steps}")
+
+
+def _level_scalars(h0: float, omega: float, levels: int):
+    """(h², 1/h², −(ω/4)h²) per level, as the one-level launches pass them."""
+    out = []
+    for k in range(levels):
+        h = _level_h(h0, k)
+        out += [h * h, 1.0 / (h * h), _zero_coef(h, omega)]
+    return _c_array(ctypes.c_float, out)
+
+
+def chain_descend(u0, f0, sizes, h0: float, pre_steps, omega: float = 1.0,
+                  restriction: str = "sampling", entry_from_zero: bool = False):
+    """The whole descend half of a V below ``sizes[0]`` in one launch
+    (counterpart of ``fused_chain_descend``): per level k < c the pre-sweeps,
+    the residual and its restriction. Returns (u_list, f_list) as the twin.
+    ``entry_from_zero``: the caller guarantees u0 ≡ 0 (u0 may be None)."""
+    sizes, pre_steps = tuple(sizes), tuple(pre_steps)
+    if restriction not in ("sampling", "full_weighting"):
+        raise ValueError(f"unknown restriction {restriction!r}")
+    _check_ladder(sizes, pre_steps, 1, "chain_descend")
+    if not f0.is_cuda:
+        return chain_descend_torch(u0, f0, sizes, h0, pre_steps, omega, restriction,
+                                   entry_from_zero)
+    n, dev, lib, stream = _grid_args(f0, aligned=True)
+    if n != sizes[0]:
+        raise ValueError(f"chain_descend: f0 is {n}², the ladder starts at {sizes[0]}")
+    if not entry_from_zero:
+        _check("u0", u0, (n, n), dev)
+    c = len(sizes) - 1
+    u_list = [torch.empty((s, s), dtype=f0.dtype, device=dev) for s in sizes[:-1]]
+    f_list = [torch.empty((s, s), dtype=f0.dtype, device=dev) for s in sizes[1:]]
+    rc = lib.mg_chain_descend(
+        _ptr(None if entry_from_zero else u0),
+        _c_array(ctypes.c_uint64, [t.data_ptr() for t in [f0, *f_list]]),
+        _c_array(ctypes.c_uint64, [t.data_ptr() for t in u_list]),
+        _c_array(ctypes.c_int, sizes), _c_array(ctypes.c_int, pre_steps),
+        _level_scalars(h0, omega, c), c, int(entry_from_zero),
+        int(restriction == "full_weighting"), omega, stream)
+    _raise_on(lib, rc, "chain_descend")
+    launches["chain_descend"] += 1
+    return u_list, f_list
+
+
+def chain_ascend(u_list, f_list, uc, sizes, h0: float, post_steps, omega: float = 1.0,
+                 compat=True, want_err: bool = False):
+    """The whole ascend half of a V up to ``sizes[0]`` in one launch
+    (counterpart of ``fused_chain_ascend``): from the coarse solution uc, per
+    level k = c−1..0 the prolongation, the interior add and the post-sweeps.
+    ``u_list`` is chain_descend's, ``f_list[k]`` level k's right-hand side.
+    Returns (u_0, level 0's error or None)."""
+    sizes, post_steps = tuple(sizes), tuple(post_steps)
+    _check_ladder(sizes, post_steps, 0, "chain_ascend")
+    if want_err and post_steps[0] < 1:
+        raise ValueError("chain_ascend: the error needs at least one sweep on level 0")
+    if not uc.is_cuda:
+        return chain_ascend_torch(u_list, f_list, uc, sizes, h0, post_steps, omega, compat,
+                                  want_err)
+    c = len(sizes) - 1
+    n, dev, lib, stream = _grid_args(f_list[0], aligned=True)
+    if len(u_list) != c or len(f_list) != c:
+        raise ValueError(f"chain_ascend: expected {c} levels of u and f")
+    for k in range(c):
+        _check(f"u_list[{k}]", u_list[k], (sizes[k], sizes[k]), dev)
+        _check(f"f_list[{k}]", f_list[k], (sizes[k], sizes[k]), dev)
+    _check("uc", uc, (sizes[-1], sizes[-1]), dev)
+    outs = [torch.empty((s, s), dtype=uc.dtype, device=dev) for s in sizes[:-1]]
+    mode = err_mode_of(compat) if want_err else None
+    partials, err = _err_buffers(lib, mode, n, dev)
+    rc = lib.mg_chain_ascend(
+        uc.data_ptr(), _c_array(ctypes.c_uint64, [t.data_ptr() for t in u_list]),
+        _c_array(ctypes.c_uint64, [t.data_ptr() for t in f_list]),
+        _c_array(ctypes.c_uint64, [t.data_ptr() for t in outs]),
+        _c_array(ctypes.c_int, sizes), _c_array(ctypes.c_int, post_steps),
+        _level_scalars(h0, omega, c), c, _ERR_CODES[mode], omega, _ptr(partials), _ptr(err),
+        _err_scale(mode, n, h0) if mode else 0.0, stream)
+    _raise_on(lib, rc, "chain_ascend")
+    launches["chain_ascend"] += 1
+    return outs[0], (None if err is None else err.reshape(()))
+
+
+def trigger_smooth(u, f, h: float, omega: float = 1.0, compat=True, trigger: float = 0.01,
+                   max_sweeps: int = 100_000):
+    """Error-triggered smoothing with the whole loop in one launch
+    (counterpart of ``fused_trigger_vmem``): one sweep at a time while
+    |err_k − err_{k−1}| > trigger, at most ``max_sweeps``. Returns (u, err,
+    sweeps), ``sweeps`` a 0-d int32 tensor; nothing is read back to the host."""
+    if not f.is_cuda:
+        return trigger_smooth_torch(u, f, h, omega, compat, trigger, max_sweeps)
+    if not 1 <= max_sweeps < 2 ** 31:
+        raise ValueError(f"max_sweeps must lie in 1..2**31 − 1, got {max_sweeps}")
+    n, dev, lib, stream = _grid_args(f)
+    _check("u", u, (n, n), dev)
+    mode = err_mode_of(compat)
+    out, tmp = torch.empty_like(f), torch.empty_like(f)
+    partials = torch.empty(2 * lib.mg_num_tiles(n), dtype=torch.float32, device=dev)
+    err = torch.empty(1, dtype=torch.float32, device=dev)
+    sweeps = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = lib.mg_trigger(u.data_ptr(), f.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                        partials.data_ptr(), err.data_ptr(), sweeps.data_ptr(), n,
+                        _ERR_CODES[mode], h * h, omega, 1.0 / (h * h), _err_scale(mode, n, h),
+                        trigger, max_sweeps, stream)
+    _raise_on(lib, rc, "trigger")
+    launches["trigger"] += 1
+    return out, err.reshape(()), sweeps.reshape(())
