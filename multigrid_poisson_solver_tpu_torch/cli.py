@@ -9,7 +9,9 @@ The thread-count argument is accepted and ignored. Output: the reference's
 final-result block (mean |U − analytic| and wall ms) and a
 ``Sol_GPU_<cyclefile>`` (``Sol_CPU_`` with ``--device cpu``) CSV. The run
 uses ``--device`` (default ``cuda``) and never falls back to the CPU.
-Deep-solve mode (``--tol``) and ``--dim 3`` are not yet ported.
+Deep-solve mode (``--tol``) refines to a relative residual with the cycle
+file's program as the inner cycle (``refine.IterativeRefinementSolver``,
+ω = 0.8, as JAX's CLI); ``--dim 3`` is not yet ported.
 """
 
 from __future__ import annotations
@@ -56,8 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the schedule this many times (warm restart chaining)")
     p.add_argument("--trigger-batch", default="auto",
                    type=lambda s: s if s == "auto" else int(s),
-                   help="trigger sweeps per pass: 'auto' or 1 (the exact "
-                        "per-sweep loop); > 1 is not yet ported to CUDA")
+                   help="trigger sweeps per pass on the kernel path above the "
+                        "whole-loop kernels: 'auto' (default; exact sweeps "
+                        "first, then batched only in the many-sweep regime), "
+                        "1 (always exact) or >1 (always batched: overshoots "
+                        "the stop point by up to batch-1 sweeps)")
     p.add_argument("--kernels", default="auto", choices=["auto", "cuda", "torch"],
                    help="hot-path routing: the CUDA kernels (auto = on a CUDA "
                         "device) or plain PyTorch")
@@ -84,14 +89,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the solve runs (default cuda)")
     p.add_argument("--tol", type=float, default=None,
-                   help="deep-solve mode (iterative refinement; not yet ported)")
+                   help="deep-solve mode: iterate mixed-precision refinement "
+                        "until the relative residual reaches this tolerance "
+                        "(the cycle file's program as the inner cycle, "
+                        "omega 0.8; e.g. --tol 1e-10)")
     p.add_argument("--state", default="df32", choices=["df32", "tw32", "f64"],
-                   help="refinement state precision for --tol (not yet ported)")
+                   help="refinement state precision for --tol (df32: "
+                        "double-float pair, floor ~3e-9 at N=4097; tw32: "
+                        "triple-word, reaches 1e-10 at N=8193; f64: float64)")
     p.add_argument("--max-cycles", type=int, default=60,
-                   help="refinement cycle cap for --tol (not yet ported)")
+                   help="refinement cycle cap for --tol")
     p.add_argument("--checkpoint", default=None,
-                   help="directory for --tol checkpoints (not yet ported)")
+                   help="directory for --tol checkpoints (resumes if present)")
     return p
+
+
+def _run_refine(problem, program, args):
+    """Deep-solve mode (--tol): mixed-precision iterative refinement with
+    JAX's policy (config=None: omega 0.8), routed by --kernels."""
+    from .refine import IterativeRefinementSolver
+
+    solver = IterativeRefinementSolver(
+        problem, program.n_max, program=program,
+        config=SolverConfig(omega=0.8, kernels=args.kernels),
+        max_cycles=args.max_cycles, state=args.state, device=args.device)
+    checkpoints = None
+    if args.checkpoint:
+        from .utils.checkpoint import CheckpointManager
+
+        checkpoints = CheckpointManager(args.checkpoint)
+    return solver.solve(args.tol, checkpoints=checkpoints)
 
 
 def _run_compiled(problem, program, config, device) -> SolveReport:
@@ -125,9 +152,8 @@ def main(argv=None) -> int:
     if len(positional) != 1:
         print("[ ERROR ]: expected [N_THREADS] cycle_file.txt", file=sys.stderr)
         return 1
-    if args.tol is not None or args.dim == 3:
-        print("[ ERROR ]: " + ("--tol (iterative refinement)" if args.tol is not None
-                               else "--dim 3") + " is not yet ported", file=sys.stderr)
+    if args.dim == 3:
+        print("[ ERROR ]: --dim 3 is not yet ported", file=sys.stderr)
         return 1
     cycle_path = positional[0]
     print(f"Cycle structure file name = {cycle_path}")
@@ -173,6 +199,21 @@ def main(argv=None) -> int:
         collect_node_stats=args.stats or not args.quiet,
     )
     problem = BUILTIN_PROBLEMS[args.problem]
+    prefix = "Sol_GPU_" if args.device == "cuda" else "Sol_CPU_"
+
+    if args.tol is not None:
+        rep = _run_refine(problem, program, args)
+        print()
+        print("===== Final Result =====")
+        print(f"   RelRes = {rep.rel_residual:.6e} after {rep.cycles} cycles")
+        if rep.error_vs_analytic is not None:
+            print(f"    Error = {rep.error_vs_analytic:.6e}")
+        print(f"Time Used = {rep.wall_time_s * 1e3:.3f} (ms)")
+        if not args.no_output:
+            out = args.output or solution_filename(cycle_path, prefix)
+            write_solution_csv(rep.u, out)
+            print(f"Output file name = {out}")
+        return 0
 
     engine = args.engine
     if engine == "auto":
@@ -191,7 +232,6 @@ def main(argv=None) -> int:
     print(report.summary())
 
     if not args.no_output:
-        prefix = "Sol_GPU_" if args.device == "cuda" else "Sol_CPU_"
         out = args.output or solution_filename(cycle_path, prefix)
         write_solution_csv(report.u, out)
         print(f"Output file name = {out}")

@@ -14,26 +14,27 @@ sweep.
 Routing keeps the JAX engine's predicates, so a schedule reaches the same
 operations (``ops.kernels``): a pure V below a level of at most 1025² runs
 as two chain kernels around the coarse solve (``_match_chain``); a
-2:1-aligned descend or ascend with a fixed sweep count within the fused
-budget runs as one fused-leg kernel; a trigger node on a level of at most
-2176² runs its whole loop as one kernel; anything else runs sweeps,
-residual, zoom and correction as separate operations. The names
-``compile_program``/``CompiledCycle`` are kept for the counterpart; nothing
-is compiled ahead of time except the CUDA kernels (``ops.build``).
-
-Not yet ported, and what the engine does meanwhile:
-  * the streamed and batched trigger kernels (JAX's ``fused_trigger_stream``
-    for levels up to 4097², ``fused_jacobi_errs_padded``): larger trigger
-    levels run the exact sweep-at-a-time loop, one fused sweep-plus-error
-    launch and one host stop test per sweep; ``trigger_batch > 1`` raises
-    ``NotImplementedError`` on the kernel path;
-  * the rb-GS modes of the smoother kernel: ``smoother="rbgs"`` on the
-    kernel path raises ``NotImplementedError``.
+2:1-aligned Jacobi descend or ascend with a fixed sweep count within the
+fused budget runs as one fused-leg kernel; anything else runs sweeps
+(Jacobi or rb-GS), residual, zoom and correction as separate operations. A
+Jacobi trigger node runs, in JAX's order: its whole loop as one kernel on a
+level of at most 2176² (``trigger_fits``), or up to 4097²
+(``trigger_stream_fits``); with an integer ``trigger_batch > 1`` passes of
+that many sweeps with the error of every iterate (``fused_jacobi_errs``),
+the stop rule replayed over them; with ``"auto"`` 2B exact sweeps first and
+then such passes of B = ``errs_sweep_cap`` sweeps; else the exact loop of
+one fused sweep-plus-error launch and one host stop test per sweep. The
+batched passes overshoot the stop sweep by up to B − 1 sweeps, as JAX's
+do. The plain path keeps the exact loop everywhere, as JAX's XLA path does.
+The names ``compile_program``/``CompiledCycle`` are kept for the
+counterpart; nothing is compiled ahead of time except the CUDA kernels
+(``ops.build``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -61,23 +62,11 @@ def _use_kernels(cfg: SolverConfig, device: torch.device) -> bool:
 
 
 def _check_ported(cfg: SolverConfig, use_kernels: bool) -> None:
-    """Refuse configurations whose kernel is not yet ported instead of quietly
+    """Refuse configurations the kernels do not take instead of quietly
     running the plain path."""
-    if not use_kernels:
-        return
-    if cfg.dtype != torch.float32:
+    if use_kernels and cfg.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got dtype={cfg.dtype}; "
                         f"use kernels='torch' for other dtypes")
-    if cfg.smoother == "rbgs":
-        raise NotImplementedError(
-            "smoother='rbgs' needs the rb-GS modes of the smoother kernel "
-            "(_fused_jacobi_kernel's fused_rbgs_padded / fused_rbgs_err_padded), "
-            "not yet ported to CUDA; use kernels='torch'")
-    if isinstance(cfg.trigger_batch, int) and cfg.trigger_batch > 1:
-        raise NotImplementedError(
-            "trigger_batch > 1 needs the per-sweep error mode of the smoother "
-            "kernel (fused_jacobi_errs_padded), not yet ported to CUDA; use "
-            "trigger_batch=1 or 'auto'")
 
 
 @dataclasses.dataclass
@@ -100,7 +89,12 @@ class CompiledCycle:
     ``warm=False`` every call resets the finest iterate, so chaining the
     output into the same instance repeats cycle 1. Build a ``warm=True``
     instance to continue cycles, or use :meth:`iterate`.
+
+    Set ``trigger_sweeps`` to a list to have every trigger node append
+    ``(n, sweeps run)`` to it (one read from the device per node).
     """
+
+    trigger_sweeps = None
 
     def __init__(self, program: CycleProgram, problem: Problem,
                  config: SolverConfig = SolverConfig(), device="cuda",
@@ -125,7 +119,7 @@ class CompiledCycle:
 
     def __call__(self, u, f):
         return _run(u, f, self.program, self.problem, self.config, self.device,
-                    self.warm, self.use_kernels)
+                    self.warm, self.use_kernels, self.trigger_sweeps)
 
     def iterate(self, cycles: int):
         """``fn(u0, f) -> u``: one cold cycle, then ``cycles − 1`` warm ones."""
@@ -208,59 +202,112 @@ def _match_chain(instructions, i: int, n0: int, cfg: SolverConfig, use_kernels: 
     return tuple(sizes), tuple(pre), tuple(reversed(post)), solve_ins, j
 
 
+def _batched_trigger(u, f, h: float, cfg: SolverConfig, batch: int, prev, k: int):
+    """Trigger passes of ``batch`` sweeps (``fused_jacobi_errs``) after ``k``
+    sweeps whose last error is ``prev``, until a pass holds a sweep whose
+    slope is within the trigger or ``max_trigger_sweeps`` is reached; the
+    stop rule is replayed over each pass's error vector (JAX's
+    ``batch_step``). The iterate is the pass's last, up to batch − 1 sweeps
+    past the stop sweep; the error is that of the stop sweep. One host read
+    per pass. Returns (u, err, sweeps run)."""
+    while True:
+        u, errs = K.fused_jacobi_errs(u, f, h, batch, cfg.omega, cfg.compat_error)
+        k += batch
+        stop = torch.abs(errs - torch.cat([prev.reshape(1), errs[:-1]])) <= cfg.trigger
+        if bool(stop.any()):
+            return u, errs[int(torch.argmax(stop.to(torch.int32)))], k
+        prev = errs[-1]
+        if k >= cfg.max_trigger_sweeps:
+            return u, prev, k
+
+
 def _trigger_smooth(u, f, h: float, n: int, cfg: SolverConfig, use_kernels: bool):
     """Error-triggered smoothing: sweep while |err_k − err_{k−1}| > trigger.
-    On the kernel path a level that passes ``trigger_fits`` runs the whole
-    loop as one launch (JAX: ``fused_trigger_vmem``); elsewhere each step is
-    one fused sweep-plus-error call with a host stop test."""
+    Returns (u, err, sweeps run); routing as in the module docstring
+    (``_trigger_smooth_traced``)."""
+    max_sweeps = cfg.max_trigger_sweeps
+    auto = False
     if cfg.smoother == "jacobi":
-        if use_kernels and K.trigger_fits(n):
-            u, err, _ = K.trigger_smooth(u, f, h, cfg.omega, cfg.compat_error, cfg.trigger,
-                                         cfg.max_trigger_sweeps)
-            return u, err
+        if use_kernels and (K.trigger_fits(n) or K.trigger_stream_fits(n)):
+            loop = K.trigger_smooth if K.trigger_fits(n) else K.trigger_smooth_stream
+            return loop(u, f, h, cfg.omega, cfg.compat_error, cfg.trigger, max_sweeps)
+        if use_kernels and isinstance(cfg.trigger_batch, int) and cfg.trigger_batch > 1:
+            # the first pass has no slope at sweep 1: prev = +inf masks it
+            batch = min(cfg.trigger_batch, K.errs_sweep_cap(cfg.compat_error))
+            inf = torch.full((), math.inf, dtype=f.dtype, device=f.device)
+            return _batched_trigger(u, f, h, cfg, batch, inf, 0)
         fused = K.fused_jacobi_err if use_kernels else K.fused_jacobi_err_torch
+        auto = use_kernels and cfg.trigger_batch == "auto"
 
         def step(v):
             return fused(v, f, h, 1, cfg.omega, cfg.compat_error)
-    else:
+    elif use_kernels and cfg.compat_error != "gpu":
         def step(v):
-            v_new = stencils.redblack_gs_sweep(v, f, h)
+            return K.fused_rbgs_err(v, f, h, 1, cfg.compat_error)
+    else:
+        gs = K.fused_rbgs if use_kernels else K.fused_rbgs_torch
+
+        def step(v):
+            v_new = gs(v, f, h, 1)
             if cfg.compat_error == "gpu":
                 return v_new, stencils.gpu_smoothing_error(v_new, v, h)
             return v_new, stencils.smoothing_error(v_new, f, h, compat=cfg.compat_error)
-    u, err, _ = trigger_loop(step, u, cfg.trigger, cfg.max_trigger_sweeps)
-    return u, err
+    if not auto:
+        return trigger_loop(step, u, cfg.trigger, max_sweeps)
+    # "auto": first 2B exact sweeps, so a level that stops within them is the
+    # trigger_batch=1 loop bit for bit; one still running continues in
+    # B-sweep passes
+    batch = K.errs_sweep_cap(cfg.compat_error)
+    warm = min(2 * batch, max_sweeps)
+    u, err = step(u)
+    k, above = 1, True
+    while above and k < warm:
+        u, new_err = step(u)
+        above = bool(torch.abs(new_err - err) > cfg.trigger)
+        err, k = new_err, k + 1
+    if not above or k >= max_sweeps:
+        return u, err, k
+    return _batched_trigger(u, f, h, cfg, batch, err, k)
 
 
 def _smooth(u, f, h: float, n: int, steps: int, cfg: SolverConfig, want_err: bool,
-            use_kernels: bool, from_zero: bool = False):
+            use_kernels: bool, from_zero: bool = False, trigger_sweeps=None):
     """``steps`` sweeps (or the trigger loop), with the finest level's error
     when ``want_err``: (u, err or None). ``from_zero``: u ≡ 0 (a freshly
-    reset correction level), so the first Jacobi sweep is the closed form."""
+    reset correction level), so the first Jacobi sweep is the closed form and
+    u is not read."""
     if steps == -1:
-        return _trigger_smooth(u, f, h, n, cfg, use_kernels)
+        u, err, sweeps = _trigger_smooth(u, f, h, n, cfg, use_kernels)
+        if trigger_sweeps is not None:
+            trigger_sweeps.append((n, int(sweeps)))
+        return u, err
     if cfg.smoother == "jacobi" and steps >= 1:
         if want_err:
             fused = K.fused_jacobi_err if use_kernels else K.fused_jacobi_err_torch
             return fused(u, f, h, steps, cfg.omega, cfg.compat_error, from_zero)
         fused = K.fused_jacobi if use_kernels else K.fused_jacobi_torch
         return fused(u, f, h, steps, cfg.omega, from_zero), None
-    # rb-GS (the plain path only: _check_ported refuses it with kernels)
-    u_prev = u
-    for _ in range(steps):
-        u_prev, u = u, stencils.redblack_gs_sweep(u, f, h)
+    gs = K.fused_rbgs if use_kernels else K.fused_rbgs_torch
+    if want_err and steps >= 1:
+        if use_kernels and cfg.compat_error != "gpu":
+            # the cpu / clean error fused into the last pass
+            return K.fused_rbgs_err(u, f, h, steps, cfg.compat_error, from_zero)
+        if cfg.compat_error == "gpu":
+            # the GPU metric needs the final sweep's pair (JAX's two-call form)
+            u_prev = u if steps == 1 else gs(u, f, h, steps - 1, from_zero)
+            u = gs(u_prev, f, h, 1, from_zero and steps == 1)
+            return u, stencils.gpu_smoothing_error(u, u_prev, h)
+    u = gs(u, f, h, steps, from_zero)
     if not want_err:
         return u, None
-    if cfg.compat_error == "gpu" and steps >= 1:
-        # the GPU metric needs the final sweep's pair
-        return u, stencils.gpu_smoothing_error(u, u_prev, h)
     return u, stencils.smoothing_error(u, f, h, compat=cfg.compat_error)
 
 
 def _run(u0, f0, program: CycleProgram, problem: Problem, cfg: SolverConfig,
-         device: torch.device, warm: bool, use_kernels: bool):
+         device: torch.device, warm: bool, use_kernels: bool, trigger_sweeps=None):
     """Walk the instruction sequence. Returns (u_finest, last_err), last_err
-    being the most recent finest-level smoothing error."""
+    being the most recent finest-level smoothing error; ``trigger_sweeps``,
+    when a list, receives (n, sweeps run) of every trigger node."""
     finest_spec = GridSpec(program.n_max, program.length, program.min_x, program.min_y)
     levels = [_Level(finest_spec, u0, f0)]
     warm_now = warm
@@ -324,7 +371,7 @@ def _run(u0, f0, program: CycleProgram, problem: Problem, cfg: SolverConfig,
                     cfg.compat_error, want_err=finest, from_zero=was_zeroed)
             else:
                 lvl.u, err = _smooth(lvl.u, lvl.f, h, n, ins.steps, cfg, finest,
-                                     use_kernels, from_zero=was_zeroed)
+                                     use_kernels, was_zeroed, trigger_sweeps)
                 d = (K.residual(lvl.u, lvl.f, h) if use_kernels
                      else stencils.residual(lvl.u, lvl.f, h))
                 f_c = restrict(d, m, cfg.restriction, cfg.zoom)
@@ -352,7 +399,8 @@ def _run(u0, f0, program: CycleProgram, problem: Problem, cfg: SolverConfig,
             corr = zoom(child.u, n, form=cfg.zoom)
             lvl.u = transfers.add_correction(lvl.u, corr)
             if ins.steps != 0:
-                lvl.u, err = _smooth(lvl.u, lvl.f, h, n, ins.steps, cfg, finest, use_kernels)
+                lvl.u, err = _smooth(lvl.u, lvl.f, h, n, ins.steps, cfg, finest, use_kernels,
+                                     trigger_sweeps=trigger_sweeps)
                 if finest and err is not None:
                     last_err = err
         else:  # pragma: no cover

@@ -27,6 +27,29 @@ def grid_from_jax(padded, n: int, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
+def words_from_jax(words, n: int, device="cpu") -> tuple[torch.Tensor, ...]:
+    """The (n, n) words of a JAX multi-word refinement state (df32 / tw32,
+    each word in the padded tile layout)."""
+    return tuple(grid_from_jax(w, n, device) for w in words)
+
+
+def checkpoint_from_jax(state, n: int):
+    """A JAX package ``SolverState`` (padded arrays) as the port's, every
+    array cropped to (n, n) (``utils.checkpoint.crop_to``)."""
+    from .utils.checkpoint import SolverState, crop_to
+
+    def crop(a):
+        if a is None:
+            return None
+        out = crop_to(np.asarray(a), n)
+        if out is None:
+            raise ValueError(f"array of shape {np.shape(a)} is no layout of a {n}² grid")
+        return np.ascontiguousarray(out)
+
+    return SolverState(u=crop(state.u), f=crop(state.f), u_lo=crop(state.u_lo),
+                       u_lo2=crop(state.u_lo2), cycle=state.cycle, meta=dict(state.meta or {}))
+
+
 def program_from_jax(program) -> CycleProgram:
     """The same CycleProgram, built from the JAX package's one."""
     out = []
@@ -61,6 +84,21 @@ def config_from_jax(cfg) -> SolverConfig:
         restriction=cfg.restriction,
         halo=cfg.halo,
     )
+
+
+def problem_from_jax_grids(jproblem, jspec) -> Problem:
+    """A problem whose fp32 grids on ``jspec``'s grid are the JAX problem's,
+    value for value. The two packages evaluate the same formulas, but
+    torch's and XLA's fp32 ``exp`` differ by an ulp at a few percent of
+    points, which moves a 1e-10 solve's error against the analytic solution
+    in its 5th digit; this problem lets a test feed both the same data."""
+    def field(kind):
+        grid = torch.from_numpy(np.array(getattr(jproblem, kind)(jspec, np.float32)))
+        return lambda x, y: grid.to(x.device, x.dtype)
+
+    analytic = field("analytic_grid") if jproblem.analytic is not None else None
+    return Problem(source=field("source_grid"), boundary=field("boundary_grid"),
+                   analytic=analytic, name=f"{jproblem.name}-grids")
 
 
 def problem_from_jax(name: str) -> Problem:

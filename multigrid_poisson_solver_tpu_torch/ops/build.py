@@ -6,10 +6,11 @@ shared library with a plain C interface and loaded with ``ctypes``; no
 PyTorch header is compiled, so a cold build takes seconds.
 
 The build runs at first use, from the sources in the checkout, into
-``build/torch_kernels/`` beside the package. The library's file name carries
-a hash of the sources and flags, so an edited source rebuilds and a current
-one is reused. Every entry point returns a ``cudaError_t``; ``ops.kernels``
-raises on anything but 0.
+``build/torch_kernels/`` beside the package: one ``nvcc`` per ``.cu`` file,
+all started together, then one link. The library's file name carries a hash
+of the sources and flags, so an edited source rebuilds and a current one is
+reused. Every entry point returns a ``cudaError_t``; ``ops.kernels`` raises
+on anything but 0.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,13 +36,18 @@ SIGNATURES = {
     "mg_num_tiles": ([_I], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
     "mg_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
+    "mg_jacobi_errs": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P], _I),
+    "mg_rbgs": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I),
     "mg_residual": ([_P, _P, _P, _I, _F, _I, _P], _I),
+    "mg_residual_mw": ([_P, _P, _P, _P, _P, _I, _I, _F, _P], _I),
     "mg_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
                    _I),
     "mg_ascend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P], _I),
     "mg_chain_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
     "mg_chain_ascend": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _F, _P], _I),
     "mg_trigger": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P], _I),
+    "mg_trigger_stream": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I,
+                           _P], _I),
 }
 
 _lib = None
@@ -76,16 +82,30 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    log = out.with_suffix(".log")
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
         tmp_lib = Path(tmp) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib),
-               *[str(s) for s in sources() if s.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = out.with_suffix(".log")
-        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc {proc.returncode}); see {log}:\n"
-                               + proc.stderr[-4000:])
+        steps = []
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            steps.append((cmd, proc.returncode, stdout + stderr))
+        if all(rc == 0 for _, rc, _ in steps):
+            cmd = [nvcc, "-shared", "-o", str(tmp_lib), *[str(obj) for _, obj, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            steps.append((cmd, proc.returncode, proc.stdout + proc.stderr))
+        log.write_text("".join(f"{' '.join(cmd)}\n{text}" for cmd, _, text in steps))
+        failed = [(cmd, rc, text) for cmd, rc, text in steps if rc != 0]
+        if failed:
+            cmd, rc, text = failed[0]
+            raise RuntimeError(f"nvcc failed (rc {rc}) on {cmd[-1]}; see {log}:\n"
+                               + text[-4000:])
         os.replace(tmp_lib, out)   # atomic: a concurrent loader never sees a partial file
     return out
 

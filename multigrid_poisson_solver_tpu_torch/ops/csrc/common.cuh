@@ -201,18 +201,20 @@ static __device__ float fixed_sum(const float* partials, int count) {
   return block_sum(v);
 }
 
-// Second pass of a one-launch error reduction: one block sums the per-tile
-// partials and applies the metric's scale. Deterministic.
+// Second pass of a one-launch error reduction: block b sums row b of the
+// per-tile partials (`count` floats per row) and applies the metric's scale
+// into out[b]. Deterministic.
 static __global__ void __launch_bounds__(THREADS)
 sum_partials_kernel(const float* __restrict__ partials, int count, float scale,
                     float* __restrict__ out) {
-  const float total = fixed_sum(partials, count);
-  if (threadIdx.x == 0 && threadIdx.y == 0) out[0] = __fmul_rn(total, scale);
+  const float total = fixed_sum(partials + (size_t)blockIdx.x * count, count);
+  if (threadIdx.x == 0 && threadIdx.y == 0) out[blockIdx.x] = __fmul_rn(total, scale);
 }
 
 static inline cudaError_t launch_error_sum(const float* partials, int count, float scale,
-                                           float* out, cudaStream_t stream) {
-  sum_partials_kernel<<<1, dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(partials, count, scale, out);
+                                           float* out, cudaStream_t stream, int rows = 1) {
+  sum_partials_kernel<<<rows, dim3(BLOCK_X, BLOCK_Y), 0, stream>>>(partials, count, scale,
+                                                                   out);
   return cudaGetLastError();
 }
 

@@ -19,6 +19,19 @@
 // per-block buffer that a second one-block kernel sums in a fixed order,
 // so the metric is deterministic and needs no atomics. The tile's work is
 // jacobi_tile in legs.cuh.
+//
+// Two more modes of the same TPU kernel live here:
+//  * per_sweep (fused_jacobi_errs_padded, the batched trigger loop): k <= 8
+//    sweeps in one pass with the error of every iterate. The tile keeps one
+//    partial per sweep (jacobi_errs_tile); a second pass sums each row of
+//    partials in the fixed order, so errs[s − 1] is bit for bit the error a
+//    launch of s sweeps reports. Bound as above: 12 B per point per pass.
+//  * rb-GS (fused_rbgs_padded, fused_rbgs_err_padded): k <= 4 red-black
+//    Gauss-Seidel sweeps per pass, each two parity-masked half-updates done in
+//    place in shared memory, so a sweep consumes two halo cells; the cpu or
+//    clean error is Σ|Δ| of one ω = 1 Jacobi step from the final iterate (the
+//    TPU kernel's identity Δ = (h²/4)·r). Bound: 12 B per point per pass, the
+//    same memory traffic as the Jacobi mode for half the sweeps per pass.
 #include "legs.cuh"
 
 using namespace mgk;
@@ -60,6 +73,66 @@ extern "C" int mg_jacobi(const float* u, const float* f, float* out, float* part
   jacobi_kernel<<<tile_grid(n), dim3(BLOCK_X, BLOCK_Y), tile_smem_bytes(halo), s>>>(
       u, f, out, partials, n, n_sweeps, halo, from_zero, err_mode, h2, omega, inv_h2,
       zero_coef);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
+  return (int)launch_error_sum(partials, num_tiles(n), err_scale, err_out, s);
+}
+
+static __global__ void __launch_bounds__(THREADS)
+jacobi_errs_kernel(const float* __restrict__ u, const float* __restrict__ f,
+                   float* __restrict__ out, float* __restrict__ partials, int n, int n_sweeps,
+                   int halo, int err_mode, float h2, float omega, float inv_h2) {
+  extern __shared__ float smem[];
+  const int t = blockIdx.y * gridDim.x + blockIdx.x;
+  jacobi_errs_tile(smem, u, f, out, partials + t, gridDim.x * gridDim.y, blockIdx.x,
+                   blockIdx.y, n, n_sweeps, halo, err_mode, h2, omega, inv_h2);
+}
+
+// steps sweeps of u into out with the scaled error of every iterate in
+// errs_out[0..steps); partials holds steps * mg_num_tiles(n) floats.
+extern "C" int mg_jacobi_errs(const float* u, const float* f, float* out, float* partials,
+                              float* errs_out, int n, int steps, int err_mode, float h2,
+                              float omega, float inv_h2, float err_scale, void* stream) {
+  const int halo = jacobi_halo(steps, err_mode);
+  if (steps < 1 || steps > MAX_STEPS || halo > MAX_HALO || n < 3 || err_mode == ERR_NONE)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(jacobi_errs_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)tile_smem_bytes(MAX_HALO));
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  jacobi_errs_kernel<<<tile_grid(n), dim3(BLOCK_X, BLOCK_Y), tile_smem_bytes(halo), s>>>(
+      u, f, out, partials, n, steps, halo, err_mode, h2, omega, inv_h2);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_error_sum(partials, num_tiles(n), err_scale, errs_out, s, steps);
+}
+
+static __global__ void __launch_bounds__(THREADS)
+rbgs_kernel(const float* __restrict__ u, const float* __restrict__ f, float* __restrict__ out,
+            float* __restrict__ partials, int n, int n_sweeps, int halo, int from_zero,
+            int err_mode, float h2) {
+  extern __shared__ float smem[];
+  const int t = blockIdx.y * gridDim.x + blockIdx.x;
+  rbgs_tile(smem, u, f, out, partials ? partials + t : nullptr, blockIdx.x, blockIdx.y, n,
+            n_sweeps, halo, from_zero, err_mode, h2);
+}
+
+// steps <= 4 rb-GS sweeps of u (not read when from_zero) into out; err_mode
+// ERR_NONE, ERR_CPU or ERR_CLEAN (then steps <= 3, partials holds
+// mg_num_tiles(n) floats and err_out[0] receives the scaled metric).
+extern "C" int mg_rbgs(const float* u, const float* f, float* out, float* partials,
+                       float* err_out, int n, int steps, int from_zero, int err_mode, float h2,
+                       float err_scale, void* stream) {
+  const int halo = rbgs_halo(steps, err_mode);
+  if (steps < 1 || halo > MAX_STEPS || n < 3 || err_mode == ERR_GPU)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(rbgs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)rbgs_smem_bytes(MAX_STEPS));
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  rbgs_kernel<<<tile_grid(n), dim3(BLOCK_X, BLOCK_Y), rbgs_smem_bytes(halo), s>>>(
+      u, f, out, partials, n, steps, halo, from_zero, err_mode, h2);
   e = cudaGetLastError();
   if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
   return (int)launch_error_sum(partials, num_tiles(n), err_scale, err_out, s);

@@ -1,6 +1,7 @@
-// The work of one tile for each fused operation: the smoother (jacobi.cu,
-// trigger.cu), the descend leg (descend.cu, chain_descend.cu) and the ascend
-// leg (ascend.cu, chain_ascend.cu). A one-launch kernel runs one tile per
+// The work of one tile for each fused operation: the smoother in its Jacobi,
+// per-sweep-error and rb-GS modes (jacobi.cu, trigger.cu, trigger_stream.cu),
+// the descend leg (descend.cu, chain_descend.cu) and the ascend leg
+// (ascend.cu, chain_ascend.cu). A one-launch kernel runs one tile per
 // block; a persistent kernel walks many tiles per block and levels or sweeps
 // between grid barriers. Both run this same code, so the chain and trigger
 // kernels reproduce the per-level launches bit for bit.
@@ -52,6 +53,104 @@ static __device__ void jacobi_tile(float* smem, const float* u, const float* f,
     const float* prev = n_sweeps > 0 ? bufs[fin ^ 1] : nullptr;
     error_partial(partial, bufs[fin], prev, sf, t, halo, n, err_mode, inv_h2);
   }
+}
+
+// n_sweeps Jacobi sweeps of tile (tx, ty) into out with the error of every
+// iterate: after sweep s the tile's partial of u_s goes to
+// partials[(s − 1) · stride]. Each partial is the one jacobi_tile writes
+// after s sweeps (the same cells, values and order), so a row of partials
+// sums to what a launch of s sweeps reports.
+static __device__ void jacobi_errs_tile(float* smem, const float* u, const float* f,
+                                        float* __restrict__ out, float* partials, int stride,
+                                        int tx, int ty, int n, int n_sweeps, int halo,
+                                        int err_mode, float h2, float omega, float inv_h2) {
+  __syncthreads();
+  const Tile t = make_tile(halo, tx, ty);
+  const int cells = t.rows * t.cols;
+  float* sf = smem;
+  float* bufs[2] = {smem + cells, smem + 2 * cells};
+
+  load_tile(sf, f, n, t);
+  load_tile(bufs[0], u, n, t);
+  __syncthreads();
+  for (int s = 1; s <= n_sweeps; ++s) {
+    sweep(bufs[(s - 1) & 1], bufs[s & 1], sf, t, s, n, h2, omega);
+    __syncthreads();
+    // ends with block_sum's barriers: the next sweep may overwrite u_{s−1}
+    error_partial(partials + (size_t)(s - 1) * stride, bufs[s & 1],
+                  err_mode == ERR_GPU ? bufs[(s - 1) & 1] : nullptr, sf, t, halo, n, err_mode,
+                  inv_h2);
+  }
+  store_owned(out, bufs[n_sweeps & 1], n, t, halo);
+}
+
+// One red-black Gauss-Seidel half-update of `color` (0: even, (i + j) even;
+// 1: odd) in place over the staged region shrunk by lo: u = ¼·(nb − h²f) on
+// the interior cells of that color (stencils.redblack_gs_sweep). A cell of
+// one color reads only neighbors of the other, so updating in place is the
+// twin's read-all-then-write half.
+static __device__ void rbgs_half(float* buf, const float* sf, const Tile& t, int lo, int n,
+                                 int color, float h2) {
+  for (int i = lo + threadIdx.y; i < t.rows - lo; i += BLOCK_Y) {
+    const int gi = t.gr0 + i;
+    for (int j = lo + threadIdx.x; j < t.cols - lo; j += BLOCK_X) {
+      const int gj = t.gc0 + j;
+      if (!interior(gi, gj, n) || ((gi + gj) & 1) != color) continue;
+      const int k = i * t.cols + j;
+      buf[k] = __fmul_rn(0.25f, __fsub_rn(nb_sum(buf, t.cols, i, j), __fmul_rn(h2, sf[k])));
+    }
+  }
+}
+
+// The rb-GS error partial of one tile: Σ|Δ| over its owned interior cells
+// (ERR_CPU: even color only), Δ = ¼·((nb − 4u) − h²f) the step an ω = 1
+// Jacobi sweep would take from the final iterate, i.e. (h²/4)·r.
+static __device__ void rbgs_error_partial(float* __restrict__ partial, const float* fin,
+                                          const float* sf, const Tile& t, int halo, int n,
+                                          int err_mode, float h2) {
+  float acc = 0.0f;
+  for (int i = halo + threadIdx.y; i < halo + TILE_H; i += BLOCK_Y) {
+    const int gi = t.gr0 + i;
+    for (int j = halo + threadIdx.x; j < halo + TILE_W; j += BLOCK_X) {
+      const int gj = t.gc0 + j;
+      if (!interior(gi, gj, n)) continue;
+      if (err_mode == ERR_CPU && ((gi + gj) & 1)) continue;
+      const int k = i * t.cols + j;
+      const float d = __fsub_rn(__fsub_rn(nb_sum(fin, t.cols, i, j), __fmul_rn(4.0f, fin[k])),
+                                __fmul_rn(h2, sf[k]));
+      acc += fabsf(__fmul_rn(0.25f, d));
+    }
+  }
+  const float total = block_sum(acc);
+  if (threadIdx.x == 0 && threadIdx.y == 0) *partial = total;
+}
+
+// n_sweeps rb-GS sweeps (2·n_sweeps half-updates, even color first) of tile
+// (tx, ty) into out, in one staged buffer after f; from_zero: the iterate is
+// 0 and u is not read. With err_mode (cpu or clean), the tile's error
+// partial into *partial.
+static __device__ void rbgs_tile(float* smem, const float* u, const float* f,
+                                 float* __restrict__ out, float* partial, int tx, int ty, int n,
+                                 int n_sweeps, int halo, int from_zero, int err_mode, float h2) {
+  __syncthreads();
+  const Tile t = make_tile(halo, tx, ty);
+  float* sf = smem;
+  float* buf = smem + t.rows * t.cols;
+
+  load_tile(sf, f, n, t);
+  if (from_zero) {
+    for (int i = threadIdx.y; i < t.rows; i += BLOCK_Y)
+      for (int j = threadIdx.x; j < t.cols; j += BLOCK_X) buf[i * t.cols + j] = 0.0f;
+  } else {
+    load_tile(buf, u, n, t);
+  }
+  __syncthreads();
+  for (int s = 1; s <= 2 * n_sweeps; ++s) {
+    rbgs_half(buf, sf, t, s, n, (s - 1) & 1, h2);
+    __syncthreads();
+  }
+  store_owned(out, buf, n, t, halo);
+  if (err_mode != ERR_NONE) rbgs_error_partial(partial, buf, sf, t, halo, n, err_mode, h2);
 }
 
 // The descend leg of tile (tx, ty) on the level n = 2m − 1: sweeps into out,
@@ -179,6 +278,16 @@ static inline int jacobi_halo(int n_sweeps, int err_mode) {
 
 static inline int descend_halo(int n_sweeps, int full_weighting) {
   return n_sweeps + 1 + (full_weighting ? 1 : 0);
+}
+
+// rb-GS: each half-update consumes one halo cell, the error's Δ one more.
+static inline int rbgs_halo(int n_sweeps, int err_mode) {
+  return 2 * n_sweeps + (err_mode != ERR_NONE ? 1 : 0);
+}
+
+// Shared memory of an rb-GS tile: f and one in-place buffer.
+static inline size_t rbgs_smem_bytes(int halo) {
+  return 2 * tile_floats(halo) * sizeof(float);
 }
 
 }  // namespace mgk

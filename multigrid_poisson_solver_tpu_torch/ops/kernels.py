@@ -1,19 +1,26 @@
 """The hot-path kernels: hand-written CUDA for Hopper, each with a plain twin.
 
 PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_kernels.py`` and
-``ops/pallas_chain.py`` (the seven kernels the 2-D fixed-step V-cycle and the
-trigger schedules reach):
+``ops/pallas_chain.py`` (the kernels every 2-D single-device run reaches):
 
   * ``fused_jacobi``, ``fused_jacobi_err``: ``csrc/jacobi.cu``, replaces
     ``_fused_jacobi_kernel`` (its Jacobi modes);
+  * ``fused_jacobi_errs``: ``csrc/jacobi.cu``, the same kernel's per-sweep
+    error mode (``fused_jacobi_errs_padded``);
+  * ``fused_rbgs``, ``fused_rbgs_err``: ``csrc/jacobi.cu``, the same
+    kernel's rb-GS modes (``fused_rbgs_padded``, ``fused_rbgs_err_padded``);
   * ``residual``: ``csrc/residual.cu``, replaces ``_residual_kernel``;
+  * ``residual_df``, ``residual_tw``: ``csrc/residual_mw.cu``, replaces
+    ``_residual_mw_kernel``;
   * ``fused_descend``: ``csrc/descend.cu``, replaces ``_fused_descend_kernel``;
   * ``fused_ascend``: ``csrc/ascend.cu``, replaces ``_fused_ascend_kernel``;
   * ``chain_descend``: ``csrc/chain_descend.cu``, replaces
     ``_descend_chain_kernel``;
   * ``chain_ascend``: ``csrc/chain_ascend.cu``, replaces
     ``_ascend_chain_kernel``;
-  * ``trigger_smooth``: ``csrc/trigger.cu``, replaces ``_trigger_vmem_kernel``.
+  * ``trigger_smooth``: ``csrc/trigger.cu``, replaces ``_trigger_vmem_kernel``;
+  * ``trigger_smooth_stream``: ``csrc/trigger_stream.cu``, replaces
+    ``_trigger_stream_kernel``.
 
 Routing is by the tensors' device and nothing else: CPU tensors run the
 plain PyTorch twin (``*_torch``, built from the oracle ops in
@@ -39,12 +46,17 @@ from . import stencils
 from . import transfers as T
 
 MAX_FUSED_SWEEPS = 8
+# rb-GS spends two halo cells a sweep (pallas_kernels.MAX_FUSED_RBGS), and
+# the fused error's extra Δ one more: ≤ 3 sweeps in an error pass
+MAX_FUSED_RBGS = MAX_FUSED_SWEEPS // 2
 MAX_CHAIN_LEVELS = 16       # MAX_CHAIN in chain_descend.cu / chain_ascend.cu
 CHAIN_MAX_ROOT = 1025       # pallas_chain.CHAIN_MAX_ROOT
+STREAM_BUDGET = 112 * 1024 * 1024   # pallas_chain.STREAM_VMEM_BUDGET
 _ERR_CODES = {None: 0, "cpu": 1, "clean": 2, "gpu": 3}
 
-launches = {"jacobi": 0, "residual": 0, "descend": 0, "ascend": 0,
-            "chain_descend": 0, "chain_ascend": 0, "trigger": 0}
+launches = {"jacobi": 0, "jacobi_errs": 0, "rbgs": 0, "residual": 0, "residual_mw": 0,
+            "descend": 0, "ascend": 0, "chain_descend": 0, "chain_ascend": 0,
+            "trigger": 0, "trigger_stream": 0}
 
 
 def reset_launch_counts() -> None:
@@ -89,6 +101,24 @@ def trigger_fits(n: int) -> bool:
     return 5 * rp * cp * 4 <= 96 * 1024 * 1024
 
 
+def trigger_stream_fits(n: int) -> bool:
+    """Whether a trigger node above ``trigger_fits`` runs as the streamed
+    whole-loop kernel: JAX's admission bound (``pallas_chain.
+    trigger_stream_fits``: the resident iterate plus the strip working set in
+    112 MiB of VMEM, on the padded shape), kept so a schedule reaches the same
+    operations; it admits n ≤ 4097."""
+    rp, cp = -(-n // 16) * 16, -(-n // 128) * 128
+    left = STREAM_BUDGET - (rp + 16 + 5 * 16) * cp * 4
+    s = max(32, min((left // (8 * cp * 4)) // 16 * 16, 512))
+    return ((rp + 16) * cp + 3 * s * cp + 5 * (s + 16) * cp) * 4 <= STREAM_BUDGET
+
+
+def errs_sweep_cap(compat) -> int:
+    """Sweeps per ``fused_jacobi_errs`` pass (JAX's trapezoid budget: the
+    cpu and clean metrics read one more halo cell)."""
+    return MAX_FUSED_SWEEPS if compat == "gpu" else MAX_FUSED_SWEEPS - 1
+
+
 def _level_h(h0: float, k: int) -> float:
     """Spacing of level k of a 2:1 ladder (exactly GridSpec.h of that level)."""
     return h0 * 2 ** k
@@ -129,6 +159,123 @@ def fused_jacobi_err_torch(u, f, h: float, steps: int, omega: float = 1.0,
         return new, stencils.gpu_smoothing_error(new, prev, h)
     u = fused_jacobi_torch(u, f, h, steps, omega, from_zero)
     return u, stencils.smoothing_error(u, f, h, compat=compat)
+
+
+def fused_jacobi_errs_torch(u, f, h: float, steps: int, omega: float = 1.0, compat=True):
+    """``steps`` sweeps and the error of every iterate: (u, errs), errs[s − 1]
+    the error ``fused_jacobi_err_torch`` reports after s sweeps."""
+    errs = []
+    for _ in range(steps):
+        prev, u = u, stencils.jacobi_sweep(u, f, h, omega)
+        errs.append(stencils.gpu_smoothing_error(u, prev, h) if compat == "gpu"
+                    else stencils.smoothing_error(u, f, h, compat=compat))
+    return u, torch.stack(errs)
+
+
+def fused_rbgs_torch(u, f, h: float, steps: int, from_zero: bool = False):
+    """``steps`` red-black Gauss-Seidel sweeps; ``from_zero``: u is known to
+    be 0 (not read; GS has no closed-form first sweep)."""
+    if steps <= 0:
+        return u
+    if from_zero:
+        u = torch.zeros_like(f)
+    for _ in range(steps):
+        u = stencils.redblack_gs_sweep(u, f, h)
+    return u
+
+
+def _rbgs_error(u, f, h: float, compat) -> torch.Tensor:
+    """The rb-GS kernel's error: Σ|Δ| of one ω = 1 Jacobi step from u,
+    Δ = ¼·((nb − 4u) − h²f) = (h²/4)·r, scaled by 4/h²/n² (×2 for cpu, over
+    the even color only): the smoothing error in the TPU kernel's form."""
+    n = u.shape[0]
+    d = torch.abs(0.25 * (stencils._nb_sum(u) - 4.0 * u[1:-1, 1:-1]
+                          - (h * h) * f[1:-1, 1:-1]))
+    scale = 4.0 / (h * h) / (n * n)
+    if compat:
+        even, _ = stencils.interior_color_masks(n, u.dtype, u.device)
+        return torch.sum(d * even) * (2.0 * scale)
+    return torch.sum(d) * scale
+
+
+def fused_rbgs_err_torch(u, f, h: float, steps: int, compat=True, from_zero: bool = False):
+    """``steps`` rb-GS sweeps and the cpu or clean error of the result:
+    (u, err). The gpu metric has no fused form (JAX's neither)."""
+    if compat == "gpu":
+        raise ValueError("the rb-GS kernel fuses the cpu and clean metrics only; the gpu "
+                         "metric takes the two-call form")
+    if steps <= 0:
+        return u, torch.zeros((), dtype=f.dtype, device=f.device)
+    u = fused_rbgs_torch(u, f, h, steps, from_zero)
+    return u, _rbgs_error(u, f, h, compat)
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _dd_chain(u):
+    """(hi, lo, m) on the interior: hi + lo + m ≈ Σ4 neighbors − 4u, the
+    error word itself compensated (refine._eft_stencil_sum_dd)."""
+    uc = u[1:-1, 1:-1]
+    hi, lo = _two_sum(u[:-2, 1:-1], u[2:, 1:-1])
+    lo2 = torch.zeros_like(hi)
+    for term in (u[1:-1, :-2], u[1:-1, 2:], -uc, -uc, -uc, -uc):
+        hi, e = _two_sum(hi, term)
+        lo, e2 = _two_sum(lo, e)
+        lo2 = lo2 + e2
+    hi, e = _two_sum(hi, lo)
+    lo, e2 = _two_sum(e, lo2)
+    return hi, lo, e2
+
+
+def _split(a):
+    """Veltkamp's split of fp32 values: a = hi + lo, each with ≤ 12 bits."""
+    t = 4097.0 * a
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _two_prod(a, b):
+    """p + e = a·b exactly, without an FMA (Dekker's product)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return p, (((ah * bh - p) + ah * bl) + al * bh) + al * bl
+
+
+def residual_mw_torch(words, f, h: float):
+    """Compensated residual of a 2- or 3-word fp32 state, 0 off the interior,
+    in the arithmetic of ``_residual_mw_kernel`` (``refine.residual_tw_p``'s
+    combination; with two words both get the dd chain). One term more: the
+    rounding error of hi0·h⁻², exact by Dekker's product. It is 0 where
+    h⁻² is a power of two (2^k + 1 grids), and elsewhere it is what keeps the
+    residual exact near convergence (JAX's CPU runs get it from an FMA that
+    XLA contracts; the TPU kernel has none)."""
+    c = torch.tensor(1.0 / (h * h), dtype=f.dtype, device=f.device)
+    hi0, lo0, m0 = _dd_chain(words[0])
+    hi1, lo1, m1 = _dd_chain(words[1])
+    if len(words) == 3:
+        s2 = stencils._nb_sum(words[2]) - 4.0 * words[2][1:-1, 1:-1]
+    else:
+        s2 = torch.zeros_like(hi0)
+    p, pe = _two_prod(hi0, c)
+    r_big = (p - f[1:-1, 1:-1]) + pe
+    t, tc = _two_sum(lo0, hi1)
+    t2 = ((lo1 + m0) + (m1 + s2)) + tc
+    r = torch.zeros_like(f)
+    r[1:-1, 1:-1] = (r_big + t * c) + t2 * c
+    return r
+
+
+def residual_df_torch(u0, u1, f, h: float):
+    return residual_mw_torch((u0, u1), f, h)
+
+
+def residual_tw_torch(u0, u1, u2, f, h: float):
+    return residual_mw_torch((u0, u1, u2), f, h)
 
 
 def residual_torch(u, f, h: float, negate: bool = False):
@@ -494,3 +641,129 @@ def trigger_smooth(u, f, h: float, omega: float = 1.0, compat=True, trigger: flo
     _raise_on(lib, rc, "trigger")
     launches["trigger"] += 1
     return out, err.reshape(()), sweeps.reshape(())
+
+
+def trigger_smooth_stream(u, f, h: float, omega: float = 1.0, compat=True,
+                          trigger: float = 0.01, max_sweeps: int = 100_000):
+    """The same loop for levels too large for ``trigger_smooth`` to stay in
+    L2 (counterpart of ``fused_trigger_stream``): passes of
+    ``errs_sweep_cap(compat)`` sweeps with an exact replay of the stop rule,
+    so the iterate, the stop sweep and the error are the sweep-at-a-time
+    loop's. Returns (u, err, sweeps) as ``trigger_smooth``."""
+    if not f.is_cuda:
+        return trigger_smooth_torch(u, f, h, omega, compat, trigger, max_sweeps)
+    if not 1 <= max_sweeps < 2 ** 31:
+        raise ValueError(f"max_sweeps must lie in 1..2**31 − 1, got {max_sweeps}")
+    n, dev, lib, stream = _grid_args(f)
+    _check("u", u, (n, n), dev)
+    mode = err_mode_of(compat)
+    batch = errs_sweep_cap(compat)
+    out, tmp = torch.empty_like(f), torch.empty_like(f)
+    partials = torch.empty(2 * batch * lib.mg_num_tiles(n), dtype=torch.float32, device=dev)
+    err = torch.empty(1, dtype=torch.float32, device=dev)
+    sweeps = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = lib.mg_trigger_stream(u.data_ptr(), f.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                               partials.data_ptr(), err.data_ptr(), sweeps.data_ptr(), n,
+                               _ERR_CODES[mode], batch, h * h, omega, 1.0 / (h * h),
+                               _err_scale(mode, n, h), trigger, max_sweeps, stream)
+    _raise_on(lib, rc, "trigger_stream")
+    launches["trigger_stream"] += 1
+    return out, err.reshape(()), sweeps.reshape(())
+
+
+def fused_jacobi_errs(u, f, h: float, steps: int, omega: float = 1.0, compat=True):
+    """``steps`` ≤ ``errs_sweep_cap(compat)`` sweeps in one pass with the
+    error of every iterate (counterpart of ``fused_jacobi_errs_padded``):
+    (u, errs), errs[s − 1] the error ``fused_jacobi_err`` reports after s
+    sweeps."""
+    if not 1 <= steps <= errs_sweep_cap(compat):
+        raise ValueError(f"a per-sweep error pass runs 1..{errs_sweep_cap(compat)} sweeps "
+                         f"with compat={compat!r}, got {steps}")
+    if not f.is_cuda:
+        return fused_jacobi_errs_torch(u, f, h, steps, omega, compat)
+    n, dev, lib, stream = _grid_args(f)
+    _check("u", u, (n, n), dev)
+    mode = err_mode_of(compat)
+    out = torch.empty_like(f)
+    partials = torch.empty(steps * lib.mg_num_tiles(n), dtype=torch.float32, device=dev)
+    errs = torch.empty(steps, dtype=torch.float32, device=dev)
+    rc = lib.mg_jacobi_errs(u.data_ptr(), f.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                            errs.data_ptr(), n, steps, _ERR_CODES[mode], h * h, omega,
+                            1.0 / (h * h), _err_scale(mode, n, h), stream)
+    _raise_on(lib, rc, "jacobi_errs")
+    launches["jacobi_errs"] += 1
+    return out, errs
+
+
+def _rbgs_cuda(u, f, h: float, steps: int, from_zero: bool, mode):
+    """One ≤4-sweep rb-GS launch (≤3 with an error); returns (u, err or None)."""
+    n, dev, lib, stream = _grid_args(f)
+    if not from_zero:
+        _check("u", u, (n, n), dev)
+    out = torch.empty_like(f)
+    partials, err = _err_buffers(lib, mode, n, dev)
+    scale = (2.0 if mode == "cpu" else 1.0) * 4.0 / (h * h) / (n * n)
+    rc = lib.mg_rbgs(_ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
+                     _ptr(partials), _ptr(err), n, steps, int(from_zero), _ERR_CODES[mode],
+                     h * h, scale if mode else 0.0, stream)
+    _raise_on(lib, rc, "rbgs")
+    launches["rbgs"] += 1
+    return out, (None if err is None else err.reshape(()))
+
+
+def fused_rbgs(u, f, h: float, steps: int, from_zero: bool = False):
+    """``steps`` red-black Gauss-Seidel sweeps, ≤4 per pass over memory
+    (counterpart of ``fused_rbgs_padded``). ``from_zero``: the caller
+    guarantees u ≡ 0, and the first pass does not read it."""
+    if not f.is_cuda:
+        return fused_rbgs_torch(u, f, h, steps, from_zero)
+    first = True
+    while steps > 0:
+        k = min(steps, MAX_FUSED_RBGS)
+        steps -= k
+        u, _ = _rbgs_cuda(u, f, h, k, from_zero and first, None)
+        first = False
+    return u
+
+
+def fused_rbgs_err(u, f, h: float, steps: int, compat=True, from_zero: bool = False):
+    """``steps`` rb-GS sweeps with the cpu or clean error fused into the last
+    pass (counterpart of ``fused_rbgs_err_padded``): (u, err)."""
+    if not f.is_cuda or compat == "gpu":   # the twin refuses the gpu metric
+        return fused_rbgs_err_torch(u, f, h, steps, compat, from_zero)
+    if steps <= 0:
+        return u, torch.zeros((), dtype=f.dtype, device=f.device)
+    last = min(steps, (MAX_FUSED_SWEEPS - 1) // 2)
+    if steps > last:
+        u = fused_rbgs(u, f, h, steps - last, from_zero)
+        from_zero = False
+    return _rbgs_cuda(u, f, h, last, from_zero, err_mode_of(compat))
+
+
+def _residual_mw_cuda(words, f, h: float):
+    n, dev, lib, stream = _grid_args(f)
+    for k, w in enumerate(words):
+        _check(f"u{k}", w, (n, n), dev)
+    r = torch.empty_like(f)
+    rc = lib.mg_residual_mw(words[0].data_ptr(), words[1].data_ptr(),
+                            _ptr(words[2] if len(words) == 3 else None), f.data_ptr(),
+                            r.data_ptr(), n, len(words), 1.0 / (h * h), stream)
+    _raise_on(lib, rc, "residual_mw")
+    launches["residual_mw"] += 1
+    return r
+
+
+def residual_df(u0, u1, f, h: float):
+    """Compensated residual of the double-word state (u0, u1), 0 off the
+    interior (counterpart of ``residual_df_pallas``)."""
+    if not f.is_cuda:
+        return residual_df_torch(u0, u1, f, h)
+    return _residual_mw_cuda((u0, u1), f, h)
+
+
+def residual_tw(u0, u1, u2, f, h: float):
+    """Compensated residual of the triple-word state (u0, u1, u2), 0 off the
+    interior (counterpart of ``residual_tw_pallas``)."""
+    if not f.is_cuda:
+        return residual_tw_torch(u0, u1, u2, f, h)
+    return _residual_mw_cuda((u0, u1, u2), f, h)

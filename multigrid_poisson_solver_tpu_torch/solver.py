@@ -52,9 +52,11 @@ class SolverConfig:
     trigger: float = TRIGGER_DEFAULT  # |Δerr| threshold for step == -1
     max_trigger_sweeps: int = 100_000
     trigger_batch: Any = "auto"       # trigger sweeps per pass on the kernel
-                                      # path: "auto" and 1 run the exact
-                                      # per-sweep loop; ints > 1 need the
-                                      # per-sweep error mode, not yet ported
+                                      # path above the whole-loop kernels: 1
+                                      # the exact loop, B > 1 B-sweep passes
+                                      # (overshooting the stop by < B
+                                      # sweeps), "auto" 2B exact sweeps,
+                                      # then passes
     coarse_gs_norm: str = "interior"  # "interior" (CPU ref) | "full" (GPU ref)
     collect_node_stats: bool = True   # pull per-node scalars to the host
     kernels: str = "auto"             # "auto" | "cuda" | "torch": hot-path

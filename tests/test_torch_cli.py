@@ -64,9 +64,27 @@ def test_csv_bytes_match_jax_writer(tmp_path, rng):
 @pytest.mark.parametrize("extra,what", [(["--tol", "1e-10"], "--tol"),
                                         (["--dim", "3"], "--dim 3")])
 def test_cli_unported_modes_exit_1(capsys, extra, what):
-    assert cli.main(["1", TEST_TXT, "--device", "cpu", "--no-output", *extra]) == 1
+    """--dim 3 is not yet ported and exits 1; --tol (iterative refinement)
+    is ported and exits 0 with the deep-solve result block."""
+    argv = ["1", TEST_TXT, "--device", "cpu", "--no-output", "--quiet", *extra]
+    if what == "--tol":
+        assert cli.main(argv + ["--max-cycles", "3"]) == 0
+        out = capsys.readouterr().out
+        assert re.search(r"RelRes = \S+ after 3 cycles\n\s+Error = \S+\nTime Used = ", out), out
+        return
+    assert cli.main(argv) == 1
     err = capsys.readouterr().err
     assert what in err and "not yet ported" in err
+
+
+def test_cli_tol_writes_csv_and_checkpoints(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    argv = ["1", TEST_TXT, "--device", "cpu", "--quiet", "--tol", "1e-10", "--state", "tw32",
+            "--max-cycles", "4", "--checkpoint", str(tmp_path / "ck")]
+    assert cli.main(argv) == 0
+    assert "Output file name = Sol_CPU_test.txt" in capsys.readouterr().out
+    assert jio.read_solution_csv(tmp_path / "Sol_CPU_test.txt").shape == (16, 16)
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir())[-1] == "mg-00000004.npz"
 
 
 def test_cli_rejects_missing_file(capsys):

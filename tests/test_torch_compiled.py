@@ -19,6 +19,7 @@ to 1e-3 relative after the first cycle and is compared there only, since
 warm cycles bring it down to that noise floor.
 """
 
+import dataclasses
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -222,6 +223,73 @@ def test_trigger_through_fused_error_routing(monkeypatch, whole_loop):
     # 65 → 32 → 16 (halving): two trigger descents and two ascents
     assert calls["trigger_smooth"] == (4 if whole_loop else 0)
     _assert_cycles_close(ours, _jax_cycles(jprogram, jcfg, 1), FP32_U_RTOL, FP32_ERR_RTOL)
+
+
+@pytest.mark.parametrize("compat", [True, "gpu"])
+def test_rbgs_kernel_routing_matches_jax_pallas(monkeypatch, compat):
+    """rb-GS V(2,2) with full weighting on the kernel routing (the rb-GS
+    modes' twins on CPU tensors; the gpu metric by the two-call form) against
+    JAX's Pallas engine, which runs fused_rbgs(_err)_padded in interpret
+    mode."""
+    monkeypatch.setattr(compiled, "_use_kernels", lambda cfg, device: True)
+    jprogram = jmg.v_cycle(65, n_min=8, steps=2, coarse_option=0, coarsen=3)
+    jcfg = jmg.SolverConfig(smoother="rbgs", restriction="full_weighting", compat_error=compat,
+                            kernels="pallas", collect_node_stats=False)
+    ours = _port_cycles(program_from_jax(jprogram), config_from_jax(jcfg), 2)
+    _assert_cycles_close(ours, _jax_cycles(jprogram, jcfg, 2), FP32_U_RTOL, FP32_ERR_RTOL)
+
+
+@pytest.mark.parametrize("trigger_batch", [1, 4, "auto"])
+def test_trigger_tiers_above_the_whole_loop_kernels_match_jax_pallas(monkeypatch,
+                                                                     trigger_batch):
+    """Trigger levels that neither whole-loop kernel admits (both packages'
+    trigger_fits and trigger_stream_fits made to reject every n, as
+    tests/test_pallas_chain.py does for JAX) take JAX's kernel-path tiers:
+    the exact loop for trigger_batch=1, batched passes of the per-sweep error
+    mode for 4, the two-phase loop for "auto". The port's kernel routing (the
+    twins on CPU tensors) lands on JAX's Pallas engine's iterate, and the
+    batched runs stop on multiples of the batch past where the exact run
+    stops."""
+    import jax
+
+    from multigrid_poisson_solver_tpu.ops import pallas_chain as pc
+
+    for mod in (pc, K):
+        monkeypatch.setattr(mod, "trigger_fits", lambda n, **kw: False)
+        monkeypatch.setattr(mod, "trigger_stream_fits", lambda n, **kw: False)
+    monkeypatch.setattr(compiled, "_use_kernels", lambda cfg, device: True)
+    calls = {"errs": 0}
+    errs = K.fused_jacobi_errs
+
+    def counted(*a, **kw):
+        calls["errs"] += 1
+        return errs(*a, **kw)
+
+    monkeypatch.setattr(K, "fused_jacobi_errs", counted)
+    jax.clear_caches()
+    jprogram = jmg.v_cycle(65, n_min=8, steps=-1, coarse_option=0, coarsen=3)
+    jcfg = jmg.SolverConfig(omega=0.8, kernels="pallas", trigger_batch=trigger_batch,
+                            collect_node_stats=False)
+    cfg = config_from_jax(jcfg)
+    cc = tmg.compile_program(program_from_jax(jprogram), tmg.REFERENCE_PROBLEM, cfg, device="cpu")
+    cc.trigger_sweeps = []
+    u, err = cc(*cc.init())
+    _assert_cycles_close([(u, float(err))], _jax_cycles(jprogram, jcfg, 1), FP32_U_RTOL,
+                         FP32_ERR_RTOL)
+    exact = tmg.compile_program(program_from_jax(jprogram), tmg.REFERENCE_PROBLEM,
+                                dataclasses.replace(cfg, trigger_batch=1), device="cpu")
+    exact.trigger_sweeps = []
+    exact(*exact.init())
+    # 65 → 33 → 17 → 9: three trigger descents and three ascents
+    assert len(cc.trigger_sweeps) == len(exact.trigger_sweeps) == 6
+    for (n, k), (n1, k1) in zip(cc.trigger_sweeps, exact.trigger_sweeps):
+        assert n == n1
+        if trigger_batch == 4:
+            assert k % 4 == 0 and k1 <= k < k1 + 4
+    if trigger_batch == 1:
+        assert calls["errs"] == 0
+    elif trigger_batch == 4:
+        assert calls["errs"] == sum(k for _, k in cc.trigger_sweeps) // 4
 
 
 def test_iterate_chains_cold_then_warm():

@@ -299,10 +299,124 @@ def test_cuda_only_calls_raise_on_cpu_tensors(rng):
     (SolverConfig(smoother="rbgs", kernels="cuda"), "fused_rbgs_padded"),
     (SolverConfig(trigger_batch=4, kernels="cuda"), "fused_jacobi_errs_padded"),
 ])
-def test_unported_kernel_modes_raise(cfg, missing):
-    with pytest.raises(NotImplementedError, match=missing):
-        compiled._check_ported(cfg, use_kernels=True)
-    compiled._check_ported(cfg, use_kernels=False)   # the plain path runs them
+def test_unported_kernel_modes_raise(monkeypatch, cfg, missing):
+    """Formerly refused on the kernel path, both configurations now route to
+    their kernels: the rb-GS modes for smoother='rbgs', the per-sweep error
+    mode for trigger_batch=4 on a level above the whole-loop kernels."""
+    compiled._check_ported(cfg, use_kernels=True)
+    compiled._check_ported(cfg, use_kernels=False)
+    monkeypatch.setattr(compiled, "_use_kernels", lambda c, device: True)
+    monkeypatch.setattr(K, "trigger_fits", lambda n: False)
+    monkeypatch.setattr(K, "trigger_stream_fits", lambda n: False)
+    calls = []
+    names = {"fused_rbgs_padded": ("fused_rbgs", "fused_rbgs_err"),
+             "fused_jacobi_errs_padded": ("fused_jacobi_errs",)}[missing]
+    for name in names:
+        fn = getattr(K, name)
+        monkeypatch.setattr(K, name, lambda *a, _fn=fn, _name=name, **kw: (calls.append(_name),
+                                                                            _fn(*a, **kw))[1])
+    steps = 2 if cfg.smoother == "rbgs" else -1
+    program = v_cycle(33, n_min=8, steps=steps, coarse_option=0, coarsen=3)
+    cfg = SolverConfig(smoother=cfg.smoother, trigger_batch=cfg.trigger_batch,
+                       restriction="full_weighting" if cfg.smoother == "rbgs" else "sampling",
+                       omega=0.8)
+    cc = compiled.compile_program(program, REFERENCE_PROBLEM, cfg, device="cpu")
+    u, err = cc(*cc.init())
+    assert torch.isfinite(u).all() and torch.isfinite(err)
+    # rb-GS: 2 fused-error passes on the finest level (descend, ascend) and
+    # the plain passes of the 2 levels below; the batched trigger: a pass
+    # per batch on every level
+    assert set(calls) == set(names) and len(calls) >= 4
+
+
+@pytest.mark.parametrize("steps", [1, 4, 7, 8])
+@pytest.mark.parametrize("compat", [True, False, "gpu"])
+def test_fused_jacobi_errs_twin_matches_pallas(rng, compat, steps):
+    if steps > K.errs_sweep_cap(compat):
+        with pytest.raises(ValueError, match="per-sweep error pass"):
+            K.fused_jacobi_errs(*(_th(a) for a in _grids(rng, 33, 2)), 1 / 32, steps, OMEGA,
+                                compat)
+        return
+    n = 65
+    u, f = _grids(rng, n, 2)
+    h = 1.0 / (n - 1)
+    want_u, want_e = pk.fused_jacobi_errs_padded(_jx(u), _jx(f), n, h, steps, omega=OMEGA,
+                                                 compat=compat, interpret=True)
+    got_u, got_e = K.fused_jacobi_errs_torch(_th(u), _th(f), h, steps, OMEGA, compat)
+    _assert_u(got_u, _unpad(want_u, n))
+    np.testing.assert_allclose(got_e.numpy(), np.asarray(want_e), rtol=ERR_RTOL)
+    # errs[s − 1] is what fused_jacobi_err reports after s sweeps, bit for bit
+    for s in range(1, steps + 1):
+        assert torch.equal(got_e[s - 1],
+                           K.fused_jacobi_err_torch(_th(u), _th(f), h, s, OMEGA, compat)[1])
+
+
+@pytest.mark.parametrize("from_zero", [False, True])
+@pytest.mark.parametrize("n,steps", [(65, 1), (65, 4), (129, 6)])
+def test_fused_rbgs_twin_matches_pallas(rng, n, steps, from_zero):
+    u, f = _grids(rng, n, 2)
+    if from_zero:
+        u = np.zeros_like(u)
+    h = 1.0 / (n - 1)
+    want = pk.fused_rbgs_padded(_jx(u), _jx(f), n, h, steps, from_zero=from_zero,
+                                interpret=True)
+    _assert_u(K.fused_rbgs_torch(_th(u), _th(f), h, steps, from_zero), _unpad(want, n))
+
+
+@pytest.mark.parametrize("from_zero", [False, True])
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("n,steps", [(65, 2), (129, 5)])
+def test_fused_rbgs_err_twin_matches_pallas(rng, n, steps, compat, from_zero):
+    u, f = _grids(rng, n, 2)
+    if from_zero:
+        u = np.zeros_like(u)
+    h = 1.0 / (n - 1)
+    want_u, want_e = pk.fused_rbgs_err_padded(_jx(u), _jx(f), n, h, steps, compat=compat,
+                                              from_zero=from_zero, interpret=True)
+    got_u, got_e = K.fused_rbgs_err_torch(_th(u), _th(f), h, steps, compat, from_zero)
+    _assert_u(got_u, _unpad(want_u, n))
+    assert float(got_e) == pytest.approx(float(want_e), rel=ERR_RTOL)
+    with pytest.raises(ValueError, match="gpu metric"):
+        K.fused_rbgs_err(_th(u), _th(f), h, steps, "gpu")
+
+
+@pytest.mark.parametrize("compat", [True, False, "gpu"])
+def test_trigger_stream_twin_matches_pallas(compat):
+    """The streamed whole-loop kernel's twin (the sweep-at-a-time loop)
+    against fused_trigger_stream in interpret mode, on the inputs of
+    tests/test_pallas_chain.py: the same stop, the same iterate and error."""
+    n = 129
+    rng = np.random.default_rng(5)
+    u = rng.standard_normal((n, n)).astype(np.float32)
+    f = (10 * rng.standard_normal((n, n))).astype(np.float32)
+    h = 1.0 / (n - 1)
+    want_u, want_e = pc.fused_trigger_stream(_jx(u), _jx(f), n, h, 30.0, 0.8, compat, 200,
+                                             interpret=True)
+    got_u, got_e, sweeps = K.trigger_smooth_stream(_th(u), _th(f), h, 0.8, compat, 30.0, 200)
+    assert 1 < int(sweeps) < 200
+    _assert_u(got_u, _unpad(want_u, n))
+    assert float(got_e) == pytest.approx(float(want_e), rel=ERR_RTOL)
+
+
+@pytest.mark.parametrize("n,fits", [(129, True), (2177, True), (4097, True), (4113, True),
+                                    (5232, True), (5233, False), (8193, False)])
+def test_trigger_stream_fits_agrees_with_jax(n, fits):
+    assert K.trigger_stream_fits(n) == pc.trigger_stream_fits(n) == fits
+
+
+def test_new_entry_points_run_the_twins_on_cpu_tensors(rng):
+    n, h = 33, 1.0 / 32
+    u, f = (_th(a) for a in _grids(rng, n, 2))
+    for a, b in zip(K.fused_jacobi_errs(u, f, h, 5, OMEGA, True),
+                    K.fused_jacobi_errs_torch(u, f, h, 5, OMEGA, True)):
+        assert torch.equal(a, b)
+    assert torch.equal(K.fused_rbgs(u, f, h, 6, True), K.fused_rbgs_torch(u, f, h, 6, True))
+    for a, b in zip(K.fused_rbgs_err(u, f, h, 5, False), K.fused_rbgs_err_torch(u, f, h, 5, False)):
+        assert torch.equal(a, b)
+    for a, b in zip(K.trigger_smooth_stream(u, f, h, OMEGA, "gpu", 0.5, 40),
+                    K.trigger_smooth_torch(u, f, h, OMEGA, "gpu", 0.5, 40)):
+        assert torch.equal(a, b)
+    assert all(v == 0 for v in K.launches.values())
 
 
 def test_kernel_path_refuses_other_dtypes():
@@ -325,6 +439,7 @@ def test_c_entry_points_match_ctypes_signatures():
         assert len(argtypes) == found[name], name
     assert {s.name for s in build.sources()} == {
         "common.cuh", "legs.cuh", "jacobi.cu", "residual.cu", "descend.cu", "ascend.cu",
-        "chain_descend.cu", "chain_ascend.cu", "trigger.cu"}
+        "chain_descend.cu", "chain_ascend.cu", "trigger.cu", "residual_mw.cu",
+        "trigger_stream.cu"}
     assert build.library_path().parent == build.BUILD_DIR
     assert Path(build.library_path()).name.startswith("libmg_kernels_")
