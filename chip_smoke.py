@@ -5,7 +5,7 @@
 
 Phases (progress on stdout; the first failure exits non-zero):
   0. require a CUDA device; print the card's name and power limit;
-  1. build the eleven CUDA kernels from ops/csrc (nvcc, sm_90a, one process
+  1. build the fifteen CUDA kernels from ops/csrc (nvcc, sm_90a, one process
      per source);
   2. hold each kernel against its plain PyTorch twin on the card: at
      n = 1025 and 1031 (several tiles per dimension, ragged last tiles),
@@ -13,7 +13,11 @@ Phases (progress on stdout; the first failure exits non-zero):
      paths give them (legs at 4097² and 2049², chains from 1025², smoother,
      residual and trigger loop at 256² down to 8², the multi-word residual
      and the per-sweep errors at 8193², the streamed trigger loop at 2305²
-     and 4097², the rb-GS modes at 4097²);
+     and 4097², the rb-GS modes at 4097²); the 3-D kernels at n = 65, 129
+     and 131 with tiles forced small (several tiles per dimension and z
+     chunks, ragged last ones), every sweep count within each cap, from_zero,
+     the clean and gpu errors and both restrictions, and at the 3-D main
+     path's shapes (legs at 513³ and 257³, smoother and residual at 513³);
   3. the library path: 4097² V(3,3) (ω = 0.8, coarsen=3, dense coarse solve)
      through compile_program, one cold and five warm cycles, with the CUDA
      kernels and with plain PyTorch: the iterates after 1 and 6 cycles,
@@ -29,7 +33,14 @@ Phases (progress on stdout; the first failure exits non-zero):
      and the whole-loop kernel (2049² and below); held against the plain
      path with trigger_batch=1 and against the same two-phase loop driven
      through the twins;
-  C. rb-GS V(2,2) with full weighting at 4097², cycles and refinement.
+  C. rb-GS V(2,2) with full weighting at 4097², cycles and refinement;
+  D. 3-D at full width: the bench's v_cycle3 V(3,3) at 513³ (ω = 0.857,
+     n_min 5) and compile_program3's V(3,3) at 513³ (coarsen=3, dense solve
+     at 9³, ω = 6/7) with the clean and the gpu metric, each with the kernels
+     and with plain PyTorch: the iterates after 1 and 4 cycles, the float64
+     relative residuals, ms/cycle, a profile; then the CLI --dim 3 on
+     schedules/Vcycle.txt and schedules/Wcycle.txt against the JAX CLI's
+     Error.
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -68,6 +79,15 @@ ERR_OPS = 9        # residual point + |·| + accumulate
 RBGS_OPS = 6       # half-update of a cell: 3 adds, h²f, −, ×¼
 RBGS_ERR_OPS = 10  # the Jacobi Δ of a cell: 3 adds, 4u, −, h²f, −, ×¼, |·|, +
 RES_MW_OPS = {2: 227, 3: 232}   # two dd chains, the exact product, the combination
+# the 3-D kernels (legs3.cuh), per fine point unless noted
+SWEEP3_OPS = 11    # 7-point sweep: 5 adds, 6u, −, h²f, −, ×ω/6, +
+DELTA3_OPS = 12    # the Δ stage: 5 adds, 6u, −, h²f, −, ×ω/6, |·|, accumulate
+RES3_OPS = 9       # residual: 5 adds, 6u, −, ×h⁻², −
+FW3_OPS = 65       # per coarse point: 9 z-combines (3×, 2+), 3 y-combines, 1 x-combine
+PROLONG3_OPS = 5.75  # prolongation and add, averaged over the parities of (z, y, x)
+# the JAX CLI's --dim 3 Error on the 256³ schedules (fp32, CPU, compiled engine)
+CLI3_ERRORS = {"Vcycle.txt": 3.422244e-02, "Wcycle.txt": 3.339685e-03}
+CLI3_RTOL = 1e-4
 
 PKG = "multigrid_poisson_solver_tpu_torch/ops/csrc/"
 TPU = "multigrid_poisson_solver_tpu/ops/"
@@ -83,6 +103,10 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, main-path run)
     "jacobi_errs": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:161", "trigger8193"),
     "trigger_stream": (PKG + "trigger_stream.cu", TPU + "pallas_chain.py:636", "trigger8193"),
     "rbgs": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:161", "rbgs"),
+    "jacobi3": (PKG + "jacobi3.cu", TPU + "pallas3d.py:237", "compiled3_gpu"),
+    "descend3": (PKG + "descend3.cu", TPU + "pallas3d.py:746", "v_cycle3"),
+    "ascend3": (PKG + "ascend3.cu", TPU + "pallas3d.py:1103", "v_cycle3"),
+    "residual3": (PKG + "residual3.cu", TPU + "pallas3d.py:1420", "compiled3_gpu"),
 }
 
 
@@ -608,6 +632,211 @@ def phase_rbgs(tmg, K, torch, run_counts):
     return results["auto"][2]
 
 
+def phase2_3d(K3, torch, cmp, small=((65, (6, 10, 6)), (129, (8, 16, 10)), (131, (8, 16, 10))),
+              legs=(513, 257), main=513):
+    """The 3-D kernels against their twins: at the ``small`` sizes with the
+    tile forced to (ty, tx, cz), every sweep count within each cap, from_zero,
+    the clean and gpu errors and both restrictions; then with the planned
+    tiles at the main path's shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32)
+
+    omega = 6.0 / 7.0
+
+    def jacobi(n, u, f, h, steps, fz, modes):
+        tag = f"n={n} steps={steps} fz={fz}"
+        if None in modes:
+            cmp.grid("jacobi3", tag, K3.fused_jacobi3(u, f, h, steps, omega, fz),
+                     K3.fused_jacobi3_torch(u, f, h, steps, omega, fz))
+            cmp.cases["jacobi3"] += 1
+        for mode in modes:
+            if mode is None or (mode == "clean" and steps - fz > 7):
+                continue
+            gu, ge = K3.fused_jacobi3_err(u, f, h, steps, omega, mode, fz)
+            wu, we = K3.fused_jacobi3_err_torch(u, f, h, steps, omega, mode, fz)
+            cmp.grid("jacobi3", f"{tag} err={mode}", gu, wu)
+            cmp.scalar("jacobi3", f"{tag} err={mode}", ge, we)
+            cmp.cases["jacobi3"] += 1
+
+    def descend(n, u, f, h, steps, fz, restriction, want_err):
+        tag = f"n={n} steps={steps} fz={fz} {restriction} err={want_err}"
+        args = (h, steps, omega, fz, restriction, want_err)
+        gu, gfc, ge = K3.fused_descend3(u, f, *args)
+        wu, wfc, we = K3.fused_descend3_torch(u, f, *args)
+        cmp.grid("descend3", tag + " u", gu, wu)
+        cmp.grid("descend3", tag + " f_coarse", gfc, wfc)
+        if want_err:
+            cmp.scalar("descend3", tag, ge, we)
+        cmp.cases["descend3"] += 1
+
+    def ascend(n, u, f, uc, h, steps, want_err):
+        tag = f"n={n} steps={steps} err={want_err}"
+        gu, ge = K3.fused_ascend3(u, f, uc, h, steps, omega, want_err)
+        wu, we = K3.fused_ascend3_torch(u, f, uc, h, steps, omega, want_err)
+        cmp.grid("ascend3", tag, gu, wu)
+        if want_err:
+            cmp.scalar("ascend3", tag, ge, we)
+        cmp.cases["ascend3"] += 1
+
+    def residual(n, u, f, h):
+        for ng in (False, True):
+            cmp.grid("residual3", f"n={n} negate={ng}", K3.residual3(u, f, h, ng),
+                     K3.residual3_torch(u, f, h, ng))
+            cmp.cases["residual3"] += 1
+
+    saved = K3.FORCE_TILE3
+    try:
+        for n, tile in small:
+            K3.FORCE_TILE3 = tile
+            h = 1.0 / (n - 1)
+            u, f = rand(n, n, n), rand(n, n, n)
+            m = (n + 1) // 2
+            uc = rand(m, m, m)
+            residual(n, u, f, h)
+            for steps in range(1, 9):
+                for fz in (False, True):
+                    jacobi(n, u, f, h, steps, fz, (None, "clean", "gpu"))
+                    for restriction, cap in (("full_weighting", 6), ("sampling", 7)):
+                        if steps - fz <= cap:
+                            for want_err in (False, True):
+                                descend(n, u, f, h, steps, fz, restriction, want_err)
+                ascend(n, u, f, uc, h, steps, False)
+                if steps <= 7:
+                    ascend(n, u, f, uc, h, steps, True)
+    finally:
+        K3.FORCE_TILE3 = saved
+    # the main path's shapes, planned tiles: 3 sweeps, both legs' variants
+    for n in legs:
+        h = 1.0 / (n - 1)
+        u, f = rand(n, n, n), rand(n, n, n)
+        m = (n + 1) // 2
+        uc = rand(m, m, m)
+        for fz, want_err in ((False, False), (False, True), (True, False), (True, True)):
+            descend(n, u, f, h, 3, fz, "full_weighting", want_err)
+        descend(n, u, f, h, 3, False, "sampling", True)
+        ascend(n, u, f, uc, h, 3, False)
+        ascend(n, u, f, uc, h, 3, True)
+        del u, f, uc
+    h = 1.0 / (main - 1)
+    u, f = rand(main, main, main), rand(main, main, main)
+    jacobi(main, u, f, h, 3, False, (None, "clean", "gpu"))
+    jacobi(main, u, f, h, 3, True, ("clean",))
+    jacobi(main, u, f, h, 8, False, (None,))
+    residual(main, u, f, h)
+    torch.cuda.synchronize()
+
+
+def rel_res3(p3, u, f, h):
+    """float64 ‖r‖₂ / ‖f‖₂ over the interior."""
+    import torch
+
+    r = p3.residual3(u.double(), f.double(), h)[1:-1, 1:-1, 1:-1]
+    return float(torch.linalg.vector_norm(r)
+                 / torch.linalg.vector_norm(f.double()[1:-1, 1:-1, 1:-1]))
+
+
+def compare_paths(tag, results, torch):
+    """Kernel path against plain: iterates after 1 and 4 cycles, float64
+    residuals, and no launch on the plain path."""
+    k, t = results["auto"], results["torch"]
+    for i, what in ((0, "1 cycle"), (1, "4 cycles")):
+        got, want = k["u"][i], t["u"][i]
+        diff, scale = float((got - want).abs().max()), float(want.abs().max())
+        say(f"[D] {tag} iterate after {what}: max|u_kernel − u_plain| {diff:.3e} "
+            f"(bit-identical: {bool(torch.equal(got, want))})")
+        require(diff <= U_RTOL * scale, f"{tag}: kernel and plain iterates differ after {what}: "
+                f"{diff:.3e} > {U_RTOL:g}·{scale:.3e}")
+        rk, rt = k["res"][i], t["res"][i]
+        require(abs(rk - rt) <= RES_RTOL * rt, f"{tag}: float64 residuals {rk:.6e} (kernels) "
+                f"vs {rt:.6e} (plain) after {what}")
+    require(not any(t["counts"].values()), f"{tag}: the plain path launched {t['counts']}")
+
+
+def phase_3d(tmg, K, torch, run_counts, n=513):
+    """Path D: 3-D at full width (513³)."""
+    from multigrid_poisson_solver_tpu_torch import cli
+    from multigrid_poisson_solver_tpu_torch.models import poisson3d as p3
+
+    h = 1.0 / (n - 1)
+    prob = tmg.REFERENCE_PROBLEM_3D
+    u0 = prob.boundary_grid(n, torch.float32, "cuda")
+    f = prob.source_grid(n, torch.float32, "cuda") + u0
+    out = {}
+
+    def run(tag, step, kernels, counts_key=None, profile_it=False):
+        """One cold cycle and three warm ones through step(u, warm)."""
+        results = {}
+        for k in ("auto", "torch") if kernels else ("torch",):
+            K.reset_launch_counts()
+            u1 = step(k, u0, False)
+            u = u1
+            for _ in range(3):
+                u = step(k, u, True)
+            torch.cuda.synchronize()
+            counts = dict(K.launches)
+            require(tuple(u.shape) == (n, n, n) and bool(torch.isfinite(u).all()),
+                    f"{tag} kernels={k}: non-finite or misshapen iterate")
+            r1, r4 = rel_res3(p3, u1, f, h), rel_res3(p3, u, f, h)
+            ms = time_ms(lambda: step(k, u, True), reps=3 if k == "auto" else 1, rounds=3)
+            results[k] = {"u": (u1, u), "res": (r1, r4), "ms": ms, "counts": counts}
+            say(f"[D] {tag} kernels={k}: {ms:.3f} ms/cycle, float64 rel. residual "
+                f"{r1:.6e} after 1 cycle, {r4:.6e} after 4 (per-cycle ratio "
+                f"{(r4 / r1) ** (1 / 3):.4f})")
+            if k == "auto":
+                say(f"[D] {tag} launches over the kernel path's 4 cycles: {counts}")
+                if counts_key:
+                    run_counts[counts_key] = counts
+                if profile_it:
+                    profile(f"{tag} per cycle", lambda: [step(k, u, True) for _ in range(3)],
+                            per=3)
+        compare_paths(tag, results, torch)
+        out[tag] = results
+
+    # 1. the library V-cycle, as in the bench
+    run("v_cycle3 513³ V(3,3)",
+        lambda k, u, warm: tmg.v_cycle3(u, f, h, n_min=5, pre=3, post=3, omega=0.857,
+                                        kernels=k), True, "v_cycle3", profile_it=True)
+    # 2. the compiled engine, clean metric (fused legs) and gpu metric (no
+    #    fused leg: smoother passes, the residual kernel, 2:1 transfers)
+    program = tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=3)
+    for compat, key in ((True, "compiled3"), ("gpu", "compiled3_gpu")):
+        ccs = {k: tmg.compile_program3(program, prob, tmg.SolverConfig(
+            omega=6.0 / 7.0, compat_error=compat, collect_node_stats=False, kernels=k),
+            device="cuda") for k in ("auto", "torch")}
+        run(f"compile_program3 513³ V(3,3) compat={compat}",
+            lambda k, u, warm: ccs[k](u, f, warm=warm)[0], True, key,
+            profile_it=compat is True)
+    require(run_counts["compiled3"]["descend3"] > 0 and run_counts["compiled3"]["ascend3"] > 0,
+            "the clean compiled3 cycle did not run the fused legs")
+    require(run_counts["compiled3_gpu"]["descend3"] == 0
+            and run_counts["compiled3_gpu"]["residual3"] > 0,
+            "the gpu-metric compiled3 cycle did not take the non-fused legs")
+
+    # 3. the CLI --dim 3 against the JAX CLI's Error
+    for name, want in CLI3_ERRORS.items():
+        argv = ["1", f"schedules/{name}", "--dim", "3", "--engine", "compiled", "--quiet",
+                "--no-output"]
+        proc = subprocess.run([sys.executable, "-m", "multigrid_poisson_solver_tpu_torch",
+                               *argv], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, f"CLI --dim 3 failed:\n{proc.stdout}\n{proc.stderr}")
+        match = re.search(r"Error = ([0-9.eE+-]+)\nTime Used = (\S+)", proc.stdout)
+        require(match is not None, f"CLI --dim 3 printed no error:\n{proc.stdout}")
+        err = float(match.group(1))
+        say(f"[D] CLI --dim 3 {name}: Error = {match.group(1)} (JAX CLI {want:.6e}, "
+            f"rel. diff {abs(err - want) / want:.2e}), solve {match.group(2)} ms")
+        require(abs(err - want) <= CLI3_RTOL * want, f"CLI --dim 3 {name}: Error {err:.6e} "
+                f"vs the JAX CLI's {want:.6e}")
+        K.reset_launch_counts()
+        require(cli.main(argv + ["--device", "cuda"]) == 0, f"in-process CLI --dim 3 {name}")
+        run_counts[f"cli3 {name}"] = dict(K.launches)
+        say(f"[D] launches over the in-process CLI --dim 3 run on {name}: "
+            f"{run_counts[f'cli3 {name}']}")
+    return {tag: (r["auto"]["ms"], r["torch"]["ms"]) for tag, r in out.items()}
+
+
 def main():
     import torch
 
@@ -620,6 +849,7 @@ def main():
     from multigrid_poisson_solver_tpu_torch import cli
     from multigrid_poisson_solver_tpu_torch.ops import build
     from multigrid_poisson_solver_tpu_torch.ops import kernels as K
+    from multigrid_poisson_solver_tpu_torch.ops import kernels3 as K3
     from multigrid_poisson_solver_tpu_torch.ops.transfers import relative_residual_norm
 
     t_start = time.perf_counter()
@@ -647,6 +877,7 @@ def main():
     t0 = time.perf_counter()
     cmp = Compare()
     phase2(K, torch, cmp, tmg.REFERENCE_PROBLEM, tmg.GridSpec)
+    phase2_3d(K3, torch, cmp)
     for k in KERNELS:
         say(f"[2] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
             f"bit-identical to the twin: {cmp.bitwise[k]}")
@@ -732,6 +963,7 @@ def main():
     phase_cli_tol(cli, K, run_counts)
     ms_trigger, trigger_levels, auto_levels = phase_trigger(tmg, K, torch, run_counts)
     ms_rbgs = phase_rbgs(tmg, K, torch, run_counts)
+    ms_3d = phase_3d(tmg, K, torch, run_counts)
     for k, (_, _, run) in KERNELS.items():
         require(run_counts[run][k] > 0, f"the {run} run did not launch {k}")
 
@@ -806,6 +1038,28 @@ def main():
                  lambda: K.fused_rbgs_err_torch(u, f, h, 2, True),
                  3 * g2, (2 * RBGS_OPS + RBGS_ERR_OPS) * pts),
     }
+    n3, w3 = 513, 6.0 / 7.0
+    h3, m3 = 1.0 / (n3 - 1), (n3 + 1) // 2
+    u3 = torch.randn(n3, n3, n3, generator=gen, device="cuda")
+    f3 = torch.randn(n3, n3, n3, generator=gen, device="cuda")
+    c3 = torch.randn(m3, m3, m3, generator=gen, device="cuda")
+    g3, pts3 = 4 * n3 ** 3, n3 ** 3
+    calls.update({
+        "jacobi3": (f"{n3}³, 3 sweeps + clean error",
+                    lambda: K3.fused_jacobi3_err(u3, f3, h3, 3, w3, "clean"),
+                    lambda: K3.fused_jacobi3_err_torch(u3, f3, h3, 3, w3, "clean"),
+                    3 * g3, (3 * SWEEP3_OPS + DELTA3_OPS) * pts3),
+        "descend3": (f"{n3}³, 3 sweeps, full weighting, clean error",
+                     lambda: K3.fused_descend3(u3, f3, h3, 3, w3, want_err=True),
+                     lambda: K3.fused_descend3_torch(u3, f3, h3, 3, w3, want_err=True),
+                     3.125 * g3, (3 * SWEEP3_OPS + DELTA3_OPS + 1) * pts3 + FW3_OPS * m3 ** 3),
+        "ascend3": (f"{n3}³, 3 sweeps",
+                    lambda: K3.fused_ascend3(u3, f3, c3, h3, 3, w3),
+                    lambda: K3.fused_ascend3_torch(u3, f3, c3, h3, 3, w3),
+                    3.125 * g3, (3 * SWEEP3_OPS + PROLONG3_OPS) * pts3),
+        "residual3": (f"{n3}³, negated", lambda: K3.residual3(u3, f3, h3, True),
+                      lambda: K3.residual3_torch(u3, f3, h3, True), 3 * g3, RES3_OPS * pts3),
+    })
     times = {}
     for k, (shape, kern, plain, nbytes, ops) in calls.items():
         bound_ms, bound_by = bound(nbytes, ops)
@@ -827,8 +1081,10 @@ def main():
     say(f"[end] trigger V-cycle {n8}² wall ms: "
         + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_trigger.items()))
     say(f"[end] sweeps per level, batch 7: {trigger_levels}; auto: {auto_levels}")
-    say(f"[end] rb-GS V(2,2) {n}² {ms_rbgs:.3f} ms/cycle; chip_smoke ran "
-        f"{time.perf_counter() - t_start:.0f} s")
+    say(f"[end] rb-GS V(2,2) {n}² {ms_rbgs:.3f} ms/cycle")
+    say("[end] 3-D ms/cycle (kernels, plain): "
+        + "; ".join(f"{tag} {a:.3f}, {b:.3f}" for tag, (a, b) in ms_3d.items()))
+    say(f"[end] chip_smoke ran {time.perf_counter() - t_start:.0f} s")
 
     # no single PyTorch call computes any of these functions: library_ms is null
     say(json.dumps({"kernels": [

@@ -1,7 +1,7 @@
 """multigrid_poisson_solver_tpu_torch: the PyTorch and CUDA port of
 ``multigrid_poisson_solver_tpu``.
 
-Geometric multigrid for the 2-D Poisson problem with a Dirichlet boundary,
+Geometric multigrid for the 2-D (and 3-D) Poisson problem with a Dirichlet boundary,
 driven by the reference's ``Cycle.txt`` schedules, on one NVIDIA GPU. The hot
 path (the fused smoother in its Jacobi, per-sweep-error and rb-GS modes, the
 residuals, the fused descend and ascend legs, the chains and the trigger
@@ -12,7 +12,10 @@ package is the reference this port is tested against.
 Ported so far: the 2-D single-device engines (``compile_program``,
 ``MultigridSolver``), iterative refinement to a tolerance
 (``IterativeRefinementSolver``, ``solve_to_tolerance``) with its checkpoints,
-and the CLI. The 3-D family and multi-device execution are not yet ported.
+the 3-D fixed-step single-device path (``v_cycle3``, ``compile_program3``,
+``Solver3D``; its four kernels in ``ops.kernels3``) and the CLI with
+``--dim 3``. 3-D refinement, the 3-D trigger kernels and multi-device
+execution are not yet ported.
 """
 
 __version__ = "0.1.0"
@@ -35,4 +38,13 @@ from .schedule import (  # noqa: F401
 from .solver import MultigridSolver, SolveReport, SolverConfig, solve  # noqa: F401
 from .compiled import CompiledCycle, compile_program  # noqa: F401
 from .refine import IterativeRefinementSolver, RefineReport, solve_to_tolerance  # noqa: F401
+from .models.poisson3d import (  # noqa: F401
+    BUILTIN_PROBLEMS_3D,
+    Problem3D,
+    REFERENCE_PROBLEM_3D,
+    solve3,
+    v_cycle3,
+)
+from .solver3 import Solver3D, solve3_program  # noqa: F401
+from .compiled3 import CompiledCycle3, compile_program3  # noqa: F401
 from . import models  # noqa: F401

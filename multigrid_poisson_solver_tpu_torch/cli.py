@@ -11,7 +11,9 @@ final-result block (mean |U − analytic| and wall ms) and a
 uses ``--device`` (default ``cuda``) and never falls back to the CPU.
 Deep-solve mode (``--tol``) refines to a relative residual with the cycle
 file's program as the inner cycle (``refine.IterativeRefinementSolver``,
-ω = 0.8, as JAX's CLI); ``--dim 3`` is not yet ported.
+ω = 0.8, as JAX's CLI). ``--dim 3`` drives the same schedule through the 3-D
+engines (``compiled3``, ``solver3``) and writes ``.npz`` output; its deep
+solve (``--dim 3 --tol``) is not yet ported.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import time
 
 import torch
 
+from .models.poisson3d import BUILTIN_PROBLEMS_3D
 from .models.problems import BUILTIN_PROBLEMS
 from .schedule import parse_cycle_path
 from .solver import MultigridSolver, SolveReport, SolverConfig, synchronize
@@ -41,9 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference compatibility and ignored")
     p.add_argument("--problem", default="reference",
                    help="built-in problem family (default: the reference's "
-                        "manufactured solution): " + ", ".join(sorted(BUILTIN_PROBLEMS)))
+                        "manufactured solution); 2-D: " + ", ".join(sorted(BUILTIN_PROBLEMS))
+                        + "; 3-D (--dim 3): " + ", ".join(sorted(BUILTIN_PROBLEMS_3D)))
     p.add_argument("--dim", type=int, default=2, choices=[2, 3],
-                   help="spatial dimension (3 is not yet ported)")
+                   help="spatial dimension: 2 (reference-compatible) or 3 (the same "
+                        "cycle file drives a cubic hierarchy; .npz output)")
     p.add_argument("--dtype", default="f32", choices=sorted(DTYPES),
                    help="level-array precision (default f32; the CUDA kernels take f32)")
     p.add_argument("--smoother", default="jacobi", choices=["jacobi", "rbgs"])
@@ -142,6 +147,57 @@ def _run_compiled(problem, program, config, device) -> SolveReport:
                        nodes=[], error_vs_analytic=err)
 
 
+def _run_3d(program, config, args, cycle_path, prefix) -> int:
+    """--dim 3: the same parsed schedule through the 3-D engines."""
+    import numpy as np
+
+    if args.problem not in BUILTIN_PROBLEMS_3D:
+        print(f"[ ERROR ]: unknown 3-D problem {args.problem!r} "
+              f"(choose from {sorted(BUILTIN_PROBLEMS_3D)})", file=sys.stderr)
+        return 1
+    if args.tol is not None:
+        print("[ ERROR ]: --dim 3 --tol (3-D iterative refinement) is not yet ported; "
+              "it comes with the next 3-D slice (ROADMAP Queue 1, item 10: refine3 and "
+              "its multi-word residual kernel)", file=sys.stderr)
+        return 1
+    problem = BUILTIN_PROBLEMS_3D[args.problem]
+    engine = args.engine
+    if engine == "auto":
+        engine = "interpreted" if (args.stats or not args.quiet) else "compiled"
+
+    if engine == "compiled":
+        from .compiled3 import compile_program3
+
+        cc = compile_program3(program, problem, config, device=args.device)
+        u, f = cc.init()
+        synchronize(cc.device)
+        start = time.perf_counter()
+        u1, _ = cc(u, f)
+        synchronize(cc.device)
+        wall = time.perf_counter() - start
+        err = None
+        if problem.analytic is not None:
+            ua = problem.analytic_grid(program.n_max, config.dtype, cc.device)
+            err = float(torch.mean(torch.abs(u1 - ua)))
+        report = SolveReport(u=u1, spec=cc.finest_spec, wall_time_s=wall, nodes=[],
+                             error_vs_analytic=err)
+    else:
+        from .solver3 import Solver3D
+
+        report = Solver3D(problem, config, args.device).run(program)
+        if args.stats:
+            for node in report.nodes:
+                print(f"  {node.kind:<12} N={node.n:<6} steps={node.steps} "
+                      f"error={node.error}")
+    print()
+    print(report.summary())
+    if not args.no_output:
+        out = args.output or (solution_filename(cycle_path, prefix) + ".npz")
+        np.savez_compressed(out, u=report.u.cpu().numpy())
+        print(f"Output file name = {out}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -151,9 +207,6 @@ def main(argv=None) -> int:
         positional = positional[1:]
     if len(positional) != 1:
         print("[ ERROR ]: expected [N_THREADS] cycle_file.txt", file=sys.stderr)
-        return 1
-    if args.dim == 3:
-        print("[ ERROR ]: --dim 3 is not yet ported", file=sys.stderr)
         return 1
     cycle_path = positional[0]
     print(f"Cycle structure file name = {cycle_path}")
@@ -175,8 +228,8 @@ def main(argv=None) -> int:
     if not args.quiet:
         logging.basicConfig(level=logging.INFO, format="%(message)s")
 
-    if args.problem not in BUILTIN_PROBLEMS:
-        print(f"[ ERROR ]: unknown problem {args.problem!r} "
+    if args.dim == 2 and args.problem not in BUILTIN_PROBLEMS:
+        print(f"[ ERROR ]: unknown 2-D problem {args.problem!r} "
               f"(choose from {sorted(BUILTIN_PROBLEMS)})", file=sys.stderr)
         return 1
 
@@ -198,8 +251,10 @@ def main(argv=None) -> int:
         trigger_batch=args.trigger_batch,
         collect_node_stats=args.stats or not args.quiet,
     )
-    problem = BUILTIN_PROBLEMS[args.problem]
     prefix = "Sol_GPU_" if args.device == "cuda" else "Sol_CPU_"
+    if args.dim == 3:
+        return _run_3d(program, config, args, cycle_path, prefix)
+    problem = BUILTIN_PROBLEMS[args.problem]
 
     if args.tol is not None:
         rep = _run_refine(problem, program, args)

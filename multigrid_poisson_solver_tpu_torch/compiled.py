@@ -50,15 +50,7 @@ from .solver import SolverConfig, coarse_solve, restrict, trigger_loop
 
 def _use_kernels(cfg: SolverConfig, device: torch.device) -> bool:
     """Whether the hot path runs the CUDA kernels (``ops.kernels``)."""
-    if cfg.kernels == "torch":
-        return False
-    if cfg.kernels == "auto":
-        return device.type == "cuda"
-    if cfg.kernels == "cuda":
-        if device.type != "cuda":
-            raise ValueError(f"kernels='cuda' needs a CUDA device, got {device}")
-        return True
-    raise ValueError(f"unknown kernels {cfg.kernels!r}; expected auto, cuda or torch")
+    return K.use_kernels(cfg.kernels, device)
 
 
 def _check_ported(cfg: SolverConfig, use_kernels: bool) -> None:

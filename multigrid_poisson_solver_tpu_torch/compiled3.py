@@ -1,0 +1,229 @@
+"""The whole-schedule 3-D engine: a CycleProgram run as one fixed sequence of
+device operations, single device.
+
+PyTorch port of ``multigrid_poisson_solver_tpu/compiled3.py`` (its
+single-device path; the ``policy=`` z-sharded branches belong to the
+multi-device port). The JAX engine traces the instruction walk into one
+jitted program; PyTorch runs eagerly, so ``_run3`` (the counterpart of
+``_trace_program3``) issues the level operations directly. Node semantics
+are ``solver3.Solver3D``'s.
+
+On the kernel path (``SolverConfig.kernels`` "auto" on a CUDA device, or
+"cuda") the routing keeps JAX's predicates, in JAX's order, so a schedule
+reaches the same operations (``ops.kernels3``), on levels of at least 65³
+with the Jacobi smoother:
+
+  * smoothing: passes of at most 8 sweeps, the error metric fused into the
+    final pass, the clean metric only with at most 7 sweeps there, else one
+    residual pass;
+  * descend: on a 2:1 level with the clean metric and a sweep count within
+    the cap, the fused descend leg; else smoothing, then on a 2:1 level the
+    negated residual kernel and the 2:1 restriction, else the general
+    trilinear restriction;
+  * ascend: on a 2:1 level with 1..8 sweeps and the clean metric, the fused
+    ascend leg, its error fused in only when the node is the program's last
+    and runs at most 7 sweeps (else one residual pass at the last node);
+    else the prolongation and add, then smoothing.
+
+Smaller levels, rb-GS, non-2:1 transfers and the coarse solves run the
+oracle ops. A trigger node (``steps == -1``) on the kernel path at 65³ or
+more raises ``NotImplementedError``: JAX runs it as its whole-loop trigger
+kernels or the smoother's per-sweep-error mode, which the next slice of the
+port brings (ROADMAP). The plain path runs trigger nodes as
+``models.poisson3d.trigger_smooth3`` does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .compiled import _check_ported, _use_kernels
+from .grid import GridSpec
+from .models import poisson3d as p3
+from .models.poisson3d import KERNEL3_MIN_N, Problem3D
+from .ops import kernels3 as K3
+from .ops import transfers3 as T3
+from .ops.zoom import zoom3
+from .schedule import Ascend, CoarseSolve, CycleProgram, Descend
+from .solver import SolverConfig
+from .solver3 import _prolong_add3, _restrict_residual3, coarse_solve3, smooth3_node
+
+TRIGGER3_NOT_PORTED = (
+    "a trigger node (steps == -1) on a level of {n}³ on the 3-D kernel path needs the "
+    "whole-loop trigger kernels and the smoother's per-sweep-error mode, which are not "
+    "yet ported (ROADMAP Queue 1, item 10: the next 3-D slice); use kernels='torch'")
+
+
+def _run3(u0, f0, program: CycleProgram, problem: Problem3D, cfg: SolverConfig,
+          device: torch.device, warm: bool, use_kernels: bool):
+    """Walk the instruction sequence. Returns (u, last_err): the last level's
+    iterate and the error of the most recent node that measured one."""
+    compat = "gpu" if cfg.compat_error == "gpu" else "clean"
+    jacobi = cfg.smoother == "jacobi"
+    last_ins = program.instructions[-1]
+
+    def zeros(n):
+        return torch.zeros((n, n, n), dtype=cfg.dtype, device=device)
+
+    def zero_interior(lu):
+        out = lu.clone()
+        out[1:-1, 1:-1, 1:-1] = 0
+        return out
+
+    def mean_abs(r, n):
+        return torch.sum(torch.abs(r)) / (n ** 3)
+
+    def smooth(lu, lf, n, h, steps):
+        """(u, err); the kernel path's passes as in the module docstring."""
+        fast = use_kernels and n >= KERNEL3_MIN_N and jacobi
+        if steps == -1 and fast:
+            raise NotImplementedError(TRIGGER3_NOT_PORTED.format(n=n))
+        if not (fast and steps >= 1):
+            return smooth3_node(lu, lf, h, steps, cfg)[:2]
+        k, err = steps, None
+        while k > 0:
+            kk = min(k, K3.MAX_FUSED_SWEEPS_3D)
+            emode = compat if k == kk else None          # the metric of the final pass
+            if emode == "clean" and kk > K3.MAX_FUSED_SWEEPS_3D - 1:
+                emode = None                             # the Δ ring needs ≤ 7 sweeps
+            if emode is not None:
+                lu, err = K3.fused_jacobi3_err(lu, lf, h, kk, cfg.omega, emode)
+            else:
+                lu = K3.fused_jacobi3(lu, lf, h, kk, cfg.omega)
+            k -= kk
+        if err is None:   # the clean metric after a full 8-sweep final pass
+            err = mean_abs(K3.residual3(lu, lf, h), n)
+        return lu, err
+
+    spec0 = GridSpec(program.n_max, program.length, program.min_x, program.min_y)
+    levels = [(spec0, u0, f0, False)]
+    first_descend_done = warm
+    last_err = torch.zeros((), dtype=cfg.dtype, device=device)
+
+    for ins in program.instructions:
+        spec, lu, lf, is_fmg = levels[-1]
+        n, h = spec.n, spec.h
+
+        if isinstance(ins, Descend):
+            finest = len(levels) == 1
+            if not (finest and first_descend_done) and not is_fmg:
+                lu = zero_interior(lu) if finest else zeros(n)
+            next_spec = spec.coarsened(ins.next_n)
+            m = ins.next_n
+            aligned = n == 2 * m - 1
+            if ins.steps == 0:   # FMG descent: restrict the RHS itself
+                f_c = zoom3(lf, m, zero_boundary=True) + problem.boundary_grid(m, cfg.dtype,
+                                                                                device)
+                levels[-1] = (spec, lu, lf, is_fmg)
+                levels.append((next_spec, zeros(m), f_c, True))
+                continue
+            fz = not finest and not is_fmg     # a freshly zeroed correction
+            cap = (K3.MAX_DESCEND3_SWEEPS_FW if cfg.restriction == "full_weighting"
+                   else K3.MAX_DESCEND3_SWEEPS_SAMPLING)
+            if (use_kernels and aligned and n >= KERNEL3_MIN_N and ins.steps >= 1
+                    and compat == "clean" and jacobi and ins.steps - fz <= cap):
+                # sweeps + residual + restriction + the clean error in one kernel
+                lu, f_c, last_err = K3.fused_descend3(lu, lf, h, ins.steps, cfg.omega,
+                                                      from_zero=fz, restriction=cfg.restriction,
+                                                      want_err=True)
+            else:
+                lu, last_err = smooth(lu, lf, n, h, ins.steps)
+                if use_kernels and aligned and n >= KERNEL3_MIN_N:
+                    f_c = T3.restrict3(K3.residual3(lu, lf, h, negate=True), m,
+                                       mode=cfg.restriction)
+                else:
+                    f_c = _restrict_residual3(lu, lf, h, m, restriction=cfg.restriction)
+            levels[-1] = (spec, lu, lf, is_fmg)
+            levels.append((next_spec, zeros(m), f_c, False))
+
+        elif isinstance(ins, CoarseSolve):
+            lu, err, _ = coarse_solve3(lf, h, ins, cfg.dtype, cfg.coarse_gs_norm)
+            if err is not None:
+                last_err = err
+            levels[-1] = (spec, lu, lf, is_fmg)
+
+        elif isinstance(ins, Ascend):
+            child_spec, cu, _, _ = levels.pop()
+            spec, lu, lf, is_fmg = levels[-1]
+            n, h = spec.n, spec.h
+            m = child_spec.n
+            aligned = n == 2 * m - 1
+            if (use_kernels and aligned and n >= KERNEL3_MIN_N
+                    and 1 <= ins.steps <= K3.MAX_FUSED_SWEEPS_3D and compat == "clean"
+                    and jacobi):
+                # prolongation + add + post-sweeps in one kernel; the error only
+                # where this node's is the program's result
+                want_err = ins is last_ins and ins.steps <= K3.MAX_FUSED_SWEEPS_3D - 1
+                lu, err = K3.fused_ascend3(lu, lf, cu, h, ins.steps, cfg.omega,
+                                           want_err=want_err)
+                if want_err:
+                    last_err = err
+                elif ins is last_ins:
+                    last_err = mean_abs(K3.residual3(lu, lf, h), n)
+            else:
+                if use_kernels and aligned and n >= KERNEL3_MIN_N:
+                    lu = T3.prolong3_add(lu, cu, interior_only=True)
+                else:
+                    lu = _prolong_add3(cu, lu, n)
+                if ins.steps != 0:
+                    lu, last_err = smooth(lu, lf, n, h, ins.steps)
+            if len(levels) == 1:
+                first_descend_done = True
+            levels[-1] = (spec, lu, lf, is_fmg)
+        else:  # pragma: no cover
+            raise TypeError(f"unknown instruction {ins!r}")
+
+    return levels[-1][1], last_err
+
+
+class CompiledCycle3:
+    """A CycleProgram bound to a 3-D problem, a numerical policy and a device.
+
+    ``init()`` gives the finest level's ``(u0, f0)`` on the device; calling
+    the object runs the program once and returns ``(u, err)``. With
+    ``warm=False`` (the default, or per call) every run resets the finest
+    iterate's interior first; ``warm=True`` continues from the given u (the
+    reference's init flag). Arguments are never modified."""
+
+    def __init__(self, program: CycleProgram, problem: Problem3D,
+                 config: SolverConfig = SolverConfig(), device="cuda", warm: bool = False):
+        program.validate()
+        self.program = program
+        self.problem = problem
+        self.config = config
+        self.device = torch.device(device)
+        self.warm = warm
+        self.use_kernels = _use_kernels(config, self.device)
+        _check_ported(config, self.use_kernels)
+
+    @property
+    def finest_spec(self) -> GridSpec:
+        p = self.program
+        return GridSpec(p.n_max, p.length, p.min_x, p.min_y)
+
+    def init(self) -> tuple[torch.Tensor, torch.Tensor]:
+        n, dtype = self.program.n_max, self.config.dtype
+        b = self.problem.boundary_grid(n, dtype, self.device)
+        return b.clone(), self.problem.source_grid(n, dtype, self.device) + b
+
+    def __call__(self, u, f, warm=None):
+        return _run3(u, f, self.program, self.problem, self.config, self.device,
+                     self.warm if warm is None else warm, self.use_kernels)
+
+    def iterate(self, cycles: int):
+        """``fn(u0, f) -> u``: one cold run, then ``cycles − 1`` warm ones."""
+        def chained(u, f):
+            u = self(u, f, warm=False)[0]
+            for _ in range(cycles - 1):
+                u = self(u, f, warm=True)[0]
+            return u
+
+        return chained
+
+
+def compile_program3(program: CycleProgram, problem: Problem3D,
+                     config: SolverConfig = SolverConfig(), device="cuda",
+                     warm: bool = False) -> CompiledCycle3:
+    """Bind ``program`` to ``problem``, ``config`` and ``device`` (default
+    ``"cuda"``; a CPU run needs ``device="cpu"``)."""
+    return CompiledCycle3(program, problem, config, device, warm)

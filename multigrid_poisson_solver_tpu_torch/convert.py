@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.poisson3d import Problem3D
 from .models.problems import BUILTIN_PROBLEMS, Problem
 from .schedule import Ascend, CoarseSolve, CycleProgram, Descend
 from .solver import SolverConfig
@@ -25,6 +26,12 @@ def grid_from_jax(padded, n: int, device="cpu") -> torch.Tensor:
     (the top-left corner; ``ops/layout.py::unpad_grid``)."""
     arr = np.asarray(padded)[:n, :n]
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def grid3_from_jax(padded, n: int, device="cpu") -> torch.Tensor:
+    """The true (n, n, n) volume of a JAX 3-D level array, cropped from its
+    padded (nz, rp, cp) brick layout (``ops/pallas3d.py::unpad_grid3``)."""
+    return torch.from_numpy(np.array(np.asarray(padded)[:n, :n, :n])).to(device)
 
 
 def words_from_jax(words, n: int, device="cpu") -> tuple[torch.Tensor, ...]:
@@ -99,6 +106,24 @@ def problem_from_jax_grids(jproblem, jspec) -> Problem:
     analytic = field("analytic_grid") if jproblem.analytic is not None else None
     return Problem(source=field("source_grid"), boundary=field("boundary_grid"),
                    analytic=analytic, name=f"{jproblem.name}-grids")
+
+
+def problem3_from_jax_grids(jproblem) -> Problem3D:
+    """A 3-D problem whose grids are the JAX ``Problem3D``'s, value for value,
+    at every size and float dtype it is asked for (torch's and XLA's fp32
+    ``sin`` differ by an ulp at some points, which moves fp32 comparisons of
+    whole solves). Each field evaluates the JAX problem's grid of the size
+    and dtype of the coordinates it is handed."""
+    def field(kind):
+        def fn(x, y, z):
+            dtype = np.float64 if x.dtype == torch.float64 else np.float32
+            grid = np.array(getattr(jproblem, kind)(x.shape[0], dtype))
+            return torch.from_numpy(grid).to(x.device, x.dtype)
+        return fn
+
+    analytic = field("analytic_grid") if jproblem.analytic is not None else None
+    return Problem3D(source=field("source_grid"), boundary=field("boundary_grid"),
+                     analytic=analytic, name=f"{jproblem.name}-grids")
 
 
 def problem_from_jax(name: str) -> Problem:

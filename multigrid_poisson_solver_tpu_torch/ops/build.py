@@ -48,6 +48,11 @@ SIGNATURES = {
     "mg_trigger": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P], _I),
     "mg_trigger_stream": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I,
                            _P], _I),
+    "mg3_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
+    "mg3_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                     _P], _I),
+    "mg3_ascend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
+    "mg3_residual": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
 }
 
 _lib = None

@@ -1,0 +1,59 @@
+// The whole 3-D ascend leg in one kernel: the trilinear prolongation of the
+// coarse correction, its add on the interior and k post-sweeps, with the
+// clean smoothing error optionally fused in.
+//
+// Replaces: multigrid_poisson_solver_tpu/ops/pallas3d.py,
+// _fused_ascend3_kernel, reached through fused_ascend3_padded, together with
+// the lane expansion it leaves to XLA (ops/padded3.py, prolong3_lanes_p).
+//
+// Bound: device-memory bandwidth. Fused, the leg reads u, f and the coarse
+// grid (an eighth of the points) once and writes u once: 12.5 B per fine
+// point, against a prolongation pass, an add pass and 12 B per sweep as
+// separate passes. Design: the 2.5-D pipeline of legs3.cuh; the starting
+// iterate of each staged plane is u plus the prolonged correction, formed
+// from the coarse grid directly (even points copy, odd ones average two,
+// four or eight coarse values, along z, then y, then x), so the fine
+// correction never exists in device memory. The halo is k (+1 for the clean
+// error's Δ stage).
+#include "legs3.cuh"
+
+using namespace mgk3;
+
+static __global__ void __launch_bounds__(THREADS3) ascend3_kernel(Leg3 L) {
+  extern __shared__ float smem[];
+  run_leg3(smem, L);
+}
+
+// u plus the prolonged m^3 correction c on the interior of the n^3 level
+// (n = 2m − 1), then steps <= 8 sweeps into out. err_mode ERR_NONE or
+// ERR_CLEAN (steps <= 7; partials one float per block, err_out[0] the metric
+// times err_scale).
+extern "C" int mg3_ascend(const float* u, const float* f, const float* c, float* out,
+                          float* partials, float* err_out, int n, int steps, int err_mode,
+                          int ty, int tx, int cz, float h2, float w, float err_scale,
+                          void* stream) {
+  if (steps < 1 || steps > MAX_STEPS3 || n % 2 == 0 ||
+      (err_mode != ERR_NONE && err_mode != ERR_CLEAN))
+    return (int)cudaErrorInvalidValue;
+  Leg3 L{};
+  L.u = u;
+  L.f = f;
+  L.c = c;
+  L.out = out;
+  L.partials = err_mode == ERR_NONE ? nullptr : partials;
+  L.n = n;
+  L.sweeps = steps;
+  L.last = err_mode == ERR_CLEAN ? DELTA : -1;
+  L.err_mode = err_mode;
+  L.restrict_mode = R_NONE;
+  L.ty = ty;
+  L.tx = tx;
+  L.cz = cz;
+  L.halo = leg3_stages(L);
+  L.h2 = h2;
+  L.w = w;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t e = launch_leg3(ascend3_kernel, L, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)finish_error3(L, err_scale, err_out, s);
+}

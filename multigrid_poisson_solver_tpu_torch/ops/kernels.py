@@ -30,7 +30,8 @@ not contiguous, wrong shape), raises. There is no fallback.
 
 ``launches`` counts kernel launches per kernel (the ``sum_partials`` second
 pass of an error reduction belongs to the launch it finishes); it lets a run
-show that the main path went through the kernels.
+show that the main path went through the kernels. The 3-D kernels
+(``ops.kernels3``) count in the same dictionary.
 
 Grids are plain contiguous (n, n) tensors. Every function returns new
 tensors and leaves its arguments untouched.
@@ -56,12 +57,28 @@ _ERR_CODES = {None: 0, "cpu": 1, "clean": 2, "gpu": 3}
 
 launches = {"jacobi": 0, "jacobi_errs": 0, "rbgs": 0, "residual": 0, "residual_mw": 0,
             "descend": 0, "ascend": 0, "chain_descend": 0, "chain_ascend": 0,
-            "trigger": 0, "trigger_stream": 0}
+            "trigger": 0, "trigger_stream": 0,
+            # the 3-D kernels (ops.kernels3)
+            "jacobi3": 0, "descend3": 0, "ascend3": 0, "residual3": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def use_kernels(kernels: str, device: torch.device) -> bool:
+    """Whether an engine on ``device`` runs the CUDA kernels: ``kernels`` is
+    "auto" (on a CUDA device), "cuda" (required) or "torch" (never)."""
+    if kernels == "torch":
+        return False
+    if kernels == "auto":
+        return device.type == "cuda"
+    if kernels == "cuda":
+        if device.type != "cuda":
+            raise ValueError(f"kernels='cuda' needs a CUDA device, got {device}")
+        return True
+    raise ValueError(f"unknown kernels {kernels!r}; expected auto, cuda or torch")
 
 
 def err_mode_of(compat) -> str:

@@ -1,7 +1,8 @@
 """The unified bilinear "zoom" primitive: general N→M grid resampling.
 
-PyTorch port of ``multigrid_poisson_solver_tpu/ops/zoom.py`` and of the
-gather form ``zoom_take_p`` in ``ops/padded.py``. Restriction and
+PyTorch port of ``multigrid_poisson_solver_tpu/ops/zoom.py`` (``zoom`` and
+its 3-D member ``zoom3``) and of the gather form ``zoom_take_p`` in
+``ops/padded.py``. Restriction and
 prolongation are the same resampling op with swapped sizes (ker_Zoom_GPU,
 MG_solver_GPU.cu:913-958): target point ``i`` maps to source coordinate
 ``s = i · (n_src − 1) / (n_dst − 1)`` and is interpolated linearly from the
@@ -87,6 +88,28 @@ def _zoom_matmul(src: torch.Tensor, n_dst: int, zero_boundary: bool) -> torch.Te
         out = (w @ src) @ w.T
     if zero_boundary:
         out = _zero_border(out)
+    return out
+
+
+def zoom3(src: torch.Tensor, n_dst: int, zero_boundary: bool = False) -> torch.Tensor:
+    """Trilinearly resample an (n, n, n) volume to (n_dst,)³, corners aligned:
+    the 1-D interpolation matrix contracted along each axis in turn (the
+    general restriction and prolongation of the 3-D engines; the JAX
+    package's ``zoom3``). ``zero_boundary`` zeroes the output's faces."""
+    n_src = src.shape[0]
+    if n_dst == n_src:
+        out = src.clone()
+    else:
+        w = torch.as_tensor(_zoom_matrix_np(n_src, n_dst), device=src.device).to(src.dtype)
+        out = src
+        for _ in range(3):
+            # contract the leading axis; the axes cycle back after three passes
+            out = torch.tensordot(w, out, dims=([1], [0])).permute(1, 2, 0)
+        out = out.contiguous()
+    if zero_boundary:
+        interior = out[1:-1, 1:-1, 1:-1].clone()
+        out.zero_()
+        out[1:-1, 1:-1, 1:-1] = interior
     return out
 
 

@@ -432,7 +432,7 @@ def test_c_entry_points_match_ctypes_signatures():
     found = {}
     for src in build.sources():
         text = src.read_text()
-        for name, params in re.findall(r'extern "C" [\w\s\*]+?\b(mg_\w+)\(([^)]*)\)', text):
+        for name, params in re.findall(r'extern "C" [\w\s\*]+?\b(mg3?_\w+)\(([^)]*)\)', text):
             found[name] = len([p for p in params.split(",") if p.strip()])
     assert set(found) == set(build.SIGNATURES)
     for name, (argtypes, _) in build.SIGNATURES.items():
@@ -440,6 +440,7 @@ def test_c_entry_points_match_ctypes_signatures():
     assert {s.name for s in build.sources()} == {
         "common.cuh", "legs.cuh", "jacobi.cu", "residual.cu", "descend.cu", "ascend.cu",
         "chain_descend.cu", "chain_ascend.cu", "trigger.cu", "residual_mw.cu",
-        "trigger_stream.cu"}
+        "trigger_stream.cu", "legs3.cuh", "jacobi3.cu", "descend3.cu", "ascend3.cu",
+        "residual3.cu"}
     assert build.library_path().parent == build.BUILD_DIR
     assert Path(build.library_path()).name.startswith("libmg_kernels_")
