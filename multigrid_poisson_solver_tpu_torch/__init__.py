@@ -12,10 +12,10 @@ package is the reference this port is tested against.
 Ported so far: the 2-D single-device engines (``compile_program``,
 ``MultigridSolver``), iterative refinement to a tolerance
 (``IterativeRefinementSolver``, ``solve_to_tolerance``) with its checkpoints,
-the 3-D fixed-step single-device path (``v_cycle3``, ``compile_program3``,
-``Solver3D``; its four kernels in ``ops.kernels3``) and the CLI with
-``--dim 3``. 3-D refinement, the 3-D trigger kernels and multi-device
-execution are not yet ported.
+the 3-D single-device path (``v_cycle3``, ``compile_program3`` with its
+trigger tiers, ``Solver3D``, 3-D refinement ``IterativeRefinement3`` and
+``solve_to_tolerance3``; eight kernels in ``ops.kernels3``) and the CLI with
+``--dim 3`` and ``--dim 3 --tol``. Multi-device execution is not yet ported.
 """
 
 __version__ = "0.1.0"
@@ -47,4 +47,5 @@ from .models.poisson3d import (  # noqa: F401
 )
 from .solver3 import Solver3D, solve3_program  # noqa: F401
 from .compiled3 import CompiledCycle3, compile_program3  # noqa: F401
+from .refine3 import IterativeRefinement3, Refine3Report, solve_to_tolerance3  # noqa: F401
 from . import models  # noqa: F401

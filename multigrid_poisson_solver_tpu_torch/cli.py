@@ -13,7 +13,9 @@ Deep-solve mode (``--tol``) refines to a relative residual with the cycle
 file's program as the inner cycle (``refine.IterativeRefinementSolver``,
 ω = 0.8, as JAX's CLI). ``--dim 3`` drives the same schedule through the 3-D
 engines (``compiled3``, ``solver3``) and writes ``.npz`` output; its deep
-solve (``--dim 3 --tol``) is not yet ported.
+solve (``--dim 3 --tol``) is 3-D iterative refinement
+(``refine3.IterativeRefinement3``) at the schedule's finest size, with the
+df32 or tw32 state.
 """
 
 from __future__ import annotations
@@ -147,6 +149,38 @@ def _run_compiled(problem, program, config, device) -> SolveReport:
                        nodes=[], error_vs_analytic=err)
 
 
+def _run_refine3(problem, program, args, cycle_path, prefix) -> int:
+    """--dim 3 --tol: 3-D mixed-precision iterative refinement, routed by
+    --kernels (JAX's ``cli._run_3d`` deep-solve branch)."""
+    import numpy as np
+
+    from .refine3 import IterativeRefinement3
+
+    if args.state == "f64":
+        print("[ ERROR ]: --state f64 is 2-D only; the 3-D refinement states are "
+              "df32/tw32 (tw32 reaches 1e-10+)", file=sys.stderr)
+        return 1
+    solver = IterativeRefinement3(problem, program.n_max, max_cycles=args.max_cycles,
+                                  state=args.state, kernels=args.kernels, device=args.device)
+    checkpoints = None
+    if args.checkpoint:
+        from .utils.checkpoint import CheckpointManager
+
+        checkpoints = CheckpointManager(args.checkpoint)
+    rep = solver.solve(args.tol, checkpoints=checkpoints)
+    print()
+    print("===== Final Result =====")
+    if rep.error_vs_analytic is not None:
+        print(f"    Error = {rep.error_vs_analytic:e}")
+    print(f"Relative residual = {rep.rel_residual:.3e} ({rep.cycles} refinement cycles)")
+    print(f"Time Used = {rep.wall_time_s * 1e3:.3f} (ms)")
+    if not args.no_output:
+        out = args.output or (solution_filename(cycle_path, prefix) + ".npz")
+        np.savez_compressed(out, u=rep.u.cpu().numpy(), u_lo=rep.u_lo.cpu().numpy())
+        print(f"Output file name = {out}")
+    return 0
+
+
 def _run_3d(program, config, args, cycle_path, prefix) -> int:
     """--dim 3: the same parsed schedule through the 3-D engines."""
     import numpy as np
@@ -155,12 +189,9 @@ def _run_3d(program, config, args, cycle_path, prefix) -> int:
         print(f"[ ERROR ]: unknown 3-D problem {args.problem!r} "
               f"(choose from {sorted(BUILTIN_PROBLEMS_3D)})", file=sys.stderr)
         return 1
-    if args.tol is not None:
-        print("[ ERROR ]: --dim 3 --tol (3-D iterative refinement) is not yet ported; "
-              "it comes with the next 3-D slice (ROADMAP Queue 1, item 10: refine3 and "
-              "its multi-word residual kernel)", file=sys.stderr)
-        return 1
     problem = BUILTIN_PROBLEMS_3D[args.problem]
+    if args.tol is not None:
+        return _run_refine3(problem, program, args, cycle_path, prefix)
     engine = args.engine
     if engine == "auto":
         engine = "interpreted" if (args.stats or not args.quiet) else "compiled"

@@ -194,16 +194,16 @@ def _match_chain(instructions, i: int, n0: int, cfg: SolverConfig, use_kernels: 
     return tuple(sizes), tuple(pre), tuple(reversed(post)), solve_ins, j
 
 
-def _batched_trigger(u, f, h: float, cfg: SolverConfig, batch: int, prev, k: int):
-    """Trigger passes of ``batch`` sweeps (``fused_jacobi_errs``) after ``k``
-    sweeps whose last error is ``prev``, until a pass holds a sweep whose
-    slope is within the trigger or ``max_trigger_sweeps`` is reached; the
-    stop rule is replayed over each pass's error vector (JAX's
-    ``batch_step``). The iterate is the pass's last, up to batch − 1 sweeps
-    past the stop sweep; the error is that of the stop sweep. One host read
-    per pass. Returns (u, err, sweeps run)."""
+def _batched_trigger(passes, u, cfg: SolverConfig, batch: int, prev, k: int):
+    """Trigger passes of ``batch`` sweeps (``passes(u) -> (u, errs)``, the
+    per-sweep error mode of the smoother) after ``k`` sweeps whose last error
+    is ``prev``, until a pass holds a sweep whose slope is within the trigger
+    or ``max_trigger_sweeps`` is reached; the stop rule is replayed over each
+    pass's error vector (JAX's ``batch_step``). The iterate is the pass's
+    last, up to batch − 1 sweeps past the stop sweep; the error is that of
+    the stop sweep. One host read per pass. Returns (u, err, sweeps run)."""
     while True:
-        u, errs = K.fused_jacobi_errs(u, f, h, batch, cfg.omega, cfg.compat_error)
+        u, errs = passes(u)
         k += batch
         stop = torch.abs(errs - torch.cat([prev.reshape(1), errs[:-1]])) <= cfg.trigger
         if bool(stop.any()):
@@ -211,6 +211,30 @@ def _batched_trigger(u, f, h: float, cfg: SolverConfig, batch: int, prev, k: int
         prev = errs[-1]
         if k >= cfg.max_trigger_sweeps:
             return u, prev, k
+
+
+def _first_pass_trigger(passes, u, cfg: SolverConfig, batch: int):
+    """An integer ``trigger_batch > 1``: batched passes from the first sweep,
+    whose slope is never tested (prev = +inf masks it)."""
+    inf = torch.full((), math.inf, dtype=u.dtype, device=u.device)
+    return _batched_trigger(passes, u, cfg, batch, inf, 0)
+
+
+def _two_phase_trigger(step, passes, u, cfg: SolverConfig, batch: int):
+    """``trigger_batch="auto"``: the first 2B sweeps one at a time (``step``),
+    so a level that stops within them is the trigger_batch=1 loop bit for
+    bit; one still running continues in B-sweep passes. Returns (u, err,
+    sweeps run)."""
+    warm = min(2 * batch, cfg.max_trigger_sweeps)
+    u, err = step(u)
+    k, above = 1, True
+    while above and k < warm:
+        u, new_err = step(u)
+        above = bool(torch.abs(new_err - err) > cfg.trigger)
+        err, k = new_err, k + 1
+    if not above or k >= cfg.max_trigger_sweeps:
+        return u, err, k
+    return _batched_trigger(passes, u, cfg, batch, err, k)
 
 
 def _trigger_smooth(u, f, h: float, n: int, cfg: SolverConfig, use_kernels: bool):
@@ -223,16 +247,20 @@ def _trigger_smooth(u, f, h: float, n: int, cfg: SolverConfig, use_kernels: bool
         if use_kernels and (K.trigger_fits(n) or K.trigger_stream_fits(n)):
             loop = K.trigger_smooth if K.trigger_fits(n) else K.trigger_smooth_stream
             return loop(u, f, h, cfg.omega, cfg.compat_error, cfg.trigger, max_sweeps)
+        batch = K.errs_sweep_cap(cfg.compat_error)
         if use_kernels and isinstance(cfg.trigger_batch, int) and cfg.trigger_batch > 1:
-            # the first pass has no slope at sweep 1: prev = +inf masks it
-            batch = min(cfg.trigger_batch, K.errs_sweep_cap(cfg.compat_error))
-            inf = torch.full((), math.inf, dtype=f.dtype, device=f.device)
-            return _batched_trigger(u, f, h, cfg, batch, inf, 0)
+            batch = min(cfg.trigger_batch, batch)
         fused = K.fused_jacobi_err if use_kernels else K.fused_jacobi_err_torch
         auto = use_kernels and cfg.trigger_batch == "auto"
 
         def step(v):
             return fused(v, f, h, 1, cfg.omega, cfg.compat_error)
+
+        def passes(v):
+            return K.fused_jacobi_errs(v, f, h, batch, cfg.omega, cfg.compat_error)
+
+        if use_kernels and isinstance(cfg.trigger_batch, int) and cfg.trigger_batch > 1:
+            return _first_pass_trigger(passes, u, cfg, batch)
     elif use_kernels and cfg.compat_error != "gpu":
         def step(v):
             return K.fused_rbgs_err(v, f, h, 1, cfg.compat_error)
@@ -246,20 +274,7 @@ def _trigger_smooth(u, f, h: float, n: int, cfg: SolverConfig, use_kernels: bool
             return v_new, stencils.smoothing_error(v_new, f, h, compat=cfg.compat_error)
     if not auto:
         return trigger_loop(step, u, cfg.trigger, max_sweeps)
-    # "auto": first 2B exact sweeps, so a level that stops within them is the
-    # trigger_batch=1 loop bit for bit; one still running continues in
-    # B-sweep passes
-    batch = K.errs_sweep_cap(cfg.compat_error)
-    warm = min(2 * batch, max_sweeps)
-    u, err = step(u)
-    k, above = 1, True
-    while above and k < warm:
-        u, new_err = step(u)
-        above = bool(torch.abs(new_err - err) > cfg.trigger)
-        err, k = new_err, k + 1
-    if not above or k >= max_sweeps:
-        return u, err, k
-    return _batched_trigger(u, f, h, cfg, batch, err, k)
+    return _two_phase_trigger(step, passes, u, cfg, batch)
 
 
 def _smooth(u, f, h: float, n: int, steps: int, cfg: SolverConfig, want_err: bool,

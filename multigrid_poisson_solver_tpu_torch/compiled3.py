@@ -25,11 +25,21 @@ with the Jacobi smoother:
     and runs at most 7 sweeps (else one residual pass at the last node);
     else the prolongation and add, then smoothing.
 
+A trigger node (``steps == -1``) on the kernel path at 65³ or more runs
+JAX's tiers in JAX's order (``_trigger_p``): its whole loop as one kernel
+where ``trigger3_fits`` (up to about 170³: 129³, 65³), or as the streamed
+whole-loop kernel where ``trigger3_stream_fits`` (the 257³ class); with an
+integer ``trigger_batch > 1`` passes of min(batch, ``errs3_sweep_cap``)
+sweeps with the error of every iterate (``fused_jacobi3_errs``), the stop
+rule replayed over them, overshooting the stop sweep by up to B − 1 sweeps;
+with ``"auto"`` 2B exact sweeps first, then such passes; with 1 the exact
+loop of one-sweep error launches (``trigger_step3``) and one host stop test
+per sweep. All of them measure the error with one tile plan
+(``ops.kernels3.err_plan3``), so the exact tiers stop where the one-sweep
+loop stops, bit for bit.
+
 Smaller levels, rb-GS, non-2:1 transfers and the coarse solves run the
-oracle ops. A trigger node (``steps == -1``) on the kernel path at 65³ or
-more raises ``NotImplementedError``: JAX runs it as its whole-loop trigger
-kernels or the smoother's per-sweep-error mode, which the next slice of the
-port brings (ROADMAP). The plain path runs trigger nodes as
+oracle ops; so does every trigger node on the plain path, as
 ``models.poisson3d.trigger_smooth3`` does.
 """
 
@@ -37,7 +47,7 @@ from __future__ import annotations
 
 import torch
 
-from .compiled import _check_ported, _use_kernels
+from .compiled import _check_ported, _first_pass_trigger, _two_phase_trigger, _use_kernels
 from .grid import GridSpec
 from .models import poisson3d as p3
 from .models.poisson3d import KERNEL3_MIN_N, Problem3D
@@ -45,19 +55,41 @@ from .ops import kernels3 as K3
 from .ops import transfers3 as T3
 from .ops.zoom import zoom3
 from .schedule import Ascend, CoarseSolve, CycleProgram, Descend
-from .solver import SolverConfig
+from .solver import SolverConfig, trigger_loop
 from .solver3 import _prolong_add3, _restrict_residual3, coarse_solve3, smooth3_node
 
-TRIGGER3_NOT_PORTED = (
-    "a trigger node (steps == -1) on a level of {n}³ on the 3-D kernel path needs the "
-    "whole-loop trigger kernels and the smoother's per-sweep-error mode, which are not "
-    "yet ported (ROADMAP Queue 1, item 10: the next 3-D slice); use kernels='torch'")
+
+def _trigger_p(lu, lf, n: int, h: float, cfg: SolverConfig, compat: str):
+    """A Jacobi trigger node on the kernel path (JAX's ``trigger_p``, single
+    device): (u, err, sweeps run), routed as in the module docstring."""
+    args = (cfg.omega, compat, cfg.trigger, cfg.max_trigger_sweeps)
+    if K3.trigger3_fits(n):
+        return K3.trigger_smooth3(lu, lf, h, *args)
+    if K3.trigger3_stream_fits(n):
+        return K3.trigger_smooth3_stream(lu, lf, h, *args)
+    batch = K3.errs3_sweep_cap(compat)
+    if isinstance(cfg.trigger_batch, int) and cfg.trigger_batch > 1:
+        batch = min(cfg.trigger_batch, batch)
+
+    def step(v):
+        return K3.trigger_step3(v, lf, h, cfg.omega, compat)
+
+    def passes(v):
+        return K3.fused_jacobi3_errs(v, lf, h, batch, cfg.omega, compat)
+
+    if isinstance(cfg.trigger_batch, int) and cfg.trigger_batch > 1:
+        return _first_pass_trigger(passes, lu, cfg, batch)
+    if cfg.trigger_batch == "auto":
+        return _two_phase_trigger(step, passes, lu, cfg, batch)
+    return trigger_loop(step, lu, cfg.trigger, cfg.max_trigger_sweeps)
 
 
 def _run3(u0, f0, program: CycleProgram, problem: Problem3D, cfg: SolverConfig,
-          device: torch.device, warm: bool, use_kernels: bool):
+          device: torch.device, warm: bool, use_kernels: bool, trigger_sweeps=None):
     """Walk the instruction sequence. Returns (u, last_err): the last level's
-    iterate and the error of the most recent node that measured one."""
+    iterate and the error of the most recent node that measured one;
+    ``trigger_sweeps``, when a list, receives (n, sweeps run) of every
+    trigger node."""
     compat = "gpu" if cfg.compat_error == "gpu" else "clean"
     jacobi = cfg.smoother == "jacobi"
     last_ins = program.instructions[-1]
@@ -76,8 +108,12 @@ def _run3(u0, f0, program: CycleProgram, problem: Problem3D, cfg: SolverConfig,
     def smooth(lu, lf, n, h, steps):
         """(u, err); the kernel path's passes as in the module docstring."""
         fast = use_kernels and n >= KERNEL3_MIN_N and jacobi
-        if steps == -1 and fast:
-            raise NotImplementedError(TRIGGER3_NOT_PORTED.format(n=n))
+        if steps == -1:
+            lu, err, sweeps = (_trigger_p(lu, lf, n, h, cfg, compat) if fast
+                               else smooth3_node(lu, lf, h, steps, cfg))
+            if trigger_sweeps is not None:
+                trigger_sweeps.append((n, int(sweeps)))
+            return lu, err
         if not (fast and steps >= 1):
             return smooth3_node(lu, lf, h, steps, cfg)[:2]
         k, err = steps, None
@@ -183,7 +219,12 @@ class CompiledCycle3:
     the object runs the program once and returns ``(u, err)``. With
     ``warm=False`` (the default, or per call) every run resets the finest
     iterate's interior first; ``warm=True`` continues from the given u (the
-    reference's init flag). Arguments are never modified."""
+    reference's init flag). Arguments are never modified.
+
+    Set ``trigger_sweeps`` to a list to have every trigger node append
+    ``(n, sweeps run)`` to it (one read from the device per node)."""
+
+    trigger_sweeps = None
 
     def __init__(self, program: CycleProgram, problem: Problem3D,
                  config: SolverConfig = SolverConfig(), device="cuda", warm: bool = False):
@@ -208,7 +249,7 @@ class CompiledCycle3:
 
     def __call__(self, u, f, warm=None):
         return _run3(u, f, self.program, self.problem, self.config, self.device,
-                     self.warm if warm is None else warm, self.use_kernels)
+                     self.warm if warm is None else warm, self.use_kernels, self.trigger_sweeps)
 
     def iterate(self, cycles: int):
         """``fn(u0, f) -> u``: one cold run, then ``cycles − 1`` warm ones."""

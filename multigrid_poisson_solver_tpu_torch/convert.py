@@ -108,12 +108,19 @@ def problem_from_jax_grids(jproblem, jspec) -> Problem:
                    analytic=analytic, name=f"{jproblem.name}-grids")
 
 
+def words3_from_jax(words, n: int, device="cpu") -> tuple[torch.Tensor, ...]:
+    """The (n, n, n) words of a JAX 3-D refinement state (df32 / tw32, each
+    word in the padded brick layout)."""
+    return tuple(grid3_from_jax(w, n, device) for w in words)
+
+
 def problem3_from_jax_grids(jproblem) -> Problem3D:
     """A 3-D problem whose grids are the JAX ``Problem3D``'s, value for value,
     at every size and float dtype it is asked for (torch's and XLA's fp32
     ``sin`` differ by an ulp at some points, which moves fp32 comparisons of
     whole solves). Each field evaluates the JAX problem's grid of the size
-    and dtype of the coordinates it is handed."""
+    and dtype of the coordinates it is handed. It keeps the JAX problem's
+    name, which a 3-D refinement checkpoint's fingerprint carries."""
     def field(kind):
         def fn(x, y, z):
             dtype = np.float64 if x.dtype == torch.float64 else np.float32
@@ -123,7 +130,7 @@ def problem3_from_jax_grids(jproblem) -> Problem3D:
 
     analytic = field("analytic_grid") if jproblem.analytic is not None else None
     return Problem3D(source=field("source_grid"), boundary=field("boundary_grid"),
-                     analytic=analytic, name=f"{jproblem.name}-grids")
+                     analytic=analytic, name=jproblem.name)
 
 
 def problem_from_jax(name: str) -> Problem:

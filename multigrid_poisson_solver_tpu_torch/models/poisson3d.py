@@ -76,11 +76,24 @@ def redblack_gs_sweep3(u: torch.Tensor, f: torch.Tensor, h: float) -> torch.Tens
     return half(half(u, even), 1.0 - even)
 
 
+def error_scale3(compat: str, n: int, h: float) -> float:
+    """The factor from Σ|r| (clean) or Σ|U_new − U_old| (gpu) to the metric."""
+    return (6.0 / (h * h) if compat == "gpu" else 1.0) / n ** 3
+
+
+def _sum64(terms: torch.Tensor, scale: float, dtype) -> torch.Tensor:
+    """Σ terms·scale in float64, rounded to ``dtype`` once. An fp32 sum's
+    value depends on its order by ~1e-6 relative, enough to flip a trigger
+    loop's stop where a slope ends near the threshold; this one hardly
+    depends on it, and the 3-D kernels sum their errors alike."""
+    return (torch.sum(terms, dtype=torch.float64) * scale).to(dtype)
+
+
 def smoothing_error3(u: torch.Tensor, f: torch.Tensor, h: float) -> torch.Tensor:
     """Mean |residual| over all n³ points (the clean metric)."""
     n = u.shape[0]
     r = residual3(u, f, h)
-    return torch.sum(torch.abs(r[1:-1, 1:-1, 1:-1])) / (n ** 3)
+    return _sum64(torch.abs(r[1:-1, 1:-1, 1:-1]), error_scale3("clean", n, h), u.dtype)
 
 
 def gpu_smoothing_error3(u_new: torch.Tensor, u_old: torch.Tensor,
@@ -89,7 +102,7 @@ def gpu_smoothing_error3(u_new: torch.Tensor, u_old: torch.Tensor,
     metric one dimension up)."""
     n = u_new.shape[0]
     d = torch.abs(u_new[1:-1, 1:-1, 1:-1] - u_old[1:-1, 1:-1, 1:-1])
-    return torch.sum(d) * (6.0 / (h * h)) / (n ** 3)
+    return _sum64(d, error_scale3("gpu", n, h), u_new.dtype)
 
 
 def _sweep_fn(smoother: str, omega: float):

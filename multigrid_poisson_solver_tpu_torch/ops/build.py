@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signatures of the entry points (pointers and the stream as void*).
 SIGNATURES = {
     "mg_num_tiles": ([_I], _I),
@@ -48,11 +49,17 @@ SIGNATURES = {
     "mg_trigger": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P], _I),
     "mg_trigger_stream": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I,
                            _P], _I),
-    "mg3_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
-    "mg3_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+    "mg3_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D, _P], _I),
+    "mg3_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D,
                      _P], _I),
-    "mg3_ascend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P], _I),
+    "mg3_ascend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D, _P], _I),
     "mg3_residual": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
+    "mg3_jacobi_errs": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D, _P], _I),
+    "mg3_trigger": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _D, _F, _I,
+                     _P], _I),
+    "mg3_trigger_stream": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D,
+                            _F, _I, _P], _I),
+    "mg3_residual_mw": ([_P, _P, _P, _P, _P, _I, _I, _F, _P], _I),
 }
 
 _lib = None

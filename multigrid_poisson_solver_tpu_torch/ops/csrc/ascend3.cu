@@ -14,7 +14,7 @@
 // from the coarse grid directly (even points copy, odd ones average two,
 // four or eight coarse values, along z, then y, then x), so the fine
 // correction never exists in device memory. The halo is k (+1 for the clean
-// error's Δ stage).
+// error's extra stencil read).
 #include "legs3.cuh"
 
 using namespace mgk3;
@@ -26,12 +26,12 @@ static __global__ void __launch_bounds__(THREADS3) ascend3_kernel(Leg3 L) {
 
 // u plus the prolonged m^3 correction c on the interior of the n^3 level
 // (n = 2m − 1), then steps <= 8 sweeps into out. err_mode ERR_NONE or
-// ERR_CLEAN (steps <= 7; partials one float per block, err_out[0] the metric
+// ERR_CLEAN (steps <= 7; partials one double per block, err_out[0] the metric
 // times err_scale).
 extern "C" int mg3_ascend(const float* u, const float* f, const float* c, float* out,
-                          float* partials, float* err_out, int n, int steps, int err_mode,
-                          int ty, int tx, int cz, float h2, float w, float err_scale,
-                          void* stream) {
+                          double* partials, float* err_out, int n, int steps, int err_mode,
+                          int ty, int tx, int cz, float h2, float w, float inv_h2,
+                          double err_scale, void* stream) {
   if (steps < 1 || steps > MAX_STEPS3 || n % 2 == 0 ||
       (err_mode != ERR_NONE && err_mode != ERR_CLEAN))
     return (int)cudaErrorInvalidValue;
@@ -43,7 +43,7 @@ extern "C" int mg3_ascend(const float* u, const float* f, const float* c, float*
   L.partials = err_mode == ERR_NONE ? nullptr : partials;
   L.n = n;
   L.sweeps = steps;
-  L.last = err_mode == ERR_CLEAN ? DELTA : -1;
+  L.last = err_mode == ERR_CLEAN ? EXTRA : -1;
   L.err_mode = err_mode;
   L.restrict_mode = R_NONE;
   L.ty = ty;
@@ -52,6 +52,7 @@ extern "C" int mg3_ascend(const float* u, const float* f, const float* c, float*
   L.halo = leg3_stages(L);
   L.h2 = h2;
   L.w = w;
+  L.inv_h2 = inv_h2;
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t e = launch_leg3(ascend3_kernel, L, s);
   if (e != cudaSuccess) return (int)e;

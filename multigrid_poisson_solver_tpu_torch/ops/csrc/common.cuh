@@ -218,13 +218,15 @@ static inline cudaError_t launch_error_sum(const float* partials, int count, flo
   return cudaGetLastError();
 }
 
-// Launch a persistent kernel: as many blocks as can be resident at once (at
-// most `tiles`), each walking tiles t = blockIdx.x, + gridDim.x, ..., with
+// Launch a persistent kernel: as many blocks of `block` threads as can be
+// resident at once (the occupancy at `smem` bytes of dynamic shared memory,
+// at most `tiles`), each walking tiles t = blockIdx.x, + gridDim.x, ..., with
 // cooperative_groups grid barriers between phases. A cooperative launch
 // fails instead of hanging when the blocks cannot all be resident.
 template <typename Args>
 static cudaError_t launch_persistent(void (*kernel)(Args), const Args& args, size_t smem,
-                                     int tiles, cudaStream_t stream) {
+                                     int tiles, cudaStream_t stream,
+                                     dim3 block = dim3(BLOCK_X, BLOCK_Y)) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -232,14 +234,15 @@ static cudaError_t launch_persistent(void (*kernel)(Args), const Args& args, siz
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+  const int threads = (int)(block.x * block.y * block.z);
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
       cudaSuccess)
     return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int blocks = per_sm * sms < tiles ? per_sm * sms : tiles;
   void* params[] = {const_cast<Args*>(&args)};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(BLOCK_X, BLOCK_Y),
-                                  params, smem, stream);
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), block, params, smem,
+                                  stream);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 

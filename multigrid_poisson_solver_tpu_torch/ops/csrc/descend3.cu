@@ -13,13 +13,13 @@
 // fine point for the whole leg, against 12 B per sweep plus 12 for the
 // residual and more for the restriction as separate passes. Design: the
 // 2.5-D pipeline of legs3.cuh with one stage more than the sweeps, which
-// reads the final iterate's neighbors once for both the clean error (Σ|Δ| of
-// a further sweep, the TPU kernel's extra-sweep identity) and −r, which lands
-// in that stage's ring of three planes; each coarse plane K is formed from
-// fine planes 2K − 1 .. 2K + 1 as soon as they are there. −r is the direct
-// stencil (the TPU kernel takes it from Δ as 6Δ/(ωh²)): that way a cycle on
-// the kernels keeps the plain cycle's iterates, where the Δ form drifted
-// 1.04e-5·max|u| from them in four 513³ cycles. Tiles, chunks and their
+// reads the final iterate's neighbors once for both the clean error (Σ|r|)
+// and −r, which lands in that stage's ring of three planes; each coarse
+// plane K is formed from fine planes 2K − 1 .. 2K + 1 as soon as they are
+// there. r is the direct stencil (the TPU kernel takes it from the step Δ of
+// a further sweep as 6Δ/(ωh²)): that way a cycle on the kernels keeps the
+// plain cycle's iterates, where the Δ form drifted 1.04e-5·max|u| from them
+// in four 513³ cycles. Tiles, chunks and their
 // origins are even, so a block's fine
 // tile is exactly a tile of coarse points and no exchange is needed. The
 // halo is k + 1 (+1 for full weighting). Coarse boundary points are 0.
@@ -34,11 +34,11 @@ static __global__ void __launch_bounds__(THREADS3) descend3_kernel(Leg3 L) {
 
 // steps sweeps of the n^3 level (n = 2m − 1; u unread when from_zero) into
 // out, the restricted −r into the m^3 fc. want_err: the clean error, with
-// partials holding one float per block, into err_out[0] (times err_scale).
+// partials holding one double per block, into err_out[0] (times err_scale).
 extern "C" int mg3_descend(const float* u, const float* f, float* out, float* fc,
-                           float* partials, float* err_out, int n, int steps, int from_zero,
+                           double* partials, float* err_out, int n, int steps, int from_zero,
                            int full_weighting, int want_err, int ty, int tx, int cz, float h2,
-                           float w, float inv_h2, float err_scale, void* stream) {
+                           float w, float inv_h2, double err_scale, void* stream) {
   const int sweeps = steps - (from_zero ? 1 : 0);
   if (steps < 1 || sweeps > (full_weighting ? 6 : 7) || n % 2 == 0)
     return (int)cudaErrorInvalidValue;
@@ -50,7 +50,7 @@ extern "C" int mg3_descend(const float* u, const float* f, float* out, float* fc
   L.partials = want_err ? partials : nullptr;
   L.n = n;
   L.sweeps = sweeps;
-  L.last = DELTA;
+  L.last = EXTRA;
   L.err_mode = want_err ? ERR_CLEAN : ERR_NONE;
   L.restrict_mode = full_weighting ? R_FW : R_SAMPLING;
   L.ty = ty;

@@ -14,18 +14,38 @@
 // trapezoidal bricks, with z streamed instead of held. Cells and planes outside
 // the grid load as 0; they and the Dirichlet faces are frozen.
 //
-// Stages: SWEEP (one damped-Jacobi sweep), DELTA (read by the final iterate:
-// the step Δ = (ω/6)·((Σnb − 6u) − h²f) a further sweep would take, whose
-// Σ|Δ| over the owned interior cells is the clean error up to the factor
-// 6/(ωh²), the TPU kernels' extra-sweep identity; and −r, which the descend
-// leg restricts) and RESID (the residual (1/h²)(Σnb − 6u) − f, optionally
-// negated). −r is the direct stencil, the plain path's own arithmetic, so a
-// cycle on the kernels reproduces the plain cycle's iterates.
+// Stages: SWEEP (one damped-Jacobi sweep), EXTRA (one more stencil read of
+// the final iterate: its −r, which the descend leg restricts, and its clean
+// error) and RESID (the residual (1/h²)(Σnb − 6u) − f, optionally negated).
+// The residual is the direct stencil, the plain path's own arithmetic (the
+// TPU kernels take it from the step Δ of a further sweep as 6Δ/(ωh²)), so a
+// cycle on the kernels reproduces the plain cycle's iterates. The clean error
+// of an iterate is Σ|r| over the owned interior cells, r in the same
+// arithmetic, taken by the stage that reads the iterate: EXTRA for the final
+// one, and with per_sweep the SWEEP stages for the earlier ones.
 //
 // Arithmetic uses the round-to-nearest intrinsics in the plain twins'
 // operation order (ops/kernels3.py), so a kernel reproduces its twin bit for
-// bit; the error partials are summed per block, then by a second one-block
-// kernel in a fixed order (no atomics).
+// bit. The error is summed in float64 and rounded to fp32 once, after the
+// scale (the twins: torch.sum(·, dtype=float64)), so its value hardly
+// depends on the summation order: a trigger loop's stop sweep is the same on
+// the kernels, on the twins and on the plain path, where fp32 sums in two
+// orders can flip a near-threshold slope after a thousand sweeps. The
+// partials are summed per block, then by a second one-block kernel in a fixed
+// order (no atomics). A block's partial depends only on the tile plan (ty,
+// tx, cz), not on the pipeline: each thread sums the owned cells idx ≡ tid
+// (mod THREADS3) of a plane, the planes in z order, whichever stage produced
+// them. So every launch of a trigger loop, which all use one plan
+// (ops.kernels3.err_plan3, the deepest per-sweep pass's), reports the error
+// of an iterate bit for bit alike: a one-sweep launch, a pass with the error
+// of every iterate (per_sweep) and the persistent trigger loops (trigger3.cu,
+// trigger3_stream.cu), which walk the same blocks with run_leg3_at.
+//
+// The pipeline is a template on the number of error slots it carries in
+// registers (1, or MAX_STEPS3 for per_sweep) and on how it reads the grids:
+// the persistent kernels read, after a grid barrier, iterates other blocks
+// wrote in the same launch, so they load through __ldcg (L2 only); the
+// one-launch kernels through the read-only cache.
 #pragma once
 
 #include "common.cuh"
@@ -46,7 +66,7 @@ constexpr int THREADS3 = BLOCK_X * BLOCK3_Y;
 // and the store to shared memory (plane <= PREF3 * THREADS3)
 constexpr int PREF3 = 6;
 
-enum StageKind { SWEEP = 0, DELTA = 1, RESID = 2 };
+enum StageKind { SWEEP = 0, EXTRA = 1, RESID = 2 };
 enum RestrictMode { R_NONE = 0, R_SAMPLING = 1, R_FW = 2 };
 
 struct Leg3 {
@@ -55,13 +75,15 @@ struct Leg3 {
   const float* c;   // ascend: the m^3 coarse correction added on the interior
   float* out;       // the stored level: the final iterate, or the residual
   float* fc;        // descend: the m^3 restricted −r
-  float* partials;  // one error partial per block, or nullptr
+  double* partials; // one error partial per block (per_sweep: a row of them per
+                    // iterate, row s − 1 for iterate s), or nullptr
   int n;
   int sweeps;       // SWEEP stages
-  int last;         // -1, or DELTA / RESID: one more stage after the sweeps
-  int err_mode;     // ERR_NONE, ERR_CLEAN (needs the DELTA stage) or ERR_GPU
+  int last;         // -1, or EXTRA / RESID: one more stage after the sweeps
+  int err_mode;     // ERR_NONE, ERR_CLEAN (needs the EXTRA stage) or ERR_GPU
   int restrict_mode;
   int negate;       // RESID: store −r
+  int per_sweep;    // with an error: the error of every iterate, not the last's
   int ty, tx, cz, halo;
   float h2, w, inv_h2;  // h², ω/6, 1/h²
 };
@@ -73,6 +95,30 @@ static __host__ __device__ __forceinline__ int leg3_stages(const Leg3& L) {
 // f and S + 1 rings of three planes, f's ring S + 1 planes deep.
 static inline size_t leg3_smem(int stages, int halo, int ty, int tx) {
   return (size_t)4 * (stages + 1) * sizeof(float) * (ty + 2 * halo) * (tx + 2 * halo);
+}
+
+// A block's column tile and z chunk: (x, y) tile, z chunk.
+struct Blk {
+  int x, y, z;
+};
+
+static __host__ __device__ __forceinline__ int leg3_gx(const Leg3& L) {
+  return (L.n + L.tx - 1) / L.tx;
+}
+static __host__ __device__ __forceinline__ int leg3_gy(const Leg3& L) {
+  return (L.n + L.ty - 1) / L.ty;
+}
+static __host__ __device__ __forceinline__ int leg3_gz(const Leg3& L) {
+  return (L.n + L.cz - 1) / L.cz;
+}
+static __host__ __device__ __forceinline__ int leg3_blocks(const Leg3& L) {
+  return leg3_gx(L) * leg3_gy(L) * leg3_gz(L);
+}
+
+// Block t of the row-major (z, y, x) numbering the partials use.
+static __device__ __forceinline__ Blk leg3_blk(const Leg3& L, int t) {
+  const int gx = leg3_gx(L), gy = leg3_gy(L);
+  return Blk{t % gx, (t / gx) % gy, t / (gx * gy)};
 }
 
 static __device__ __forceinline__ size_t gidx3(int n, int z, int y, int x) {
@@ -111,10 +157,22 @@ static __device__ __forceinline__ float lap_sum(const float* a, const float* am,
   return __fsub_rn(nb, __fmul_rn(6.0f, a[k]));
 }
 
-// One stage over the staged plane p shrunk by s cells per side.
+// The step a sweep takes at cell k from level a: (ω/6)·((Σnb − 6u) − h²f).
+static __device__ __forceinline__ float delta_at(const Leg3& L, const float* a, const float* am,
+                                                 const float* ap, const float* fp, int k,
+                                                 int cols) {
+  return __fmul_rn(L.w, __fsub_rn(lap_sum(a, am, ap, k, cols), __fmul_rn(L.h2, fp[k])));
+}
+
+// One stage over the staged plane p shrunk by s cells per side. The EXTRA
+// stage writes a plane only for the descend leg (its −r), and then adds the
+// owned interior cells' |r| to *err when it is given (the descend leg's error
+// is no part of a trigger loop, so the order of its sum need not be
+// err_plane's); every other error is taken by err_plane.
 static __device__ void run_stage(const Leg3& L, int kind, int s, int p, const float* a,
                                  const float* am, const float* ap, const float* fp, float* o,
-                                 int rows, int cols, int gr0, int gc0, bool zown, float& acc) {
+                                 int rows, int cols, int gr0, int gc0, double* err) {
+  if (kind == EXTRA && L.restrict_mode == R_NONE) return;
   const int n = L.n, H = L.halo;
   const int cw = cols - 2 * s, total = (rows - 2 * s) * cw;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
@@ -132,14 +190,12 @@ static __device__ void run_stage(const Leg3& L, int kind, int s, int p, const fl
         const float incr = __fsub_rn(lap_sum(a, am, ap, k, cols), __fmul_rn(L.h2, fp[k]));
         v = __fadd_rn(v, __fmul_rn(L.w, incr));
       }
-    } else if (kind == DELTA) {
+    } else if (kind == EXTRA) {  // −r of the final iterate
       v = 0.0f;
       if (in) {
-        const float lap = lap_sum(a, am, ap, k, cols);
-        if (L.err_mode == ERR_CLEAN && zown && i >= H && i < H + L.ty && j >= H &&
-            j < H + L.tx)
-          acc += fabsf(__fmul_rn(L.w, __fsub_rn(lap, __fmul_rn(L.h2, fp[k]))));
-        if (L.restrict_mode != R_NONE) v = -__fsub_rn(__fmul_rn(L.inv_h2, lap), fp[k]);
+        v = -__fsub_rn(__fmul_rn(L.inv_h2, lap_sum(a, am, ap, k, cols)), fp[k]);
+        if (err != nullptr && i >= H && i < H + L.ty && j >= H && j < H + L.tx)
+          *err += (double)fabsf(v);
       }
     } else {  // RESID
       v = 0.0f;
@@ -158,17 +214,63 @@ static __device__ void run_stage(const Leg3& L, int kind, int s, int p, const fl
   }
 }
 
+// This thread's share of the error of the iterate held in level a, over the
+// owned interior cells of plane p (cells idx ≡ tid, in order): Σ|r| (clean;
+// r = (1/h²)(Σnb − 6u) − f, the plain path's residual) or Σ|u' − u| of the
+// sweep from a (gpu; u' = u + Δ as the SWEEP stage forms it).
+static __device__ double err_plane(const Leg3& L, int p, const float* a, const float* am,
+                                   const float* ap, const float* fp, int cols, int gr0,
+                                   int gc0) {
+  const int n = L.n, H = L.halo;
+  double e = 0.0;
+  if (!inner(p, n)) return e;
+  for (int idx = threadIdx.y * BLOCK_X + threadIdx.x; idx < L.ty * L.tx; idx += THREADS3) {
+    const int i = H + idx / L.tx, j = H + idx % L.tx;
+    if (!inner(gr0 + i, n) || !inner(gc0 + j, n)) continue;
+    const int k = i * cols + j;
+    float v;
+    if (L.err_mode == ERR_GPU)
+      v = __fsub_rn(__fadd_rn(a[k], delta_at(L, a, am, ap, fp, k, cols)), a[k]);
+    else
+      v = __fsub_rn(__fmul_rn(L.inv_h2, lap_sum(a, am, ap, k, cols)), fp[k]);
+    e += (double)fabsf(v);
+  }
+  return e;
+}
+
+// The error slot stage s feeds, or -1: per_sweep, clean: stage s reads
+// iterate s − 1 (s >= 2); gpu: stage s makes iterate s. Otherwise the clean
+// error comes from the EXTRA stage, the gpu one from the stored level.
+static __device__ __forceinline__ int err_slot(const Leg3& L, int s, int S) {
+  if (L.partials == nullptr) return -1;
+  if (L.per_sweep) return L.err_mode == ERR_CLEAN ? s - 2 : s - 1;
+  return L.err_mode == ERR_CLEAN && s == S ? 0 : -1;
+}
+
+template <int NSLOT>
+static __device__ __forceinline__ void add_slot(double (&acc)[NSLOT], int slot, double v) {
+#pragma unroll
+  for (int q = 0; q < NSLOT; ++q)
+    if (q == slot) acc[q] += v;
+}
+
+// A grid value: through L2 only in a persistent kernel, else the read-only cache.
+template <bool COHERENT>
+static __device__ __forceinline__ float load_grid(const float* p) {
+  return COHERENT ? __ldcg(p) : __ldg(p);
+}
+
 // Coarse plane K of the descend leg from the −r planes 2K − 1 .. 2K + 1 (the
-// ring of the DELTA stage): full weighting along z, then y, then x, or the
-// even fine point; 0 on the coarse boundary. Covers the block's coarse tile.
-static __device__ void restrict_plane(const Leg3& L, int K, const float* rm, const float* r0,
-                                      const float* rp, int cols) {
+// ring of the EXTRA stage): full weighting along z, then y, then x, or the
+// even fine point; 0 on the coarse boundary. Covers block b's coarse tile.
+static __device__ void restrict_plane(const Leg3& L, const Blk& b, int K, const float* rm,
+                                      const float* r0, const float* rp, int cols) {
   const int n = L.n, m = (n + 1) / 2, H = L.halo;
   const int cty = L.ty / 2, ctx = L.tx / 2;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
   for (int idx = tid; idx < cty * ctx; idx += THREADS3) {
     const int ci = idx / ctx, cj = idx - ci * ctx;
-    const int I = blockIdx.y * cty + ci, J = blockIdx.x * ctx + cj;
+    const int I = b.y * cty + ci, J = b.x * ctx + cj;
     if (I >= m || J >= m) continue;
     float v = 0.0f;
     if (inner(K, m) && inner(I, m) && inner(J, m)) {
@@ -195,25 +297,50 @@ static __device__ void restrict_plane(const Leg3& L, int K, const float* rm, con
   }
 }
 
-// Fixed-order sum over the block (xor-shuffle tree per warp, then one warp
-// over the per-warp sums); the result is valid in thread (0, 0).
-static __device__ float block_sum3(float v) {
-  __shared__ float warp_sums[BLOCK3_Y];
+// Fixed-order float64 sum over the block (xor-shuffle tree per warp, then one
+// warp over the per-warp sums); the result is valid in thread (0, 0).
+static __device__ double block_sum3(double v) {
+  __shared__ double warp_sums[BLOCK3_Y];
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   __syncthreads();
   if (threadIdx.x == 0) warp_sums[threadIdx.y] = v;
   __syncthreads();
-  float total = 0.0f;
+  double total = 0.0;
   if (threadIdx.y == 0) {
-    total = threadIdx.x < BLOCK3_Y ? warp_sums[threadIdx.x] : 0.0f;
+    total = threadIdx.x < BLOCK3_Y ? warp_sums[threadIdx.x] : 0.0;
     for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(0xffffffffu, total, o);
   }
   return total;
 }
 
+// Σ partials[0..count) in a fixed order (thread-strided, then block_sum3),
+// valid in thread (0, 0): the second pass of a one-launch error and every
+// block of a persistent trigger loop sum alike.
+static __device__ double fixed_sum3(const double* partials, int count) {
+  double v = 0.0;
+  for (int i = threadIdx.y * BLOCK_X + threadIdx.x; i < count; i += THREADS3)
+    v += __ldcg(partials + i);
+  return block_sum3(v);
+}
+
+// The metric from the sum of a row of partials: Σ·scale rounded to fp32 once.
+static __device__ __forceinline__ float scaled_error3(double total, double scale) {
+  return __double2float_rn(__dmul_rn(total, scale));
+}
+
+// Second pass of a one-launch error reduction: block b sums row b of the
+// partials (`count` per row) into out[b].
+static __global__ void __launch_bounds__(THREADS3)
+sum_partials3_kernel(const double* __restrict__ partials, int count, double scale,
+                     float* __restrict__ out) {
+  const double total = fixed_sum3(partials + (size_t)blockIdx.x * count, count);
+  if (threadIdx.x == 0 && threadIdx.y == 0) out[blockIdx.x] = scaled_error3(total, scale);
+}
+
 // Issue the device-memory loads of staged plane t (u and f; 0 outside the
 // grid) into registers. They are consumed by store_plane one pipeline step
 // later, so their latency overlaps the stages in between.
+template <bool COHERENT>
 static __device__ __forceinline__ void fetch_plane(const Leg3& L, int t, int cols, int plane,
                                                    int gr0, int gc0, float (&ru)[PREF3],
                                                    float (&rf)[PREF3]) {
@@ -228,8 +355,8 @@ static __device__ __forceinline__ void fetch_plane(const Leg3& L, int t, int col
     float fv = 0.0f, uv = 0.0f;
     if (idx < plane && zin && gi >= 0 && gi < n && gj >= 0 && gj < n) {
       const size_t g = gidx3(n, t, gi, gj);
-      fv = __ldg(L.f + g);
-      if (L.u != nullptr) uv = __ldg(L.u + g);
+      fv = load_grid<COHERENT>(L.f + g);
+      if (L.u != nullptr) uv = load_grid<COHERENT>(L.u + g);
     }
     ru[q] = uv;
     rf[q] = fv;
@@ -263,37 +390,53 @@ static __device__ __forceinline__ void store_plane(const Leg3& L, int t, int col
   }
 }
 
-// The whole leg of block (blockIdx.x, blockIdx.y, blockIdx.z).
-static __device__ void run_leg3(float* smem, const Leg3& L) {
-  const int n = L.n, H = L.halo, m = (n + 1) / 2;
+// The whole leg of block b (of leg3_blocks(L)); the error partials go to
+// L.partials[slot * leg3_blocks(L) + the block's number]. NSLOT: the error
+// slots (MAX_STEPS3 for per_sweep, else 1); COHERENT: a persistent kernel.
+template <int NSLOT, bool COHERENT>
+static __device__ void run_leg3_at(float* smem, const Leg3& L, const Blk& b) {
+  const int n = L.n, H = L.halo;
   const int rows = L.ty + 2 * H, cols = L.tx + 2 * H, plane = rows * cols;
-  const int gr0 = blockIdx.y * L.ty - H, gc0 = blockIdx.x * L.tx - H;
-  const int z0 = blockIdx.z * L.cz, zo_end = min(z0 + L.cz, n);  // owned planes
-  const int zs = z0 - H, ze = z0 + L.cz + H;                      // staged planes
+  const int gr0 = b.y * L.ty - H, gc0 = b.x * L.tx - H;
+  const int z0 = b.z * L.cz, zo_end = min(z0 + L.cz, n);  // owned planes
+  const int zs = z0 - H, ze = z0 + L.cz + H;               // staged planes
   const int S = leg3_stages(L);
-  const int stored = L.last == RESID ? S : L.sweeps;              // level written to out
+  const int stored = L.last == RESID ? S : L.sweeps;       // level written to out
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
   float* const fring = smem + (size_t)3 * (S + 1) * plane;
   auto ring = [&](int level, int p) -> float* {
     return smem + (size_t)(level * 3 + (p - zs) % 3) * plane;
   };
   auto fpl = [&](int p) -> float* { return fring + (size_t)((p - zs) % (S + 1)) * plane; };
-  float acc = 0.0f;
+  double acc[NSLOT];
+#pragma unroll
+  for (int q = 0; q < NSLOT; ++q) acc[q] = 0.0;
+  const bool gpu_stored = L.partials != nullptr && L.err_mode == ERR_GPU && !L.per_sweep;
   float ru[PREF3], rf[PREF3];  // plane t's loads, in flight during step t − 1
-  fetch_plane(L, zs, cols, plane, gr0, gc0, ru, rf);
+  __syncthreads();             // the block's previous leg is done with smem
+  fetch_plane<COHERENT>(L, zs, cols, plane, gr0, gc0, ru, rf);
 
   for (int t = zs; t < ze + S; ++t) {
     // stage plane t; its ring slots last held planes the previous step
     // finished with
     if (t < ze) store_plane(L, t, cols, plane, gr0, gc0, ru, rf, ring(0, t), fpl(t));
     __syncthreads();
-    if (t + 1 < ze) fetch_plane(L, t + 1, cols, plane, gr0, gc0, ru, rf);
+    if (t + 1 < ze) fetch_plane<COHERENT>(L, t + 1, cols, plane, gr0, gc0, ru, rf);
     for (int s = 1; s <= S; ++s) {
       const int p = t - s;
       if (p >= zs + s && p < ze - s) {
         const int kind = s <= L.sweeps ? SWEEP : L.last;
-        run_stage(L, kind, s, p, ring(s - 1, p), ring(s - 1, p - 1), ring(s - 1, p + 1), fpl(p),
-                  ring(s, p), rows, cols, gr0, gc0, p >= z0 && p < zo_end, acc);
+        const float *a = ring(s - 1, p), *am = ring(s - 1, p - 1), *ap = ring(s - 1, p + 1);
+        const int slot = err_slot(L, s, S);
+        const bool own_err = slot >= 0 && p >= z0 && p < zo_end;
+        const bool in_stage = own_err && kind == EXTRA && L.restrict_mode != R_NONE;
+        double e = 0.0;
+        run_stage(L, kind, s, p, a, am, ap, fpl(p), ring(s, p), rows, cols, gr0, gc0,
+                  in_stage ? &e : nullptr);
+        if (own_err) {
+          if (!in_stage) e = err_plane(L, p, a, am, ap, fpl(p), cols, gr0, gc0);
+          add_slot(acc, slot, e);
+        }
       }
       __syncthreads();
     }
@@ -302,15 +445,17 @@ static __device__ void run_leg3(float* smem, const Leg3& L) {
     if (q >= z0 && q < zo_end) {
       const float* src = ring(stored, q);
       const float* prev = stored >= 1 ? ring(stored - 1, q) : nullptr;
+      double e = 0.0;
       for (int idx = tid; idx < L.ty * L.tx; idx += THREADS3) {
         const int i = H + idx / L.tx, j = H + idx % L.tx;
         const int gi = gr0 + i, gj = gc0 + j;
         if (gi >= n || gj >= n) continue;
         const int k = i * cols + j;
         L.out[gidx3(n, q, gi, gj)] = src[k];
-        if (L.err_mode == ERR_GPU && inner(q, n) && inner(gi, n) && inner(gj, n))
-          acc += fabsf(prev ? __fsub_rn(src[k], prev[k]) : src[k]);
+        if (gpu_stored && inner(q, n) && inner(gi, n) && inner(gj, n))
+          e += (double)fabsf(prev ? __fsub_rn(src[k], prev[k]) : src[k]);
       }
+      acc[0] += e;
     }
     // a coarse plane once its fine planes 2K − 1 .. 2K + 1 are in the ring
     if (L.restrict_mode != R_NONE) {
@@ -318,43 +463,62 @@ static __device__ void run_leg3(float* smem, const Leg3& L) {
       const int K = L.restrict_mode == R_FW ? (p - 1) >> 1 : p >> 1;
       const bool ready = L.restrict_mode == R_FW ? (p & 1) : !(p & 1);
       if (ready && 2 * K >= z0 && 2 * K < zo_end)
-        restrict_plane(L, K, ring(S, 2 * K - 1), ring(S, 2 * K), ring(S, 2 * K + 1), cols);
+        restrict_plane(L, b, K, ring(S, 2 * K - 1), ring(S, 2 * K), ring(S, 2 * K + 1), cols);
     }
     __syncthreads();
   }
   if (L.partials != nullptr) {
-    const float total = block_sum3(acc);
-    if (tid == 0)
-      L.partials[(size_t)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = total;
+    const int nslots = L.per_sweep ? L.sweeps : 1, nb = leg3_blocks(L);
+    const int me = (b.z * leg3_gy(L) + b.y) * leg3_gx(L) + b.x;
+#pragma unroll
+    for (int q = 0; q < NSLOT; ++q) {
+      if (q < nslots) {
+        const double total = block_sum3(acc[q]);
+        if (tid == 0) L.partials[(size_t)q * nb + me] = total;
+      }
+    }
   }
+}
+
+// The leg of the block of a one-launch grid (launch_leg3).
+template <int NSLOT = 1>
+static __device__ __forceinline__ void run_leg3(float* smem, const Leg3& L) {
+  run_leg3_at<NSLOT, false>(smem, L, Blk{(int)blockIdx.x, (int)blockIdx.y, (int)blockIdx.z});
+}
+
+// The geometry checks of every launch of the pipeline: cudaSuccess or
+// cudaErrorInvalidValue.
+static inline cudaError_t check_leg3(const Leg3& L) {
+  const int S = leg3_stages(L);
+  if (L.n < 3 || L.ty < 2 || L.tx < 2 || L.cz < 2 || ((L.ty | L.tx | L.cz) & 1) ||
+      L.halo < S || L.halo > MAX_HALO3 || S > MAX_STEPS3 + 1 ||
+      (L.ty + 2 * L.halo) * (L.tx + 2 * L.halo) > PREF3 * THREADS3 ||
+      (L.per_sweep && (L.partials == nullptr || L.sweeps < 1 || L.sweeps > MAX_STEPS3)) ||
+      leg3_smem(S, L.halo, L.ty, L.tx) > SMEM_MAX3)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 // Launch `kernel` over the leg's blocks; the geometry is validated here.
 static inline cudaError_t launch_leg3(void (*kernel)(Leg3), const Leg3& L, cudaStream_t stream) {
-  const int S = leg3_stages(L);
-  if (L.n < 3 || L.ty < 2 || L.tx < 2 || L.cz < 2 || ((L.ty | L.tx | L.cz) & 1) ||
-      L.halo < S || L.halo > MAX_HALO3 || S > MAX_STEPS3 + 1 ||
-      (L.ty + 2 * L.halo) * (L.tx + 2 * L.halo) > PREF3 * THREADS3)
-    return cudaErrorInvalidValue;
-  const size_t smem = leg3_smem(S, L.halo, L.ty, L.tx);
-  if (smem > SMEM_MAX3) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e = check_leg3(L);
   if (e != cudaSuccess) return e;
-  const dim3 grid((L.n + L.tx - 1) / L.tx, (L.n + L.ty - 1) / L.ty, (L.n + L.cz - 1) / L.cz);
+  const size_t smem = leg3_smem(leg3_stages(L), L.halo, L.ty, L.tx);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(leg3_gx(L), leg3_gy(L), leg3_gz(L));
   kernel<<<grid, dim3(BLOCK_X, BLOCK3_Y), smem, stream>>>(L);
   return cudaGetLastError();
 }
 
-static inline int leg3_blocks(const Leg3& L) {
-  return ((L.n + L.tx - 1) / L.tx) * ((L.n + L.ty - 1) / L.ty) * ((L.n + L.cz - 1) / L.cz);
-}
-
-// Sum the block partials in a fixed order and scale them into err_out[0].
-static inline cudaError_t finish_error3(const Leg3& L, float scale, float* err_out,
+// Sum each row of block partials (one, or one per iterate with per_sweep) in
+// a fixed order and scale it into err_out[row].
+static inline cudaError_t finish_error3(const Leg3& L, double scale, float* err_out,
                                         cudaStream_t stream) {
   if (L.partials == nullptr) return cudaSuccess;
-  return launch_error_sum(L.partials, leg3_blocks(L), scale, err_out, stream);
+  sum_partials3_kernel<<<L.per_sweep ? L.sweeps : 1, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(
+      L.partials, leg3_blocks(L), scale, err_out);
+  return cudaGetLastError();
 }
 
 }  // namespace mgk3

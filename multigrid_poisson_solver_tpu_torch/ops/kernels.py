@@ -59,7 +59,8 @@ launches = {"jacobi": 0, "jacobi_errs": 0, "rbgs": 0, "residual": 0, "residual_m
             "descend": 0, "ascend": 0, "chain_descend": 0, "chain_ascend": 0,
             "trigger": 0, "trigger_stream": 0,
             # the 3-D kernels (ops.kernels3)
-            "jacobi3": 0, "descend3": 0, "ascend3": 0, "residual3": 0}
+            "jacobi3": 0, "descend3": 0, "ascend3": 0, "residual3": 0, "jacobi3_errs": 0,
+            "trigger3": 0, "trigger3_stream": 0, "residual_mw3": 0}
 
 
 def reset_launch_counts() -> None:

@@ -11,22 +11,46 @@ reaches:
     ``_fused_descend3_kernel`` and the lane pass ``restrict3_lanes_p``;
   * ``fused_ascend3``: ``csrc/ascend3.cu``, replaces ``_fused_ascend3_kernel``
     and the lane pass ``prolong3_lanes_p``;
-  * ``residual3``: ``csrc/residual3.cu``, replaces ``_residual3_kernel``.
+  * ``residual3``: ``csrc/residual3.cu``, replaces ``_residual3_kernel``;
+  * ``fused_jacobi3_errs``: ``csrc/jacobi3.cu``, ``_fused_jacobi3_kernel``'s
+    per_sweep mode (``fused_jacobi3_errs_padded``: the error of every
+    iterate of a pass); ``trigger_step3``: the same kernel's one-sweep error
+    launch of a trigger loop;
+  * ``trigger_smooth3``: ``csrc/trigger3.cu``, replaces
+    ``_trigger3_vmem_kernel`` (the whole trigger loop, one launch);
+  * ``trigger_smooth3_stream``: ``csrc/trigger3_stream.cu``, replaces
+    ``_trigger3_stream_kernel`` (the same loop in passes of B sweeps);
+  * ``residual_df3``, ``residual_tw3``: ``csrc/residual_mw3.cu``, replaces
+    ``_residual_mw3_kernel`` (the compensated residual of a 2- or 3-word
+    state).
 
-The four share the tile pipeline of ``csrc/legs3.cuh``. The TPU kernels'
-brick geometry (``_brick_geometry``: ×8-row and ×128-lane padding, VMEM
-budgets) has no counterpart: the port's levels are plain contiguous
+All but the last share the tile pipeline of ``csrc/legs3.cuh``. The TPU
+kernels' brick geometry (``_brick_geometry``: ×8-row and ×128-lane padding,
+VMEM budgets) has no counterpart: the port's levels are plain contiguous
 (n, n, n) tensors, and ``plan3`` picks a column tile and a z chunk that fit
-a block's shared memory.
+a block's shared memory. Every launch of a trigger loop uses one plan,
+``err_plan3`` (the deepest per-sweep pass's): the kernels sum a block's
+error cells in an order fixed by the plan alone, so the error of an iterate
+is the same float whether a one-sweep step, a per-sweep pass or a
+whole-loop trigger kernel measured it, and the trigger routes stop at the
+same sweep by construction. (The errors are float64 sums rounded once, so
+launches with other plans report the same float but for a double sum that
+falls within 1e-16 of an fp32 rounding boundary.)
 
 Routing is by the tensors' device and nothing else: CPU tensors run the plain
 twin (``*_torch``, built from ``models.poisson3d``), CUDA tensors launch the
 kernel, and a build or launch failure or an input the kernel does not take
 raises. The twins fix the operation order the kernels follow: the oracle
 ops' (so a cycle on the kernels reproduces the plain cycle's iterates), with
-the clean error taken as the TPU kernels take it, from Δ, the step of one
-more sweep from the final iterate (Σ|r| = 6/(ωh²)·Σ|Δ|). Launches count in
-``ops.kernels.launches``. Every function returns new tensors.
+the clean error Σ|r|/n³ (the TPU kernels take Σ|r| from the step of one
+more sweep, 6/(ωh²)·Σ|Δ|; the port keeps the plain path's residual), every
+error summed in float64 and rounded to the level's dtype once, so the
+kernels, the twins and the plain path measure the same float. The twins of the
+two trigger kernels are one loop of one-sweep twins with a host stop test
+per sweep; the twin of the multi-word residual is ``_residual_mw3_kernel``'s
+arithmetic plus the exact product of hi·h⁻² (``ops.kernels._two_prod``).
+Launches count in ``ops.kernels.launches``. Every function returns new
+tensors.
 """
 
 from __future__ import annotations
@@ -60,6 +84,11 @@ def errs3_sweep_cap(compat) -> int:
     """Sweeps per per-sweep-error pass (``pallas3d.errs3_sweep_cap``): the
     clean metric's extra Δ stage takes one halo ring."""
     return MAX_FUSED_SWEEPS_3D if compat == "gpu" else MAX_FUSED_SWEEPS_3D - 1
+
+
+def _check_compat3(compat) -> None:
+    if compat not in ("clean", "gpu"):
+        raise ValueError(f"unknown error metric {compat!r}; expected 'clean' or 'gpu'")
 
 
 def _padded3(n: int):
@@ -108,6 +137,12 @@ def plan3(n: int, stages: int, halo: int):
     return ty, tx, max(2, cz + cz % 2)
 
 
+def err_plan3(n: int):
+    """The tile plan of every launch of a trigger loop: the deepest per-sweep
+    pass's (8 stages, halo 8), which every shallower pipeline fits."""
+    return plan3(n, MAX_FUSED_SWEEPS_3D, MAX_FUSED_SWEEPS_3D)
+
+
 def blocks3(n: int, ty: int, tx: int, cz: int) -> int:
     return -(-n // tx) * -(-n // ty) * -(-n // cz)
 
@@ -120,17 +155,6 @@ def _sweeps3(u, f, h: float, k: int, omega: float):
     return u
 
 
-def _delta3(u, f, h: float, omega: float):
-    """The interior step of one more sweep from u: (ω/6)·((Σnb − 6u) − h²f)."""
-    c = (slice(1, -1),) * 3
-    return (omega / 6.0) * ((p3._nb_sum3(u) - 6.0 * u[c]) - (h * h) * f[c])
-
-
-def _clean_err3(u, f, h: float, omega: float):
-    n = f.shape[0]
-    return torch.sum(torch.abs(_delta3(u, f, h, omega))) * (6.0 / (omega * h * h) / n ** 3)
-
-
 def fused_jacobi3_torch(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
                         from_zero: bool = False):
     """``steps`` sweeps; ``from_zero``: u is known to be 0 (not read; the
@@ -141,15 +165,13 @@ def fused_jacobi3_torch(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
 def fused_jacobi3_err_torch(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
                             err_mode: str = "clean", from_zero: bool = False):
     """``steps`` sweeps and the error of the result: (u, err). "clean":
-    Σ|Δ|·6/(ωh²)/n³; "gpu": Σ|u_k − u_{k−1}|·6/h²/n³."""
+    Σ|r|/n³; "gpu": Σ|u_k − u_{k−1}|·6/h²/n³ (``models.poisson3d``)."""
     if err_mode == "gpu":
-        n = f.shape[0]
         prev = fused_jacobi3_torch(u, f, h, steps - 1, omega, from_zero)
         fin = p3.jacobi_sweep3(prev, f, h, omega)
-        c = (slice(1, -1),) * 3
-        return fin, torch.sum(torch.abs(fin[c] - prev[c])) * (6.0 / (h * h) / n ** 3)
+        return fin, p3.gpu_smoothing_error3(fin, prev, h)
     fin = fused_jacobi3_torch(u, f, h, steps, omega, from_zero)
-    return fin, _clean_err3(fin, f, h, omega)
+    return fin, p3.smoothing_error3(fin, f, h)
 
 
 def fused_descend3_torch(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
@@ -158,7 +180,7 @@ def fused_descend3_torch(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
     """Sweeps, then the 2:1 restriction of −r: (u, f_coarse, clean err or None)."""
     m = (f.shape[0] + 1) // 2
     u = fused_jacobi3_torch(u, f, h, steps, omega, from_zero)
-    err = _clean_err3(u, f, h, omega) if want_err else None
+    err = p3.smoothing_error3(u, f, h) if want_err else None
     return u, T3.restrict3(-p3.residual3(u, f, h), m, restriction), err
 
 
@@ -166,12 +188,87 @@ def fused_ascend3_torch(u, f, uc, h: float, steps: int, omega: float = 6.0 / 7.0
                         want_err: bool = False):
     """Prolong uc, add it on the interior, post-sweeps: (u, clean err or None)."""
     u = _sweeps3(T3.prolong3_add(u, uc, interior_only=True), f, h, steps, omega)
-    return u, (_clean_err3(u, f, h, omega) if want_err else None)
+    return u, (p3.smoothing_error3(u, f, h) if want_err else None)
 
 
 def residual3_torch(u, f, h: float, negate: bool = False):
     r = p3.residual3(u, f, h)
     return -r if negate else r
+
+
+def fused_jacobi3_errs_torch(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
+                             compat: str = "clean"):
+    """``steps`` sweeps and the error of every iterate: (u, errs), errs[s − 1]
+    the error ``fused_jacobi3_err_torch`` reports after s sweeps."""
+    errs = []
+    for _ in range(steps):
+        prev, u = u, p3.jacobi_sweep3(u, f, h, omega)
+        errs.append(p3.gpu_smoothing_error3(u, prev, h) if compat == "gpu"
+                    else p3.smoothing_error3(u, f, h))
+    return u, torch.stack(errs)
+
+
+def trigger_step3_torch(u, f, h: float, omega: float = 6.0 / 7.0, compat: str = "clean"):
+    return fused_jacobi3_err_torch(u, f, h, 1, omega, compat)
+
+
+def trigger_smooth3_torch(u, f, h: float, omega: float = 6.0 / 7.0, compat: str = "clean",
+                          trigger: float = 0.01, max_sweeps: int = 100_000):
+    """Error-triggered smoothing, one sweep-plus-error step at a time with a
+    host stop test per sweep: (u, err, sweeps). The twin of both whole-loop
+    kernels."""
+    from ..solver import trigger_loop
+
+    u, err, sweeps = trigger_loop(lambda v: trigger_step3_torch(v, f, h, omega, compat), u,
+                                  trigger, max_sweeps)
+    return u, err, torch.tensor(sweeps, dtype=torch.int32, device=f.device)
+
+
+def _dd_chain3(u):
+    """(hi, lo, m) on the interior: hi + lo + m ≈ Σ6 neighbors − 6u, the error
+    word itself compensated (refine3._eft_stencil_sum_dd3: the z pair first,
+    then y−, y+, x−, x+, then six −u terms)."""
+    uc = u[1:-1, 1:-1, 1:-1]
+    hi, lo = K._two_sum(u[:-2, 1:-1, 1:-1], u[2:, 1:-1, 1:-1])
+    lo2 = torch.zeros_like(hi)
+    for term in (u[1:-1, :-2, 1:-1], u[1:-1, 2:, 1:-1], u[1:-1, 1:-1, :-2], u[1:-1, 1:-1, 2:],
+                 -uc, -uc, -uc, -uc, -uc, -uc):
+        hi, e = K._two_sum(hi, term)
+        lo, e2 = K._two_sum(lo, e)
+        lo2 = lo2 + e2
+    hi, e = K._two_sum(hi, lo)
+    lo, e2 = K._two_sum(e, lo2)
+    return hi, lo, e2
+
+
+def residual_mw3_torch(words, f, h: float):
+    """Compensated 7-point residual of a 2- or 3-word fp32 state, 0 off the
+    interior, in the arithmetic of ``_residual_mw3_kernel`` (the combination
+    of ``refine3.residual_tw3``; with two words both get the dd chain). One
+    term more: the rounding error of hi0·h⁻², exact by Dekker's product; it
+    is 0 where h⁻² is a power of two (2^k + 1 grids)."""
+    c = torch.tensor(1.0 / (h * h), dtype=f.dtype, device=f.device)
+    hi0, lo0, m0 = _dd_chain3(words[0])
+    hi1, lo1, m1 = _dd_chain3(words[1])
+    if len(words) == 3:
+        s2 = p3._nb_sum3(words[2]) - 6.0 * words[2][1:-1, 1:-1, 1:-1]
+    else:
+        s2 = torch.zeros_like(hi0)
+    p, pe = K._two_prod(hi0, c)
+    r_big = (p - f[1:-1, 1:-1, 1:-1]) + pe
+    t, tc = K._two_sum(lo0, hi1)
+    t2 = ((lo1 + m0) + (m1 + s2)) + tc
+    r = torch.zeros_like(f)
+    r[1:-1, 1:-1, 1:-1] = (r_big + t * c) + t2 * c
+    return r
+
+
+def residual_df3_torch(u0, u1, f, h: float):
+    return residual_mw3_torch((u0, u1), f, h)
+
+
+def residual_tw3_torch(u0, u1, u2, f, h: float):
+    return residual_mw3_torch((u0, u1, u2), f, h)
 
 
 # --- CUDA launches ---------------------------------------------------------------
@@ -194,9 +291,10 @@ def _grid3_args(f: torch.Tensor, aligned: bool = False):
 
 
 def _err_buffers3(want: bool, n: int, plan, device):
+    """(the float64 block partials, the 1-element fp32 metric), or Nones."""
     if not want:
         return None, None
-    return (torch.empty(blocks3(n, *plan), dtype=torch.float32, device=device),
+    return (torch.empty(blocks3(n, *plan), dtype=torch.float64, device=device),
             torch.empty(1, dtype=torch.float32, device=device))
 
 
@@ -209,18 +307,19 @@ def _check_steps3(steps: int, cap: int, what: str) -> None:
         raise ValueError(f"{what} runs 1..{cap} sweeps per pass, got {steps}")
 
 
-def _jacobi3_cuda(u, f, h: float, steps: int, omega: float, from_zero: bool, mode):
+def _jacobi3_cuda(u, f, h: float, steps: int, omega: float, from_zero: bool, mode,
+                  plan=None):
     n, dev, lib, stream = _grid3_args(f)
     if not from_zero:
         K._check("u", u, (n, n, n), dev)
     stages = steps - int(from_zero) + (mode == "clean")
-    plan = plan3(n, stages, stages)
+    plan = plan or plan3(n, stages, stages)
     out = torch.empty_like(f)
     partials, err = _err_buffers3(mode is not None, n, plan, dev)
-    scale = (6.0 / (omega * h * h) if mode == "clean" else 6.0 / (h * h)) / n ** 3
     rc = lib.mg3_jacobi(K._ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
                         K._ptr(partials), K._ptr(err), n, steps, int(from_zero),
-                        _ERR_CODES3[mode], *plan, h * h, omega / 6.0, scale, stream)
+                        _ERR_CODES3[mode], *plan, h * h, omega / 6.0, 1.0 / (h * h),
+                        p3.error_scale3(mode, n, h), stream)
     K._raise_on(lib, rc, "jacobi3")
     K.launches["jacobi3"] += 1
     return out, _scalar(err)
@@ -255,6 +354,17 @@ def fused_jacobi3_err(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
     return _jacobi3_cuda(u, f, h, steps, omega, from_zero, err_mode)
 
 
+def trigger_step3(u, f, h: float, omega: float = 6.0 / 7.0, compat: str = "clean"):
+    """One sweep and the error of the result, a step of a trigger loop: on
+    the card a one-sweep ``fused_jacobi3_err`` launch with the trigger loops'
+    tile plan (``err_plan3``), so its error is the float the per-sweep passes
+    and the whole-loop kernels report for the same iterate. (u, err)."""
+    _check_compat3(compat)
+    if not f.is_cuda:
+        return trigger_step3_torch(u, f, h, omega, compat)
+    return _jacobi3_cuda(u, f, h, 1, omega, False, compat, err_plan3(f.shape[0]))
+
+
 def fused_descend3(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
                    from_zero: bool = False, restriction: str = "full_weighting",
                    want_err: bool = False):
@@ -283,7 +393,7 @@ def fused_descend3(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
     rc = lib.mg3_descend(K._ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
                          fc.data_ptr(), K._ptr(partials), K._ptr(err), n, steps, int(from_zero),
                          int(fw), int(want_err), *plan, h * h, omega / 6.0, 1.0 / (h * h),
-                         6.0 / (omega * h * h) / n ** 3, stream)
+                         p3.error_scale3("clean", n, h), stream)
     K._raise_on(lib, rc, "descend3")
     K.launches["descend3"] += 1
     return out, fc, _scalar(err)
@@ -309,7 +419,8 @@ def fused_ascend3(u, f, uc, h: float, steps: int, omega: float = 6.0 / 7.0,
     rc = lib.mg3_ascend(u.data_ptr(), f.data_ptr(), uc.data_ptr(), out.data_ptr(),
                         K._ptr(partials), K._ptr(err), n, steps, _ERR_CODES3["clean" if want_err
                                                                               else None],
-                        *plan, h * h, omega / 6.0, 6.0 / (omega * h * h) / n ** 3, stream)
+                        *plan, h * h, omega / 6.0, 1.0 / (h * h),
+                        p3.error_scale3("clean", n, h), stream)
     K._raise_on(lib, rc, "ascend3")
     K.launches["ascend3"] += 1
     return out, _scalar(err)
@@ -328,3 +439,110 @@ def residual3(u, f, h: float, negate: bool = False):
     K._raise_on(lib, rc, "residual3")
     K.launches["residual3"] += 1
     return r
+
+
+def fused_jacobi3_errs(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
+                       compat: str = "clean"):
+    """``steps`` ≤ ``errs3_sweep_cap(compat)`` sweeps in one pass with the
+    error of every iterate (counterpart of ``fused_jacobi3_errs_padded``):
+    (u, errs), errs[s − 1] the error ``fused_jacobi3_err`` reports after s
+    sweeps, and on the card bit for bit the error of the s-th of s
+    ``trigger_step3`` launches (both use ``err_plan3``)."""
+    _check_compat3(compat)
+    _check_steps3(steps, errs3_sweep_cap(compat), f"fused_jacobi3_errs ({compat})")
+    if not f.is_cuda:
+        return fused_jacobi3_errs_torch(u, f, h, steps, omega, compat)
+    n, dev, lib, stream = _grid3_args(f)
+    K._check("u", u, (n, n, n), dev)
+    plan = err_plan3(n)
+    out = torch.empty_like(f)
+    partials = torch.empty(steps * blocks3(n, *plan), dtype=torch.float64, device=dev)
+    errs = torch.empty(steps, dtype=torch.float32, device=dev)
+    rc = lib.mg3_jacobi_errs(u.data_ptr(), f.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                             errs.data_ptr(), n, steps, _ERR_CODES3[compat], *plan, h * h,
+                             omega / 6.0, 1.0 / (h * h), p3.error_scale3(compat, n, h), stream)
+    K._raise_on(lib, rc, "jacobi3_errs")
+    K.launches["jacobi3_errs"] += 1
+    return out, errs
+
+
+def _trigger3_cuda(name: str, u, f, h: float, omega: float, compat: str, trigger: float,
+                   max_sweeps: int):
+    """One launch of a whole-loop trigger kernel: (u, err, sweeps)."""
+    if not 1 <= max_sweeps < 2 ** 31:
+        raise ValueError(f"max_sweeps must lie in 1..2**31 − 1, got {max_sweeps}")
+    n, dev, lib, stream = _grid3_args(f)
+    K._check("u", u, (n, n, n), dev)
+    plan = err_plan3(n)
+    batch = errs3_sweep_cap(compat) if name == "trigger3_stream" else 1
+    out, tmp = torch.empty_like(f), torch.empty_like(f)
+    partials = torch.empty(2 * batch * blocks3(n, *plan), dtype=torch.float64, device=dev)
+    err = torch.empty(1, dtype=torch.float32, device=dev)
+    sweeps = torch.empty(1, dtype=torch.int32, device=dev)
+    head = (u.data_ptr(), f.data_ptr(), out.data_ptr(), tmp.data_ptr(), partials.data_ptr(),
+            err.data_ptr(), sweeps.data_ptr(), n, _ERR_CODES3[compat])
+    tail = (*plan, h * h, omega / 6.0, 1.0 / (h * h), p3.error_scale3(compat, n, h), trigger,
+            max_sweeps, stream)
+    if name == "trigger3_stream":
+        rc = lib.mg3_trigger_stream(*head, batch, *tail)
+    else:
+        rc = lib.mg3_trigger(*head, *tail)
+    K._raise_on(lib, rc, name)
+    K.launches[name] += 1
+    return out, err.reshape(()), sweeps.reshape(())
+
+
+def trigger_smooth3(u, f, h: float, omega: float = 6.0 / 7.0, compat: str = "clean",
+                    trigger: float = 0.01, max_sweeps: int = 100_000):
+    """Error-triggered smoothing with the whole loop in one launch
+    (counterpart of ``fused_trigger3_vmem``): one sweep at a time while
+    |err_k − err_{k−1}| > trigger, at most ``max_sweeps``. Returns (u, err,
+    sweeps), ``sweeps`` a 0-d int32 tensor; nothing is read back to the host.
+    On the card the iterate, the stop sweep and the error are those of the
+    loop of ``trigger_step3`` launches, bit for bit."""
+    _check_compat3(compat)
+    if not f.is_cuda:
+        return trigger_smooth3_torch(u, f, h, omega, compat, trigger, max_sweeps)
+    return _trigger3_cuda("trigger3", u, f, h, omega, compat, trigger, max_sweeps)
+
+
+def trigger_smooth3_stream(u, f, h: float, omega: float = 6.0 / 7.0, compat: str = "clean",
+                           trigger: float = 0.01, max_sweeps: int = 100_000):
+    """The same loop for levels too large for ``trigger_smooth3`` to stay in
+    L2 (counterpart of ``fused_trigger3_stream``): passes of
+    ``errs3_sweep_cap(compat)`` sweeps with an exact replay of the stop rule,
+    so the iterate, the stop sweep and the error are the sweep-at-a-time
+    loop's. Returns (u, err, sweeps) as ``trigger_smooth3``."""
+    _check_compat3(compat)
+    if not f.is_cuda:
+        return trigger_smooth3_torch(u, f, h, omega, compat, trigger, max_sweeps)
+    return _trigger3_cuda("trigger3_stream", u, f, h, omega, compat, trigger, max_sweeps)
+
+
+def _residual_mw3_cuda(words, f, h: float):
+    n, dev, lib, stream = _grid3_args(f)
+    for k, w in enumerate(words):
+        K._check(f"u{k}", w, (n, n, n), dev)
+    r = torch.empty_like(f)
+    rc = lib.mg3_residual_mw(words[0].data_ptr(), words[1].data_ptr(),
+                             K._ptr(words[2] if len(words) == 3 else None), f.data_ptr(),
+                             r.data_ptr(), n, len(words), 1.0 / (h * h), stream)
+    K._raise_on(lib, rc, "residual_mw3")
+    K.launches["residual_mw3"] += 1
+    return r
+
+
+def residual_df3(u0, u1, f, h: float):
+    """Compensated 7-point residual of the double-word state (u0, u1), 0 off
+    the interior (counterpart of ``residual_df3_pallas``)."""
+    if not f.is_cuda:
+        return residual_df3_torch(u0, u1, f, h)
+    return _residual_mw3_cuda((u0, u1), f, h)
+
+
+def residual_tw3(u0, u1, u2, f, h: float):
+    """Compensated 7-point residual of the triple-word state (u0, u1, u2), 0
+    off the interior (counterpart of ``residual_tw3_pallas``)."""
+    if not f.is_cuda:
+        return residual_tw3_torch(u0, u1, u2, f, h)
+    return _residual_mw3_cuda((u0, u1, u2), f, h)

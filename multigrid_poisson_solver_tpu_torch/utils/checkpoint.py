@@ -7,9 +7,10 @@ JSON metadata blob (cycle counter, schedule fingerprint, ``format_version``
 never corrupts the previous checkpoint. Arrays are saved as numpy arrays of
 their own dtype; tensors are copied to the host first.
 
-The port saves plain (n, n) grids. The JAX package saves its padded
-(rows × 16, lanes × 128) layout; ``crop_to`` takes either, so the port
-resumes a checkpoint the JAX package wrote.
+The port saves plain (n, n) grids and (n, n, n) volumes. The JAX package
+saves its padded layouts, (rows × 16, lanes × 128) in 2-D and the
+(n, rows × 16, lanes × 128) bricks of its 3-D refinement; ``crop_to`` takes
+either, so the port resumes a checkpoint the JAX package wrote.
 """
 
 from __future__ import annotations
@@ -36,15 +37,15 @@ def schedule_fingerprint(program) -> str:
     return hashlib.sha256(to_cycle_file(program).encode()).hexdigest()[:16]
 
 
-def crop_to(a: np.ndarray, n: int) -> Optional[np.ndarray]:
-    """The (n, n) grid of a saved array: the array itself, or the top-left
-    corner of the JAX package's padded layout of an n-grid; None if it is
-    neither."""
-    padded = (-(-n // 16) * 16, -(-n // 128) * 128)
-    if a.shape == (n, n):
+def crop_to(a: np.ndarray, n: int, dim: int = 2) -> Optional[np.ndarray]:
+    """The (n,)·dim grid of a saved array: the array itself, or the corner of
+    the JAX package's padded layout of an n-grid (rows × 16 and lanes × 128,
+    the z planes unpadded in 3-D); None if it is neither."""
+    padded = (n,) * (dim - 2) + (-(-n // 16) * 16, -(-n // 128) * 128)
+    if a.shape == (n,) * dim:
         return a
     if a.shape == padded:
-        return a[:n, :n]
+        return a[(slice(0, n),) * dim]
     return None
 
 

@@ -9,8 +9,9 @@ routing) against the JAX package's.
     size where it engages: the operations it reaches equal those JAX's
     Pallas engine reaches (its kernels counted in interpret mode), and the
     result agrees with JAX's;
-  * trigger nodes on the kernel path refuse to run (their kernels are the
-    next slice's).
+  * trigger nodes on the kernel path: they stop where the plain path stops
+    (tests/test_torch_compiled3_trigger.py holds each trigger tier against
+    JAX's Pallas engine).
 
 fp32 bounds: each package rounds its own way (XLA contracts FMAs; the JAX
 kernels fold the Jacobi update into another form) and the difference grows
@@ -18,6 +19,8 @@ by a few ulps a sweep over a cycle's dozens of sweeps: |Δu| ≤ 5e-5·max|u|;
 the error scalars agree to 1e-3 relative after the first cycle (a sum of
 fp32 residuals whose cancellation noise is a visible share of each term).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -221,20 +224,24 @@ def test_v_cycle3_kernel_routing_matches_jax_pallas(monkeypatch):
 
 
 def test_kernel_path_refuses_trigger_nodes(monkeypatch):
-    """A trigger node at 65³ or more on the kernel path raises (JAX runs its
-    whole-loop trigger kernels there, the next slice's work); below 65³ and
-    on the plain path trigger nodes run."""
+    """Trigger nodes run on the kernel path at every size: at 65³ through the
+    trigger tiers (their whole-loop kernel there), below 65³ on the oracle
+    ops, as on the plain path; the kernel path stops where the plain path
+    stops."""
     monkeypatch.setattr(compiled3, "_use_kernels", lambda cfg, device: True)
     cfg = tmg.SolverConfig(omega=OMEGA3, collect_node_stats=False, max_trigger_sweeps=20)
-    cc = tmg.compile_program3(tmg.v_cycle(65, n_min=8, steps=-1, coarse_option=0, coarsen=3),
-                              tmg.REFERENCE_PROBLEM_3D, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP"):
-        cc(*cc.init())
-    small = tmg.compile_program3(tmg.v_cycle(33, n_min=8, steps=-1, coarse_option=0,
-                                             coarsen=3), tmg.REFERENCE_PROBLEM_3D, cfg,
-                                 device="cpu")
-    u, err = small(*small.init())
-    assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(err))
+    for n in (65, 33):
+        program = tmg.v_cycle(n, n_min=8, steps=-1, coarse_option=0, coarsen=3)
+        cc = tmg.compile_program3(program, tmg.REFERENCE_PROBLEM_3D, cfg, device="cpu")
+        cc.trigger_sweeps = []
+        u, err = cc(*cc.init())
+        assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(err))
+        plain = tmg.compile_program3(program, tmg.REFERENCE_PROBLEM_3D,
+                                     dataclasses.replace(cfg, kernels="torch"), device="cpu")
+        plain.trigger_sweeps = []
+        plain(*plain.init())
+        assert cc.trigger_sweeps == plain.trigger_sweeps
+        assert len(cc.trigger_sweeps) == {65: 6, 33: 4}[n]
 
 
 def test_kernel_path_checks(monkeypatch):
