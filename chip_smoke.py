@@ -5,8 +5,9 @@
 
 Phases (progress on stdout; the first failure exits non-zero):
   0. require a CUDA device; print the card's name and power limit;
-  1. build the nineteen CUDA kernels from ops/csrc (sixteen sources: nvcc,
-     sm_90a, one process per source);
+  1. build the CUDA kernels from ops/csrc (eighteen sources: nvcc, sm_90a,
+     one process per source): nineteen single-device kernels and modes, the
+     shard modes of kernels 1-4 and the two ring kernels;
   2. hold each kernel against its plain PyTorch twin on the card: at
      n = 1025 and 1031 (several tiles per dimension, ragged last tiles),
      every sweep count, error mode and from_zero; and at the shapes the main
@@ -53,7 +54,27 @@ Phases (progress on stdout; the first failure exits non-zero):
      kernels, 7 and "auto" through the twins, 1 on the plain path;
   F. 3-D refinement: tw32 to 1e-10 at 513³ (IterativeRefinement3) with the
      kernels and with kernels="torch"; then the CLI --dim 3 --tol 1e-10
-     --state tw32 on schedules/Vcycle.txt.
+     --state tw32 on schedules/Vcycle.txt;
+  G. the 2-D multi-device path on rings of shards, every shard on cuda:0
+     (one card: no scaling). G1: the shard modes of kernels 1-4 and the ring
+     kernels 17 and 18 against their twins at 1025² and 1031² on rings of
+     2, 3, 4 and 8 shards and a 2 x 4 block mesh (several tiles a shard,
+     ragged last shards and tiles), steps 1-8 and 11, from_zero, every
+     error mode, per_sweep, rb-GS, both restrictions; every shard mode's
+     owned cells bit for bit against the unsharded kernel; kernel 17 with
+     caps of 1-60 sweeps and a mid-loop trigger bit for bit against the loop
+     of one-sweep sharded error launches. G2: at 4097² on 8 shards
+     (threshold 16) through compile_program(policy=...) with halo ppermute
+     and rdma, and the plain path: bench_scaling.py's program (coarsen=1)
+     and the bench's V(3,3), one cold and five warm cycles each, against the
+     unsharded kernel run, ms/cycle and profiles; the rb-GS V(2,2) FW.
+     G3: the 8193² trigger V-cycle on 8 shards (threshold 32) with rdma,
+     ppermute and the twins ("auto") and batch 7, equal stop sweeps per
+     level, held against phase B's unsharded run; and a 4097² rb-GS
+     trigger V-cycle with the gpu metric on 8 shards (the rb-GS shard mode
+     one sweep at a time), kernels, twins and plain path with equal stop
+     sweeps. The shard modes and ring kernels are also held against their
+     plain versions at the timed main-path shapes.
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -134,7 +155,21 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, main-path run)
     "trigger3": (PKG + "trigger3.cu", TPU + "pallas3d.py:1804", "trigger3_513"),
     "trigger3_stream": (PKG + "trigger3_stream.cu", TPU + "pallas3d.py:1999", "trigger3_513"),
     "residual_mw3": (PKG + "residual_mw3.cu", TPU + "pallas3d.py:1588", "refine3"),
+    # the shard modes of kernels 1-4 and the two ring kernels (phase G)
+    "jacobi_shard": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:500", "sharded"),
+    "jacobi_errs_shard": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:500", "sharded_trigger_b7"),
+    "rbgs_shard": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:500", "sharded_rbgs"),
+    "residual_shard": (PKG + "residual.cu", TPU + "pallas_kernels.py:1166", "sharded"),
+    "descend_shard": (PKG + "descend.cu", TPU + "pallas_kernels.py:1233", "sharded_legs"),
+    "ascend_shard": (PKG + "ascend.cu", TPU + "pallas_kernels.py:1388", "sharded_legs"),
+    "rdma_jacobi": (PKG + "rdma_jacobi.cu", TPU + "pallas_rdma.py:157", "sharded_rdma"),
+    "rdma_trigger": (PKG + "rdma_trigger.cu", TPU + "pallas_rdma.py:396", "sharded_trigger_rdma"),
 }
+
+
+# the kernels every single-device path reaches (phase 2 holds them); the
+# rest are the shard modes and the ring kernels (phase G)
+SINGLE_DEVICE = tuple(KERNELS)[:19]
 
 
 def require(cond, what):
@@ -1090,6 +1125,410 @@ def phase_refine3(tmg, K, torch, run_counts, cli, n=513, tol=1e-10):
     return {kern: (r.cycles, r.wall_time_s * 1e3) for kern, r in results.items()}
 
 
+@contextlib.contextmanager
+def sharded_twins_in_place(K, rdma):
+    """Every shard-mode entry point of ops.kernels and both ring kernels of
+    ops.rdma replaced by their plain twins (the sharded wrappers look them up
+    at each call)."""
+    names = ["fused_jacobi_shard", "fused_jacobi_errs_shard", "residual_shard",
+             "fused_descend_shard", "fused_ascend_shard"]
+    saved = {name: getattr(K, name) for name in names}
+    saved_ring = (rdma.rdma_jacobi, rdma.rdma_trigger)
+    for name in names:
+        setattr(K, name, getattr(K, name + "_torch"))
+    rdma.rdma_jacobi, rdma.rdma_trigger = rdma.rdma_jacobi_torch, rdma.rdma_trigger_torch
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name, fn)
+        rdma.rdma_jacobi, rdma.rdma_trigger = saved_ring
+
+
+def ring_policies(threshold=16):
+    """Rings of 2, 3, 4 and 8 shards and a 2 × 4 block mesh, every shard on
+    cuda:0."""
+    from multigrid_poisson_solver_tpu_torch.parallel import mesh as M
+
+    pols = {f"rows-{p}": M.ShardingPolicy(M.make_mesh(["cuda:0"] * p), threshold_rows=threshold)
+            for p in (2, 3, 4, 8)}
+    pols["block-2x4"] = M.BlockShardingPolicy(M.make_mesh_2d((2, 4), ["cuda:0"] * 8),
+                                              threshold_rows=threshold)
+    return pols
+
+
+def phase_g1(K, torch, cmp):
+    """G1: the shard modes of kernels 1-4 and kernels 17 and 18 against their
+    twins at 1025² and 1031² (several 32 x 128 tiles per shard; ragged last
+    shards and tiles), on rings of 2, 3, 4 and 8 shards and a 2 x 4 block
+    mesh; every shard mode's owned cells against the unsharded kernel, bit
+    for bit; the ring trigger against the loop of one-sweep sharded error
+    launches, bit for bit."""
+    from multigrid_poisson_solver_tpu_torch.ops import rdma
+    from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard as KS
+    from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
+    from multigrid_poisson_solver_tpu_torch.solver import trigger_loop
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5678)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32)
+
+    omega = 0.8
+    G = S.gather
+
+    def twin(fn, *args, **kw):
+        """fn on the shard-mode twins (the wrappers look the kernels up at
+        each call)."""
+        with sharded_twins_in_place(K, rdma):
+            return fn(*args, **kw)
+
+    def same(what, got, want):
+        require(bool(torch.equal(got, want)), f"{what}: owned cells differ from the unsharded "
+                f"kernel (max|Δ| {float((got - want).abs().max()):.3e})")
+
+    stops = {}
+    for n in (1025, 1031):
+        h = 1.0 / (n - 1)
+        u, f = rand(n, n), rand(n, n)
+        m = (n + 1) // 2
+        uc = rand(m, m)
+        for tag, pol in ring_policies().items():
+            lay = S.layout_of(pol, n)
+            us, fs = S.shard(u, lay), S.shard(f, lay)
+            ring = len(lay.cols) == 1
+            what = f"n={n} {tag}"
+            for steps in ((1, 2, 3, 4, 5, 6, 7, 8, 11) if n == 1025 else (1, 5, 8, 11)):
+                for fz in (False, True):
+                    w = f"{what} steps={steps} fz={fz}"
+                    got = G(KS.sharded_fused_jacobi(us, fs, h, steps, omega, fz))
+                    cmp.grid("jacobi_shard", w, got,
+                             G(twin(KS.sharded_fused_jacobi, us, fs, h, steps, omega, fz)))
+                    cmp.cases["jacobi_shard"] += 1
+                    same(f"jacobi_shard {w}", got, K.fused_jacobi(u, f, h, steps, omega, fz))
+                    if ring:
+                        ring_u = G(KS.rdma_fused_jacobi(us, fs, h, steps, omega, fz))
+                        same(f"rdma_jacobi {w}", ring_u, got)
+                        cmp.grid("rdma_jacobi", w, ring_u,
+                                 G(rdma.rdma_jacobi_torch(us, fs, h, steps, omega, fz)))
+                        cmp.cases["rdma_jacobi"] += 1
+            for compat in (True, False, "gpu"):
+                for steps in (1, 7, 11):
+                    w = f"{what} steps={steps} err={compat}"
+                    gu, ge = KS.sharded_fused_jacobi_err(us, fs, h, steps, omega, compat)
+                    wu, we = twin(KS.sharded_fused_jacobi_err, us, fs, h, steps, omega,
+                                  compat)
+                    cmp.grid("jacobi_shard", w, G(gu), G(wu))
+                    cmp.scalar("jacobi_shard", w, ge, we)
+                    cmp.cases["jacobi_shard"] += 1
+                    ku, ke = K.fused_jacobi_err(u, f, h, steps, omega, compat)
+                    same(f"jacobi_shard {w}", G(gu), ku)
+                    cmp.scalar("jacobi_shard", f"{w} against the unsharded kernel", ge, ke)
+                cap = K.errs_sweep_cap(compat)
+                gu, ge = KS.sharded_fused_jacobi_errs(us, fs, h, cap, omega, compat)
+                wu, we = twin(KS.sharded_fused_jacobi_errs, us, fs, h, cap, omega, compat)
+                w = f"{what} per-sweep err={compat}"
+                cmp.grid("jacobi_errs_shard", w, G(gu), G(wu))
+                for s in range(cap):
+                    cmp.scalar("jacobi_errs_shard", f"{w} iterate {s + 1}", ge[s], we[s])
+                cmp.cases["jacobi_errs_shard"] += 1
+                same(f"jacobi_errs_shard {w}", G(gu), K.fused_jacobi(u, f, h, cap, omega))
+                for s in (1, cap):
+                    require(torch.equal(ge[s - 1], KS.sharded_fused_jacobi_err(
+                        us, fs, h, s, omega, compat)[1]),
+                        f"jacobi_errs_shard {w}: errs[{s - 1}] differs from the error of {s} "
+                        f"sweeps")
+            for steps in (1, 2, 3, 4):
+                w = f"{what} rb-GS steps={steps}"
+                got = G(KS.sharded_fused_jacobi(us, fs, h, steps, 1.0, smoother="rbgs"))
+                cmp.grid("rbgs_shard", w, got, G(twin(
+                    KS.sharded_fused_jacobi, us, fs, h, steps, 1.0, smoother="rbgs")))
+                same(f"rbgs_shard {w}", got, K.fused_rbgs(u, f, h, steps))
+                cmp.cases["rbgs_shard"] += 1
+                for compat in ((True, False) if steps <= 3 else ()):
+                    gu, ge = KS.sharded_fused_jacobi_err(us, fs, h, steps, 1.0, compat,
+                                                         smoother="rbgs")
+                    wu, we = twin(KS.sharded_fused_jacobi_err, us, fs, h, steps, 1.0,
+                                  compat, smoother="rbgs")
+                    cmp.grid("rbgs_shard", f"{w} err={compat}", G(gu), G(wu))
+                    cmp.scalar("rbgs_shard", f"{w} err={compat}", ge, we)
+                    cmp.cases["rbgs_shard"] += 1
+            for negate in (False, True):
+                got = G(KS.sharded_residual(us, fs, h, negate))
+                cmp.grid("residual_shard", f"{what} negate={negate}", got,
+                         G(twin(KS.sharded_residual, us, fs, h, negate)))
+                same(f"residual_shard {what}", got, K.residual(u, f, h, negate))
+                cmp.cases["residual_shard"] += 1
+            if n % 2:
+                for restriction in ("sampling", "full_weighting"):
+                    for fz in (False, True):
+                        for steps in (1, 3, 6):
+                            w = f"{what} steps={steps} fz={fz} {restriction}"
+                            args = (h, steps, omega, restriction, "cpu", fz)
+                            gu, gfc, ge = KS.sharded_fused_descend(us, fs, *args)
+                            wu, wfc, we = twin(KS.sharded_fused_descend, us, fs, *args)
+                            cmp.grid("descend_shard", w + " u", G(gu), G(wu))
+                            cmp.grid("descend_shard", w + " f_coarse", G(gfc), G(wfc))
+                            cmp.scalar("descend_shard", w, ge, we)
+                            cmp.cases["descend_shard"] += 1
+                            ku, kfc, _ = K.fused_descend(u, f, h, steps, omega, restriction,
+                                                         True, True, fz)
+                            same(f"descend_shard {w}", G(gu), ku)
+                            same(f"descend_shard {w} f_coarse", G(gfc), kfc)
+                child = S.as_level(uc, pol, m)
+                for steps, mode in ((1, None), (3, "cpu"), (7, "clean"), (8, "gpu")):
+                    w = f"{what} steps={steps} err={mode}"
+                    gu, ge = KS.sharded_fused_ascend(us, fs, child, h, steps, omega, mode)
+                    wu, we = twin(KS.sharded_fused_ascend, us, fs, child, h, steps, omega,
+                                  mode)
+                    cmp.grid("ascend_shard", w, G(gu), G(wu))
+                    if mode is not None:
+                        cmp.scalar("ascend_shard", w, ge, we)
+                    cmp.cases["ascend_shard"] += 1
+                    compat = {None: True, "cpu": True, "clean": False, "gpu": "gpu"}[mode]
+                    same(f"ascend_shard {w}", G(gu),
+                         K.fused_ascend(u, f, uc, h, steps, omega, compat, mode is not None)[0])
+            if not ring:
+                continue
+            v0 = S.shard(u * 0.01, lay)
+            for compat in (True, False, "gpu"):
+                def one(v):
+                    return KS.sharded_fused_jacobi_err(v, fs, h, 1, omega, compat)
+
+                v, prev, slope = v0, None, None
+                for _ in range(20):    # a trigger that stops the loop near sweep 20
+                    v, e = one(v)
+                    slope, prev = (None if prev is None else abs(float(e) - prev)), float(e)
+                for trig, max_sweeps in ((0.0, 1), (0.0, 2), (0.0, 37), (slope, 60)):
+                    w = f"{what} err={compat} trigger={trig:.6g} max={max_sweeps}"
+                    gu, ge, gk = KS.rdma_fused_trigger(v0, fs, h, trig, omega, compat,
+                                                       max_sweeps)
+                    ru, re_, rk = trigger_loop(one, v0, trig, max_sweeps)
+                    require(int(gk) == rk and bool(torch.equal(G(gu), G(ru)))
+                            and bool(torch.equal(ge, re_)),
+                            f"rdma_trigger {w}: {int(gk)} sweeps vs {rk} of the one-sweep "
+                            f"sharded launches, or another iterate or error")
+                    if max_sweeps in (37, 60):
+                        wu, we, _ = rdma.rdma_trigger_torch(v0, fs, h, omega, compat, 0.0,
+                                                            int(gk))
+                        cmp.grid("rdma_trigger", f"{w} ({int(gk)} sweeps)", G(gu), G(wu))
+                        cmp.scalar("rdma_trigger", w, ge, we)
+                    cmp.cases["rdma_trigger"] += 1
+                    if max_sweeps == 60:
+                        stops[f"{n} {tag} {compat}"] = int(gk)
+        torch.cuda.synchronize()
+    say(f"[G1] ring trigger stop sweeps at a mid-loop trigger: {stops}")
+    require(all(k < 60 for k in stops.values()), "a mid-loop ring trigger ran to its cap")
+
+
+def phase_g2(tmg, K, torch, run_counts):
+    """G2: two V-cycles at 4097² on a ring of 8 shards on one card, through
+    compile_program(policy=...) with halo="ppermute" and "rdma" and on the
+    plain path, against the unsharded kernel run; and the rb-GS V(2,2)."""
+    from multigrid_poisson_solver_tpu_torch.ops.transfers import relative_residual_norm
+    from multigrid_poisson_solver_tpu_torch.parallel import mesh as M
+    from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
+
+    n = 4097
+    pol = M.ShardingPolicy(M.make_mesh(["cuda:0"] * 8), threshold_rows=16)
+    programs = {
+        # bench_scaling.py's program: non-2:1 levels, separate sweeps
+        "bench_scaling coarsen=1": (tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0,
+                                                coarsen=1), {}),
+        # the bench's V(3,3): fused legs per shard, the chains below
+        "V(3,3) coarsen=3": (tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=3),
+                             {"omega": 0.8}),
+        "rb-GS V(2,2) FW": (tmg.v_cycle(n, n_min=8, steps=2, coarse_option=0, coarsen=3),
+                            {"smoother": "rbgs", "restriction": "full_weighting"}),
+    }
+    keys = {("bench_scaling coarsen=1", "ppermute"): "sharded",
+            ("bench_scaling coarsen=1", "rdma"): "sharded_rdma",
+            ("V(3,3) coarsen=3", "ppermute"): "sharded_legs",
+            ("rb-GS V(2,2) FW", "ppermute"): "sharded_rbgs"}
+    times = {}
+    for name, (program, kw) in programs.items():
+        runs = {}
+        variants = [("unsharded", None, {}), ("ppermute", pol, {}), ("rdma", pol, {"halo": "rdma"}),
+                    ("plain", pol, {"kernels": "torch"})]
+        if "rb-GS" in name:   # the ring kernels smooth Jacobi only
+            variants = [v for v in variants if v[0] != "rdma"]
+        for tag, policy, extra in variants:
+            cfg = tmg.SolverConfig(collect_node_stats=False, **kw, **extra)
+            cold = tmg.compile_program(program, tmg.REFERENCE_PROBLEM, cfg, device="cuda",
+                                       policy=policy)
+            warm = tmg.compile_program(program, tmg.REFERENCE_PROBLEM, cfg, device="cuda",
+                                       warm=True, policy=policy)
+            u0, f = cold.init()
+            K.reset_launch_counts()
+            ms_cold, (u1, err) = wall_ms(lambda: cold(u0, f))
+            u = u1
+            for _ in range(5):
+                u, err = warm(u, f)
+            torch.cuda.synchronize()
+            counts = dict(K.launches)
+            if (name, tag) in keys:
+                run_counts[keys[(name, tag)]] = counts
+            g1, g6, fg = cold.unpad(u1), cold.unpad(u), S.gather(f)
+            require(tuple(g6.shape) == (n, n) and bool(torch.isfinite(g6).all())
+                    and bool(torch.isfinite(err)), f"[G2] {name} {tag}: non-finite output")
+            h = cold.finest_spec.h
+            r1 = float(relative_residual_norm(g1.double(), fg.double(), h))
+            r6 = float(relative_residual_norm(g6.double(), fg.double(), h))
+            ms = time_ms(lambda: warm(u, f), reps=1 if tag == "plain" else 3, rounds=3)
+            runs[tag] = (g1, g6, r1, r6, counts)
+            times[f"{name} {tag}"] = ms
+            say(f"[G2] {n}² {name} {tag}: {ms:.3f} ms/cycle (cold cycle {ms_cold:.1f} ms wall), "
+                f"float64 rel. residual {r1:.6e} after 1 cycle, {r6:.6e} after 6; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            if tag in ("ppermute", "rdma") and "rb-GS" not in name:
+                profile(f"{n}² {name} {tag} per cycle",
+                        lambda: [warm(u, f) for _ in range(3)], per=3)
+        if "rdma" in runs:
+            for i, what in ((0, "1 cycle"), (1, "6 cycles")):
+                require(bool(torch.equal(runs["rdma"][i], runs["ppermute"][i])),
+                        f"[G2] {name}: rdma and ppermute iterates differ after {what}")
+            say(f"[G2] {name}: rdma and ppermute iterates bit-identical after 1 and 6 cycles")
+        want = runs["unsharded"]
+        for tag, got in runs.items():
+            if tag == "unsharded":
+                continue
+            for i, j, what in ((0, 2, "1 cycle"), (1, 3, "6 cycles")):
+                diff = float((got[i] - want[i]).abs().max())
+                scale = float(want[i].abs().max())
+                say(f"[G2] {name} {tag} against unsharded after {what}: max|Δu| {diff:.3e} "
+                    f"(bit-identical: {bool(torch.equal(got[i], want[i]))}), residual "
+                    f"{got[j]:.6e} vs {want[j]:.6e}")
+                require(diff <= U_RTOL * scale and abs(got[j] - want[j]) <= RES_RTOL * want[j],
+                        f"[G2] {name} {tag}: outside the phase 3 gate after {what}")
+        if "plain" in runs:
+            require(not any(runs["plain"][4].values()),
+                    f"[G2] {name}: the plain sharded path launched a kernel")
+    return times
+
+
+def phase_g3(tmg, K, torch, run_counts, unsharded_levels):
+    """G3: the 8193² trigger V-cycle on a ring of 8 shards (threshold 32):
+    the sharded levels take the batched per-sweep passes (8193²) and the ring
+    trigger kernel or the one-sweep sharded loop (4097²-257²); 129² and
+    below are the single-device tiers."""
+    from multigrid_poisson_solver_tpu_torch.ops import rdma
+    from multigrid_poisson_solver_tpu_torch.parallel import mesh as M
+
+    n, cap = 8193, 2000
+    program = tmg.v_cycle(n, n_min=8, steps=-1, coarse_option=0, coarsen=3)
+    pol = M.ShardingPolicy(M.make_mesh(["cuda:0"] * 8), threshold_rows=32)
+    out = {}
+
+    def run(tag, batch, halo, twins=False):
+        cfg = tmg.SolverConfig(omega=0.8, collect_node_stats=False, trigger_batch=batch,
+                               max_trigger_sweeps=cap, halo=halo)
+        cc = tmg.compile_program(program, tmg.REFERENCE_PROBLEM, cfg, device="cuda", policy=pol)
+        cc.trigger_sweeps = []
+        u0, f = cc.init()
+        K.reset_launch_counts()
+        with contextlib.ExitStack() as stack:
+            if twins:
+                stack.enter_context(twins_in_place(K))
+                stack.enter_context(sharded_twins_in_place(K, rdma))
+            ms, (u, err) = wall_ms(lambda: cc(u0, f))
+        counts = dict(K.launches)
+        g = cc.unpad(u)
+        require(bool(torch.isfinite(g).all()) and bool(torch.isfinite(err)),
+                f"[G3] sharded trigger V-cycle {tag}: non-finite result")
+        say(f"[G3] sharded trigger V-cycle {n}² {tag}: {ms:.1f} ms, sweeps per level "
+            f"{cc.trigger_sweeps}, last error {float(err):.6e}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        out[tag] = (g, cc.trigger_sweeps, ms, counts)
+        if tag == "rdma, auto":
+            cc.trigger_sweeps = None
+            profile(f"sharded trigger V-cycle {n}² {tag}", lambda: cc(u0, f))
+        return tag
+
+    rd = run("rdma, auto", "auto", "rdma")
+    pp = run("ppermute, auto", "auto", "ppermute")
+    tw = run("twins, auto", "auto", "ppermute", twins=True)
+    b7 = run("rdma, batch 7", 7, "rdma")
+    tb7 = run("twins, batch 7", 7, "rdma", twins=True)
+    run_counts["sharded_trigger_rdma"] = out[rd][3]
+    run_counts["sharded_trigger_b7"] = out[b7][3]
+    for a, b in ((rd, pp), (rd, tw), (b7, tb7)):
+        require(out[a][1] == out[b][1], f"[G3] stop sweeps {out[a][1]} ({a}) vs {out[b][1]} ({b})")
+    require(bool(torch.equal(out[rd][0], out[pp][0])),
+            "[G3] the finest iterate differs between rdma and ppermute")
+    for a, b in ((rd, tw), (b7, tb7)):
+        diff = float((out[a][0] - out[b][0]).abs().max())
+        require(diff <= U_RTOL * float(out[b][0].abs().max()), f"[G3] {a} vs {b}: iterates differ")
+    say("[G3] equal stop sweeps per level among rdma, ppermute and the twins; rdma and ppermute "
+        "finest iterates bit-identical")
+    require(out[rd][3]["rdma_trigger"] > 0 and out[b7][3]["jacobi_errs_shard"] > 0,
+            "[G3] the ring trigger or the sharded per-sweep passes were not launched")
+    # against phase B's unsharded "auto" run: the sharded error is the shards'
+    # partials added in shard order, another order than the unsharded
+    # kernels' one reduction, so a stop may move by a sweep at a near tie
+    ours, theirs = out[rd][1], unsharded_levels
+    require(len(ours) == len(theirs) and [a for a, _ in ours] == [a for a, _ in theirs],
+            "[G3] the sharded and unsharded trigger V-cycles visit other levels")
+    moved = [(m, k, kk) for (m, k), (_, kk) in zip(ours, theirs) if k != kk]
+    say(f"[G3] stop sweeps per level, sharded rdma auto {ours}; unsharded (phase B, auto) "
+        f"{theirs}; levels that differ (n, sharded, unsharded): {moved or 'none'}")
+    require(all(abs(k - kk) <= 1 for _, k, kk in moved),
+            "[G3] a stop sweep moved by more than one sweep against the unsharded run")
+    for m, k, kk in moved:
+        say(f"[G3] near tie at {m}²: the slope crosses the trigger within the rounding of the "
+            f"two error sums (sharded stop {k}, unsharded {kk})")
+    return {tag: v[2] for tag, v in out.items()}, ours
+
+
+def phase_g3_rbgs(tmg, K, torch, run_counts):
+    """G3, rb-GS: a trigger V-cycle at 4097² with rb-GS and the gpu metric on
+    8 shards (threshold 32): its sharded levels (4097²-257²) smooth one
+    sweep at a time through the rb-GS shard mode and add the shards' gpu
+    error partials; on the kernels, through the twins and on the plain
+    path."""
+    from multigrid_poisson_solver_tpu_torch.ops import rdma
+    from multigrid_poisson_solver_tpu_torch.parallel import mesh as M
+
+    n, cap = 4097, 200
+    program = tmg.v_cycle(n, n_min=8, steps=-1, coarse_option=0, coarsen=3)
+    pol = M.ShardingPolicy(M.make_mesh(["cuda:0"] * 8), threshold_rows=32)
+    out = {}
+    for tag, kernels, twins in (("kernels", "auto", False), ("twins", "auto", True),
+                                ("plain", "torch", False)):
+        cfg = tmg.SolverConfig(smoother="rbgs", compat_error="gpu", collect_node_stats=False,
+                               max_trigger_sweeps=cap, kernels=kernels)
+        cc = tmg.compile_program(program, tmg.REFERENCE_PROBLEM, cfg, device="cuda", policy=pol)
+        cc.trigger_sweeps = []
+        u0, f = cc.init()
+        K.reset_launch_counts()
+        with contextlib.ExitStack() as stack:
+            if twins:
+                stack.enter_context(twins_in_place(K))
+                stack.enter_context(sharded_twins_in_place(K, rdma))
+            ms, (u, err) = wall_ms(lambda: cc(u0, f))
+        counts = dict(K.launches)
+        g = cc.unpad(u)
+        require(bool(torch.isfinite(g).all()) and bool(torch.isfinite(err)),
+                f"[G3] rb-GS gpu trigger V-cycle {tag}: non-finite result")
+        say(f"[G3] rb-GS gpu-metric trigger V-cycle {n}² {tag}: {ms:.1f} ms, sweeps per level "
+            f"{cc.trigger_sweeps}, last error {float(err):.6e}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        out[tag] = (g, cc.trigger_sweeps, counts)
+    run_counts["sharded_rbgs_trigger"] = out["kernels"][2]
+    require(out["kernels"][2]["rbgs_shard"] > 0,
+            "[G3] the rb-GS gpu trigger V-cycle did not launch the rb-GS shard mode")
+    require(not any(out["plain"][2].values()), "[G3] the plain rb-GS path launched a kernel")
+    want = out["twins"]
+    for tag in ("kernels", "plain"):
+        got = out[tag]
+        require(got[1] == want[1], f"[G3] rb-GS stop sweeps {got[1]} ({tag}) vs {want[1]} (twins)")
+        diff = float((got[0] - want[0]).abs().max())
+        require(diff <= U_RTOL * float(want[0].abs().max()),
+                f"[G3] rb-GS {tag} vs twins: iterates differ by {diff:.3e}")
+        say(f"[G3] rb-GS {tag} against the twins: equal stop sweeps, max|Δu| {diff:.3e} "
+            f"(bit-identical: {bool(torch.equal(got[0], want[0]))})")
+
+
 def main():
     import torch
 
@@ -1131,7 +1570,7 @@ def main():
     cmp = Compare()
     phase2(K, torch, cmp, tmg.REFERENCE_PROBLEM, tmg.GridSpec)
     phase2_3d(K3, torch, cmp)
-    for k in KERNELS:
+    for k in SINGLE_DEVICE:
         say(f"[2] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
             f"bit-identical to the twin: {cmp.bitwise[k]}")
     say(f"[2] done in {time.perf_counter() - t0:.1f} s "
@@ -1220,6 +1659,22 @@ def main():
     ms_trigger3, trigger3_levels, auto3_levels, exact3_levels = phase_trigger3(
         tmg, K, K3, torch, run_counts)
     refine3_runs = phase_refine3(tmg, K, torch, run_counts, cli)
+
+    # -- phase G: the 2-D multi-device path on a ring of shards on one card ------
+    t0 = time.perf_counter()
+    phase_g1(K, torch, cmp)
+    for k in KERNELS:
+        if k not in SINGLE_DEVICE:
+            say(f"[G1] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
+                f"bit-identical to the twin: {cmp.bitwise[k]}")
+    say(f"[G1] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ms_g2 = phase_g2(tmg, K, torch, run_counts)
+    say(f"[G2] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ms_g3, g3_levels = phase_g3(tmg, K, torch, run_counts, auto_levels)
+    phase_g3_rbgs(tmg, K, torch, run_counts)
+    say(f"[G3] done in {time.perf_counter() - t0:.1f} s")
     for k, (_, _, run) in KERNELS.items():
         require(run_counts[run][k] > 0, f"the {run} run did not launch {k}")
 
@@ -1344,12 +1799,124 @@ def main():
                             lambda: K3.trigger_smooth3_torch(u15, f15, *t15),
                             3 * 4 * n15 ** 3, t_sweeps * (SWEEP3_OPS + EXTRA3_OPS) * n15 ** 3),
     })
+    # the shard modes and the ring kernels at the sharded main paths' shapes:
+    # a level split over a ring of 8 shards on the card; the shard modes
+    # launched on every shard's window (the exchange done beforehand), the
+    # ring kernels with their exchange inside
+    from multigrid_poisson_solver_tpu_torch.ops import rdma
+    from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard as KS
+    from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
+
+    ring8 = ring_policies()["rows-8"]
+    ch = KS.COARSE_HALO
+
+    def ring_windows(level, a, b):
+        lay = S.layout_of(ring8, level)
+        xs, ys = S.shard(a, lay), S.shard(b, lay)
+        ext = [(S.extend(xs, i, 0, KS.HALO, 0), S.extend(ys, i, 0, KS.HALO, 0))
+               for i in range(len(lay.rows))]
+        geos = [K.ShardGeo(level, r0, 0, r1 - r0, level, KS.HALO, 0) for r0, r1 in lay.rows]
+        return lay, xs, ys, ext, geos
+
+    lay2, us2, fs2, ext2, geo2 = ring_windows(n, u, f)
+    _, _, _, ext8, geo8 = ring_windows(n8, f8, w0)
+    cw2 = [S.window(uc, r0 // 2 - ch, (r1 + 1) // 2 + ch, -ch, (n + 1) // 2 + ch)
+           for r0, r1 in lay2.rows]
+
+    def shards(fn, ext, geos):
+        return lambda: [fn(ue, fe, g) for (ue, fe), g in zip(ext, geos)]
+
+    def both(fn, plain_fn, ext=ext2, geos=geo2):
+        return shards(fn, ext, geos), shards(plain_fn, ext, geos)
+
+    on8 = f"{n}² on 8 shards"
+    calls.update({
+        "jacobi_shard": (f"{on8}, 3 sweeps + cpu error",
+                         *both(lambda ue, fe, g: K.fused_jacobi_shard(ue, fe, g, h, 3, 0.8, False,
+                                                                      "cpu"),
+                               lambda ue, fe, g: K.fused_jacobi_shard_torch(ue, fe, g, h, 3, 0.8,
+                                                                            False, "cpu")),
+                         3 * g2, (3 * SWEEP_OPS + ERR_OPS) * pts),
+        "jacobi_errs_shard": (f"{n8}² on 8 shards, 7 sweeps, cpu error of every iterate",
+                              *both(lambda ue, fe, g: K.fused_jacobi_errs_shard(ue, fe, g, h8, 7,
+                                                                                0.8, "cpu"),
+                                    lambda ue, fe, g: K.fused_jacobi_errs_shard_torch(
+                                        ue, fe, g, h8, 7, 0.8, "cpu"), ext8, geo8),
+                              3 * g8, 7 * (SWEEP_OPS + ERR_OPS) * pts8),
+        "rbgs_shard": (f"{on8}, 2 rb-GS sweeps + cpu error",
+                       *both(lambda ue, fe, g: K.fused_jacobi_shard(ue, fe, g, h, 2, 1.0, False,
+                                                                    "cpu", "rbgs"),
+                             lambda ue, fe, g: K.fused_jacobi_shard_torch(ue, fe, g, h, 2, 1.0,
+                                                                          False, "cpu", "rbgs")),
+                       3 * g2, (2 * RBGS_OPS + RBGS_ERR_OPS) * pts),
+        "residual_shard": (on8, *both(lambda ue, fe, g: K.residual_shard(ue, fe, g, h),
+                                      lambda ue, fe, g: K.residual_shard_torch(ue, fe, g, h)),
+                           3 * g2, RES_OPS * pts),
+        "descend_shard": (f"{on8}, 3 sweeps, sampling, cpu error",
+                          *both(lambda ue, fe, g: K.fused_descend_shard(ue, fe, g, h, 3, 0.8,
+                                                                        "sampling", "cpu"),
+                                lambda ue, fe, g: K.fused_descend_shard_torch(
+                                    ue, fe, g, h, 3, 0.8, "sampling", "cpu")),
+                          3.25 * g2, (3 * SWEEP_OPS + ERR_OPS + RES_OPS) * pts),
+        "ascend_shard": (f"{on8}, 3 sweeps, cpu error",
+                         lambda: [K.fused_ascend_shard(ue, fe, c, g.row0 // 2 - ch, -ch, g, h, 3,
+                                                       0.8, "cpu")
+                                  for (ue, fe), g, c in zip(ext2, geo2, cw2)],
+                         lambda: [K.fused_ascend_shard_torch(ue, fe, c, g.row0 // 2 - ch, -ch, g,
+                                                             h, 3, 0.8, "cpu")
+                                  for (ue, fe), g, c in zip(ext2, geo2, cw2)],
+                         3.25 * g2, (3 * SWEEP_OPS + ERR_OPS + 3) * pts),
+        "rdma_jacobi": (f"{on8}, 8 sweeps, the exchange inside",
+                        lambda: rdma.rdma_jacobi(us2, fs2, h, 8, 0.8),
+                        lambda: rdma.rdma_jacobi_torch(us2, fs2, h, 8, 0.8),
+                        3 * g2, 8 * SWEEP_OPS * pts),
+        "rdma_trigger": (f"{on8}, {s_sweeps} sweeps (trigger 0), cpu error",
+                         lambda: rdma.rdma_trigger(us2, fs2, h, 0.8, True, 0.0, s_sweeps),
+                         lambda: rdma.rdma_trigger_torch(us2, fs2, h, 0.8, True, 0.0, s_sweeps),
+                         3 * g2, s_sweeps * (SWEEP_OPS + ERR_OPS) * pts),
+    })
     times = {}
     for k, (shape, kern, plain, nbytes, ops) in calls.items():
         bound_ms, bound_by = bound(nbytes, ops)
         times[k] = (time_ms(kern, reps=10), time_ms(plain, reps=2, rounds=3), bound_ms, bound_by)
         say(f"[t] {k} at {shape}: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
+    def outputs(x):
+        """The tensors of a call's result, in order (sharded grids gathered)."""
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, S.ShardedGrid):
+            return [S.gather(x)]
+        if isinstance(x, (tuple, list)):
+            return [t for y in x for t in outputs(y)]
+        return []
+
+    for k in KERNELS:
+        if k in SINGLE_DEVICE:
+            continue
+        shape, kern, plain = calls[k][:3]
+        got, want = outputs(kern()), outputs(plain())
+        require(len(got) == len(want), f"{k} at {shape}: {len(got)} outputs vs {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            what = f"at {shape}, output {i}"
+            if not a.is_floating_point():
+                require(bool(torch.equal(a, b)), f"{k} {what}: {a.tolist()} vs {b.tolist()}")
+            elif a.dim() <= 1:
+                for x, y in zip(a.reshape(-1), b.reshape(-1)):
+                    cmp.scalar(k, what, x, y)
+            else:
+                cmp.grid(k, what, a, b)
+        cmp.cases[k] += 1
+        say(f"[t] {k} at {shape}: held against its plain version, max|Δ| so far "
+            f"{cmp.max_abs[k]:.3e}, bit-identical: {cmp.bitwise[k]}")
+    ms_ex = time_ms(lambda: KS.sharded_fused_jacobi(us2, fs2, h, 8, 0.8), reps=5)
+    ms_un = time_ms(lambda: K.fused_jacobi(u, f, h, 8, 0.8), reps=5)
+    say(f"[t] 8 sweeps at {n}²: unsharded kernel {ms_un:.4f} ms; 8 shards through the exchange "
+        f"path (halo copies + a launch a shard) {ms_ex:.4f} ms; through the ring kernel "
+        f"{times['rdma_jacobi'][0]:.4f} ms")
+    say(f"[t] ring trigger loop at {n}² on 8 shards: {times['rdma_trigger'][0] / s_sweeps:.4f} "
+        f"ms per sweep; the unsharded streamed loop {times['trigger_stream'][0] / s_sweeps:.4f} "
+        f"ms per sweep")
     say(f"[t] streamed trigger loop at {n}²: {times['trigger_stream'][0] / s_sweeps:.4f} ms "
         f"per sweep (12 B per point per sweep unblocked: "
         f"{12 * pts / HBM * 1e3:.4f} ms)")
@@ -1379,6 +1946,11 @@ def main():
         f"exact: {exact3_levels}")
     say("[end] refine3 513³ tw32 to 1e-10 (cycles, wall ms): "
         + "; ".join(f"{k} {c}, {ms:.1f}" for k, (c, ms) in refine3_runs.items()))
+    say("[end] G2 ms/cycle at 4097² on 8 shards of one card (no scaling: one card): "
+        + "; ".join(f"{tag} {ms:.3f}" for tag, ms in ms_g2.items()))
+    say("[end] G3 sharded trigger V-cycle 8193² wall ms: "
+        + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_g3.items())
+        + f"; sweeps per level, rdma auto: {g3_levels}")
     say(f"[end] chip_smoke ran {time.perf_counter() - t_start:.0f} s")
 
     # no single PyTorch call computes any of these functions: library_ms is null

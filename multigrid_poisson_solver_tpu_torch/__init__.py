@@ -14,8 +14,12 @@ Ported so far: the 2-D single-device engines (``compile_program``,
 (``IterativeRefinementSolver``, ``solve_to_tolerance``) with its checkpoints,
 the 3-D single-device path (``v_cycle3``, ``compile_program3`` with its
 trigger tiers, ``Solver3D``, 3-D refinement ``IterativeRefinement3`` and
-``solve_to_tolerance3``; eight kernels in ``ops.kernels3``) and the CLI with
-``--dim 3`` and ``--dim 3 --tol``. Multi-device execution is not yet ported.
+``solve_to_tolerance3``; eight kernels in ``ops.kernels3``), the CLI with
+``--dim 3`` and ``--dim 3 --tol``, and the 2-D multi-device path:
+``compile_program(..., policy=...)`` with the row and block policies of
+``parallel.mesh`` on a mesh of shards (repeats allowed: eight shards on one
+card are a real ring), the shard modes of the kernels and the two ring
+kernels of ``ops.rdma``. Still to port: 3-D sharding and multi-process runs.
 """
 
 __version__ = "0.1.0"

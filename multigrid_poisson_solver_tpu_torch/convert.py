@@ -13,6 +13,8 @@ import torch
 
 from .models.poisson3d import Problem3D
 from .models.problems import BUILTIN_PROBLEMS, Problem
+from .parallel.mesh import BlockShardingPolicy, Mesh, ShardingPolicy
+from .parallel.sharded import as_level
 from .schedule import Ascend, CoarseSolve, CycleProgram, Descend
 from .solver import SolverConfig
 
@@ -142,3 +144,26 @@ def problem_from_jax(name: str) -> Problem:
         if problem.name == name:
             return problem
     raise KeyError(f"no built-in problem {name!r}")
+
+
+def policy_from_jax(jax_policy, device="cpu"):
+    """The same sharding policy (mesh shape, axis names, threshold) over a
+    mesh whose every entry is ``device``: one shard per JAX device."""
+    mesh = jax_policy.mesh
+    names = tuple(mesh.axis_names)
+    sizes = tuple(int(mesh.shape[name]) for name in names)
+    ours = Mesh((torch.device(device),) * int(np.prod(sizes)), names, sizes)
+    kind = type(jax_policy).__name__
+    if kind == "ShardingPolicy":
+        return ShardingPolicy(ours, jax_policy.axis_name, jax_policy.threshold_rows)
+    if kind == "BlockShardingPolicy":
+        return BlockShardingPolicy(ours, jax_policy.row_axis, jax_policy.col_axis,
+                                   jax_policy.threshold_rows)
+    raise TypeError(f"unknown sharding policy {jax_policy!r}")
+
+
+def sharded_from_jax(global_padded, policy, n: int, device="cpu"):
+    """A JAX level array (padded, sharded or not) as the port's level n under
+    ``policy``: unpadded, then split into the policy's blocks (a tensor where
+    the level is replicated)."""
+    return as_level(grid_from_jax(global_padded, n, device), policy, n)

@@ -32,6 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_U = ctypes.c_uint64
 # C signatures of the entry points (pointers and the stream as void*).
 SIGNATURES = {
     "mg_num_tiles": ([_I], _I),
@@ -60,6 +61,18 @@ SIGNATURES = {
     "mg3_trigger_stream": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D,
                             _F, _I, _P], _I),
     "mg3_residual_mw": ([_P, _P, _P, _P, _P, _I, _I, _F, _P], _I),
+    # shard modes: the block's geometry (n, row0, col0, rows, cols, ext_r, ext_c)
+    "mg_num_tiles_block": ([_I, _I], _I),
+    "mg_jacobi_shard": ([_P] * 5 + [_I] * 7 + [_I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
+    "mg_jacobi_errs_shard": ([_P] * 5 + [_I] * 7 + [_I, _I, _F, _F, _F, _F, _P], _I),
+    "mg_rbgs_shard": ([_P] * 5 + [_I] * 7 + [_I, _I, _I, _F, _F, _P], _I),
+    "mg_residual_shard": ([_P] * 3 + [_I] * 7 + [_F, _I, _P], _I),
+    "mg_descend_shard": ([_P] * 6 + [_I] * 7 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
+    "mg_ascend_shard": ([_P] * 6 + [_I] * 7 + [_I] * 4 + [_I, _I, _F, _F, _F, _F, _P], _I),
+    # the ring kernels (ops.rdma)
+    "mg_rdma_jacobi": ([_P] * 4 + [_I] * 4 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
+    "mg_rdma_trigger": ([_P] * 5 + [_I, _I] + [_P] * 7 + [_I, _F, _F, _F, _F, _F, _I, _U, _P],
+                        _I),
 }
 
 _lib = None

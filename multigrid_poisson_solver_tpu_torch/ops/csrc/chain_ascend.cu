@@ -42,9 +42,9 @@ static __global__ void __launch_bounds__(THREADS) chain_ascend_kernel(ChainAscen
     const int n = a.n[k], tx = tiles_x(n), count = num_tiles(n);
     const int mode = k == 0 ? a.err_mode : ERR_NONE;
     for (int t = blockIdx.x; t < count; t += gridDim.x)
-      ascend_tile(smem, a.u[k], a.f[k], child, a.out[k],
-                  mode != ERR_NONE ? a.partials + t : nullptr, t % tx, t / tx, n, a.steps[k],
-                  a.halo[k], mode, a.h2[k], a.omega, a.inv_h2[k]);
+      ascend_tile(smem, window(a.u[k], n), window(a.f[k], n), window(child, a.n[k + 1]),
+                  a.out[k], mode != ERR_NONE ? a.partials + t : nullptr, t % tx, t / tx, n,
+                  a.steps[k], a.halo[k], mode, a.h2[k], a.omega, a.inv_h2[k]);
     child = a.out[k];
     if (k > 0 || a.err_mode != ERR_NONE) grid.sync();  // out[k] / the partials complete
   }

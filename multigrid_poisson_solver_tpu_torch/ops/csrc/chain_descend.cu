@@ -41,9 +41,9 @@ static __global__ void __launch_bounds__(THREADS) chain_descend_kernel(ChainDesc
     const int n = a.n[k], tx = tiles_x(n), count = num_tiles(n);
     const int fz = k > 0 || a.entry_from_zero;
     for (int t = blockIdx.x; t < count; t += gridDim.x)
-      descend_tile(smem, fz ? nullptr : a.u0, a.f[k], a.u[k], a.f[k + 1], nullptr, t % tx,
-                   t / tx, n, a.n_sweeps[k], a.halo[k], fz, a.full_weighting, ERR_NONE,
-                   a.h2[k], a.omega, a.inv_h2[k], a.zero_coef[k]);
+      descend_tile(smem, window(fz ? nullptr : a.u0, n), window(a.f[k], n), a.u[k], a.f[k + 1],
+                   nullptr, t % tx, t / tx, n, a.n_sweeps[k], a.halo[k], fz, a.full_weighting,
+                   ERR_NONE, a.h2[k], a.omega, a.inv_h2[k], a.zero_coef[k]);
     if (k + 1 < a.levels) grid.sync();  // level k+1 reads f[k+1]
   }
 }

@@ -2,10 +2,17 @@
 // halo tile loader, the frozen-cell mask, the point updates, the fixed-order
 // reductions and the launcher of the persistent (grid-synchronized) kernels.
 //
-// Every tile is a TILE_H x TILE_W window of an n x n fp32 grid (row-major,
-// contiguous), staged in shared memory with a halo of `halo` cells per side.
-// Tiles are numbered row-major, t = ty * tiles_x(n) + tx. Cells outside
-// [0, n)^2 load as 0; they and the Dirichlet boundary are frozen. A
+// A launch owns a region of an n x n fp32 grid (Geo): the whole grid on one
+// device, or one shard's block of rows (and columns) under a sharding policy,
+// with its global origin. Inputs are windows of the grid in device memory
+// (Win: row-major, contiguous, with a global origin); a shard's window is its
+// block extended by the halo rows (and columns) its ring neighbours sent.
+// Every tile is a TILE_H x TILE_W window of the owned region, staged in
+// shared memory with a halo of `halo` cells per side. Tiles are numbered
+// row-major, t = ty * tiles_x(g) + tx. Cells outside [0, n)^2 or outside the
+// input window load as 0; cells outside the grid and the Dirichlet boundary
+// are frozen, by global index, so a shard masks exactly what the whole grid
+// does. Error partials count owned cells only. A
 // multi-sweep tile runs sweep s (1-based) on the staged region shrunk by s
 // cells per side, ping-ponging two buffers: after k sweeps the region shrunk
 // by k is exact, so a halo of k (+1 for each later stencil read of the final
@@ -42,18 +49,75 @@ struct Tile {
   int rows, cols;  // staged extent; also the shared-memory row stride
 };
 
-static __host__ __device__ __forceinline__ int tiles_x(int n) {
-  return (n + TILE_W - 1) / TILE_W;
+// The region a launch owns: rows [row0, row0 + rows) x columns [col0, col0 +
+// cols) of the n x n grid. Outputs are laid out as that region (row-major,
+// `cols` per row). An int converts to the whole grid.
+struct Geo {
+  int n, row0, col0, rows, cols;
+  __host__ __device__ Geo(int n_) : n(n_), row0(0), col0(0), rows(n_), cols(n_) {}
+  __host__ __device__ Geo(int n_, int r0, int c0, int r, int c)
+      : n(n_), row0(r0), col0(c0), rows(r), cols(c) {}
+};
+
+// A window of the grid in device memory: global cell (gi, gj) at
+// p[(gi − r0) · cols + (gj − c0)] for r0 <= gi < r0 + rows, c0 <= gj < c0 + cols.
+struct Win {
+  const float* p;
+  int r0, c0, rows, cols;
+};
+
+// The owned region's window extended by er rows and ec columns per side.
+static __host__ __device__ __forceinline__ Win window(const float* p, const Geo& g, int er = 0,
+                                                      int ec = 0) {
+  Win w = {p, g.row0 - er, g.col0 - ec, g.rows + 2 * er, g.cols + 2 * ec};
+  return w;
 }
 
-static __host__ __device__ __forceinline__ int num_tiles(int n) {
-  return tiles_x(n) * ((n + TILE_H - 1) / TILE_H);
+// Whether a launch owns the whole grid through unextended windows: the
+// single-device launch. Its kernels are instantiated with SHARD = false and
+// rebuild their region and windows from n and the base pointers (region<>),
+// so origins, extents and window offsets are compile-time zeros and n, and
+// the shard arithmetic folds away. The kernels take their grids as
+// __restrict__ pointers and build the windows inside, so every access keeps
+// the no-alias promise (a pointer read out of a Win kernel argument would
+// not).
+static inline bool whole_grid(const Geo& g, int ext_r, int ext_c) {
+  return g.row0 == 0 && g.col0 == 0 && g.rows == g.n && g.cols == g.n && ext_r == 0 &&
+         ext_c == 0;
 }
 
-static __device__ __forceinline__ Tile make_tile(int halo, int tx, int ty) {
+template <bool SHARD>
+static __device__ __forceinline__ Geo region(const Geo& g) {
+  return SHARD ? g : Geo(g.n);
+}
+
+// p's window of region<SHARD>'s g, extended by er rows and ec columns per
+// side (the whole grid, unextended, for SHARD = false).
+template <bool SHARD>
+static __device__ __forceinline__ Win region(const float* p, const Geo& g, int er, int ec) {
+  return SHARD ? window(p, g, er, ec) : window(p, g);
+}
+
+static __device__ __forceinline__ float at(const Win& w, int gi, int gj) {
+  return __ldcg(w.p + (ptrdiff_t)(gi - w.r0) * w.cols + (gj - w.c0));
+}
+
+static __host__ __device__ __forceinline__ int tiles_x(const Geo& g) {
+  return (g.cols + TILE_W - 1) / TILE_W;
+}
+
+static __host__ __device__ __forceinline__ int tiles_y(const Geo& g) {
+  return (g.rows + TILE_H - 1) / TILE_H;
+}
+
+static __host__ __device__ __forceinline__ int num_tiles(const Geo& g) {
+  return tiles_x(g) * tiles_y(g);
+}
+
+static __device__ __forceinline__ Tile make_tile(const Geo& g, int halo, int tx, int ty) {
   Tile t;
-  t.gr0 = ty * TILE_H - halo;
-  t.gc0 = tx * TILE_W - halo;
+  t.gr0 = g.row0 + ty * TILE_H - halo;
+  t.gc0 = g.col0 + tx * TILE_W - halo;
   t.rows = TILE_H + 2 * halo;
   t.cols = TILE_W + 2 * halo;
   return t;
@@ -68,25 +132,41 @@ static inline size_t tile_smem_bytes(int halo) {
   return 3 * tile_floats(halo) * sizeof(float);
 }
 
-static inline dim3 tile_grid(int n) {
-  return dim3(tiles_x(n), (n + TILE_H - 1) / TILE_H);
+static inline dim3 tile_grid(const Geo& g) {
+  return dim3(tiles_x(g), tiles_y(g));
 }
 
 static __device__ __forceinline__ bool interior(int gi, int gj, int n) {
   return gi >= 1 && gi <= n - 2 && gj >= 1 && gj <= n - 2;
 }
 
-static __device__ __forceinline__ bool in_grid(int gi, int gj, int n) {
-  return gi >= 0 && gi < n && gj >= 0 && gj < n;
+// One global row of a source: p[gj] holds cell (gi, gj) for c_lo <= gj < c_hi
+// (an empty range where the source has no cell of the row in the grid).
+struct RowRef {
+  const float* p;
+  int c_lo, c_hi;
+};
+
+static __device__ __forceinline__ RowRef row_of(const Win& w, int gi, int n) {
+  RowRef r = {w.p, 0, 0};
+  if (gi >= max(0, w.r0) && gi < min(n, w.r0 + w.rows)) {
+    r.p = w.p + (ptrdiff_t)(gi - w.r0) * w.cols - w.c0;
+    r.c_lo = max(0, w.c0);
+    r.c_hi = min(n, w.c0 + w.cols);
+  }
+  return r;
 }
 
-// Stage g's window into s; cells outside the grid read as 0.
-static __device__ void load_tile(float* s, const float* g, int n, const Tile& t) {
+// Stage src's window into s; cells outside the grid or the window read as 0.
+// S is a Win, or a source with a row_of() of its own (rdma.cuh). The row is
+// looked up once a row, so a cell costs what it did on the whole grid.
+template <class S>
+static __device__ void load_tile(float* s, const S& src, int n, const Tile& t) {
   for (int i = threadIdx.y; i < t.rows; i += BLOCK_Y) {
-    const int gi = t.gr0 + i;
+    const RowRef r = row_of(src, t.gr0 + i, n);
     for (int j = threadIdx.x; j < t.cols; j += BLOCK_X) {
       const int gj = t.gc0 + j;
-      s[i * t.cols + j] = in_grid(gi, gj, n) ? __ldcg(g + (size_t)gi * n + gj) : 0.0f;
+      s[i * t.cols + j] = gj >= r.c_lo && gj < r.c_hi ? __ldcg(r.p + gj) : 0.0f;
     }
   }
 }
@@ -137,16 +217,41 @@ static __device__ int run_sweeps(float* bufs[2], const float* sf, const Tile& t,
   return n_sweeps & 1;
 }
 
-// Write the owned window of the staged buffer back to the n x n grid g.
-static __device__ void store_owned(float* __restrict__ g, const float* s, int n,
+// Whether global cell (gi, gj) lies in g's region. Loops test it per cell:
+// a per-row skip kept the compiler from unrolling them as it unrolls the
+// whole-grid kernels (the residual ran 12% slower).
+static __device__ __forceinline__ bool owned(const Geo& g, int gi, int gj) {
+  return gi >= g.row0 && gi < g.row0 + g.rows && gj >= g.col0 && gj < g.col0 + g.cols;
+}
+
+// Offset of owned cell (gi, gj) in an output laid out as g's region.
+static __device__ __forceinline__ ptrdiff_t out_at(const Geo& g, int gi, int gj) {
+  return (ptrdiff_t)(gi - g.row0) * g.cols + (gj - g.col0);
+}
+
+// Write the owned cells of the staged buffer's tile window to out, laid out
+// as g's region.
+static __device__ void store_owned(float* __restrict__ out, const float* s, const Geo& g,
                                    const Tile& t, int halo) {
   for (int i = halo + threadIdx.y; i < halo + TILE_H; i += BLOCK_Y) {
     const int gi = t.gr0 + i;
     for (int j = halo + threadIdx.x; j < halo + TILE_W; j += BLOCK_X) {
       const int gj = t.gc0 + j;
-      if (in_grid(gi, gj, n)) g[(size_t)gi * n + gj] = s[i * t.cols + j];
+      if (owned(g, gi, gj)) out[out_at(g, gi, gj)] = s[i * t.cols + j];
     }
   }
+}
+
+// The owned interior cells of g's region: rows [i_lo, i_hi], columns
+// [j_lo, j_hi] (the cells an error partial counts).
+struct Span {
+  int i_lo, i_hi, j_lo, j_hi;
+};
+
+static __device__ __forceinline__ Span owned_interior(const Geo& g) {
+  Span sp = {max(1, g.row0), min(g.n - 2, g.row0 + g.rows - 1), max(1, g.col0),
+             min(g.n - 2, g.col0 + g.cols - 1)};
+  return sp;
 }
 
 // Fixed-order sum over the block (xor-shuffle tree per warp, then one warp
@@ -172,13 +277,14 @@ static __device__ float block_sum(float v) {
 // the residual modes. Written to *partial without atomics.
 static __device__ void error_partial(float* __restrict__ partial, const float* fin,
                                      const float* prev, const float* sf, const Tile& t,
-                                     int halo, int n, int err_mode, float inv_h2) {
+                                     int halo, const Geo& g, int err_mode, float inv_h2) {
+  const Span sp = owned_interior(g);
   float acc = 0.0f;
   for (int i = halo + threadIdx.y; i < halo + TILE_H; i += BLOCK_Y) {
     const int gi = t.gr0 + i;
     for (int j = halo + threadIdx.x; j < halo + TILE_W; j += BLOCK_X) {
       const int gj = t.gc0 + j;
-      if (!interior(gi, gj, n)) continue;
+      if (gi < sp.i_lo || gi > sp.i_hi || gj < sp.j_lo || gj > sp.j_hi) continue;
       if (err_mode == ERR_CPU && ((gi + gj) & 1)) continue;
       const int k = i * t.cols + j;
       if (err_mode == ERR_GPU) {

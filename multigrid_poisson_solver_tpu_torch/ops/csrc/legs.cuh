@@ -8,6 +8,11 @@
 //
 // `smem` holds tile_smem_bytes(halo): f, then two ping-pong buffers. Every
 // function starts with a barrier, so a block may call them back to back.
+// `g` is the owned region (the whole grid, or one shard's block): tiles are
+// laid over it, outputs are laid out as it, masks use global indices, and
+// the error partials count its cells only. Inputs are windows (Win, or the
+// ring source of the rdma kernels) holding at least the owned region plus
+// the tile halo.
 #pragma once
 
 #include "common.cuh"
@@ -16,7 +21,8 @@ namespace mgk {
 
 // Stage the starting iterate into buf: u's window, or with from_zero the
 // closed-form first sweep from u ≡ 0, zero_coef·f on the interior (u unread).
-static __device__ void stage_iterate(float* buf, const float* sf, const float* u, int n,
+template <class S>
+static __device__ void stage_iterate(float* buf, const float* sf, const S& u, int n,
                                      const Tile& t, int from_zero, float zero_coef) {
   if (!from_zero) {
     load_tile(buf, u, n, t);
@@ -32,12 +38,14 @@ static __device__ void stage_iterate(float* buf, const float* sf, const float* u
 
 // n_sweeps (after the closed-form one when from_zero) Jacobi sweeps of tile
 // (tx, ty) into out; with err_mode, the tile's error partial into *partial.
-static __device__ void jacobi_tile(float* smem, const float* u, const float* f,
-                                   float* __restrict__ out, float* partial, int tx, int ty,
-                                   int n, int n_sweeps, int halo, int from_zero, int err_mode,
-                                   float h2, float omega, float inv_h2, float zero_coef) {
+template <class S>
+static __device__ void jacobi_tile(float* smem, const S& u, const S& f, float* __restrict__ out,
+                                   float* partial, int tx, int ty, const Geo& g, int n_sweeps,
+                                   int halo, int from_zero, int err_mode, float h2, float omega,
+                                   float inv_h2, float zero_coef) {
   __syncthreads();
-  const Tile t = make_tile(halo, tx, ty);
+  const int n = g.n;
+  const Tile t = make_tile(g, halo, tx, ty);
   const int cells = t.rows * t.cols;
   float* sf = smem;
   float* bufs[2] = {smem + cells, smem + 2 * cells};
@@ -47,11 +55,11 @@ static __device__ void jacobi_tile(float* smem, const float* u, const float* f,
   __syncthreads();
 
   const int fin = run_sweeps(bufs, sf, t, n_sweeps, n, h2, omega);
-  store_owned(out, bufs[fin], n, t, halo);
+  store_owned(out, bufs[fin], g, t, halo);
   if (err_mode != ERR_NONE) {
     // gpu metric of a closed-form-only pass: Δ from the implicit zero iterate
     const float* prev = n_sweeps > 0 ? bufs[fin ^ 1] : nullptr;
-    error_partial(partial, bufs[fin], prev, sf, t, halo, n, err_mode, inv_h2);
+    error_partial(partial, bufs[fin], prev, sf, t, halo, g, err_mode, inv_h2);
   }
 }
 
@@ -60,12 +68,13 @@ static __device__ void jacobi_tile(float* smem, const float* u, const float* f,
 // partials[(s − 1) · stride]. Each partial is the one jacobi_tile writes
 // after s sweeps (the same cells, values and order), so a row of partials
 // sums to what a launch of s sweeps reports.
-static __device__ void jacobi_errs_tile(float* smem, const float* u, const float* f,
+static __device__ void jacobi_errs_tile(float* smem, const Win& u, const Win& f,
                                         float* __restrict__ out, float* partials, int stride,
-                                        int tx, int ty, int n, int n_sweeps, int halo,
+                                        int tx, int ty, const Geo& g, int n_sweeps, int halo,
                                         int err_mode, float h2, float omega, float inv_h2) {
   __syncthreads();
-  const Tile t = make_tile(halo, tx, ty);
+  const int n = g.n;
+  const Tile t = make_tile(g, halo, tx, ty);
   const int cells = t.rows * t.cols;
   float* sf = smem;
   float* bufs[2] = {smem + cells, smem + 2 * cells};
@@ -78,10 +87,10 @@ static __device__ void jacobi_errs_tile(float* smem, const float* u, const float
     __syncthreads();
     // ends with block_sum's barriers: the next sweep may overwrite u_{s−1}
     error_partial(partials + (size_t)(s - 1) * stride, bufs[s & 1],
-                  err_mode == ERR_GPU ? bufs[(s - 1) & 1] : nullptr, sf, t, halo, n, err_mode,
+                  err_mode == ERR_GPU ? bufs[(s - 1) & 1] : nullptr, sf, t, halo, g, err_mode,
                   inv_h2);
   }
-  store_owned(out, bufs[n_sweeps & 1], n, t, halo);
+  store_owned(out, bufs[n_sweeps & 1], g, t, halo);
 }
 
 // One red-black Gauss-Seidel half-update of `color` (0: even, (i + j) even;
@@ -106,14 +115,15 @@ static __device__ void rbgs_half(float* buf, const float* sf, const Tile& t, int
 // (ERR_CPU: even color only), Δ = ¼·((nb − 4u) − h²f) the step an ω = 1
 // Jacobi sweep would take from the final iterate, i.e. (h²/4)·r.
 static __device__ void rbgs_error_partial(float* __restrict__ partial, const float* fin,
-                                          const float* sf, const Tile& t, int halo, int n,
+                                          const float* sf, const Tile& t, int halo, const Geo& g,
                                           int err_mode, float h2) {
+  const Span sp = owned_interior(g);
   float acc = 0.0f;
   for (int i = halo + threadIdx.y; i < halo + TILE_H; i += BLOCK_Y) {
     const int gi = t.gr0 + i;
     for (int j = halo + threadIdx.x; j < halo + TILE_W; j += BLOCK_X) {
       const int gj = t.gc0 + j;
-      if (!interior(gi, gj, n)) continue;
+      if (gi < sp.i_lo || gi > sp.i_hi || gj < sp.j_lo || gj > sp.j_hi) continue;
       if (err_mode == ERR_CPU && ((gi + gj) & 1)) continue;
       const int k = i * t.cols + j;
       const float d = __fsub_rn(__fsub_rn(nb_sum(fin, t.cols, i, j), __fmul_rn(4.0f, fin[k])),
@@ -129,11 +139,13 @@ static __device__ void rbgs_error_partial(float* __restrict__ partial, const flo
 // (tx, ty) into out, in one staged buffer after f; from_zero: the iterate is
 // 0 and u is not read. With err_mode (cpu or clean), the tile's error
 // partial into *partial.
-static __device__ void rbgs_tile(float* smem, const float* u, const float* f,
-                                 float* __restrict__ out, float* partial, int tx, int ty, int n,
-                                 int n_sweeps, int halo, int from_zero, int err_mode, float h2) {
+static __device__ void rbgs_tile(float* smem, const Win& u, const Win& f,
+                                 float* __restrict__ out, float* partial, int tx, int ty,
+                                 const Geo& g, int n_sweeps, int halo, int from_zero, int err_mode,
+                                 float h2) {
   __syncthreads();
-  const Tile t = make_tile(halo, tx, ty);
+  const int n = g.n;
+  const Tile t = make_tile(g, halo, tx, ty);
   float* sf = smem;
   float* buf = smem + t.rows * t.cols;
 
@@ -149,20 +161,24 @@ static __device__ void rbgs_tile(float* smem, const float* u, const float* f,
     rbgs_half(buf, sf, t, s, n, (s - 1) & 1, h2);
     __syncthreads();
   }
-  store_owned(out, buf, n, t, halo);
-  if (err_mode != ERR_NONE) rbgs_error_partial(partial, buf, sf, t, halo, n, err_mode, h2);
+  store_owned(out, buf, g, t, halo);
+  if (err_mode != ERR_NONE) rbgs_error_partial(partial, buf, sf, t, halo, g, err_mode, h2);
 }
 
 // The descend leg of tile (tx, ty) on the level n = 2m − 1: sweeps into out,
 // then −r of the final iterate restricted (sampling or full weighting) into
-// the tile's 16 x 64 window of the m x m coarse right-hand side fc.
-static __device__ void descend_tile(float* smem, const float* u, const float* f,
+// the tile's 16 x 64 window of the coarse right-hand side fc. fc is laid out
+// as the coarse points of g's region: rows from row0 / 2, (rows + 1) / 2 of
+// them, and the same for columns (the m x m grid for the whole level; g's
+// origin is even).
+static __device__ void descend_tile(float* smem, const Win& u, const Win& f,
                                     float* __restrict__ out, float* __restrict__ fc,
-                                    float* partial, int tx, int ty, int n, int n_sweeps,
+                                    float* partial, int tx, int ty, const Geo& g, int n_sweeps,
                                     int halo, int from_zero, int full_weighting, int err_mode,
                                     float h2, float omega, float inv_h2, float zero_coef) {
   __syncthreads();
-  const Tile t = make_tile(halo, tx, ty);
+  const int n = g.n;
+  const Tile t = make_tile(g, halo, tx, ty);
   const int cells = t.rows * t.cols;
   float* sf = smem;
   float* bufs[2] = {smem + cells, smem + 2 * cells};
@@ -174,10 +190,10 @@ static __device__ void descend_tile(float* smem, const float* u, const float* f,
   const int fin_i = run_sweeps(bufs, sf, t, n_sweeps, n, h2, omega);
   const float* fin = bufs[fin_i];
   float* d = bufs[fin_i ^ 1];
-  store_owned(out, fin, n, t, halo);
+  store_owned(out, fin, g, t, halo);
   if (err_mode != ERR_NONE) {
     const float* prev = n_sweeps > 0 ? d : nullptr;
-    error_partial(partial, fin, prev, sf, t, halo, n, err_mode, inv_h2);
+    error_partial(partial, fin, prev, sf, t, halo, g, err_mode, inv_h2);
   }
   __syncthreads();  // the error pass may still read the spare buffer
 
@@ -195,12 +211,13 @@ static __device__ void descend_tile(float* smem, const float* u, const float* f,
   __syncthreads();
 
   const int m = (n + 1) / 2;
+  const int crows = (g.rows + 1) / 2, ccols = (g.cols + 1) / 2;
   for (int ci = threadIdx.y; ci < TILE_H / 2; ci += BLOCK_Y) {
-    const int I = ty * (TILE_H / 2) + ci;
+    const int lI = ty * (TILE_H / 2) + ci, I = g.row0 / 2 + lI;
     const int li = halo + 2 * ci;
     for (int cj = threadIdx.x; cj < TILE_W / 2; cj += BLOCK_X) {
-      const int J = tx * (TILE_W / 2) + cj;
-      if (I >= m || J >= m) continue;
+      const int lJ = tx * (TILE_W / 2) + cj, J = g.col0 / 2 + lJ;
+      if (I >= m || J >= m || lI >= crows || lJ >= ccols) continue;
       float v = 0.0f;
       if (interior(I, J, m)) {
         const int k = li * t.cols + halo + 2 * cj;
@@ -218,45 +235,50 @@ static __device__ void descend_tile(float* smem, const float* u, const float* f,
           v = d[k];
         }
       }
-      fc[(size_t)I * m + J] = v;
+      fc[(size_t)lI * ccols + lJ] = v;
     }
   }
 }
 
 // Coarse row I interpolated to fine column gj (the prolongation's column pass).
-static __device__ __forceinline__ float wide(const float* c, int m, int I, int gj) {
+static __device__ __forceinline__ float wide(const Win& c, int I, int gj) {
   const int J = gj >> 1;
-  const float a = __ldcg(c + (size_t)I * m + J);
+  const float a = at(c, I, J);
   if (!(gj & 1)) return a;
-  return __fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, __ldcg(c + (size_t)I * m + J + 1)));
+  return __fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, at(c, I, J + 1)));
 }
 
 // The ascend leg of tile (tx, ty) on the level n = 2m − 1: u plus the
-// prolonged m x m correction c on the interior, then `steps` sweeps into out.
-static __device__ void ascend_tile(float* smem, const float* u, const float* f,
-                                   const float* c, float* __restrict__ out, float* partial,
-                                   int tx, int ty, int n, int steps, int halo, int err_mode,
-                                   float h2, float omega, float inv_h2) {
+// prolonged correction on the interior, then `steps` sweeps into out. c is a
+// window of the m x m coarse correction holding every coarse cell the
+// interior cells of u's window interpolate from (mg_ascend_shard checks it).
+static __device__ void ascend_tile(float* smem, const Win& u, const Win& f, const Win& c,
+                                   float* __restrict__ out, float* partial, int tx, int ty,
+                                   const Geo& g, int steps, int halo, int err_mode, float h2,
+                                   float omega, float inv_h2) {
   __syncthreads();
-  const Tile t = make_tile(halo, tx, ty);
+  const int n = g.n;
+  const Tile t = make_tile(g, halo, tx, ty);
   const int cells = t.rows * t.cols;
   float* sf = smem;
   float* bufs[2] = {smem + cells, smem + 2 * cells};
-  const int m = (n + 1) / 2;
 
   load_tile(sf, f, n, t);
+  // the cells of u's window in the grid
+  const Geo held(n, max(0, u.r0), max(0, u.c0), min(n, u.r0 + u.rows) - max(0, u.r0),
+                 min(n, u.c0 + u.cols) - max(0, u.c0));
   for (int i = threadIdx.y; i < t.rows; i += BLOCK_Y) {
     const int gi = t.gr0 + i;
     for (int j = threadIdx.x; j < t.cols; j += BLOCK_X) {
       const int gj = t.gc0 + j;
       float v = 0.0f;
-      if (in_grid(gi, gj, n)) {
-        v = __ldcg(u + (size_t)gi * n + gj);
+      if (owned(held, gi, gj)) {
+        v = at(u, gi, gj);
         if (interior(gi, gj, n)) {
           const int I = gi >> 1;
-          const float p = (gi & 1) ? __fadd_rn(__fmul_rn(0.5f, wide(c, m, I, gj)),
-                                               __fmul_rn(0.5f, wide(c, m, I + 1, gj)))
-                                   : wide(c, m, I, gj);
+          const float p = (gi & 1) ? __fadd_rn(__fmul_rn(0.5f, wide(c, I, gj)),
+                                               __fmul_rn(0.5f, wide(c, I + 1, gj)))
+                                   : wide(c, I, gj);
           v = __fadd_rn(v, p);
         }
       }
@@ -266,9 +288,9 @@ static __device__ void ascend_tile(float* smem, const float* u, const float* f,
   __syncthreads();
 
   const int fin = run_sweeps(bufs, sf, t, steps, n, h2, omega);
-  store_owned(out, bufs[fin], n, t, halo);
+  store_owned(out, bufs[fin], g, t, halo);
   if (err_mode != ERR_NONE)
-    error_partial(partial, bufs[fin], bufs[fin ^ 1], sf, t, halo, n, err_mode, inv_h2);
+    error_partial(partial, bufs[fin], bufs[fin ^ 1], sf, t, halo, g, err_mode, inv_h2);
 }
 
 // Halo of each tile operation (see the header of common.cuh).

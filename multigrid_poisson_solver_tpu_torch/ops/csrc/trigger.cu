@@ -47,8 +47,8 @@ static __global__ void __launch_bounds__(THREADS) trigger_kernel(TriggerArgs a) 
   for (;;) {
     float* part = a.partials + (k & 1) * count;
     for (int t = blockIdx.x; t < count; t += gridDim.x)
-      jacobi_tile(smem, src, a.f, dst, part + t, t % tx, t / tx, a.n, 1, a.halo, 0,
-                  a.err_mode, a.h2, a.omega, a.inv_h2, 0.0f);
+      jacobi_tile(smem, window(src, a.n), window(a.f, a.n), dst, part + t, t % tx, t / tx, a.n,
+                  1, a.halo, 0, a.err_mode, a.h2, a.omega, a.inv_h2, 0.0f);
     grid.sync();  // dst and the partials complete
     const float total = fixed_sum(part, count);
     if (threadIdx.x == 0 && threadIdx.y == 0) err_now = __fmul_rn(total, a.err_scale);

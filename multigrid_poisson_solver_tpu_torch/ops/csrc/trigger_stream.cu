@@ -53,8 +53,8 @@ static __global__ void __launch_bounds__(THREADS) trigger_stream_kernel(StreamAr
     const int kb = min(a.batch, a.max_sweeps - k);  // >= 1: k < max_sweeps here
     float* part = a.partials + (size_t)(pass & 1) * a.batch * count;
     for (int t = blockIdx.x; t < count; t += gridDim.x)
-      jacobi_errs_tile(smem, src, a.f, dst, part + t, count, t % tx, t / tx, a.n, kb, a.halo,
-                       a.err_mode, a.h2, a.omega, a.inv_h2);
+      jacobi_errs_tile(smem, window(src, a.n), window(a.f, a.n), dst, part + t, count, t % tx,
+                       t / tx, a.n, kb, a.halo, a.err_mode, a.h2, a.omega, a.inv_h2);
     grid.sync();  // dst and the partials complete
     int stop = 0;
     for (int s = 1; s <= kb && !stop; ++s) {
@@ -72,8 +72,8 @@ static __global__ void __launch_bounds__(THREADS) trigger_stream_kernel(StreamAr
       k += stop;
       if (stop < kb) {  // the loop ends inside this pass: redo it with stop sweeps
         for (int t = blockIdx.x; t < count; t += gridDim.x)
-          jacobi_tile(smem, src, a.f, dst, nullptr, t % tx, t / tx, a.n, stop, stop, 0,
-                      ERR_NONE, a.h2, a.omega, a.inv_h2, 0.0f);
+          jacobi_tile(smem, window(src, a.n), window(a.f, a.n), dst, nullptr, t % tx, t / tx,
+                      a.n, stop, stop, 0, ERR_NONE, a.h2, a.omega, a.inv_h2, 0.0f);
         grid.sync();
       }
       break;

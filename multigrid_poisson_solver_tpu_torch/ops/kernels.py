@@ -35,11 +35,22 @@ show that the main path went through the kernels. The 3-D kernels
 
 Grids are plain contiguous (n, n) tensors. Every function returns new
 tensors and leaves its arguments untouched.
+
+Shard mode (``*_shard``): the same kernels on one shard's block of a sharded
+level, the counterparts of ``_fused_jacobi_shard_call``,
+``_residual_shard_call``, ``_fused_descend_shard_call`` and
+``_fused_ascend_shard_call``. The block is described by a ``ShardGeo`` (its
+global origin and extent, and the halo rows and columns its inputs carry);
+masks use global indices, only owned cells come back, and an error comes
+back as the shard's raw partial, which ``parallel.kernel_shard`` adds over
+the shards in shard order before scaling. They count under their own names
+(``jacobi_shard``, ...). The ring kernels of ``ops.rdma`` count here too.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -60,7 +71,10 @@ launches = {"jacobi": 0, "jacobi_errs": 0, "rbgs": 0, "residual": 0, "residual_m
             "trigger": 0, "trigger_stream": 0,
             # the 3-D kernels (ops.kernels3)
             "jacobi3": 0, "descend3": 0, "ascend3": 0, "residual3": 0, "jacobi3_errs": 0,
-            "trigger3": 0, "trigger3_stream": 0, "residual_mw3": 0}
+            "trigger3": 0, "trigger3_stream": 0, "residual_mw3": 0,
+            # the shard modes of the 2-D kernels and the ring kernels (ops.rdma)
+            "jacobi_shard": 0, "jacobi_errs_shard": 0, "rbgs_shard": 0, "residual_shard": 0,
+            "descend_shard": 0, "ascend_shard": 0, "rdma_jacobi": 0, "rdma_trigger": 0}
 
 
 def reset_launch_counts() -> None:
@@ -93,6 +107,15 @@ def _err_scale(mode: str, n: int, h: float) -> float:
     if mode == "gpu":
         return 4.0 / (h * h) / (n * n)
     return (2.0 if mode == "cpu" else 1.0) / (n * n)
+
+
+def shard_err_scale(mode: str, n: int, h: float, smoother: str = "jacobi") -> float:
+    """The scale that turns a sum of raw shard partials (Σ|r|, or Σ|Δu| for
+    gpu, or Σ|Δ| of the rb-GS kernel) into the metric the unsharded kernels
+    report."""
+    if smoother == "rbgs":
+        return (2.0 if mode == "cpu" else 1.0) * 4.0 / (h * h) / (n * n)
+    return _err_scale(mode, n, h)
 
 
 def _zero_coef(h: float, omega: float) -> float:
@@ -785,3 +808,400 @@ def residual_tw(u0, u1, u2, f, h: float):
     if not f.is_cuda:
         return residual_tw_torch(u0, u1, u2, f, h)
     return _residual_mw_cuda((u0, u1, u2), f, h)
+
+
+# --- shard mode ---------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardGeo:
+    """One shard's block of an n x n level: rows [row0, row0 + rows) x
+    columns [col0, col0 + cols), whose input windows carry ``ext_r`` halo
+    rows and ``ext_c`` halo columns per side (zero outside the grid). The
+    whole grid is ``ShardGeo(n, 0, 0, n, n)``."""
+
+    n: int
+    row0: int
+    col0: int
+    rows: int
+    cols: int
+    ext_r: int = 0
+    ext_c: int = 0
+
+    @property
+    def ext_shape(self) -> tuple[int, int]:
+        return self.rows + 2 * self.ext_r, self.cols + 2 * self.ext_c
+
+    def owned(self, x: torch.Tensor) -> torch.Tensor:
+        """The owned block of a window-shaped tensor."""
+        return x[self.ext_r:self.ext_r + self.rows, self.ext_c:self.ext_c + self.cols]
+
+    def coords(self, device):
+        """Global row and column indices of the window's cells."""
+        gi = torch.arange(self.row0 - self.ext_r, self.row0 + self.rows + self.ext_r,
+                          device=device)
+        gj = torch.arange(self.col0 - self.ext_c, self.col0 + self.cols + self.ext_c,
+                          device=device)
+        return gi, gj
+
+    def interior(self, device) -> torch.Tensor:
+        """The window's cells on the grid's interior (1..n − 2 both ways)."""
+        gi, gj = self.coords(device)
+        n = self.n
+        return ((gi >= 1) & (gi <= n - 2))[:, None] & ((gj >= 1) & (gj <= n - 2))[None, :]
+
+    def owned_mask(self, device) -> torch.Tensor:
+        rows = torch.zeros(self.ext_shape[0], dtype=torch.bool, device=device)
+        cols = torch.zeros(self.ext_shape[1], dtype=torch.bool, device=device)
+        rows[self.ext_r:self.ext_r + self.rows] = True
+        cols[self.ext_c:self.ext_c + self.cols] = True
+        return rows[:, None] & cols[None, :]
+
+    def even(self, device) -> torch.Tensor:
+        """The window's cells of the even color, (i + j) even globally."""
+        gi, gj = self.coords(device)
+        return (gi[:, None] + gj[None, :]) % 2 == 0
+
+
+def _inner(x):
+    return x[1:-1, 1:-1]
+
+
+def _sweep_ext(u, f, inside, h: float, omega: float):
+    """stencils.jacobi_sweep on a window, frozen where ``inside`` is False."""
+    incr = 0.25 * (stencils._nb_sum(u) - 4.0 * _inner(u) - (h * h) * _inner(f))
+    out = u.clone()
+    out[1:-1, 1:-1] = torch.where(_inner(inside), _inner(u) + omega * incr, _inner(u))
+    return out
+
+
+def _residual_ext(u, f, inside, h: float):
+    """stencils.residual on a window, 0 where ``inside`` is False."""
+    inv_h2 = 1.0 / (h * h)
+    r = torch.zeros_like(u)
+    r[1:-1, 1:-1] = torch.where(_inner(inside),
+                                inv_h2 * (stencils._nb_sum(u) - 4.0 * _inner(u)) - _inner(f),
+                                torch.zeros((), dtype=u.dtype, device=u.device))
+    return r
+
+
+def _raw_partial(vals, geo: ShardGeo, inside, mode):
+    """Σ vals over the owned interior cells (the even color for cpu)."""
+    take = inside & geo.owned_mask(vals.device)
+    if mode == "cpu":
+        take = take & geo.even(vals.device)
+    return torch.sum(torch.where(take, vals, torch.zeros((), dtype=vals.dtype,
+                                                         device=vals.device)))
+
+
+def _raw_error(fin, prev, f, geo: ShardGeo, inside, h: float, mode: str):
+    """The shard's raw error partial: Σ|fin − prev| (gpu; prev None is the
+    zero iterate) or Σ|r(fin)| (cpu, clean) over its owned interior."""
+    if mode == "gpu":
+        return _raw_partial(torch.abs(fin if prev is None else fin - prev), geo, inside, mode)
+    return _raw_partial(torch.abs(_residual_ext(fin, f, inside, h)), geo, inside, mode)
+
+
+def _rbgs_half_ext(u, f, take, h: float):
+    val = 0.25 * (stencils._nb_sum(u) - (h * h) * _inner(f))
+    out = u.clone()
+    out[1:-1, 1:-1] = torch.where(_inner(take), val, _inner(u))
+    return out
+
+
+def _rbgs_delta_ext(u, f, h: float):
+    """|Δ| of one ω = 1 Jacobi step from u on a window (the rb-GS error)."""
+    d = torch.zeros_like(u)
+    d[1:-1, 1:-1] = torch.abs(0.25 * (stencils._nb_sum(u) - 4.0 * _inner(u)
+                                      - (h * h) * _inner(f)))
+    return d
+
+
+def _jacobi_window(u_ext, f_ext, inside, h: float, steps: int, omega: float, from_zero: bool):
+    """``steps`` sweeps on a window (the first the closed form when
+    ``from_zero``): (iterate, the one before it or None for the zero one)."""
+    prev = u_ext
+    if from_zero:
+        prev = None
+        u = torch.where(inside, _zero_coef(h, omega) * f_ext,
+                        torch.zeros((), dtype=f_ext.dtype, device=f_ext.device))
+        steps -= 1
+    else:
+        u = u_ext
+    for _ in range(steps):
+        prev, u = u, _sweep_ext(u, f_ext, inside, h, omega)
+    return u, prev
+
+
+def fused_jacobi_shard_torch(u_ext, f_ext, geo: ShardGeo, h: float, steps: int,
+                             omega: float = 1.0, from_zero: bool = False, err_mode=None,
+                             smoother: str = "jacobi"):
+    """Twin of ``fused_jacobi_shard``: (owned block, raw error partial or None)."""
+    inside = geo.interior(f_ext.device)
+    if smoother == "rbgs":
+        u = torch.zeros_like(f_ext) if from_zero else u_ext
+        even = geo.even(f_ext.device)
+        for _ in range(steps):
+            u = _rbgs_half_ext(u, f_ext, inside & even, h)
+            u = _rbgs_half_ext(u, f_ext, inside & ~even, h)
+        raw = None
+        if err_mode is not None:
+            raw = _raw_partial(_rbgs_delta_ext(u, f_ext, h), geo, inside, err_mode)
+        return geo.owned(u).contiguous(), raw
+    u, prev = _jacobi_window(u_ext, f_ext, inside, h, steps, omega, from_zero)
+    raw = None if err_mode is None else _raw_error(u, prev, f_ext, geo, inside, h, err_mode)
+    return geo.owned(u).contiguous(), raw
+
+
+def fused_jacobi_errs_shard_torch(u_ext, f_ext, geo: ShardGeo, h: float, steps: int,
+                                  omega: float = 1.0, err_mode: str = "cpu"):
+    """Twin of ``fused_jacobi_errs_shard``: (owned block, raw partial of every
+    iterate)."""
+    inside = geo.interior(f_ext.device)
+    u, raws = u_ext, []
+    for _ in range(steps):
+        prev, u = u, _sweep_ext(u, f_ext, inside, h, omega)
+        raws.append(_raw_error(u, prev, f_ext, geo, inside, h, err_mode))
+    return geo.owned(u).contiguous(), torch.stack(raws)
+
+
+def residual_shard_torch(u_ext, f_ext, geo: ShardGeo, h: float, negate: bool = False):
+    """Twin of ``residual_shard``: the owned block of the residual."""
+    r = geo.owned(_residual_ext(u_ext, f_ext, geo.interior(f_ext.device), h)).contiguous()
+    return -r if negate else r
+
+
+def _coarse_block(geo: ShardGeo):
+    """(row0, col0, rows, cols) of the coarse points of an even-origin block."""
+    return geo.row0 // 2, geo.col0 // 2, (geo.rows + 1) // 2, (geo.cols + 1) // 2
+
+
+def fused_descend_shard_torch(u_ext, f_ext, geo: ShardGeo, h: float, steps: int,
+                              omega: float = 1.0, restriction: str = "sampling", err_mode=None,
+                              from_zero: bool = False):
+    """Twin of ``fused_descend_shard``: (owned block, the block's coarse
+    right-hand side, raw error partial or None)."""
+    inside = geo.interior(f_ext.device)
+    u, prev = _jacobi_window(u_ext, f_ext, inside, h, steps, omega, from_zero)
+    raw = None if err_mode is None else _raw_error(u, prev, f_ext, geo, inside, h, err_mode)
+    # −r with a zero ring, so the restriction's outer taps stay in range
+    d = torch.nn.functional.pad(-_residual_ext(u, f_ext, inside, h), (1, 1, 1, 1))
+    cr0, cc0, crows, ccols = _coarse_block(geo)
+    rr = geo.ext_r + 1 + 2 * torch.arange(crows, device=d.device)
+    cc = geo.ext_c + 1 + 2 * torch.arange(ccols, device=d.device)
+    if restriction == "full_weighting":
+        sy = (0.25 * d[rr - 1] + 0.5 * d[rr]) + 0.25 * d[rr + 1]
+        v = (0.25 * sy[:, cc - 1] + 0.5 * sy[:, cc]) + 0.25 * sy[:, cc + 1]
+    else:
+        v = d[rr][:, cc]
+    m = (geo.n + 1) // 2
+    ci = torch.arange(cr0, cr0 + crows, device=d.device)
+    cj = torch.arange(cc0, cc0 + ccols, device=d.device)
+    keep = ((ci >= 1) & (ci <= m - 2))[:, None] & ((cj >= 1) & (cj <= m - 2))[None, :]
+    fc = torch.where(keep, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    return geo.owned(u).contiguous(), fc.contiguous(), raw
+
+
+def _prolong_ext(c_win, cr0: int, cc0: int, geo: ShardGeo):
+    """The bilinear prolongation at the window's cells from a window of the
+    coarse grid at global (cr0, cc0) (transfers.prolong's order: columns,
+    then rows); 0 where the coarse window holds no value."""
+    gi, gj = geo.coords(c_win.device)
+    cp = torch.nn.functional.pad(c_win, (2, 2, 2, 2))
+    hi, wi = cp.shape
+
+    def coarse(I, J):
+        return cp[torch.clamp(I - cr0 + 2, 0, hi - 1)][:, torch.clamp(J - cc0 + 2, 0, wi - 1)]
+
+    I, J = torch.div(gi, 2, rounding_mode="floor"), torch.div(gj, 2, rounding_mode="floor")
+    odd_c = (gj % 2 == 1)[None, :]
+
+    def wide(I):
+        a = coarse(I, J)
+        return torch.where(odd_c, 0.5 * a + 0.5 * coarse(I, J + 1), a)
+
+    w0 = wide(I)
+    return torch.where((gi % 2 == 1)[:, None], 0.5 * w0 + 0.5 * wide(I + 1), w0)
+
+
+def fused_ascend_shard_torch(u_ext, f_ext, c_win, cr0: int, cc0: int, geo: ShardGeo, h: float,
+                             steps: int, omega: float = 1.0, err_mode=None):
+    """Twin of ``fused_ascend_shard``: (owned block, raw error partial or None)."""
+    inside = geo.interior(f_ext.device)
+    u = torch.where(inside, u_ext + _prolong_ext(c_win, cr0, cc0, geo), u_ext)
+    return fused_jacobi_shard_torch(u, f_ext, geo, h, steps, omega, False, err_mode)
+
+
+def _check_shard(name: str, t, geo: ShardGeo, shape=None):
+    _check(name, t, geo.ext_shape if shape is None else shape, t.device)
+
+
+def _shard_launch_args(u_ext, f_ext, geo: ShardGeo, halo: int, need_u: bool = True):
+    """Validate a shard-mode launch; return (library, stream, device)."""
+    from . import build
+
+    if not f_ext.is_cuda:
+        raise ValueError(f"CUDA kernel called on a {f_ext.device} tensor")
+    n = geo.n
+    if not (n >= 3 and 0 <= geo.row0 and geo.row0 + geo.rows <= n and 0 <= geo.col0
+            and geo.col0 + geo.cols <= n and geo.rows >= 1 and geo.cols >= 1):
+        raise ValueError(f"a shard block must lie in the {n}² grid, got {geo}")
+    # the halo must cover the tile halo wherever the block has a neighbour
+    for ext, lo, hi, what in ((geo.ext_r, geo.row0, geo.row0 + geo.rows, "rows"),
+                              (geo.ext_c, geo.col0, geo.col0 + geo.cols, "columns")):
+        if ext < halo and (lo > 0 or hi < n):
+            raise ValueError(f"the pass needs {halo} halo {what}, the block carries {ext}")
+    _check_shard("f", f_ext, geo)
+    if need_u:
+        _check_shard("u", u_ext, geo)
+    if f_ext.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {f_ext.device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return build.load(), torch.cuda.current_stream(f_ext.device).cuda_stream, f_ext.device
+
+
+def _geo_args(geo: ShardGeo):
+    return (geo.n, geo.row0, geo.col0, geo.rows, geo.cols, geo.ext_r, geo.ext_c)
+
+
+def _shard_err_buffers(lib, mode, geo: ShardGeo, device, rows: int = 1):
+    if mode is None:
+        return None, None
+    tiles = lib.mg_num_tiles_block(geo.rows, geo.cols)
+    return (torch.empty(rows * tiles, dtype=torch.float32, device=device),
+            torch.empty(rows, dtype=torch.float32, device=device))
+
+
+def fused_jacobi_shard(u_ext, f_ext, geo: ShardGeo, h: float, steps: int, omega: float = 1.0,
+                       from_zero: bool = False, err_mode=None, smoother: str = "jacobi"):
+    """One pass of ``steps`` sweeps (≤ 8 Jacobi, ≤ 4 rb-GS; ω ignored for
+    rb-GS) on one shard's block: ``u_ext``, ``f_ext`` are the block's
+    windows with ``geo``'s halo (u unread when ``from_zero``). ``err_mode``
+    (None, "cpu", "clean", or for Jacobi "gpu") adds the raw error partial of
+    the result over the owned cells. Returns (owned block, raw partial as a
+    0-d tensor, or None)."""
+    if smoother not in ("jacobi", "rbgs"):
+        raise ValueError(f"unknown smoother {smoother!r}")
+    if not f_ext.is_cuda:
+        return fused_jacobi_shard_torch(u_ext, f_ext, geo, h, steps, omega, from_zero, err_mode,
+                                        smoother)
+    mode_code = _ERR_CODES[err_mode]
+    if smoother == "rbgs":
+        halo = 2 * steps + (err_mode is not None)
+        if err_mode == "gpu" or steps < 1 or halo > MAX_FUSED_SWEEPS:
+            raise ValueError(f"an rb-GS pass runs 1..{MAX_FUSED_RBGS} sweeps (fewer with an "
+                             f"error) and no gpu metric, got {steps}, {err_mode}")
+    else:
+        _check_steps(steps)
+        halo = steps - from_zero + (err_mode in ("cpu", "clean"))
+    lib, stream, dev = _shard_launch_args(u_ext, f_ext, geo, halo, not from_zero)
+    out = torch.empty((geo.rows, geo.cols), dtype=f_ext.dtype, device=dev)
+    partials, err = _shard_err_buffers(lib, err_mode, geo, dev)
+    if smoother == "rbgs":
+        rc = lib.mg_rbgs_shard(_ptr(None if from_zero else u_ext), f_ext.data_ptr(),
+                               out.data_ptr(), _ptr(partials), _ptr(err), *_geo_args(geo), steps,
+                               int(from_zero), mode_code, h * h, 1.0, stream)
+        _raise_on(lib, rc, "rbgs shard")
+        launches["rbgs_shard"] += 1
+    else:
+        rc = lib.mg_jacobi_shard(_ptr(None if from_zero else u_ext), f_ext.data_ptr(),
+                                 out.data_ptr(), _ptr(partials), _ptr(err), *_geo_args(geo),
+                                 steps, int(from_zero), mode_code, h * h, omega, 1.0 / (h * h),
+                                 _zero_coef(h, omega), 1.0, stream)
+        _raise_on(lib, rc, "jacobi shard")
+        launches["jacobi_shard"] += 1
+    return out, (None if err is None else err.reshape(()))
+
+
+def fused_jacobi_errs_shard(u_ext, f_ext, geo: ShardGeo, h: float, steps: int,
+                            omega: float = 1.0, err_mode: str = "cpu"):
+    """``steps`` ≤ 8 (≤ 7 for cpu, clean) Jacobi sweeps on one shard's block
+    in one pass with the raw error partial of every iterate (the per-sweep
+    mode): (owned block, raws of shape (steps,))."""
+    cap = MAX_FUSED_SWEEPS if err_mode == "gpu" else MAX_FUSED_SWEEPS - 1
+    if err_mode not in ("cpu", "clean", "gpu") or not 1 <= steps <= cap:
+        raise ValueError(f"a per-sweep error pass runs 1..{cap} sweeps with a cpu, clean or "
+                         f"gpu error, got {steps}, {err_mode}")
+    if not f_ext.is_cuda:
+        return fused_jacobi_errs_shard_torch(u_ext, f_ext, geo, h, steps, omega, err_mode)
+    lib, stream, dev = _shard_launch_args(u_ext, f_ext, geo, steps + (err_mode != "gpu"))
+    out = torch.empty((geo.rows, geo.cols), dtype=f_ext.dtype, device=dev)
+    partials, raws = _shard_err_buffers(lib, err_mode, geo, dev, steps)
+    rc = lib.mg_jacobi_errs_shard(u_ext.data_ptr(), f_ext.data_ptr(), out.data_ptr(),
+                                  partials.data_ptr(), raws.data_ptr(), *_geo_args(geo), steps,
+                                  _ERR_CODES[err_mode], h * h, omega, 1.0 / (h * h), 1.0, stream)
+    _raise_on(lib, rc, "jacobi_errs shard")
+    launches["jacobi_errs_shard"] += 1
+    return out, raws
+
+
+def residual_shard(u_ext, f_ext, geo: ShardGeo, h: float, negate: bool = False):
+    """The 5-point residual of one shard's block (optionally negated), 0 off
+    the interior; ``u_ext``, ``f_ext`` are its windows (halo ≥ 1)."""
+    if not f_ext.is_cuda:
+        return residual_shard_torch(u_ext, f_ext, geo, h, negate)
+    lib, stream, dev = _shard_launch_args(u_ext, f_ext, geo, 1)
+    r = torch.empty((geo.rows, geo.cols), dtype=f_ext.dtype, device=dev)
+    rc = lib.mg_residual_shard(u_ext.data_ptr(), f_ext.data_ptr(), r.data_ptr(), *_geo_args(geo),
+                               1.0 / (h * h), int(negate), stream)
+    _raise_on(lib, rc, "residual shard")
+    launches["residual_shard"] += 1
+    return r
+
+
+def _check_leg_block(geo: ShardGeo):
+    if geo.n % 2 == 0 or geo.row0 % 2 or geo.col0 % 2:
+        raise ValueError(f"a 2:1 leg needs an odd level and an even block origin, got {geo}")
+
+
+def fused_descend_shard(u_ext, f_ext, geo: ShardGeo, h: float, steps: int, omega: float = 1.0,
+                        restriction: str = "sampling", err_mode=None, from_zero: bool = False):
+    """The descend leg on one shard's block of an aligned level n = 2m − 1
+    (even origin): sweeps, residual and restriction of −r onto the block's
+    coarse points (rows from row0 / 2, ⌈rows / 2⌉ of them; the same for
+    columns). Returns (owned block, coarse block, raw partial or None)."""
+    if restriction not in ("sampling", "full_weighting"):
+        raise ValueError(f"unknown restriction {restriction!r}")
+    _check_leg_block(geo)
+    if not f_ext.is_cuda:
+        return fused_descend_shard_torch(u_ext, f_ext, geo, h, steps, omega, restriction,
+                                         err_mode, from_zero)
+    _check_steps(steps)
+    halo = steps - from_zero + 1 + (restriction == "full_weighting")
+    lib, stream, dev = _shard_launch_args(u_ext, f_ext, geo, halo, not from_zero)
+    out = torch.empty((geo.rows, geo.cols), dtype=f_ext.dtype, device=dev)
+    _, _, crows, ccols = _coarse_block(geo)
+    fc = torch.empty((crows, ccols), dtype=f_ext.dtype, device=dev)
+    partials, err = _shard_err_buffers(lib, err_mode, geo, dev)
+    rc = lib.mg_descend_shard(_ptr(None if from_zero else u_ext), f_ext.data_ptr(),
+                              out.data_ptr(), fc.data_ptr(), _ptr(partials), _ptr(err),
+                              *_geo_args(geo), steps, int(from_zero),
+                              int(restriction == "full_weighting"), _ERR_CODES[err_mode], h * h,
+                              omega, 1.0 / (h * h), _zero_coef(h, omega), 1.0, stream)
+    _raise_on(lib, rc, "descend shard")
+    launches["descend_shard"] += 1
+    return out, fc, (None if err is None else err.reshape(()))
+
+
+def fused_ascend_shard(u_ext, f_ext, c_win, cr0: int, cc0: int, geo: ShardGeo, h: float,
+                       steps: int, omega: float = 1.0, err_mode=None):
+    """The ascend leg on one shard's block of an aligned level n = 2m − 1
+    (even origin): ``c_win`` is the window of the (m, m) coarse correction
+    at global (cr0, cc0) holding the coarse cells the block's window
+    interpolates from. Returns (owned block, raw partial or None)."""
+    _check_leg_block(geo)
+    if not f_ext.is_cuda:
+        return fused_ascend_shard_torch(u_ext, f_ext, c_win, cr0, cc0, geo, h, steps, omega,
+                                        err_mode)
+    _check_steps(steps)
+    lib, stream, dev = _shard_launch_args(u_ext, f_ext, geo,
+                                          steps + (err_mode in ("cpu", "clean")))
+    _check("c", c_win, tuple(c_win.shape), dev)
+    out = torch.empty((geo.rows, geo.cols), dtype=f_ext.dtype, device=dev)
+    partials, err = _shard_err_buffers(lib, err_mode, geo, dev)
+    rc = lib.mg_ascend_shard(u_ext.data_ptr(), f_ext.data_ptr(), c_win.data_ptr(),
+                             out.data_ptr(), _ptr(partials), _ptr(err), *_geo_args(geo), cr0, cc0,
+                             c_win.shape[0], c_win.shape[1], steps, _ERR_CODES[err_mode], h * h,
+                             omega, 1.0 / (h * h), 1.0, stream)
+    _raise_on(lib, rc, "ascend shard")
+    launches["ascend_shard"] += 1
+    return out, (None if err is None else err.reshape(()))

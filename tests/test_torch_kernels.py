@@ -441,6 +441,7 @@ def test_c_entry_points_match_ctypes_signatures():
         "common.cuh", "legs.cuh", "jacobi.cu", "residual.cu", "descend.cu", "ascend.cu",
         "chain_descend.cu", "chain_ascend.cu", "trigger.cu", "residual_mw.cu",
         "trigger_stream.cu", "legs3.cuh", "jacobi3.cu", "descend3.cu", "ascend3.cu",
-        "residual3.cu", "trigger3.cu", "trigger3_stream.cu", "residual_mw3.cu"}
+        "residual3.cu", "trigger3.cu", "trigger3_stream.cu", "residual_mw3.cu", "rdma.cuh",
+        "rdma_jacobi.cu", "rdma_trigger.cu"}
     assert build.library_path().parent == build.BUILD_DIR
     assert Path(build.library_path()).name.startswith("libmg_kernels_")
