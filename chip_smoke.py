@@ -7,7 +7,8 @@ Phases (progress on stdout; the first failure exits non-zero):
   0. require a CUDA device; print the card's name and power limit;
   1. build the CUDA kernels from ops/csrc (eighteen sources: nvcc, sm_90a,
      one process per source): nineteen single-device kernels and modes, the
-     shard modes of kernels 1-4 and the two ring kernels;
+     shard modes of kernels 1-4 and the two ring kernels, and the shard
+     modes of the 3-D kernels 10-13 with kernel 10's emit_residual mode;
   2. hold each kernel against its plain PyTorch twin on the card: at
      n = 1025 and 1031 (several tiles per dimension, ragged last tiles),
      every sweep count, error mode and from_zero; and at the shapes the main
@@ -75,6 +76,23 @@ Phases (progress on stdout; the first failure exits non-zero):
      one sweep at a time), kernels, twins and plain path with equal stop
      sweeps. The shard modes and ring kernels are also held against their
      plain versions at the timed main-path shapes.
+  H. the 3-D multi-device path on rings of z-shards, every shard on cuda:0
+     (one card: no scaling). H1: the shard modes of kernels 10-13 (kernel
+     10 in every mode: plain, from_zero, clean and gpu errors, per_sweep) and
+     kernel 10's emit_residual mode against their twins, bit for bit, and
+     their owned planes against the unsharded kernels, at 65³ and 129³ with
+     tiles forced small on rings of 2, 3, 4 and 8 z-shards (ragged last
+     shards); each per-sweep error against the one-sweep sharded steps, bit
+     for bit. H2: 513³ on 8 z-shards (threshold 8): v_cycle3_sharded V(3,3)
+     and compile_program3(policy=...) V(3,3) with the clean and gpu metrics,
+     on the kernels, the twins and the plain path, one cold and three warm
+     cycles, the kernel iterates bit for bit against phase D's unsharded
+     runs, launch counts per route (JAX's padded depths), ms/cycle and
+     profiles. H3: the 513³ trigger V-cycle under the policy with
+     trigger_batch "auto" and 1 (stop sweeps per level equal to phase E's)
+     and 7 (kernels against twins; one exact sweep, then passes of 7, as
+     JAX's sharded batch runs). The shard modes are also held against their
+     plain versions at the timed main-path shapes.
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -118,6 +136,7 @@ RES_MW_OPS = {2: 227, 3: 232}   # two dd chains, the exact product, the combinat
 SWEEP3_OPS = 11    # 7-point sweep: 5 adds, 6u, −, h²f, −, ×ω/6, +
 EXTRA3_OPS = 11    # the clean error of an iterate: 5 adds, 6u, −, ×h⁻², −, |·|, accumulate
 RES3_OPS = 9       # residual: 5 adds, 6u, −, ×h⁻², −
+GPU_ERR3_OPS = 3   # the gpu error of a point: −, |·|, accumulate
 FW3_OPS = 65       # per coarse point: 9 z-combines (3×, 2+), 3 y-combines, 1 x-combine
 PROLONG3_OPS = 5.75  # prolongation and add, averaged over the parities of (z, y, x)
 RES_MW3_OPS = {2: 329, 3: 337}  # two 7-point dd chains, the exact product, the combination
@@ -164,12 +183,23 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, main-path run)
     "ascend_shard": (PKG + "ascend.cu", TPU + "pallas_kernels.py:1388", "sharded_legs"),
     "rdma_jacobi": (PKG + "rdma_jacobi.cu", TPU + "pallas_rdma.py:157", "sharded_rdma"),
     "rdma_trigger": (PKG + "rdma_trigger.cu", TPU + "pallas_rdma.py:396", "sharded_trigger_rdma"),
+    # the shard modes of the 3-D kernels 10-13 and kernel 10's emit_residual
+    # mode (phase H)
+    "jacobi3_shard": (PKG + "jacobi3.cu", TPU + "pallas3d.py:586", "h_compiled3_gpu"),
+    "jacobi3_errs_shard": (PKG + "jacobi3.cu", TPU + "pallas3d.py:586", "h_trigger3_b7"),
+    "jacobi3_residual": (PKG + "jacobi3.cu", TPU + "pallas3d.py:682", "h_v_cycle3"),
+    "descend3_shard": (PKG + "descend3.cu", TPU + "pallas3d.py:1007", "h_v_cycle3"),
+    "ascend3_shard": (PKG + "ascend3.cu", TPU + "pallas3d.py:1321", "h_v_cycle3"),
+    "residual3_shard": (PKG + "residual3.cu", TPU + "pallas3d.py:1530", "h_compiled3_gpu"),
 }
 
 
-# the kernels every single-device path reaches (phase 2 holds them); the
-# rest are the shard modes and the ring kernels (phase G)
+# the kernels every single-device path reaches (phase 2 holds them); then
+# the 2-D shard modes and the ring kernels (phase G), and the 3-D shard
+# modes (phase H)
 SINGLE_DEVICE = tuple(KERNELS)[:19]
+PHASE_G = tuple(KERNELS)[19:27]
+PHASE_H = tuple(KERNELS)[27:]
 
 
 def require(cond, what):
@@ -1007,7 +1037,7 @@ def phase_3d(tmg, K, torch, run_counts, n=513):
         run_counts[f"cli3 {name}"] = dict(K.launches)
         say(f"[D] launches over the in-process CLI --dim 3 run on {name}: "
             f"{run_counts[f'cli3 {name}']}")
-    return {tag: (r["auto"]["ms"], r["torch"]["ms"]) for tag, r in out.items()}
+    return {tag: (r["auto"]["ms"], r["torch"]["ms"]) for tag, r in out.items()}, out
 
 
 def phase_trigger3(tmg, K, K3, torch, run_counts, n=513):
@@ -1155,6 +1185,368 @@ def ring_policies(threshold=16):
     pols["block-2x4"] = M.BlockShardingPolicy(M.make_mesh_2d((2, 4), ["cuda:0"] * 8),
                                               threshold_rows=threshold)
     return pols
+
+
+@contextlib.contextmanager
+def sharded3_twins_in_place(K3):
+    """Every 3-D shard-mode entry point of ops.kernels3, and the whole-grid
+    emit_residual one, replaced by its plain twin (parallel.kernel_shard3
+    looks them up at each call)."""
+    names = ["fused_jacobi3_shard", "fused_jacobi3_errs_shard", "fused_jacobi3_residual_shard",
+             "fused_descend3_shard", "fused_ascend3_shard", "residual3_shard",
+             "fused_jacobi3_residual"]
+    saved = {name: getattr(K3, name) for name in names}
+    for name in names:
+        setattr(K3, name, getattr(K3, name + "_torch"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(K3, name, fn)
+
+
+def z_policy(shards, threshold=8):
+    """A ring of ``shards`` z-shards, every one on cuda:0."""
+    from multigrid_poisson_solver_tpu_torch.parallel import mesh as M
+
+    return M.ZShardingPolicy3(M.make_mesh_z(["cuda:0"] * shards), threshold_planes=threshold)
+
+
+def phase_h1(K3, torch, cmp, sizes=((65, (6, 10, 6)), (129, (8, 16, 10))), rings=(2, 3, 4, 8)):
+    """H1: the 3-D shard modes (kernel 10 in every mode, its emit_residual
+    mode, kernels 11-13) against their twins, bit for bit, and their owned
+    planes against the unsharded kernels', at 65³ and 129³ with tiles forced
+    small (several tiles per dimension, several z blocks per shard), on
+    rings of 2, 3, 4 and 8 z-shards (ragged last shards), from_zero at the
+    cut planes; each per-sweep error against the error of the one-sweep
+    sharded steps, bit for bit."""
+    from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard3 as KS3
+    from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8765)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32)
+
+    omega = 6.0 / 7.0
+    G = S.gather
+
+    def twin(fn, *args, **kw):
+        with sharded3_twins_in_place(K3):
+            return fn(*args, **kw)
+
+    def same(what, got, want):
+        require(bool(torch.equal(got, want)), f"{what}: owned planes differ from the unsharded "
+                f"kernel (max|Δ| {float((got - want).abs().max()):.3e})")
+
+    def sweeps(u, f, h, steps, fz):
+        """The unsharded kernel's passes of at most 8 sweeps."""
+        first = True
+        while steps > 0:
+            k = min(steps, K3.MAX_FUSED_SWEEPS_3D)
+            u = K3.fused_jacobi3(u, f, h, k, omega, fz and first)
+            steps -= k
+            first = False
+        return u
+
+    saved = K3.FORCE_TILE3
+    try:
+        for n, tile in sizes:
+            K3.FORCE_TILE3 = tile
+            h = 1.0 / (n - 1)
+            u, f = rand(n, n, n), rand(n, n, n)
+            m = (n + 1) // 2
+            uc = rand(m, m, m)
+            for p in rings:
+                pol = z_policy(p)
+                nl = pol.planes_per_device(n)
+                lay = S.layout_of(pol, n)
+                us, fs = S.shard(u, lay), S.shard(f, lay)
+                what = f"n={n} {p} z-shards {lay.rows}"
+                for steps in (1, 3, 8, 11):
+                    for fz in (False, True):
+                        w = f"{what} steps={steps} fz={fz}"
+                        got = G(KS3.sharded_fused_jacobi3(us, fs, h, steps, omega, fz, nl))
+                        cmp.grid("jacobi3_shard", w, got, G(twin(
+                            KS3.sharded_fused_jacobi3, us, fs, h, steps, omega, fz, nl)))
+                        cmp.cases["jacobi3_shard"] += 1
+                        same(f"jacobi3_shard {w}", got, sweeps(u, f, h, steps, fz))
+                for compat in ("clean", "gpu"):
+                    for steps, fz in ((1, False), (3, False), (3, True), (8, False)):
+                        w = f"{what} steps={steps} fz={fz} err={compat}"
+                        gu, ge = KS3.sharded_fused_jacobi3_err(us, fs, h, steps, omega, compat,
+                                                               fz, nl)
+                        wu, we = twin(KS3.sharded_fused_jacobi3_err, us, fs, h, steps, omega,
+                                      compat, fz, nl)
+                        cmp.grid("jacobi3_shard", w, G(gu), G(wu))
+                        cmp.scalar("jacobi3_shard", w, ge, we)
+                        cmp.cases["jacobi3_shard"] += 1
+                        same(f"jacobi3_shard {w}", G(gu), sweeps(u, f, h, steps, fz))
+                        if not (compat == "clean" and steps - fz > 7):
+                            ke = K3.fused_jacobi3_err(u, f, h, steps, omega, compat, fz)[1]
+                            cmp.scalar("jacobi3_shard", f"{w} against the unsharded kernel", ge,
+                                       ke)
+                    cap = K3.errs3_sweep_cap(compat)
+                    gu, ge = KS3.sharded_fused_jacobi3_errs(us, fs, h, cap, omega, compat, nl)
+                    wu, we = twin(KS3.sharded_fused_jacobi3_errs, us, fs, h, cap, omega, compat,
+                                  nl)
+                    w = f"{what} per-sweep err={compat}"
+                    cmp.grid("jacobi3_errs_shard", w, G(gu), G(wu))
+                    ku, ke = K3.fused_jacobi3_errs(u, f, h, cap, omega, compat)
+                    for s in range(cap):
+                        cmp.scalar("jacobi3_errs_shard", f"{w} iterate {s + 1}", ge[s], we[s])
+                        cmp.scalar("jacobi3_errs_shard", f"{w} iterate {s + 1} against the "
+                                   f"unsharded kernel", ge[s], ke[s])
+                    cmp.cases["jacobi3_errs_shard"] += 1
+                    same(f"jacobi3_errs_shard {w}", G(gu), ku)
+                    v = us
+                    for s in range(1, cap + 1):
+                        v, e = KS3.sharded_trigger_step3(v, fs, h, omega, compat, nl)
+                        require(bool(torch.equal(ge[s - 1], e)),
+                                f"jacobi3_errs_shard {w}: errs[{s - 1}] differs from the error "
+                                f"of the {s}th one-sweep sharded step")
+                for steps, fz, negate in ((3, False, True), (3, True, True), (1, True, False),
+                                          (7, False, False)):
+                    w = f"{what} emit_residual steps={steps} fz={fz} negate={negate}"
+                    gu, gr = KS3.sharded_smooth_residual3(us, fs, h, steps, omega, fz, negate, nl)
+                    wu, wr = twin(KS3.sharded_smooth_residual3, us, fs, h, steps, omega, fz,
+                                  negate, nl)
+                    cmp.grid("jacobi3_residual", w + " u", G(gu), G(wu))
+                    cmp.grid("jacobi3_residual", w + " r", G(gr), G(wr))
+                    cmp.cases["jacobi3_residual"] += 1
+                    ku, kr = K3.fused_jacobi3_residual(u, f, h, steps, omega, fz, negate)
+                    same(f"jacobi3_residual {w} u", G(gu), ku)
+                    same(f"jacobi3_residual {w} r", G(gr), kr)
+                    same(f"jacobi3_residual {w}: the whole-grid mode against the pair", kr,
+                         K3.residual3(sweeps(u, f, h, steps, fz), f, h, negate))
+                for negate in (False, True):
+                    w = f"{what} negate={negate}"
+                    got = G(KS3.sharded_residual3(us, fs, h, negate))
+                    cmp.grid("residual3_shard", w, got, G(twin(KS3.sharded_residual3, us, fs, h,
+                                                               negate)))
+                    cmp.cases["residual3_shard"] += 1
+                    same(f"residual3_shard {w}", got, K3.residual3(u, f, h, negate))
+                for restriction in ("full_weighting", "sampling"):
+                    for fz in (False, True):
+                        for steps in (1, 3, 6):
+                            w = f"{what} steps={steps} fz={fz} {restriction}"
+                            args = (h, steps, omega, fz, restriction, True, nl)
+                            gu, gfc, ge = KS3.sharded_fused_descend3(us, fs, *args)
+                            wu, wfc, we = twin(KS3.sharded_fused_descend3, us, fs, *args)
+                            cmp.grid("descend3_shard", w + " u", G(gu), G(wu))
+                            cmp.grid("descend3_shard", w + " f_coarse", G(gfc), G(wfc))
+                            cmp.scalar("descend3_shard", w, ge, we)
+                            cmp.cases["descend3_shard"] += 1
+                            ku, kfc, ke = K3.fused_descend3(u, f, h, steps, omega, fz,
+                                                            restriction, True)
+                            same(f"descend3_shard {w}", G(gu), ku)
+                            same(f"descend3_shard {w} f_coarse", G(gfc), kfc)
+                            cmp.scalar("descend3_shard", f"{w} against the unsharded kernel",
+                                       ge, ke)
+                child = S.as_level(uc, pol, m)
+                for steps, want_err in ((1, False), (3, False), (3, True), (7, True), (8, False)):
+                    ext_z, ext_c = KS3.ascend3_halo(steps, want_err)
+                    if ext_z > nl or ext_c + 1 > nl // 2:
+                        continue
+                    w = f"{what} steps={steps} err={want_err}"
+                    gu, ge = KS3.sharded_fused_ascend3(us, fs, child, h, steps, omega, want_err,
+                                                       nl)
+                    wu, we = twin(KS3.sharded_fused_ascend3, us, fs, child, h, steps, omega,
+                                  want_err, nl)
+                    cmp.grid("ascend3_shard", w, G(gu), G(wu))
+                    ku, ke = K3.fused_ascend3(u, f, uc, h, steps, omega, want_err)
+                    if want_err:
+                        cmp.scalar("ascend3_shard", w, ge, we)
+                        cmp.scalar("ascend3_shard", f"{w} against the unsharded kernel", ge, ke)
+                    cmp.cases["ascend3_shard"] += 1
+                    same(f"ascend3_shard {w}", G(gu), ku)
+            del u, f, uc
+            torch.cuda.synchronize()
+    finally:
+        K3.FORCE_TILE3 = saved
+
+
+H_V_CYCLE = "v_cycle3 513³ V(3,3)"
+H_COMPILED = {"clean": "compile_program3 513³ V(3,3) compat=True",
+              "gpu": "compile_program3 513³ V(3,3) compat=gpu"}
+
+
+def phase_h2(tmg, K, K3, torch, run_counts, unsharded, n=513):
+    """H2: 513³ on 8 z-shards of cuda:0 (threshold 8): v_cycle3_sharded V(3,3)
+    and compile_program3(policy=...) V(3,3) with the clean and gpu metrics,
+    on the kernels, through the twins and on the plain path, one cold and
+    three warm cycles each, against phase D's unsharded runs (``unsharded``:
+    its iterates after 1 and 4 cycles); launch counts per route; ms/cycle and
+    a profile."""
+    from multigrid_poisson_solver_tpu_torch.models import poisson3d as p3
+    from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
+
+    h = 1.0 / (n - 1)
+    prob = tmg.REFERENCE_PROBLEM_3D
+    u0 = prob.boundary_grid(n, torch.float32, "cuda")
+    f = prob.source_grid(n, torch.float32, "cuda") + u0
+    pol = z_policy(8)
+    mesh = pol.mesh
+    fs = S.as_level(f, pol, n)
+    times = {}
+
+    def run(tag, step, key):
+        """One cold cycle and three warm ones through step(kind, u, warm) on
+        the kernels, the twins and the plain path."""
+        res = {}
+        for kind in ("kernels", "twins", "plain"):
+            with contextlib.ExitStack() as stack:
+                if kind == "twins":
+                    stack.enter_context(twins3_in_place(K3))
+                    stack.enter_context(sharded3_twins_in_place(K3))
+                K.reset_launch_counts()
+                u1 = step(kind, u0, False)
+                u = u1
+                for _ in range(3):
+                    u = step(kind, u, True)
+                torch.cuda.synchronize()
+                counts = dict(K.launches)
+                g1, g4 = S.gather(u1), S.gather(u)
+                require(tuple(g4.shape) == (n, n, n) and bool(torch.isfinite(g4).all()),
+                        f"[H2] {tag} {kind}: non-finite or misshapen iterate")
+                ms = time_ms(lambda: step(kind, u, True), reps=1 if kind == "plain" else 3,
+                             rounds=3)
+            res[kind] = (g1, g4, counts, ms)
+            times[f"{tag} {kind}"] = ms
+            say(f"[H2] {tag} on 8 z-shards {kind}: {ms:.3f} ms/cycle (unsharded kernels "
+                f"{unsharded[tag]['auto']['ms']:.3f}); launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            if kind == "kernels":
+                run_counts[key] = counts
+                profile(f"{tag} on 8 z-shards per cycle",
+                        lambda: [step(kind, u, True) for _ in range(3)], per=3)
+        ref = unsharded[tag]
+        for i, what in ((0, "1 cycle"), (1, "4 cycles")):
+            got, want = res["kernels"][i], ref["auto"]["u"][i]
+            require(bool(torch.equal(got, want)), f"[H2] {tag}: the sharded kernel iterate after "
+                    f"{what} differs from phase D's unsharded one (max|Δ| "
+                    f"{float((got - want).abs().max()):.3e})")
+            for kind, base in (("twins", ref["auto"]["u"][i]), ("plain", ref["torch"]["u"][i])):
+                g = res[kind][i]
+                diff, scale = float((g - base).abs().max()), float(base.abs().max())
+                say(f"[H2] {tag} {kind} after {what}: max|Δu| {diff:.3e} against phase D's "
+                    f"{'kernel' if kind == 'twins' else 'plain'} run (bit-identical: "
+                    f"{bool(torch.equal(g, base))})")
+                require(diff <= U_RTOL * scale, f"[H2] {tag} {kind}: outside the phase D gate "
+                        f"after {what}")
+            rk = rel_res3(p3, res["kernels"][i], f, h)
+            rt = rel_res3(p3, res["plain"][i], f, h)
+            require(abs(rk - rt) <= RES_RTOL * rt, f"[H2] {tag}: float64 residuals {rk:.6e} "
+                    f"(kernels) vs {rt:.6e} (plain) after {what}")
+        say(f"[H2] {tag}: sharded kernel iterates bit-identical to phase D's unsharded run after "
+            f"1 and 4 cycles")
+        require(not any(res["plain"][2].values()), f"[H2] {tag}: the plain path launched a kernel")
+        return res
+
+    def vstep(kind, u, warm):
+        return tmg.v_cycle3_sharded(u, fs, h, mesh, n_min=5, pre=3, post=3, omega=0.857,
+                                    kernels="torch" if kind == "plain" else "auto")
+
+    run(H_V_CYCLE, vstep, "h_v_cycle3")
+    # trouble spot 1's routes: JAX's depths 528, 264, 136, 72 (nl 66, 33, 17,
+    # 9): the legs per shard at 513³, emit_residual and prolong-add + the
+    # shard smoother at 257³, 129³ and 65³; per cycle and shard
+    c = run_counts["h_v_cycle3"]
+    want = {"descend3_shard": 1, "ascend3_shard": 1, "jacobi3_residual": 3, "jacobi3_shard": 3}
+    require(all(c[k] == 4 * 8 * v for k, v in want.items()) and not c["descend3"],
+            f"[H2] v_cycle3_sharded took other routes than JAX's: {c}")
+    program = tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=3)
+    for compat, key in (("clean", "h_compiled3"), ("gpu", "h_compiled3_gpu")):
+        cfgs = {kind: tmg.SolverConfig(omega=6.0 / 7.0, compat_error=True if compat == "clean"
+                                       else "gpu", collect_node_stats=False,
+                                       kernels="torch" if kind == "plain" else "auto")
+                for kind in ("kernels", "plain")}
+        ccs = {kind: tmg.compile_program3(program, prob, cfgs[kind], device="cuda", policy=pol)
+               for kind in cfgs}
+        ccs["twins"] = ccs["kernels"]
+        res = run(H_COMPILED[compat], lambda kind, u, warm: ccs[kind](u, fs, warm=warm)[0], key)
+        # the error of the last node against the unsharded engine's, on the
+        # same iterate
+        cc1 = tmg.compile_program3(program, prob, cfgs["kernels"], device="cuda", warm=True)
+        _, e1 = cc1(res["kernels"][1], f)
+        _, es = ccs["kernels"](res["kernels"][1], fs, warm=True)
+        say(f"[H2] {H_COMPILED[compat]}: last error sharded {float(es):.9e}, unsharded "
+            f"{float(e1):.9e}")
+        require(abs(float(es) - float(e1)) <= 1e-6 * abs(float(e1)),
+                f"[H2] {H_COMPILED[compat]}: errors differ beyond 1e-6 relative")
+    c, g = run_counts["h_compiled3"], run_counts["h_compiled3_gpu"]
+    # the policy's depths are all even (528, 272, 144, 80): the legs per shard
+    # at every sharded level with the clean metric; smoother passes and the
+    # sharded residual with the gpu metric
+    require(c["descend3_shard"] == c["ascend3_shard"] == 4 * 4 * 8 and not c["descend3"]
+            and g["jacobi3_shard"] == 4 * 8 * 8 and g["residual3_shard"] == 4 * 4 * 8
+            and not g["descend3_shard"], f"[H2] compile_program3 under the policy took other "
+            f"routes than JAX's: clean {c}, gpu {g}")
+    return times
+
+
+def phase_h3(tmg, K, K3, torch, run_counts, unsharded_levels, n=513):
+    """H3: the 513³ trigger V-cycle (ω 6/7, clean, trigger 0.01) on 8
+    z-shards of cuda:0 with trigger_batch "auto", 1 and 7, on the kernels and
+    (batch 7) the twins; stop sweeps per level against phase E's unsharded
+    runs (``unsharded_levels``: batch tag → levels)."""
+    program = tmg.v_cycle(n, n_min=8, steps=-1, coarse_option=0, coarsen=3)
+    prob = tmg.REFERENCE_PROBLEM_3D
+    pol = z_policy(8)
+    cap = 2000
+    out = {}
+
+    def run(tag, batch, twins=False):
+        cfg = tmg.SolverConfig(omega=6.0 / 7.0, compat_error=False, collect_node_stats=False,
+                               trigger_batch=batch, max_trigger_sweeps=cap)
+        cc = tmg.compile_program3(program, prob, cfg, device="cuda", policy=pol)
+        cc.trigger_sweeps = []
+        u0, f = cc.init()
+        K.reset_launch_counts()
+        with contextlib.ExitStack() as stack:
+            if twins:
+                stack.enter_context(twins3_in_place(K3))
+                stack.enter_context(sharded3_twins_in_place(K3))
+            ms, (u, err) = wall_ms(lambda: cc(u0, f))
+        counts = dict(K.launches)
+        g = cc.unpad(u)
+        require(bool(torch.isfinite(g).all()) and bool(torch.isfinite(err)),
+                f"[H3] sharded 3-D trigger V-cycle {tag}: non-finite result")
+        say(f"[H3] trigger V-cycle {n}³ on 8 z-shards {tag}: {ms:.1f} ms, sweeps per level "
+            f"{cc.trigger_sweeps}, last error {float(err):.6e}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        out[tag] = (g, cc.trigger_sweeps, ms, counts)
+        if tag == "kernels, auto":
+            cc.trigger_sweeps = None
+            profile(f"sharded trigger V-cycle {n}³ {tag}", lambda: cc(u0, f))
+        return tag
+
+    auto = run("kernels, auto", "auto")
+    b1 = run("kernels, batch 1", 1)
+    b7 = run("kernels, batch 7", 7)
+    tb7 = run("twins, batch 7", 7, twins=True)
+    run_counts["h_trigger3_b7"] = out[b7][3]
+    for tag, phase_e in ((auto, "auto"), (b1, "batch 1")):
+        want = unsharded_levels[phase_e]
+        require(out[tag][1] == want, f"[H3] stop sweeps {out[tag][1]} ({tag}) vs phase E's "
+                f"unsharded {phase_e} run {want}")
+    require(out[b7][1] == out[tb7][1], f"[H3] batch 7: stop sweeps {out[b7][1]} on the kernels "
+            f"vs {out[tb7][1]} through the twins")
+    diff = float((out[b7][0] - out[tb7][0]).abs().max())
+    require(diff <= U_RTOL * float(out[tb7][0].abs().max()), "[H3] batch 7: kernel and twin "
+            "iterates differ")
+    # JAX's sharded explicit batch runs one exact sweep, then passes of 7 from
+    # its error (its unsharded one starts batched): the first node stops 1 +
+    # 7j sweeps in, within the 7 sweeps after the exact stop
+    (m, k), (_, k1) = out[b7][1][0], unsharded_levels["batch 1"][0]
+    require(m == n and k % 7 == 1 and k1 <= k < k1 + 7,
+            f"[H3] batch 7 at {m}³: {k} sweeps against {k1} exact")
+    require(out[b7][3]["jacobi3_errs_shard"] > 0 and out[auto][3]["jacobi3_shard"] > 0,
+            "[H3] the sharded trigger loops did not launch the shard modes")
+    say(f"[H3] stop sweeps per level equal phase E's unsharded auto and batch-1 runs; batch 7 "
+        f"kernels = twins, first node {k} sweeps (exact {k1})")
+    return {tag: v[2] for tag, v in out.items()}
 
 
 def phase_g1(K, torch, cmp):
@@ -1655,7 +2047,7 @@ def main():
     phase_cli_tol(cli, K, run_counts)
     ms_trigger, trigger_levels, auto_levels = phase_trigger(tmg, K, torch, run_counts)
     ms_rbgs = phase_rbgs(tmg, K, torch, run_counts)
-    ms_3d = phase_3d(tmg, K, torch, run_counts)
+    ms_3d, runs_3d = phase_3d(tmg, K, torch, run_counts)
     ms_trigger3, trigger3_levels, auto3_levels, exact3_levels = phase_trigger3(
         tmg, K, K3, torch, run_counts)
     refine3_runs = phase_refine3(tmg, K, torch, run_counts, cli)
@@ -1663,10 +2055,9 @@ def main():
     # -- phase G: the 2-D multi-device path on a ring of shards on one card ------
     t0 = time.perf_counter()
     phase_g1(K, torch, cmp)
-    for k in KERNELS:
-        if k not in SINGLE_DEVICE:
-            say(f"[G1] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
-                f"bit-identical to the twin: {cmp.bitwise[k]}")
+    for k in PHASE_G:
+        say(f"[G1] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
+            f"bit-identical to the twin: {cmp.bitwise[k]}")
     say(f"[G1] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ms_g2 = phase_g2(tmg, K, torch, run_counts)
@@ -1675,6 +2066,23 @@ def main():
     ms_g3, g3_levels = phase_g3(tmg, K, torch, run_counts, auto_levels)
     phase_g3_rbgs(tmg, K, torch, run_counts)
     say(f"[G3] done in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase H: the 3-D multi-device path on a ring of z-shards on one card ----
+    t0 = time.perf_counter()
+    phase_h1(K3, torch, cmp)
+    for k in PHASE_H:
+        say(f"[H1] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
+            f"bit-identical to the twin: {cmp.bitwise[k]}")
+        require(cmp.bitwise[k], f"[H1] {k}: not bit-identical to its twin")
+    say(f"[H1] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ms_h2 = phase_h2(tmg, K, K3, torch, run_counts, runs_3d)
+    say(f"[H2] done in {time.perf_counter() - t0:.1f} s")
+    del runs_3d
+    t0 = time.perf_counter()
+    ms_h3 = phase_h3(tmg, K, K3, torch, run_counts, {"auto": auto3_levels,
+                                                      "batch 1": exact3_levels})
+    say(f"[H3] done in {time.perf_counter() - t0:.1f} s")
     for k, (_, _, run) in KERNELS.items():
         require(run_counts[run][k] > 0, f"the {run} run did not launch {k}")
 
@@ -1805,6 +2213,7 @@ def main():
     # ring kernels with their exchange inside
     from multigrid_poisson_solver_tpu_torch.ops import rdma
     from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard as KS
+    from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard3 as KS3
     from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
 
     ring8 = ring_policies()["rows-8"]
@@ -1874,6 +2283,73 @@ def main():
                          lambda: rdma.rdma_trigger(us2, fs2, h, 0.8, True, 0.0, s_sweeps),
                          lambda: rdma.rdma_trigger_torch(us2, fs2, h, 0.8, True, 0.0, s_sweeps),
                          3 * g2, s_sweeps * (SWEEP_OPS + ERR_OPS) * pts),
+    })
+    # the 3-D shard modes at the sharded main paths' shapes: 513³ (257³ for
+    # emit_residual, v_cycle3_sharded's odd-depth levels) on 8 z-shards of
+    # the card, launched on every shard's windows (exchanged beforehand)
+    zring = z_policy(8)
+
+    def z_windows(level, ext, *vols):
+        lay = S.layout_of(zring, level)
+        geos = [K3.ShardGeo3(level, z0, z1 - z0, ext) for z0, z1 in lay.rows]
+        return geos, [[S.planes(v, z0 - ext, z1 + ext) for v in vols] for z0, z1 in lay.rows]
+
+    def on_shards(fn, geos, wins):
+        return lambda: [fn(g, *w) for g, w in zip(geos, wins)]
+
+    def both3(fn, plain_fn, geos, wins):
+        return on_shards(fn, geos, wins), on_shards(plain_fn, geos, wins)
+
+    geo3_3, win3_3 = z_windows(n3, 3, u3, f3)      # 3 sweeps, gpu error; residual; ascend
+    geo3_5, win3_5 = z_windows(n3, 5, u3, f3)      # descend: 3 sweeps + −r + FW ring
+    geo3_8, win3_8 = z_windows(n3, 8, u3, f3)      # 7 sweeps, clean error of each
+    h15 = 1.0 / (n15 - 1)
+    geo15, win15 = z_windows(n15, 3, f15)           # emit_residual from zero, 3 sweeps
+    ext_c = KS3.ascend3_halo(3, False)[1]
+    cwin3 = [S.planes(c3, g.z0 // 2 - ext_c, (g.z0 + g.nz + 1) // 2 + ext_c + 1) for g in geo3_3]
+    pts15 = n15 ** 3
+    zon8 = f"{n3}³ on 8 z-shards"
+    calls.update({
+        "jacobi3_shard": (f"{zon8}, 3 sweeps + gpu error",
+                          *both3(lambda g, ue, fe: K3.fused_jacobi3_shard(ue, fe, g, h3, 3, w3,
+                                                                          False, "gpu"),
+                                 lambda g, ue, fe: K3.fused_jacobi3_shard_torch(ue, fe, g, h3, 3,
+                                                                                w3, False, "gpu"),
+                                 geo3_3, win3_3),
+                          3 * g3, (3 * SWEEP3_OPS + GPU_ERR3_OPS) * pts3),
+        "jacobi3_errs_shard": (f"{zon8}, 7 sweeps, clean error of every iterate",
+                               *both3(lambda g, ue, fe: K3.fused_jacobi3_errs_shard(
+                                   ue, fe, g, h3, 7, w3, "clean"),
+                                   lambda g, ue, fe: K3.fused_jacobi3_errs_shard_torch(
+                                       ue, fe, g, h3, 7, w3, "clean"), geo3_8, win3_8),
+                               3 * g3, 7 * (SWEEP3_OPS + EXTRA3_OPS) * pts3),
+        "jacobi3_residual": (f"{n15}³ on 8 z-shards, 3 sweeps from zero, negated residual",
+                             *both3(lambda g, fe: K3.fused_jacobi3_residual_shard(
+                                 None, fe, g, h15, 3, w3, True, True),
+                                 lambda g, fe: K3.fused_jacobi3_residual_shard_torch(
+                                     None, fe, g, h15, 3, w3, True, True), geo15, win15),
+                             3 * 4 * pts15, (2 * SWEEP3_OPS + 3 + RES3_OPS) * pts15),
+        "descend3_shard": (f"{zon8}, 3 sweeps, full weighting, clean error",
+                           *both3(lambda g, ue, fe: K3.fused_descend3_shard(
+                               ue, fe, g, h3, 3, w3, False, "full_weighting", True),
+                               lambda g, ue, fe: K3.fused_descend3_shard_torch(
+                                   ue, fe, g, h3, 3, w3, False, "full_weighting", True),
+                               geo3_5, win3_5),
+                           3.125 * g3, (3 * SWEEP3_OPS + EXTRA3_OPS + 1) * pts3 + FW3_OPS * m3 ** 3),
+        "ascend3_shard": (f"{zon8}, 3 sweeps",
+                          lambda: [K3.fused_ascend3_shard(ue, fe, c, g.z0 // 2 - ext_c, g, h3, 3,
+                                                          w3)
+                                   for g, (ue, fe), c in zip(geo3_3, win3_3, cwin3)],
+                          lambda: [K3.fused_ascend3_shard_torch(ue, fe, c, g.z0 // 2 - ext_c, g,
+                                                                h3, 3, w3)
+                                   for g, (ue, fe), c in zip(geo3_3, win3_3, cwin3)],
+                          3.125 * g3, (3 * SWEEP3_OPS + PROLONG3_OPS) * pts3),
+        "residual3_shard": (f"{zon8}, negated",
+                            *both3(lambda g, ue, fe: K3.residual3_shard(ue, fe, g, h3, True),
+                                   lambda g, ue, fe: K3.residual3_shard_torch(ue, fe, g, h3,
+                                                                              True),
+                                   geo3_3, win3_3),
+                            3 * g3, RES3_OPS * pts3),
     })
     times = {}
     for k, (shape, kern, plain, nbytes, ops) in calls.items():
@@ -1951,6 +2427,10 @@ def main():
     say("[end] G3 sharded trigger V-cycle 8193² wall ms: "
         + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_g3.items())
         + f"; sweeps per level, rdma auto: {g3_levels}")
+    say("[end] H2 ms/cycle at 513³ on 8 z-shards of one card (no scaling: one card): "
+        + "; ".join(f"{tag} {ms:.3f}" for tag, ms in ms_h2.items()))
+    say("[end] H3 sharded 3-D trigger V-cycle 513³ wall ms: "
+        + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_h3.items()))
     say(f"[end] chip_smoke ran {time.perf_counter() - t_start:.0f} s")
 
     # no single PyTorch call computes any of these functions: library_ms is null

@@ -1,12 +1,13 @@
-"""Time the port's single-device 2-D kernels of one source tree, to compare
-two trees on the same card.
+"""Time the port's single-device 2-D and 3-D kernels of one source tree, to
+compare two trees on the same card.
 
     python3 examples/torch_kernel_ab.py ROOT
 
 ROOT is a checkout (or an unpacked ``git archive``) holding
 ``multigrid_poisson_solver_tpu_torch``; its kernels are built from ROOT's
 sources and timed with CUDA events (median of 5 rounds of 10 calls) at the
-main paths' shapes, with one V(3,3) cycle at 4097² (ω 0.8, coarsen=3). It
+main paths' shapes (2-D at 4097² and 8193², 3-D at 513³), with one V(3,3)
+cycle at 4097² (ω 0.8, coarsen=3) and one 3-D ``v_cycle3`` V(3,3) at 513³. It
 prints one JSON line of milliseconds. Compare two trees in one process run
 each, alternating (A, B, B, A), on one card: a card set below its power
 limit, or another card, moves every number.
@@ -23,7 +24,7 @@ root = os.path.abspath(sys.argv[1])
 sys.path.insert(0, root)
 
 import multigrid_poisson_solver_tpu_torch as tmg  # noqa: E402
-from multigrid_poisson_solver_tpu_torch.ops import build, kernels as K  # noqa: E402
+from multigrid_poisson_solver_tpu_torch.ops import build, kernels as K, kernels3 as K3  # noqa: E402,E501
 
 if not K.__file__.startswith(root):
     sys.exit(f"imported {K.__file__}, not the tree under {root}")
@@ -70,4 +71,22 @@ cfg = tmg.SolverConfig(omega=0.8, collect_node_stats=False)
 warm = tmg.compile_program(prog, tmg.REFERENCE_PROBLEM, cfg, device="cuda", warm=True)
 u0, f0 = warm.init()
 res["vcycle_4097"] = timed(lambda: warm(u0, f0), reps=5, rounds=3)
+del u, f, uc, u8, f8, u0, f0
+
+n3, w3 = 513, 6.0 / 7.0
+h3 = 1 / (n3 - 1)
+u3, f3 = (torch.randn(n3, n3, n3, generator=g, device="cuda") for _ in range(2))
+c3 = torch.randn((n3 + 1) // 2, (n3 + 1) // 2, (n3 + 1) // 2, generator=g, device="cuda")
+res.update({
+    "jacobi3_3err_513": timed(lambda: K3.fused_jacobi3_err(u3, f3, h3, 3, w3, "clean")),
+    "jacobi3_errs7_513": timed(lambda: K3.fused_jacobi3_errs(u3, f3, h3, 7, w3, "clean"), reps=3),
+    "descend3_513": timed(lambda: K3.fused_descend3(u3, f3, h3, 3, w3, want_err=True)),
+    "ascend3_513": timed(lambda: K3.fused_ascend3(u3, f3, c3, h3, 3, w3)),
+    "residual3_513": timed(lambda: K3.residual3(u3, f3, h3, True)),
+})
+p3 = tmg.REFERENCE_PROBLEM_3D
+b3 = p3.boundary_grid(n3, torch.float32, "cuda")
+s3 = p3.source_grid(n3, torch.float32, "cuda") + b3
+res["v_cycle3_513"] = timed(lambda: tmg.v_cycle3(b3, s3, h3, n_min=5, pre=3, post=3,
+                                                  omega=0.857), reps=3, rounds=3)
 print(json.dumps({"root": sys.argv[1], **{k: round(v, 4) for k, v in res.items()}}), flush=True)

@@ -19,7 +19,11 @@ trigger tiers, ``Solver3D``, 3-D refinement ``IterativeRefinement3`` and
 ``compile_program(..., policy=...)`` with the row and block policies of
 ``parallel.mesh`` on a mesh of shards (repeats allowed: eight shards on one
 card are a real ring), the shard modes of the kernels and the two ring
-kernels of ``ops.rdma``. Still to port: 3-D sharding and multi-process runs.
+kernels of ``ops.rdma``; and the 3-D multi-device path on a z-plane mesh
+(``ZShardingPolicy3``, ``make_mesh_z``): ``v_cycle3_sharded`` and
+``compile_program3(..., policy=...)`` with the shard modes of the 3-D
+kernels. Still to port: the 3-D ring kernels (``halo="rdma"`` in 3-D) and
+multi-process runs.
 """
 
 __version__ = "0.1.0"
@@ -52,4 +56,6 @@ from .models.poisson3d import (  # noqa: F401
 from .solver3 import Solver3D, solve3_program  # noqa: F401
 from .compiled3 import CompiledCycle3, compile_program3  # noqa: F401
 from .refine3 import IterativeRefinement3, Refine3Report, solve_to_tolerance3  # noqa: F401
+from .parallel.mesh import ZShardingPolicy3, make_mesh_z  # noqa: F401
+from .parallel.kernel_shard3 import v_cycle3_sharded  # noqa: F401
 from . import models  # noqa: F401

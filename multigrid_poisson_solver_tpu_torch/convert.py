@@ -13,7 +13,7 @@ import torch
 
 from .models.poisson3d import Problem3D
 from .models.problems import BUILTIN_PROBLEMS, Problem
-from .parallel.mesh import BlockShardingPolicy, Mesh, ShardingPolicy
+from .parallel.mesh import BlockShardingPolicy, Mesh, ShardingPolicy, ZShardingPolicy3
 from .parallel.sharded import as_level
 from .schedule import Ascend, CoarseSolve, CycleProgram, Descend
 from .solver import SolverConfig
@@ -167,3 +167,23 @@ def sharded_from_jax(global_padded, policy, n: int, device="cpu"):
     ``policy``: unpadded, then split into the policy's blocks (a tensor where
     the level is replicated)."""
     return as_level(grid_from_jax(global_padded, n, device), policy, n)
+
+
+def policy3_from_jax(jax_policy, device="cpu") -> ZShardingPolicy3:
+    """The same z-plane policy (device count, axis name, threshold) over a
+    mesh whose every entry is ``device``: one shard per JAX device."""
+    if type(jax_policy).__name__ != "ZShardingPolicy3":
+        raise TypeError(f"not a z-plane sharding policy: {jax_policy!r}")
+    mesh = jax_policy.mesh
+    names = tuple(mesh.axis_names)
+    sizes = tuple(int(mesh.shape[name]) for name in names)
+    ours = Mesh((torch.device(device),) * int(np.prod(sizes)), names, sizes)
+    return ZShardingPolicy3(ours, jax_policy.axis_name, jax_policy.threshold_planes)
+
+
+def sharded3_from_jax(global_padded, policy, n: int, device="cpu"):
+    """A JAX 3-D level array (padded, z-padded to its policy depth, sharded or
+    not) as the port's level n under ``policy``: cropped to (n, n, n), then
+    split into the policy's z blocks (a tensor where the level is
+    replicated)."""
+    return as_level(grid3_from_jax(global_padded, n, device), policy, n)

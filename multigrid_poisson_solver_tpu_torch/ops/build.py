@@ -69,6 +69,15 @@ SIGNATURES = {
     "mg_residual_shard": ([_P] * 3 + [_I] * 7 + [_F, _I, _P], _I),
     "mg_descend_shard": ([_P] * 6 + [_I] * 7 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
     "mg_ascend_shard": ([_P] * 6 + [_I] * 7 + [_I] * 4 + [_I, _I, _F, _F, _F, _F, _P], _I),
+    # 3-D shard modes: the shard's planes (n, z0, nz, ext)
+    "mg3_jacobi_shard": ([_P] * 5 + [_I] * 4 + [_I] * 3 + [_I] * 3 + [_F] * 3 + [_P], _I),
+    "mg3_jacobi_errs_shard": ([_P] * 5 + [_I] * 4 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P], _I),
+    "mg3_jacobi_residual_shard": ([_P] * 4 + [_I] * 4 + [_I] * 3 + [_I] * 3 + [_F] * 3 + [_P],
+                                  _I),
+    "mg3_descend_shard": ([_P] * 6 + [_I] * 4 + [_I] * 4 + [_I] * 3 + [_F] * 3 + [_P], _I),
+    "mg3_ascend_shard": ([_P] * 6 + [_I] * 4 + [_I] * 2 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P],
+                         _I),
+    "mg3_residual_shard": ([_P] * 3 + [_I] * 4 + [_I] + [_I] * 3 + [_F, _P], _I),
     # the ring kernels (ops.rdma)
     "mg_rdma_jacobi": ([_P] * 4 + [_I] * 4 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
     "mg_rdma_trigger": ([_P] * 5 + [_I, _I] + [_P] * 7 + [_I, _F, _F, _F, _F, _F, _I, _U, _P],

@@ -46,6 +46,21 @@
 // the persistent kernels read, after a grid barrier, iterates other blocks
 // wrote in the same launch, so they load through __ldcg (L2 only); the
 // one-launch kernels through the read-only cache.
+//
+// Shard mode (SHARD = true; pallas3d.py's *_shard_call, reached through
+// parallel/pallas_shard3.py): a launch owns the planes [z0, z0 + nz) of a
+// z-sharded level, and its inputs are those planes extended by ext planes
+// of the ring neighbours per side (zero beyond the grid). Blocks tile the
+// owned planes; every mask is by global z, so the Dirichlet faces and the
+// closed-form first sweep from zero are exact at the cut planes; only owned
+// planes are written, and error partials count owned planes only. With ext
+// at least the pipeline's halo, the trapezoid argument that makes a block's
+// z cut exact makes the shard cut exact too: owned planes are the unsharded
+// launch's bit for bit. The whole grid (z0 = 0, nz = n, ext = 0) launches
+// the SHARD = false instantiation, in which the shard geometry folds to
+// compile-time constants, with the single-device kernels' arguments. EMIT_R
+// (kernel 10's emit_residual mode) stores both the final iterate and its
+// residual, the RESID stage after the sweeps.
 #pragma once
 
 #include "common.cuh"
@@ -74,6 +89,7 @@ struct Leg3 {
   const float* f;
   const float* c;   // ascend: the m^3 coarse correction added on the interior
   float* out;       // the stored level: the final iterate, or the residual
+  float* r;         // EMIT_R: the residual of the final iterate (out holds the iterate)
   float* fc;        // descend: the m^3 restricted −r
   double* partials; // one error partial per block (per_sweep: a row of them per
                     // iterate, row s − 1 for iterate s), or nullptr
@@ -87,6 +103,21 @@ struct Leg3 {
   int ty, tx, cz, halo;
   float h2, w, inv_h2;  // h², ω/6, 1/h²
 };
+
+// The planes a launch owns, [z0, z0 + nz): u and f hold planes [z0 − ext,
+// z0 + nz + ext) (local plane 0 is global z0 − ext), c the coarse planes
+// [cz0, cz0 + cnz); out and r hold the owned planes, fc the coarse planes
+// from z0 / 2 on. Only the shard kernels take it: with these five fields in
+// Leg3 (136 bytes against 104), the whole-grid kernels took a 48-byte stack
+// frame instead of 16 and ran 14-22% slower (PERF.md §6).
+struct Planes3 {
+  int z0, nz, ext, cz0, cnz;
+};
+
+// The whole n^3 grid as the launch's planes (every single-device launch).
+static inline Planes3 planes3_whole(int n) {
+  return Planes3{0, n, 0, 0, (n + 1) / 2};
+}
 
 static __host__ __device__ __forceinline__ int leg3_stages(const Leg3& L) {
   return L.sweeps + (L.last >= 0 ? 1 : 0);
@@ -108,11 +139,16 @@ static __host__ __device__ __forceinline__ int leg3_gx(const Leg3& L) {
 static __host__ __device__ __forceinline__ int leg3_gy(const Leg3& L) {
   return (L.n + L.ty - 1) / L.ty;
 }
-static __host__ __device__ __forceinline__ int leg3_gz(const Leg3& L) {
-  return (L.n + L.cz - 1) / L.cz;
+// z chunks over the whole grid, or over nz planes of it
+static __host__ __device__ __forceinline__ int leg3_gz(const Leg3& L, int nz) {
+  return (nz + L.cz - 1) / L.cz;
+}
+static __host__ __device__ __forceinline__ int leg3_gz(const Leg3& L) { return leg3_gz(L, L.n); }
+static __host__ __device__ __forceinline__ int leg3_blocks(const Leg3& L, int nz) {
+  return leg3_gx(L) * leg3_gy(L) * leg3_gz(L, nz);
 }
 static __host__ __device__ __forceinline__ int leg3_blocks(const Leg3& L) {
-  return leg3_gx(L) * leg3_gy(L) * leg3_gz(L);
+  return leg3_blocks(L, L.n);
 }
 
 // Block t of the row-major (z, y, x) numbering the partials use.
@@ -127,25 +163,29 @@ static __device__ __forceinline__ size_t gidx3(int n, int z, int y, int x) {
 
 static __device__ __forceinline__ bool inner(int v, int n) { return v >= 1 && v <= n - 2; }
 
-// The 2:1 trilinear prolongation of the m^3 coarse grid c at fine (z, y, x):
+// The 2:1 trilinear prolongation of the m^3 coarse grid at fine (z, y, x):
 // along z, then y, then x, odd points ½·(a + b) (models.poisson3d.prolong3).
-static __device__ __forceinline__ float pro_z(const float* c, int m, int z, int I, int J) {
-  const int Z = z >> 1;
+// c holds the coarse planes from c0 on.
+static __device__ __forceinline__ float pro_z(const float* c, int m, int c0, int z, int I,
+                                              int J) {
+  const int Z = (z >> 1) - c0;
   const float a = __ldg(c + ((size_t)Z * m + I) * m + J);
   if (!(z & 1)) return a;
   return __fmul_rn(0.5f, __fadd_rn(a, __ldg(c + ((size_t)(Z + 1) * m + I) * m + J)));
 }
 
-static __device__ __forceinline__ float pro_zy(const float* c, int m, int z, int y, int J) {
-  const float a = pro_z(c, m, z, y >> 1, J);
+static __device__ __forceinline__ float pro_zy(const float* c, int m, int c0, int z, int y,
+                                               int J) {
+  const float a = pro_z(c, m, c0, z, y >> 1, J);
   if (!(y & 1)) return a;
-  return __fmul_rn(0.5f, __fadd_rn(a, pro_z(c, m, z, (y >> 1) + 1, J)));
+  return __fmul_rn(0.5f, __fadd_rn(a, pro_z(c, m, c0, z, (y >> 1) + 1, J)));
 }
 
-static __device__ __forceinline__ float prolong_at(const float* c, int m, int z, int y, int x) {
-  const float a = pro_zy(c, m, z, y, x >> 1);
+static __device__ __forceinline__ float prolong_at(const float* c, int m, int c0, int z, int y,
+                                                   int x) {
+  const float a = pro_zy(c, m, c0, z, y, x >> 1);
   if (!(x & 1)) return a;
-  return __fmul_rn(0.5f, __fadd_rn(a, pro_zy(c, m, z, y, (x >> 1) + 1)));
+  return __fmul_rn(0.5f, __fadd_rn(a, pro_zy(c, m, c0, z, y, (x >> 1) + 1)));
 }
 
 // (Σnb − 6u): ((((z− + z+) + y−) + y+) + x−) + x+, then − 6u.
@@ -262,9 +302,11 @@ static __device__ __forceinline__ float load_grid(const float* p) {
 
 // Coarse plane K of the descend leg from the −r planes 2K − 1 .. 2K + 1 (the
 // ring of the EXTRA stage): full weighting along z, then y, then x, or the
-// even fine point; 0 on the coarse boundary. Covers block b's coarse tile.
-static __device__ void restrict_plane(const Leg3& L, const Blk& b, int K, const float* rm,
-                                      const float* r0, const float* rp, int cols) {
+// even fine point; 0 on the coarse boundary. Covers block b's coarse tile;
+// fc holds the coarse planes from fc0 on.
+static __device__ void restrict_plane(const Leg3& L, const Blk& b, int K, int fc0,
+                                      const float* rm, const float* r0, const float* rp,
+                                      int cols) {
   const int n = L.n, m = (n + 1) / 2, H = L.halo;
   const int cty = L.ty / 2, ctx = L.tx / 2;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
@@ -293,7 +335,7 @@ static __device__ void restrict_plane(const Leg3& L, const Blk& b, int K, const 
         v = r0[k];
       }
     }
-    L.fc[gidx3(m, K, I, J)] = v;
+    L.fc[gidx3(m, K - fc0, I, J)] = v;
   }
 }
 
@@ -337,16 +379,27 @@ sum_partials3_kernel(const double* __restrict__ partials, int count, double scal
   if (threadIdx.x == 0 && threadIdx.y == 0) out[blockIdx.x] = scaled_error3(total, scale);
 }
 
+// The same pass for a shard: the raw float64 sums, unscaled, for the caller
+// to add over the shards in shard order and scale once.
+static __global__ void __launch_bounds__(THREADS3)
+sum_partials3_raw_kernel(const double* __restrict__ partials, int count,
+                         double* __restrict__ out) {
+  const double total = fixed_sum3(partials + (size_t)blockIdx.x * count, count);
+  if (threadIdx.x == 0 && threadIdx.y == 0) out[blockIdx.x] = total;
+}
+
 // Issue the device-memory loads of staged plane t (u and f; 0 outside the
 // grid) into registers. They are consumed by store_plane one pipeline step
 // later, so their latency overlaps the stages in between.
-template <bool COHERENT>
-static __device__ __forceinline__ void fetch_plane(const Leg3& L, int t, int cols, int plane,
-                                                   int gr0, int gc0, float (&ru)[PREF3],
-                                                   float (&rf)[PREF3]) {
+template <bool COHERENT, bool SHARD>
+static __device__ __forceinline__ void fetch_plane(const Leg3& L, const Planes3& P, int t,
+                                                   int cols, int plane, int gr0, int gc0,
+                                                   float (&ru)[PREF3], float (&rf)[PREF3]) {
   const int n = L.n;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
-  const bool zin = t >= 0 && t < n;
+  const int in0 = SHARD ? P.z0 - P.ext : 0;  // global plane of the inputs' plane 0
+  const bool zin =
+      t >= 0 && t < n && (!SHARD || (t >= in0 && t < P.z0 + P.nz + P.ext));
 #pragma unroll
   for (int q = 0; q < PREF3; ++q) {
     const int idx = tid + q * THREADS3;
@@ -354,7 +407,7 @@ static __device__ __forceinline__ void fetch_plane(const Leg3& L, int t, int col
     const int gi = gr0 + i, gj = gc0 + j;
     float fv = 0.0f, uv = 0.0f;
     if (idx < plane && zin && gi >= 0 && gi < n && gj >= 0 && gj < n) {
-      const size_t g = gidx3(n, t, gi, gj);
+      const size_t g = gidx3(n, t - in0, gi, gj);
       fv = load_grid<COHERENT>(L.f + g);
       if (L.u != nullptr) uv = load_grid<COHERENT>(L.u + g);
     }
@@ -366,8 +419,10 @@ static __device__ __forceinline__ void fetch_plane(const Leg3& L, int t, int col
 // The starting iterate and f of staged plane t into shared memory: u (plus
 // the prolonged coarse correction on the interior, for the ascend leg), or
 // from u ≡ 0 the closed-form first sweep (ω/6)·(−h²f) on the interior.
-static __device__ __forceinline__ void store_plane(const Leg3& L, int t, int cols, int plane,
-                                                   int gr0, int gc0, const float (&ru)[PREF3],
+template <bool SHARD>
+static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3& P, int t,
+                                                   int cols, int plane, int gr0, int gc0,
+                                                   const float (&ru)[PREF3],
                                                    const float (&rf)[PREF3], float* u0,
                                                    float* fp) {
   const int n = L.n, m = (n + 1) / 2;
@@ -383,25 +438,29 @@ static __device__ __forceinline__ void store_plane(const Leg3& L, int t, int col
       if (L.u == nullptr)
         uv = __fmul_rn(L.w, -__fmul_rn(L.h2, rf[q]));
       else if (L.c != nullptr)
-        uv = __fadd_rn(uv, prolong_at(L.c, m, t, gi, gj));
+        uv = __fadd_rn(uv, prolong_at(L.c, m, SHARD ? P.cz0 : 0, t, gi, gj));
     }
     u0[idx] = uv;
     fp[idx] = rf[q];
   }
 }
 
-// The whole leg of block b (of leg3_blocks(L)); the error partials go to
-// L.partials[slot * leg3_blocks(L) + the block's number]. NSLOT: the error
-// slots (MAX_STEPS3 for per_sweep, else 1); COHERENT: a persistent kernel.
-template <int NSLOT, bool COHERENT>
-static __device__ void run_leg3_at(float* smem, const Leg3& L, const Blk& b) {
+// The whole leg of block b (of leg3_blocks(L), or of leg3_blocks(L, P.nz)
+// with SHARD); the error partials go to L.partials[slot * (that count) + the
+// block's number]. NSLOT: the error slots (MAX_STEPS3 for per_sweep, else
+// 1); COHERENT: a persistent kernel; SHARD: the launch owns P's planes, not
+// the whole grid (P is not read otherwise); EMIT_R: the final iterate to out
+// and the RESID stage's residual to r.
+template <int NSLOT, bool COHERENT, bool SHARD = false, bool EMIT_R = false>
+static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P, const Blk& b) {
   const int n = L.n, H = L.halo;
   const int rows = L.ty + 2 * H, cols = L.tx + 2 * H, plane = rows * cols;
   const int gr0 = b.y * L.ty - H, gc0 = b.x * L.tx - H;
-  const int z0 = b.z * L.cz, zo_end = min(z0 + L.cz, n);  // owned planes
-  const int zs = z0 - H, ze = z0 + L.cz + H;               // staged planes
+  const int zlo = SHARD ? P.z0 : 0, zhi = SHARD ? P.z0 + P.nz : n;  // the launch's planes
+  const int z0 = zlo + b.z * L.cz, zo_end = min(z0 + L.cz, zhi);    // owned planes
+  const int zs = z0 - H, ze = (SHARD ? zo_end : z0 + L.cz) + H;      // staged planes
   const int S = leg3_stages(L);
-  const int stored = L.last == RESID ? S : L.sweeps;       // level written to out
+  const int stored = L.last == RESID && !EMIT_R ? S : L.sweeps;     // level written to out
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
   float* const fring = smem + (size_t)3 * (S + 1) * plane;
   auto ring = [&](int level, int p) -> float* {
@@ -414,14 +473,14 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Blk& b) {
   const bool gpu_stored = L.partials != nullptr && L.err_mode == ERR_GPU && !L.per_sweep;
   float ru[PREF3], rf[PREF3];  // plane t's loads, in flight during step t − 1
   __syncthreads();             // the block's previous leg is done with smem
-  fetch_plane<COHERENT>(L, zs, cols, plane, gr0, gc0, ru, rf);
+  fetch_plane<COHERENT, SHARD>(L, P, zs, cols, plane, gr0, gc0, ru, rf);
 
   for (int t = zs; t < ze + S; ++t) {
     // stage plane t; its ring slots last held planes the previous step
     // finished with
-    if (t < ze) store_plane(L, t, cols, plane, gr0, gc0, ru, rf, ring(0, t), fpl(t));
+    if (t < ze) store_plane<SHARD>(L, P, t, cols, plane, gr0, gc0, ru, rf, ring(0, t), fpl(t));
     __syncthreads();
-    if (t + 1 < ze) fetch_plane<COHERENT>(L, t + 1, cols, plane, gr0, gc0, ru, rf);
+    if (t + 1 < ze) fetch_plane<COHERENT, SHARD>(L, P, t + 1, cols, plane, gr0, gc0, ru, rf);
     for (int s = 1; s <= S; ++s) {
       const int p = t - s;
       if (p >= zs + s && p < ze - s) {
@@ -451,11 +510,22 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Blk& b) {
         const int gi = gr0 + i, gj = gc0 + j;
         if (gi >= n || gj >= n) continue;
         const int k = i * cols + j;
-        L.out[gidx3(n, q, gi, gj)] = src[k];
+        L.out[gidx3(n, q - zlo, gi, gj)] = src[k];
         if (gpu_stored && inner(q, n) && inner(gi, n) && inner(gj, n))
           e += (double)fabsf(prev ? __fsub_rn(src[k], prev[k]) : src[k]);
       }
       acc[0] += e;
+    }
+    // EMIT_R: the owned cells of the residual's plane
+    const int qr = t - S;
+    if (EMIT_R && qr >= z0 && qr < zo_end) {
+      const float* src = ring(S, qr);
+      for (int idx = tid; idx < L.ty * L.tx; idx += THREADS3) {
+        const int i = H + idx / L.tx, j = H + idx % L.tx;
+        const int gi = gr0 + i, gj = gc0 + j;
+        if (gi >= n || gj >= n) continue;
+        L.r[gidx3(n, qr - zlo, gi, gj)] = src[i * cols + j];
+      }
     }
     // a coarse plane once its fine planes 2K − 1 .. 2K + 1 are in the ring
     if (L.restrict_mode != R_NONE) {
@@ -463,12 +533,14 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Blk& b) {
       const int K = L.restrict_mode == R_FW ? (p - 1) >> 1 : p >> 1;
       const bool ready = L.restrict_mode == R_FW ? (p & 1) : !(p & 1);
       if (ready && 2 * K >= z0 && 2 * K < zo_end)
-        restrict_plane(L, b, K, ring(S, 2 * K - 1), ring(S, 2 * K), ring(S, 2 * K + 1), cols);
+        restrict_plane(L, b, K, zlo >> 1, ring(S, 2 * K - 1), ring(S, 2 * K), ring(S, 2 * K + 1),
+                       cols);
     }
     __syncthreads();
   }
   if (L.partials != nullptr) {
-    const int nslots = L.per_sweep ? L.sweeps : 1, nb = leg3_blocks(L);
+    const int nslots = L.per_sweep ? L.sweeps : 1;
+    const int nb = SHARD ? leg3_blocks(L, P.nz) : leg3_blocks(L);
     const int me = (b.z * leg3_gy(L) + b.y) * leg3_gx(L) + b.x;
 #pragma unroll
     for (int q = 0; q < NSLOT; ++q) {
@@ -481,14 +553,22 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Blk& b) {
 }
 
 // The leg of the block of a one-launch grid (launch_leg3).
-template <int NSLOT = 1>
-static __device__ __forceinline__ void run_leg3(float* smem, const Leg3& L) {
-  run_leg3_at<NSLOT, false>(smem, L, Blk{(int)blockIdx.x, (int)blockIdx.y, (int)blockIdx.z});
+template <int NSLOT = 1, bool SHARD = false, bool EMIT_R = false>
+static __device__ __forceinline__ void run_leg3(float* smem, const Leg3& L, const Planes3& P) {
+  run_leg3_at<NSLOT, false, SHARD, EMIT_R>(smem, L, P,
+                                          Blk{(int)blockIdx.x, (int)blockIdx.y, (int)blockIdx.z});
 }
 
-// The geometry checks of every launch of the pipeline: cudaSuccess or
-// cudaErrorInvalidValue.
-static inline cudaError_t check_leg3(const Leg3& L) {
+// Whether a launch owns the whole grid through unextended inputs (the
+// SHARD = false instantiation).
+static inline bool leg3_is_whole(const Leg3& L, const Planes3& P) {
+  return P.z0 == 0 && P.nz == L.n && P.ext == 0 &&
+         (L.c == nullptr || (P.cz0 == 0 && P.cnz == (L.n + 1) / 2));
+}
+
+// The geometry checks of every launch of the pipeline, over the planes P:
+// cudaSuccess or cudaErrorInvalidValue.
+static inline cudaError_t check_leg3(const Leg3& L, const Planes3& P) {
   const int S = leg3_stages(L);
   if (L.n < 3 || L.ty < 2 || L.tx < 2 || L.cz < 2 || ((L.ty | L.tx | L.cz) & 1) ||
       L.halo < S || L.halo > MAX_HALO3 || S > MAX_STEPS3 + 1 ||
@@ -496,18 +576,42 @@ static inline cudaError_t check_leg3(const Leg3& L) {
       (L.per_sweep && (L.partials == nullptr || L.sweeps < 1 || L.sweeps > MAX_STEPS3)) ||
       leg3_smem(S, L.halo, L.ty, L.tx) > SMEM_MAX3)
     return cudaErrorInvalidValue;
+  // the planes: owned ones inside the grid, inputs holding every plane the
+  // owned ones depend on (halo planes each side, or up to the grid's faces)
+  const int lo = P.z0 - L.halo > 0 ? P.z0 - L.halo : 0;
+  const int hi = P.z0 + P.nz + L.halo < L.n ? P.z0 + P.nz + L.halo : L.n;
+  if (P.nz < 1 || P.z0 < 0 || P.z0 + P.nz > L.n || P.ext < 0 || P.z0 - P.ext > lo ||
+      P.z0 + P.nz + P.ext < hi)
+    return cudaErrorInvalidValue;
+  // the coarse planes the staged interior planes [flo, fhi] prolong from
+  if (L.c != nullptr) {
+    const int flo = lo > 1 ? lo : 1, fhi = hi - 1 < L.n - 2 ? hi - 1 : L.n - 2;
+    if (flo <= fhi && (P.cz0 > (flo >> 1) || P.cz0 + P.cnz <= ((fhi + 1) >> 1)))
+      return cudaErrorInvalidValue;
+  }
   return cudaSuccess;
 }
 
-// Launch `kernel` over the leg's blocks; the geometry is validated here.
-static inline cudaError_t launch_leg3(void (*kernel)(Leg3), const Leg3& L, cudaStream_t stream) {
-  cudaError_t e = check_leg3(L);
+// Launch the leg over its blocks: `whole` (the SHARD = false instantiation,
+// with the single-device kernels' argument list) when it owns the whole grid
+// through unextended inputs, else `shard` over the planes P; the geometry is
+// validated here.
+static inline cudaError_t launch_leg3(void (*whole)(Leg3), void (*shard)(Leg3, Planes3),
+                                      const Leg3& L, const Planes3& P, cudaStream_t stream) {
+  cudaError_t e = check_leg3(L, P);
   if (e != cudaSuccess) return e;
+  const bool is_whole = leg3_is_whole(L, P);
   const size_t smem = leg3_smem(leg3_stages(L), L.halo, L.ty, L.tx);
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  e = is_whole ? cudaFuncSetAttribute(whole, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem)
+               : cudaFuncSetAttribute(shard, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(leg3_gx(L), leg3_gy(L), leg3_gz(L));
-  kernel<<<grid, dim3(BLOCK_X, BLOCK3_Y), smem, stream>>>(L);
+  const dim3 grid(leg3_gx(L), leg3_gy(L), leg3_gz(L, P.nz)), block(BLOCK_X, BLOCK3_Y);
+  if (is_whole)
+    whole<<<grid, block, smem, stream>>>(L);
+  else
+    shard<<<grid, block, smem, stream>>>(L, P);
   return cudaGetLastError();
 }
 
@@ -518,6 +622,15 @@ static inline cudaError_t finish_error3(const Leg3& L, double scale, float* err_
   if (L.partials == nullptr) return cudaSuccess;
   sum_partials3_kernel<<<L.per_sweep ? L.sweeps : 1, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(
       L.partials, leg3_blocks(L), scale, err_out);
+  return cudaGetLastError();
+}
+
+// The same for a shard's planes P: each row's raw float64 sum into raw_out[row].
+static inline cudaError_t finish_raw3(const Leg3& L, const Planes3& P, double* raw_out,
+                                      cudaStream_t stream) {
+  if (L.partials == nullptr) return cudaSuccess;
+  sum_partials3_raw_kernel<<<L.per_sweep ? L.sweeps : 1, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(
+      L.partials, leg3_blocks(L, P.nz), raw_out);
   return cudaGetLastError();
 }
 

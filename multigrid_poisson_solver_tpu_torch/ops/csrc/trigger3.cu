@@ -59,7 +59,7 @@ static __global__ void __launch_bounds__(THREADS3) trigger3_kernel(Trigger3Args 
     L.out = dst;
     L.partials = a.partials + (k & 1) * count;
     for (int t = blockIdx.x; t < count; t += gridDim.x)
-      run_leg3_at<1, true>(smem, L, leg3_blk(L, t));
+      run_leg3_at<1, true>(smem, L, Planes3{}, leg3_blk(L, t));
     grid.sync();  // dst and the partials complete
     const double total = fixed_sum3(L.partials, count);
     if (threadIdx.x == 0 && threadIdx.y == 0) err_now = scaled_error3(total, a.err_scale);
@@ -111,7 +111,7 @@ extern "C" int mg3_trigger(const float* u, const float* f, float* out, float* tm
   L.h2 = h2;
   L.w = w;
   L.inv_h2 = inv_h2;
-  const cudaError_t e = check_leg3(L);
+  const cudaError_t e = check_leg3(L, planes3_whole(n));
   if (e != cudaSuccess) return (int)e;
   a.u = u;
   a.out = out;

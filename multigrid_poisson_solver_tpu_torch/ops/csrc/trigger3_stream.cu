@@ -63,7 +63,7 @@ static __global__ void __launch_bounds__(THREADS3) trigger3_stream_kernel(Stream
     L.sweeps = kb;
     L.partials = a.partials + (size_t)(pass & 1) * a.batch * count;
     for (int t = blockIdx.x; t < count; t += gridDim.x)
-      run_leg3_at<MAX_STEPS3, true>(smem, L, leg3_blk(L, t));
+      run_leg3_at<MAX_STEPS3, true>(smem, L, Planes3{}, leg3_blk(L, t));
     grid.sync();  // dst and the partials complete
     int stop = 0;
     for (int s = 1; s <= kb && !stop; ++s) {
@@ -87,7 +87,7 @@ static __global__ void __launch_bounds__(THREADS3) trigger3_stream_kernel(Stream
         R.per_sweep = 0;
         R.partials = nullptr;
         for (int t = blockIdx.x; t < count; t += gridDim.x)
-          run_leg3_at<1, true>(smem, R, leg3_blk(R, t));
+          run_leg3_at<1, true>(smem, R, Planes3{}, leg3_blk(R, t));
         grid.sync();
       }
       break;
@@ -137,7 +137,7 @@ extern "C" int mg3_trigger_stream(const float* u, const float* f, float* out, fl
   L.h2 = h2;
   L.w = w;
   L.inv_h2 = inv_h2;
-  const cudaError_t e = check_leg3(L);
+  const cudaError_t e = check_leg3(L, planes3_whole(n));
   if (e != cudaSuccess) return (int)e;
   a.u = u;
   a.out = out;

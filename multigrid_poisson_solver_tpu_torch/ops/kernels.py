@@ -71,7 +71,10 @@ launches = {"jacobi": 0, "jacobi_errs": 0, "rbgs": 0, "residual": 0, "residual_m
             "trigger": 0, "trigger_stream": 0,
             # the 3-D kernels (ops.kernels3)
             "jacobi3": 0, "descend3": 0, "ascend3": 0, "residual3": 0, "jacobi3_errs": 0,
-            "trigger3": 0, "trigger3_stream": 0, "residual_mw3": 0,
+            "trigger3": 0, "trigger3_stream": 0, "residual_mw3": 0, "jacobi3_residual": 0,
+            # the shard modes of the 3-D kernels (ops.kernels3)
+            "jacobi3_shard": 0, "jacobi3_errs_shard": 0, "descend3_shard": 0,
+            "ascend3_shard": 0, "residual3_shard": 0,
             # the shard modes of the 2-D kernels and the ring kernels (ops.rdma)
             "jacobi_shard": 0, "jacobi_errs_shard": 0, "rbgs_shard": 0, "residual_shard": 0,
             "descend_shard": 0, "ascend_shard": 0, "rdma_jacobi": 0, "rdma_trigger": 0}

@@ -22,7 +22,16 @@ reaches:
     ``_trigger3_stream_kernel`` (the same loop in passes of B sweeps);
   * ``residual_df3``, ``residual_tw3``: ``csrc/residual_mw3.cu``, replaces
     ``_residual_mw3_kernel`` (the compensated residual of a 2- or 3-word
-    state).
+    state);
+  * ``fused_jacobi3_residual``: ``csrc/jacobi3.cu``, the same kernel's
+    emit_residual mode (``fused_jacobi3_residual_padded``: sweeps and the
+    residual of the last iterate from one pass);
+  * the shard modes (``*_shard``, ``ShardGeo3``): kernels 10 (every mode and
+    emit_residual), 11, 12 and 13 on one z-shard's planes of a sharded
+    level, replacing ``_fused_jacobi3_shard_call``,
+    ``_fused_descend3_shard_call``, ``_fused_ascend3_shard_call`` and
+    ``_residual3_shard_call``; ``parallel.kernel_shard3`` runs them per
+    shard.
 
 All but the last share the tile pipeline of ``csrc/legs3.cuh``. The TPU
 kernels' brick geometry (``_brick_geometry``: ×8-row and ×128-lane padding,
@@ -54,6 +63,8 @@ tensors.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -143,8 +154,50 @@ def err_plan3(n: int):
     return plan3(n, MAX_FUSED_SWEEPS_3D, MAX_FUSED_SWEEPS_3D)
 
 
-def blocks3(n: int, ty: int, tx: int, cz: int) -> int:
-    return -(-n // tx) * -(-n // ty) * -(-n // cz)
+def blocks3(n: int, ty: int, tx: int, cz: int, nz=None) -> int:
+    """Blocks of a launch over the n³ grid, or over nz of its planes."""
+    return -(-n // tx) * -(-n // ty) * -(-(n if nz is None else nz) // cz)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardGeo3:
+    """One z-shard's planes of an n³ level: [z0, z0 + nz) owned, its input
+    windows holding ``ext`` planes of the neighbours per side (zero beyond the
+    grid), global plane z at window plane z − z0 + ext. The whole grid is
+    ``ShardGeo3(n, 0, n)``."""
+
+    n: int
+    z0: int
+    nz: int
+    ext: int = 0
+
+    @property
+    def ext_shape(self) -> tuple[int, int, int]:
+        return self.nz + 2 * self.ext, self.n, self.n
+
+    @property
+    def whole(self) -> bool:
+        return self.z0 == 0 and self.nz == self.n and self.ext == 0
+
+    def owned(self, x: torch.Tensor) -> torch.Tensor:
+        """The owned planes of a window-shaped tensor."""
+        return x[self.ext:self.ext + self.nz]
+
+    def gz(self, device) -> torch.Tensor:
+        """Global z of the window's planes."""
+        return torch.arange(self.z0 - self.ext, self.z0 + self.nz + self.ext, device=device)
+
+    def inner(self, device) -> torch.Tensor:
+        """The window's planes on the grid's interior (1..n − 2)."""
+        gz = self.gz(device)
+        return (gz >= 1) & (gz <= self.n - 2)
+
+    def owned_inner(self, device) -> torch.Tensor:
+        """The window's owned interior planes."""
+        take = self.inner(device)
+        take[:self.ext] = False
+        take[self.ext + self.nz:] = False
+        return take
 
 
 # --- plain PyTorch twins ------------------------------------------------------
@@ -269,6 +322,186 @@ def residual_df3_torch(u0, u1, f, h: float):
 
 def residual_tw3_torch(u0, u1, u2, f, h: float):
     return residual_mw3_torch((u0, u1, u2), f, h)
+
+
+def fused_jacobi3_residual_torch(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
+                                 from_zero: bool = False, negate: bool = False):
+    """``steps`` sweeps and the residual of the result (negated when
+    ``negate``): (u, r)."""
+    u = fused_jacobi3_torch(u, f, h, steps, omega, from_zero)
+    return u, residual3_torch(u, f, h, negate)
+
+
+# --- plain twins of the shard modes, on a shard's windows ---------------------------
+
+def _inner3(x):
+    return x[1:-1, 1:-1, 1:-1]
+
+
+def _sweep3_ext(u, f, zin, h: float, omega: float):
+    """``models.poisson3d.jacobi_sweep3`` on a window, frozen on the planes
+    where ``zin`` is False (the global z faces and beyond the grid)."""
+    incr = (p3._nb_sum3(u) - 6.0 * _inner3(u)) - (h * h) * _inner3(f)
+    out = u.clone()
+    out[1:-1, 1:-1, 1:-1] = torch.where(zin[1:-1, None, None],
+                                        _inner3(u) + (omega / 6.0) * incr, _inner3(u))
+    return out
+
+
+def _residual3_ext(u, f, zin, h: float):
+    """``models.poisson3d.residual3`` on a window, 0 off the interior."""
+    inv_h2 = 1.0 / (h * h)
+    r = torch.zeros_like(u)
+    r[1:-1, 1:-1, 1:-1] = torch.where(
+        zin[1:-1, None, None], inv_h2 * (p3._nb_sum3(u) - 6.0 * _inner3(u)) - _inner3(f),
+        torch.zeros((), dtype=u.dtype, device=u.device))
+    return r
+
+
+def _raw3(vals, geo: ShardGeo3):
+    """Σ vals over the owned interior cells in float64: a shard's raw error."""
+    take = geo.owned_inner(vals.device)
+    return torch.sum(vals[take][:, 1:-1, 1:-1], dtype=torch.float64)
+
+
+def _raw_error3(fin, prev, f, geo: ShardGeo3, zin, h: float, mode: str):
+    """Σ|r(fin)| (clean) or Σ|fin − prev| (gpu) over the owned interior."""
+    if mode == "gpu":
+        return _raw3(torch.abs(fin - prev), geo)
+    return _raw3(torch.abs(_residual3_ext(fin, f, zin, h)), geo)
+
+
+def _sweeps3_ext(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int, omega: float,
+                 from_zero: bool):
+    """``steps`` sweeps on a window: (the iterate, the one before it). From
+    u ≡ 0 (``from_zero``) the first is the closed form (ω/6)·(0 − h²f), the
+    sweep's arithmetic on zeros, taken pointwise so that it spends no halo
+    plane, as in the kernels."""
+    zin = geo.inner(f_ext.device)
+    u = prev = u_ext
+    if from_zero:
+        prev = torch.zeros_like(f_ext)
+        u = prev.clone()
+        u[:, 1:-1, 1:-1] = torch.where(
+            zin[:, None, None],
+            (omega / 6.0) * (prev[:, 1:-1, 1:-1] - (h * h) * f_ext[:, 1:-1, 1:-1]),
+            prev[:, 1:-1, 1:-1])
+        steps -= 1
+    for _ in range(steps):
+        prev, u = u, _sweep3_ext(u, f_ext, zin, h, omega)
+    return u, prev
+
+
+def fused_jacobi3_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
+                              omega: float = 6.0 / 7.0, from_zero: bool = False, err_mode=None,
+                              plan=None):
+    """Twin of ``fused_jacobi3_shard``: (owned planes, raw error or None;
+    the tile ``plan`` has no counterpart here)."""
+    u, prev = _sweeps3_ext(u_ext, f_ext, geo, h, steps, omega, from_zero)
+    raw = None
+    if err_mode is not None:
+        raw = _raw_error3(u, prev, f_ext, geo, geo.inner(f_ext.device), h, err_mode)
+    return geo.owned(u).contiguous(), raw
+
+
+def fused_jacobi3_errs_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
+                                   omega: float = 6.0 / 7.0, compat: str = "clean"):
+    """Twin of ``fused_jacobi3_errs_shard``: (owned planes, the raw error of
+    every iterate)."""
+    zin = geo.inner(f_ext.device)
+    u, raws = u_ext, []
+    for _ in range(steps):
+        prev, u = u, _sweep3_ext(u, f_ext, zin, h, omega)
+        raws.append(_raw_error3(u, prev, f_ext, geo, zin, h, compat))
+    return geo.owned(u).contiguous(), torch.stack(raws)
+
+
+def fused_jacobi3_residual_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
+                                       omega: float = 6.0 / 7.0, from_zero: bool = False,
+                                       negate: bool = False):
+    """Twin of ``fused_jacobi3_residual_shard``: (owned planes of the
+    iterate, of its residual)."""
+    u, _ = _sweeps3_ext(u_ext, f_ext, geo, h, steps, omega, from_zero)
+    r = geo.owned(_residual3_ext(u, f_ext, geo.inner(f_ext.device), h)).contiguous()
+    return geo.owned(u).contiguous(), (-r if negate else r)
+
+
+def residual3_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, negate: bool = False):
+    """Twin of ``residual3_shard``: the owned planes of the residual."""
+    r = geo.owned(_residual3_ext(u_ext, f_ext, geo.inner(f_ext.device), h)).contiguous()
+    return -r if negate else r
+
+
+def coarse_planes3(geo: ShardGeo3) -> tuple[int, int]:
+    """[K0, K1): the coarse planes of an even-origin shard's fine planes,
+    the slab its descend leg writes."""
+    return geo.z0 // 2, (geo.z0 + geo.nz + 1) // 2
+
+
+def _restrict_yx(s, n: int, fw: bool):
+    """The y and x passes of ``transfers3.restrict3`` on a stack of
+    z-restricted planes: (k, n, n) → (k, m − 2, m − 2)."""
+    if not fw:
+        return s[:, 2:-2:2, 2:-2:2]
+    s = (0.25 * s[:, 1:n - 3:2] + 0.5 * s[:, 2:n - 2:2]) + 0.25 * s[:, 3:n - 1:2]
+    return (0.25 * s[:, :, 1:n - 3:2] + 0.5 * s[:, :, 2:n - 2:2]) + 0.25 * s[:, :, 3:n - 1:2]
+
+
+def fused_descend3_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
+                               omega: float = 6.0 / 7.0, from_zero: bool = False,
+                               restriction: str = "full_weighting", want_err: bool = False):
+    """Twin of ``fused_descend3_shard``: (owned planes, the shard's slab of
+    the coarse right-hand side, raw clean error or None)."""
+    n, m = geo.n, (geo.n + 1) // 2
+    zin = geo.inner(f_ext.device)
+    u, _ = _sweeps3_ext(u_ext, f_ext, geo, h, steps, omega, from_zero)
+    d = -_residual3_ext(u, f_ext, zin, h)
+    raw = _raw3(torch.abs(d), geo) if want_err else None
+    k0, k1 = coarse_planes3(geo)
+    ks = [k for k in range(k0, k1) if 1 <= k <= m - 2]
+    fc = torch.zeros((k1 - k0, m, m), dtype=f_ext.dtype, device=f_ext.device)
+    if ks:
+        # window plane of fine plane 2K
+        zk = torch.tensor([2 * k - geo.z0 + geo.ext for k in ks], device=d.device)
+        if restriction == "full_weighting":
+            s = (0.25 * d[zk - 1] + 0.5 * d[zk]) + 0.25 * d[zk + 1]
+        else:
+            s = d[zk]
+        fc[ks[0] - k0:ks[-1] - k0 + 1, 1:-1, 1:-1] = _restrict_yx(
+            s, n, restriction == "full_weighting")
+    return geo.owned(u).contiguous(), fc, raw
+
+
+def _prolong3_planes(c_win, cz0: int, geo: ShardGeo3):
+    """``models.poisson3d.prolong3`` at the window's planes from the coarse
+    planes [cz0, cz0 + len(c_win)) (z, then y, then x); planes it cannot
+    reach hold garbage that the caller masks."""
+    n = geo.n
+    gz = geo.gz(c_win.device)
+    top = c_win.shape[0] - 1
+    lo = torch.clamp(torch.div(gz, 2, rounding_mode="floor") - cz0, 0, top)
+    hi = torch.clamp(lo + 1, 0, top)
+    a = torch.where((gz % 2 == 1)[:, None, None], 0.5 * (c_win[lo] + c_win[hi]), c_win[lo])
+    b = torch.empty((a.shape[0], n, a.shape[2]), dtype=a.dtype, device=a.device)
+    b[:, ::2] = a
+    b[:, 1::2] = 0.5 * (a[:, :-1] + a[:, 1:])
+    out = torch.empty((a.shape[0], n, n), dtype=a.dtype, device=a.device)
+    out[:, :, ::2] = b
+    out[:, :, 1::2] = 0.5 * (b[:, :, :-1] + b[:, :, 1:])
+    return out
+
+
+def fused_ascend3_shard_torch(u_ext, f_ext, c_win, cz0: int, geo: ShardGeo3, h: float,
+                              steps: int, omega: float = 6.0 / 7.0, want_err: bool = False):
+    """Twin of ``fused_ascend3_shard``: (owned planes, raw clean error or
+    None)."""
+    zin = geo.inner(f_ext.device)
+    e = _prolong3_planes(c_win, cz0, geo)
+    u = u_ext.clone()
+    u[:, 1:-1, 1:-1] = torch.where(zin[:, None, None],
+                                   u_ext[:, 1:-1, 1:-1] + e[:, 1:-1, 1:-1], u_ext[:, 1:-1, 1:-1])
+    return fused_jacobi3_shard_torch(u, f_ext, geo, h, steps, omega, False,
+                                     "clean" if want_err else None)
 
 
 # --- CUDA launches ---------------------------------------------------------------
@@ -546,3 +779,215 @@ def residual_tw3(u0, u1, u2, f, h: float):
     if not f.is_cuda:
         return residual_tw3_torch(u0, u1, u2, f, h)
     return _residual_mw3_cuda((u0, u1, u2), f, h)
+
+
+# --- the shard modes on the card -----------------------------------------------------
+
+def _shard3_args(u_ext, f_ext, geo: ShardGeo3, halo: int, need_u: bool = True):
+    """Validate a shard-mode launch; return (library, stream, device)."""
+    from . import build
+
+    if not f_ext.is_cuda:
+        raise ValueError(f"CUDA kernel called on a {f_ext.device} tensor")
+    n = geo.n
+    if not (n >= 3 and 0 <= geo.z0 and geo.nz >= 1 and geo.z0 + geo.nz <= n
+            and geo.ext >= 0):
+        raise ValueError(f"a shard's planes must lie in the {n}³ grid, got {geo}")
+    # the window must hold the pass's halo wherever the shard has a neighbour
+    if geo.ext < halo and (geo.z0 > 0 or geo.z0 + geo.nz < n):
+        raise ValueError(f"the pass needs {halo} halo planes, the shard carries {geo.ext}")
+    K._check("f", f_ext, geo.ext_shape, f_ext.device)
+    if need_u:
+        K._check("u", u_ext, geo.ext_shape, f_ext.device)
+    if f_ext.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {f_ext.device}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return build.load(), torch.cuda.current_stream(f_ext.device).cuda_stream, f_ext.device
+
+
+def _planes3(geo: ShardGeo3):
+    return geo.n, geo.z0, geo.nz, geo.ext
+
+
+def _raw_buffers3(want: bool, geo: ShardGeo3, plan, device, rows: int = 1):
+    """(the float64 block partials, the shard's raw sums), or Nones."""
+    if not want:
+        return None, None
+    nb = blocks3(geo.n, *plan, nz=geo.nz)
+    return (torch.empty(rows * nb, dtype=torch.float64, device=device),
+            torch.empty(rows, dtype=torch.float64, device=device))
+
+
+def fused_jacobi3_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
+                        omega: float = 6.0 / 7.0, from_zero: bool = False, err_mode=None,
+                        plan=None):
+    """One pass of 1..8 sweeps on one z-shard's planes (kernel 10's shard
+    mode): ``u_ext``, ``f_ext`` are its windows (u unread when
+    ``from_zero``); ``err_mode`` None, "clean" (at most 7 sweeps after the
+    closed-form one) or "gpu" adds the shard's raw error over its owned
+    planes, a float64 Σ|r| or Σ|Δu|. ``plan``: the tile plan (``err_plan3``
+    of the shard's depth in a trigger loop). Returns (owned planes, raw
+    error as a 0-d float64 tensor, or None)."""
+    if err_mode not in (None, "clean", "gpu"):
+        raise ValueError(f"unknown err_mode {err_mode!r}; expected None, 'clean' or 'gpu'")
+    _check_steps3(steps, MAX_FUSED_SWEEPS_3D, "fused_jacobi3_shard")
+    stages = steps - int(from_zero) + (err_mode == "clean")
+    if stages > MAX_FUSED_SWEEPS_3D:
+        raise ValueError("the fused clean error needs at most 7 neighbor-reading sweeps")
+    if not f_ext.is_cuda:
+        return fused_jacobi3_shard_torch(u_ext, f_ext, geo, h, steps, omega, from_zero, err_mode)
+    lib, stream, dev = _shard3_args(u_ext, f_ext, geo, stages, not from_zero)
+    plan = plan or plan3(geo.nz, stages, stages)
+    out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
+    partials, raw = _raw_buffers3(err_mode is not None, geo, plan, dev)
+    rc = lib.mg3_jacobi_shard(K._ptr(None if from_zero else u_ext), f_ext.data_ptr(),
+                              out.data_ptr(), K._ptr(partials), K._ptr(raw), *_planes3(geo),
+                              steps, int(from_zero), _ERR_CODES3[err_mode], *plan, h * h,
+                              omega / 6.0, 1.0 / (h * h), stream)
+    K._raise_on(lib, rc, "jacobi3 shard")
+    K.launches["jacobi3_shard"] += 1
+    return out, _scalar(raw)
+
+
+def fused_jacobi3_errs_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
+                             omega: float = 6.0 / 7.0, compat: str = "clean"):
+    """``steps`` ≤ ``errs3_sweep_cap(compat)`` sweeps on one z-shard's planes
+    in one pass with the raw error of every iterate (kernel 10's per_sweep
+    shard mode), with the trigger loops' tile plan of the shard's depth:
+    (owned planes, raws of shape (steps,), float64)."""
+    _check_compat3(compat)
+    _check_steps3(steps, errs3_sweep_cap(compat), f"fused_jacobi3_errs_shard ({compat})")
+    if not f_ext.is_cuda:
+        return fused_jacobi3_errs_shard_torch(u_ext, f_ext, geo, h, steps, omega, compat)
+    lib, stream, dev = _shard3_args(u_ext, f_ext, geo, steps + (compat == "clean"))
+    plan = err_plan3(geo.nz)
+    out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
+    partials, raws = _raw_buffers3(True, geo, plan, dev, steps)
+    rc = lib.mg3_jacobi_errs_shard(u_ext.data_ptr(), f_ext.data_ptr(), out.data_ptr(),
+                                   partials.data_ptr(), raws.data_ptr(), *_planes3(geo), steps,
+                                   _ERR_CODES3[compat], *plan, h * h, omega / 6.0,
+                                   1.0 / (h * h), stream)
+    K._raise_on(lib, rc, "jacobi3_errs shard")
+    K.launches["jacobi3_errs_shard"] += 1
+    return out, raws
+
+
+def fused_jacobi3_residual_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
+                                 omega: float = 6.0 / 7.0, from_zero: bool = False,
+                                 negate: bool = False):
+    """Kernel 10's emit_residual mode on one z-shard's planes: ``steps``
+    sweeps (at most 7 after from_zero's closed-form one) and the residual of
+    the result, negated when ``negate``, from one pass. Returns (owned planes
+    of the iterate, of the residual)."""
+    if steps < 1 or steps - int(from_zero) > MAX_FUSED_SWEEPS_3D - 1:
+        raise ValueError(f"emit_residual runs 1..7 neighbor-reading sweeps, got steps={steps}, "
+                         f"from_zero={from_zero}")
+    if not f_ext.is_cuda:
+        return fused_jacobi3_residual_shard_torch(u_ext, f_ext, geo, h, steps, omega, from_zero,
+                                                  negate)
+    stages = steps - int(from_zero) + 1
+    lib, stream, dev = _shard3_args(u_ext, f_ext, geo, stages, not from_zero)
+    out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
+    r = torch.empty_like(out)
+    rc = lib.mg3_jacobi_residual_shard(K._ptr(None if from_zero else u_ext), f_ext.data_ptr(),
+                                       out.data_ptr(), r.data_ptr(), *_planes3(geo), steps,
+                                       int(from_zero), int(negate), *plan3(geo.nz, stages, stages),
+                                       h * h, omega / 6.0, 1.0 / (h * h), stream)
+    K._raise_on(lib, rc, "jacobi3 emit_residual")
+    K.launches["jacobi3_residual"] += 1
+    return out, r
+
+
+def fused_jacobi3_residual(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
+                           from_zero: bool = False, negate: bool = False):
+    """``steps`` sweeps (at most 7 after from_zero's closed-form one) and the
+    residual of the result from one pass over memory (counterpart of
+    ``fused_jacobi3_residual_padded``): (u, r)."""
+    if not f.is_cuda:
+        return fused_jacobi3_residual_torch(u, f, h, steps, omega, from_zero, negate)
+    n = _grid3_args(f)[0]
+    return fused_jacobi3_residual_shard(u, f, ShardGeo3(n, 0, n), h, steps, omega, from_zero,
+                                        negate)
+
+
+def residual3_shard(u_ext, f_ext, geo: ShardGeo3, h: float, negate: bool = False):
+    """The 7-point residual of one z-shard's planes (kernel 13's shard mode;
+    windows of ≥ 1 halo plane), optionally negated: its owned planes."""
+    if not f_ext.is_cuda:
+        return residual3_shard_torch(u_ext, f_ext, geo, h, negate)
+    lib, stream, dev = _shard3_args(u_ext, f_ext, geo, 1)
+    r = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
+    rc = lib.mg3_residual_shard(u_ext.data_ptr(), f_ext.data_ptr(), r.data_ptr(), *_planes3(geo),
+                                int(negate), *plan3(geo.nz, 1, 1), 1.0 / (h * h), stream)
+    K._raise_on(lib, rc, "residual3 shard")
+    K.launches["residual3_shard"] += 1
+    return r
+
+
+def _check_leg_shard3(geo: ShardGeo3):
+    if geo.n % 2 == 0 or geo.z0 % 2:
+        raise ValueError(f"a 2:1 leg needs an odd level and an even shard origin, got {geo}")
+
+
+def fused_descend3_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
+                         omega: float = 6.0 / 7.0, from_zero: bool = False,
+                         restriction: str = "full_weighting", want_err: bool = False):
+    """The descend leg on one z-shard's planes of an aligned level n = 2m − 1
+    (kernel 11's shard mode; even origin): sweeps, −r and its restriction onto
+    the shard's coarse planes (``coarse_planes3``), with the raw clean error
+    when ``want_err``. Returns (owned planes, coarse slab (K1 − K0, m, m), raw
+    error or None)."""
+    fw = restriction == "full_weighting"
+    if not fw and restriction != "sampling":
+        raise ValueError(f"unknown restriction mode {restriction!r}")
+    cap = MAX_DESCEND3_SWEEPS_FW if fw else MAX_DESCEND3_SWEEPS_SAMPLING
+    if steps < 1 or not 0 <= steps - int(from_zero) <= cap:
+        raise ValueError(f"the {restriction} descend leg runs 1..{cap} neighbor-reading "
+                         f"sweeps, got steps={steps}, from_zero={from_zero}")
+    _check_leg_shard3(geo)
+    if not f_ext.is_cuda:
+        return fused_descend3_shard_torch(u_ext, f_ext, geo, h, steps, omega, from_zero,
+                                          restriction, want_err)
+    stages = steps - int(from_zero) + 1
+    lib, stream, dev = _shard3_args(u_ext, f_ext, geo, stages + int(fw), not from_zero)
+    m = (geo.n + 1) // 2
+    k0, k1 = coarse_planes3(geo)
+    plan = plan3(geo.nz, stages, stages + int(fw))
+    out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
+    fc = torch.empty((k1 - k0, m, m), dtype=f_ext.dtype, device=dev)
+    partials, raw = _raw_buffers3(want_err, geo, plan, dev)
+    rc = lib.mg3_descend_shard(K._ptr(None if from_zero else u_ext), f_ext.data_ptr(),
+                               out.data_ptr(), fc.data_ptr(), K._ptr(partials), K._ptr(raw),
+                               *_planes3(geo), steps, int(from_zero), int(fw), int(want_err),
+                               *plan, h * h, omega / 6.0, 1.0 / (h * h), stream)
+    K._raise_on(lib, rc, "descend3 shard")
+    K.launches["descend3_shard"] += 1
+    return out, fc, _scalar(raw)
+
+
+def fused_ascend3_shard(u_ext, f_ext, c_win, cz0: int, geo: ShardGeo3, h: float, steps: int,
+                        omega: float = 6.0 / 7.0, want_err: bool = False):
+    """The ascend leg on one z-shard's planes of an aligned level n = 2m − 1
+    (kernel 12's shard mode; even origin): ``c_win`` holds the coarse
+    correction's planes [cz0, cz0 + len(c_win)), every one the shard's window
+    interpolates from. Returns (owned planes, raw clean error or None; the
+    error needs steps ≤ 7)."""
+    _check_steps3(steps, MAX_FUSED_SWEEPS_3D - int(want_err), "fused_ascend3_shard")
+    _check_leg_shard3(geo)
+    if not f_ext.is_cuda:
+        return fused_ascend3_shard_torch(u_ext, f_ext, c_win, cz0, geo, h, steps, omega,
+                                         want_err)
+    stages = steps + int(want_err)
+    lib, stream, dev = _shard3_args(u_ext, f_ext, geo, stages)
+    m = (geo.n + 1) // 2
+    K._check("c", c_win, (c_win.shape[0], m, m), dev)
+    plan = plan3(geo.nz, stages, stages)
+    out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
+    partials, raw = _raw_buffers3(want_err, geo, plan, dev)
+    rc = lib.mg3_ascend_shard(u_ext.data_ptr(), f_ext.data_ptr(), c_win.data_ptr(),
+                              out.data_ptr(), K._ptr(partials), K._ptr(raw), *_planes3(geo), cz0,
+                              c_win.shape[0], steps, _ERR_CODES3["clean" if want_err else None],
+                              *plan, h * h, omega / 6.0, 1.0 / (h * h), stream)
+    K._raise_on(lib, rc, "ascend3 shard")
+    K.launches["ascend3_shard"] += 1
+    return out, _scalar(raw)

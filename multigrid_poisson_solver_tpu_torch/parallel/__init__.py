@@ -1,5 +1,6 @@
 """Multi-device sharding layer: meshes of shards, halo exchange, sharded level
-ops (PyTorch port of ``multigrid_poisson_solver_tpu/parallel``, 2-D).
+ops (PyTorch port of ``multigrid_poisson_solver_tpu/parallel``: the 2-D row
+and block policies, and the 3-D z-plane policy of ``pallas_shard3.py``).
 
 Single-controller, as the JAX package: one process drives a mesh whose
 entries are torch devices and may repeat, so a ring of eight shards can live

@@ -1,6 +1,8 @@
 """Meshes of shards and the sharding policies of the grid hierarchy.
 
-PyTorch port of ``multigrid_poisson_solver_tpu/parallel/mesh.py``. JAX's
+PyTorch port of ``multigrid_poisson_solver_tpu/parallel/mesh.py``, and of
+the z-plane policy of ``parallel/pallas_shard3.py:57-141`` (``make_mesh_z``,
+``padded_depth3``, ``ZShardingPolicy3``). JAX's
 ``Mesh`` names the axes of an array of devices; here a ``Mesh`` names the
 axes of an array of torch devices, and a device may appear more than once:
 each entry is one shard, with its own buffers and neighbours, wherever it
@@ -9,7 +11,8 @@ least ``threshold_rows`` rows, replicated below (coarse-level
 agglomeration), with JAX's rules unchanged.
 
 A policy's ``spec(n)`` is a tuple in ``PartitionSpec``'s form: ``()``
-replicated, ``("rows", None)`` row blocks, ``("rows", "cols")`` 2-D blocks.
+replicated, ``("rows", None)`` row blocks, ``("rows", "cols")`` 2-D blocks,
+``("z", None, None)`` z-plane blocks of a volume.
 
 The port keeps no padded tile layout (its levels are plain (n, n) tensors),
 but the JAX engine takes some routing decisions on its padded shapes; this
@@ -28,6 +31,7 @@ import torch
 
 ROW_AXIS = "rows"
 COL_AXIS = "cols"
+Z_AXIS = "z"
 
 # A level is row-sharded only while every device owns at least this many rows.
 DEFAULT_SHARD_THRESHOLD_ROWS = 32
@@ -153,3 +157,60 @@ def _policy_padded_shape(n: int, spec: tuple, mesh: Mesh) -> tuple[int, int]:
         q = LANE * mesh.shape[spec[1]]
         cp = -(-cp // q) * q
     return rp, cp
+
+
+def make_mesh_z(devices: Optional[Sequence] = None, axis_name: str = Z_AXIS) -> Mesh:
+    """A 1-D mesh over the z (plane) axis of a volume (default: every CUDA
+    device); ``make_mesh_z(["cuda:0"] * 8)`` is a ring of eight z-shards on
+    one card."""
+    return make_mesh(devices, axis_name)
+
+
+def padded_depth3(n: int, n_devices: int) -> int:
+    """JAX's plane count of an n-deep volume padded to a multiple of
+    ``n_devices`` (``pallas_shard3.padded_depth3``; routing only)."""
+    return -(-n // n_devices) * n_devices
+
+
+@dataclasses.dataclass(frozen=True)
+class ZShardingPolicy3:
+    """Per-level z-plane sharding of the 3-D hierarchy
+    (``pallas_shard3.ZShardingPolicy3``): a level of at least 65³ whose
+    JAX depth gives every device at least ``threshold_planes`` planes is
+    split into contiguous plane blocks, coarser ones are replicated.
+
+    JAX pads a sharded level's depth to a multiple of 2·n_devices, so every
+    shard owns an even plane count, the fused legs' parity contract. The
+    port's volumes stay (n, n, n) and split by ``sharded.split_bounds``
+    (even origins, the last shard takes the rest); ``padded_depth`` keeps
+    JAX's depth for the routing predicates only, so that the same n and
+    device count take the same route in both packages."""
+
+    mesh: Mesh
+    axis_name: str = Z_AXIS
+    threshold_planes: int = 8
+
+    @property
+    def n_devices(self) -> int:
+        return self.mesh.size
+
+    def is_sharded(self, n: int) -> bool:
+        ndev = self.n_devices
+        return ndev > 1 and n >= 65 and self.padded_depth(n) // ndev >= self.threshold_planes
+
+    def padded_depth(self, n: int) -> int:
+        """JAX's stored plane count of level n: ×(2·n_devices) where the
+        level would shard, n otherwise."""
+        ndev = self.n_devices
+        if ndev > 1 and n >= 65:
+            zp = padded_depth3(n, 2 * ndev)
+            if zp // ndev >= self.threshold_planes:
+                return zp
+        return n
+
+    def planes_per_device(self, n: int) -> int:
+        """JAX's planes per device of a sharded level n (its nl)."""
+        return self.padded_depth(n) // self.n_devices
+
+    def spec(self, n: int) -> tuple:
+        return (self.axis_name, None, None) if self.is_sharded(n) else ()

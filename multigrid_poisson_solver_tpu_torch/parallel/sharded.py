@@ -9,12 +9,16 @@ arrays between levels (``compiled.py::_constrain``). Here:
 
   * ``ShardedGrid`` holds one level's blocks, each its own tensor on its
     shard's device, with the level's global n and its ``Layout``;
-  * ``shard`` splits a global (n, n) tensor by a policy's spec, ``gather``
+  * ``shard`` splits a global (n, n) tensor by a policy's spec, or an (n, n,
+    n) volume into z-plane blocks under ``ZShardingPolicy3``; ``gather``
     puts it back together;
   * ``window`` assembles any rectangle of the global grid from the blocks
-    (zero outside the grid) by ``copy_`` from each block that overlaps it;
-    ``extend`` is a block plus k halo rows (and columns) from its ring
-    neighbours, the counterpart of the ppermute exchange;
+    (zero outside the grid) by ``copy_`` from each block that overlaps it,
+    ``planes`` any range of z planes of a volume; ``extend`` is a block plus
+    k halo rows (and columns), or k planes, from its ring neighbours, the
+    counterpart of the ppermute exchange (``pallas_shard3._extend_planes``
+    for volumes); a halo deeper than a neighbour's block comes from every
+    block it overlaps, which a ppermute could not do;
   * ``psum`` adds per-shard partials in shard order (row-major over the
     mesh), the one order every sharded path of the port uses;
   * ``as_level`` re-splits a level between layouts, or gathers it for a
@@ -22,11 +26,12 @@ arrays between levels (``compiled.py::_constrain``). Here:
   * ``on_device`` makes a shard's card current for its launches, so a mesh
     may span several cards.
 
-Splitting: every shard but the last of an axis owns 2⌊n / 2P⌋ rows (an even
-count, so every origin is even and a 2:1 leg's coarse points start at
-origin / 2); the last owns the rest. The JAX package splits padded arrays
-into equal blocks instead; the split does not change any owned value, and
-the policies' thresholds keep every shard at least that wide.
+Splitting: every shard but the last of an axis owns 2⌊n / 2P⌋ rows (or
+planes: an even count, so every origin is even and a 2:1 leg's coarse
+points start at origin / 2); the last owns the rest. The JAX package splits
+padded arrays into equal blocks instead (its volumes padded to ×2P planes);
+the split does not change any owned value, and the policies' thresholds
+keep every shard at least that wide.
 """
 
 from __future__ import annotations
@@ -49,12 +54,14 @@ def split_bounds(n: int, parts: int) -> tuple[tuple[int, int], ...]:
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """How a level of size n is split: row ranges, column ranges and the
-    device of each block (``devices[i][j]``)."""
+    device of each block (``devices[i][j]``). A volume (``dim`` 3) splits
+    its z planes as ``rows``, with one column range covering (y, x)."""
 
     n: int
     rows: tuple
     cols: tuple
     devices: tuple
+    dim: int = 2
 
     def order(self):
         """(i, j) of every block in shard order (row-major over the mesh)."""
@@ -67,6 +74,13 @@ def _axis_device(mesh, idx: dict) -> torch.device:
     for name, size in zip(mesh.axis_names, mesh.axis_sizes):
         flat = flat * size + idx.get(name, 0)
     return mesh.devices[flat]
+
+
+def z_layout(n: int, devices) -> Layout:
+    """The z-plane split of an (n, n, n) volume over ``devices`` (one block
+    per entry, repeats allowed)."""
+    devs = tuple(torch.device(d) for d in devices)
+    return Layout(n, split_bounds(n, len(devs)), ((0, n),), tuple((d,) for d in devs), 3)
 
 
 def layout_of(policy, n: int) -> Optional[Layout]:
@@ -83,7 +97,7 @@ def layout_of(policy, n: int) -> Optional[Layout]:
     cols = split_bounds(n, nc) if col_axis else ((0, n),)
     devices = tuple(tuple(_axis_device(mesh, {row_axis: i, **({col_axis: j} if col_axis else {})})
                           for j in range(nc)) for i in range(nr))
-    return Layout(n, rows, cols, devices)
+    return Layout(n, rows, cols, devices, max(2, len(spec)))
 
 
 def on_device(dev: torch.device):
@@ -110,8 +124,8 @@ class ShardedGrid:
         return self.layout.n
 
     @property
-    def shape(self) -> tuple[int, int]:
-        return self.layout.n, self.layout.n
+    def shape(self) -> tuple:
+        return (self.layout.n,) * self.layout.dim
 
     @property
     def dtype(self):
@@ -137,22 +151,23 @@ Level = Union[torch.Tensor, ShardedGrid]
 
 
 def shard(x: torch.Tensor, layout: Layout) -> ShardedGrid:
-    """Split a global (n, n) tensor into the layout's blocks, each a copy of
-    its own on its shard's device."""
-    if tuple(x.shape) != (layout.n, layout.n):
-        raise ValueError(f"expected a ({layout.n}, {layout.n}) grid, got {tuple(x.shape)}")
+    """Split a global (n, n) tensor (or (n, n, n) volume) into the layout's
+    blocks, each a copy of its own on its shard's device."""
+    if tuple(x.shape) != (layout.n,) * layout.dim:
+        raise ValueError(f"expected a {(layout.n,) * layout.dim} grid, got {tuple(x.shape)}")
     blocks = []
     for i, (r0, r1) in enumerate(layout.rows):
         row = []
         for j, (c0, c1) in enumerate(layout.cols):
-            b = torch.empty((r1 - r0, c1 - c0), dtype=x.dtype, device=layout.devices[i][j])
+            b = torch.empty((r1 - r0, c1 - c0) + tuple(x.shape[2:]), dtype=x.dtype,
+                            device=layout.devices[i][j])
             row.append(b.copy_(x[r0:r1, c0:c1]))
         blocks.append(row)
     return ShardedGrid(layout, blocks)
 
 
 def gather(x: Level, device=None) -> torch.Tensor:
-    """The global (n, n) tensor of a level (a tensor comes back as it is)."""
+    """The global tensor of a level (a tensor comes back as it is)."""
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
     dev = x.device if device is None else torch.device(device)
@@ -185,10 +200,32 @@ def window(x: Level, r_lo: int, r_hi: int, c_lo: int, c_hi: int,
     return out
 
 
-def extend(x: ShardedGrid, i: int, j: int, ext_r: int, ext_c: int) -> torch.Tensor:
+def planes(x: Level, z_lo: int, z_hi: int, device=None) -> torch.Tensor:
+    """Planes [z_lo, z_hi) of a volume (0 outside it), assembled on
+    ``device`` by a copy from each z block that overlaps."""
+    n = x.shape[0]
+    dev = (x.device if device is None else torch.device(device))
+    out = torch.empty((z_hi - z_lo,) + tuple(x.shape[1:]), dtype=x.dtype, device=dev)
+    out[:max(0, -z_lo)].zero_()
+    out[max(0, n - z_lo):].zero_()
+    if isinstance(x, torch.Tensor):
+        pieces = [((0, n), x)]
+    else:
+        pieces = [(x.layout.rows[i], x.blocks[i][0]) for i in range(len(x.layout.rows))]
+    for (z0, z1), b in pieces:
+        a0, a1 = max(z0, z_lo), min(z1, z_hi)
+        if a0 < a1:
+            out[a0 - z_lo:a1 - z_lo].copy_(b[a0 - z0:a1 - z0])
+    return out
+
+
+def extend(x: ShardedGrid, i: int, j: int, ext_r: int, ext_c: int = 0) -> torch.Tensor:
     """Block (i, j) with ``ext_r`` rows and ``ext_c`` columns of its ring
-    neighbours on each side (0 beyond the grid): the halo exchange."""
+    neighbours on each side (0 beyond the grid): the halo exchange. For a
+    volume, z block i with ``ext_r`` planes per side."""
     (r0, r1), (c0, c1) = x.layout.rows[i], x.layout.cols[j]
+    if x.layout.dim == 3:
+        return planes(x, r0 - ext_r, r1 + ext_r, x.layout.devices[i][j])
     return window(x, r0 - ext_r, r1 + ext_r, c0 - ext_c, c1 + ext_c,
                   x.layout.devices[i][j])
 
