@@ -5,10 +5,11 @@
 
 Phases (progress on stdout; the first failure exits non-zero):
   0. require a CUDA device; print the card's name and power limit;
-  1. build the CUDA kernels from ops/csrc (eighteen sources: nvcc, sm_90a,
-     one process per source): nineteen single-device kernels and modes, the
-     shard modes of kernels 1-4 and the two ring kernels, and the shard
-     modes of the 3-D kernels 10-13 with kernel 10's emit_residual mode;
+  1. build the CUDA kernels from ops/csrc (twenty-two sources: nvcc,
+     sm_90a, one process per source): nineteen single-device kernels and
+     modes, the shard modes of kernels 1-4 and the two 2-D ring kernels, the
+     shard modes of the 3-D kernels 10-13 with kernel 10's emit_residual
+     mode, and the four 3-D ring kernels;
   2. hold each kernel against its plain PyTorch twin on the card: at
      n = 1025 and 1031 (several tiles per dimension, ragged last tiles),
      every sweep count, error mode and from_zero; and at the shapes the main
@@ -93,6 +94,23 @@ Phases (progress on stdout; the first failure exits non-zero):
      and 7 (kernels against twins; one exact sweep, then passes of 7, as
      JAX's sharded batch runs). The shard modes are also held against their
      plain versions at the timed main-path shapes.
+  I. the 3-D ring kernels 19-22 (halo="rdma") on rings of z-shards of
+     cuda:0 (one card: no scaling). I1: each against its twin and against
+     the PR 6 shard-mode path (window copies, then kernels 10-12 per shard)
+     at 65³ and 129³ with tiles forced small on rings of 2, 3, 4, 8 and 16
+     z-shards: kernel 20 with 1, 3, 7 and 8 sweeps, plain, from_zero, clean
+     and gpu; kernel 21 with both restrictions, from_zero on and off;
+     kernel 22 with and without the error and the coarse correction in
+     three layouts; kernel 19 with both metrics and a trigger that stops it
+     after 50 sweeps or more, against the loop of one-sweep sharded error
+     launches; bit for bit. I2: H2's three programs with halo="rdma", bit
+     for bit against phase D's unsharded runs (which H2's ppermute runs
+     equal), the ring launches per cycle by kernel, ms/cycle, a profile.
+     I3: H3's trigger V-cycle with halo="rdma" ("auto", batch 1, batch 7):
+     kernel 19 once per trigger node at 257³-65³ and never at 513³; "auto"
+     and batch 1 stop where H3 stops, with its iterates; batch 7 at 513³ as
+     H3's, below it as the exact loop. The ring kernels are timed beside
+     their twins and the exchange path they replace on the same inputs.
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -191,15 +209,21 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, main-path run)
     "descend3_shard": (PKG + "descend3.cu", TPU + "pallas3d.py:1007", "h_v_cycle3"),
     "ascend3_shard": (PKG + "ascend3.cu", TPU + "pallas3d.py:1321", "h_v_cycle3"),
     "residual3_shard": (PKG + "residual3.cu", TPU + "pallas3d.py:1530", "h_compiled3_gpu"),
+    # the 3-D ring kernels 19-22 (phase I)
+    "rdma_trigger3": (PKG + "rdma_trigger3.cu", TPU + "pallas_rdma3.py:66", "i_trigger3_auto"),
+    "rdma_jacobi3": (PKG + "rdma_jacobi3.cu", TPU + "pallas_rdma3.py:422", "i_compiled3_gpu"),
+    "rdma_descend3": (PKG + "rdma_descend3.cu", TPU + "pallas_rdma3.py:856", "i_compiled3"),
+    "rdma_ascend3": (PKG + "rdma_ascend3.cu", TPU + "pallas_rdma3.py:1285", "i_compiled3"),
 }
 
 
 # the kernels every single-device path reaches (phase 2 holds them); then
-# the 2-D shard modes and the ring kernels (phase G), and the 3-D shard
-# modes (phase H)
+# the 2-D shard modes and the ring kernels (phase G), the 3-D shard modes
+# (phase H) and the 3-D ring kernels (phase I)
 SINGLE_DEVICE = tuple(KERNELS)[:19]
 PHASE_G = tuple(KERNELS)[19:27]
-PHASE_H = tuple(KERNELS)[27:]
+PHASE_H = tuple(KERNELS)[27:33]
+PHASE_I = tuple(KERNELS)[33:]
 
 
 def require(cond, what):
@@ -1490,7 +1514,8 @@ def phase_h3(tmg, K, K3, torch, run_counts, unsharded_levels, n=513):
     """H3: the 513³ trigger V-cycle (ω 6/7, clean, trigger 0.01) on 8
     z-shards of cuda:0 with trigger_batch "auto", 1 and 7, on the kernels and
     (batch 7) the twins; stop sweeps per level against phase E's unsharded
-    runs (``unsharded_levels``: batch tag → levels)."""
+    runs (``unsharded_levels``: batch tag → levels). Returns the wall ms and
+    the (iterate, stop sweeps) of each run."""
     program = tmg.v_cycle(n, n_min=8, steps=-1, coarse_option=0, coarsen=3)
     prob = tmg.REFERENCE_PROBLEM_3D
     pol = z_policy(8)
@@ -1546,6 +1571,271 @@ def phase_h3(tmg, K, K3, torch, run_counts, unsharded_levels, n=513):
             "[H3] the sharded trigger loops did not launch the shard modes")
     say(f"[H3] stop sweeps per level equal phase E's unsharded auto and batch-1 runs; batch 7 "
         f"kernels = twins, first node {k} sweeps (exact {k1})")
+    return {tag: v[2] for tag, v in out.items()}, {tag: v[:2] for tag, v in out.items()}
+
+
+@contextlib.contextmanager
+def ring3_twins_in_place(R3):
+    """The whole-loop ring kernel 19 replaced by its twin, the loop of
+    one-sweep sharded error passes (parallel.kernel_shard3 looks it up at
+    each call)."""
+    saved = R3.rdma_trigger3
+    R3.rdma_trigger3 = R3.rdma_trigger3_torch
+    try:
+        yield
+    finally:
+        R3.rdma_trigger3 = saved
+
+
+def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
+                                    (129, (8, 16, 10), (2, 3, 4, 8)))):
+    """I1: the 3-D ring kernels 19-22 against their twins (the exchange path
+    on the shard-mode twins) and against the PR 6 shard-mode path on the
+    card (parallel.kernel_shard3's exchange and kernels 10-12 per shard), at
+    65³ and 129³ with tiles forced small (several tiles and z chunks cross
+    each cut), on rings of 2, 3, 4, 8 and (65³) 16 z-shards of cuda:0
+    (ragged last shards; on 16 shards of 4 planes a window of up to 8 planes
+    spans two neighbours' blocks). Owned planes, coarse slabs and errors bit
+    for bit against the shard-mode path; against the twins the iterates bit
+    for bit and the errors within ERR_RTOL; kernel 19's stop sweep against
+    the loop of one-sweep sharded error launches, with a trigger that stops
+    it after at least 50 sweeps."""
+    from multigrid_poisson_solver_tpu_torch.ops import rdma3 as R3
+    from multigrid_poisson_solver_tpu_torch.parallel import halo3
+    from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard3 as KS3
+    from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
+    from multigrid_poisson_solver_tpu_torch.solver import trigger_loop
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9876)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32)
+
+    omega, G = 6.0 / 7.0, S.gather
+    nl = 16   # the shard-mode path's planes per device: one pass, every halo fits
+
+    def same(what, got, want):
+        require(bool(torch.equal(got, want)), f"{what}: differs from the shard-mode path "
+                f"(max|Δ| {float((got - want).abs().max()):.3e})")
+
+    def errs(name, what, got_raws, twin_raws, want, compat, n, h):
+        got = halo3.sum_err3(got_raws, compat, n, h, torch.float32)
+        same(f"{name} {what} error", got, want)
+        cmp.scalar(name, what, got, halo3.sum_err3(twin_raws, compat, n, h, torch.float32))
+
+    saved = K3.FORCE_TILE3
+    try:
+        for n, tile, rings in sizes:
+            K3.FORCE_TILE3 = tile
+            h, m = 1.0 / (n - 1), (n + 1) // 2
+            u, f, uc = rand(n, n, n), rand(n, n, n), rand(m, m, m)
+            for p in rings:
+                lay = S.z_layout(n, ["cuda:0"] * p)
+                us, fs = S.shard(u, lay), S.shard(f, lay)
+                what = f"n={n} {p} z-shards {lay.rows}"
+                for steps in (1, 3, 7, 8):
+                    for fz in (False, True):
+                        for mode in (None, "clean", "gpu"):
+                            if mode == "clean" and steps - fz > 7:
+                                continue
+                            w = f"{what} steps={steps} fz={fz} err={mode}"
+                            gu, graw = R3.rdma_jacobi3(us, fs, h, steps, omega, fz, mode)
+                            tu, traw = R3.rdma_jacobi3_torch(us, fs, h, steps, omega, fz, mode)
+                            cmp.grid("rdma_jacobi3", w, G(gu), G(tu))
+                            if mode is None:
+                                ref = KS3.sharded_fused_jacobi3(us, fs, h, steps, omega, fz, nl)
+                            else:
+                                ref, rerr = KS3.sharded_fused_jacobi3_err(us, fs, h, steps, omega,
+                                                                          mode, fz, nl)
+                                errs("rdma_jacobi3", w, graw, traw, rerr, mode, n, h)
+                            same(f"rdma_jacobi3 {w}", G(gu), G(ref))
+                            cmp.cases["rdma_jacobi3"] += 1
+                for restriction in ("full_weighting", "sampling"):
+                    for fz in (False, True):
+                        for steps in (1, 3, 6):
+                            w = f"{what} steps={steps} fz={fz} {restriction}"
+                            args = (h, steps, omega, fz, restriction, True)
+                            gu, gfc, graw = R3.rdma_descend3(us, fs, *args)
+                            tu, tfc, traw = R3.rdma_descend3_torch(us, fs, *args)
+                            ru, rfc, rerr = KS3.sharded_fused_descend3(us, fs, *args, nl)
+                            cmp.grid("rdma_descend3", w + " u", G(gu), G(tu))
+                            cmp.grid("rdma_descend3", w + " f_coarse", G(gfc), G(tfc))
+                            same(f"rdma_descend3 {w} u", G(gu), G(ru))
+                            same(f"rdma_descend3 {w} f_coarse", G(gfc), G(rfc))
+                            errs("rdma_descend3", w, graw, traw, rerr, "clean", n, h)
+                            cmp.cases["rdma_descend3"] += 1
+                children = {"tensor": uc, "coarse blocks": S.shard(uc, R3.coarse_layout3(fs)),
+                            "m split": S.shard(uc, S.z_layout(m, ["cuda:0"] * p))}
+                for steps, want_err in ((1, False), (3, False), (3, True), (7, True), (8, False)):
+                    for cname, child in children.items():
+                        w = f"{what} steps={steps} err={want_err} child={cname}"
+                        gu, graw = R3.rdma_ascend3(us, fs, child, h, steps, omega, want_err)
+                        tu, traw = R3.rdma_ascend3_torch(us, fs, child, h, steps, omega, want_err)
+                        ru, rerr = KS3.sharded_fused_ascend3(us, fs, child, h, steps, omega,
+                                                             want_err, nl)
+                        cmp.grid("rdma_ascend3", w, G(gu), G(tu))
+                        same(f"rdma_ascend3 {w}", G(gu), G(ru))
+                        if want_err:
+                            errs("rdma_ascend3", w, graw, traw, rerr, "clean", n, h)
+                        cmp.cases["rdma_ascend3"] += 1
+                for compat in ("clean", "gpu"):
+                    # a trigger at the 55th sweep's slope of the one-sweep loop
+                    v, prev, slopes = us, None, []
+                    for _ in range(55):
+                        v, e = KS3.sharded_trigger_step3(v, fs, h, omega, compat, nl)
+                        if prev is not None:
+                            slopes.append(float(torch.abs(e - prev)))
+                        prev = e
+                    trig = slopes[-1]
+                    w = f"{what} {compat} trigger {trig:.6e}"
+                    ru, rerr, rk = trigger_loop(
+                        lambda x: KS3.sharded_trigger_step3(x, fs, h, omega, compat, nl), us, trig,
+                        200)
+                    gu, gerr, gk = R3.rdma_trigger3(us, fs, h, omega, compat, trig, 200)
+                    tu, terr, tk = R3.rdma_trigger3_torch(us, fs, h, omega, compat, trig, 200)
+                    require(rk >= 50 and int(gk) == rk == int(tk),
+                            f"rdma_trigger3 {w}: {int(gk)} sweeps, the one-sweep loop {rk}, the "
+                            f"twin {int(tk)} (at least 50 wanted)")
+                    same(f"rdma_trigger3 {w}", G(gu), G(ru))
+                    same(f"rdma_trigger3 {w} error", gerr, rerr)
+                    cmp.grid("rdma_trigger3", w, G(gu), G(tu))
+                    cmp.scalar("rdma_trigger3", w, gerr, terr)
+                    cmp.cases["rdma_trigger3"] += 1
+                del us, fs, children
+            del u, f, uc
+            torch.cuda.synchronize()
+    finally:
+        K3.FORCE_TILE3 = saved
+
+
+I_COUNTS = ("rdma_jacobi3", "rdma_descend3", "rdma_ascend3", "rdma_trigger3", "jacobi3_shard",
+            "descend3_shard", "ascend3_shard", "jacobi3_residual", "residual3_shard",
+            "jacobi3_errs_shard")
+
+
+def phase_i2(tmg, K, torch, run_counts, unsharded, n=513):
+    """I2: phase H2's programs with halo="rdma" (513³ on 8 z-shards of cuda:0,
+    threshold 8): v_cycle3_sharded V(3,3) and compile_program3(policy=...)
+    V(3,3) with the clean and gpu metrics, one cold and three warm cycles,
+    the iterates after 1 and 4 cycles bit for bit against phase D's
+    unsharded runs (``unsharded``), which H2 holds the ppermute runs to
+    bit for bit; ring launches per cycle by kernel, ms/cycle and a profile."""
+    from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
+
+    h = 1.0 / (n - 1)
+    prob = tmg.REFERENCE_PROBLEM_3D
+    u0 = prob.boundary_grid(n, torch.float32, "cuda")
+    f = prob.source_grid(n, torch.float32, "cuda") + u0
+    pol = z_policy(8)
+    fs = S.as_level(f, pol, n)
+    times, cycles = {}, 4
+
+    def run(tag, step, key):
+        K.reset_launch_counts()
+        u1 = step(u0, False)
+        u = u1
+        for _ in range(cycles - 1):
+            u = step(u, True)
+        torch.cuda.synchronize()
+        counts = dict(K.launches)
+        run_counts[key] = counts
+        for i, (got, what) in enumerate(((S.gather(u1), "1 cycle"), (S.gather(u), "4 cycles"))):
+            want = unsharded[tag]["auto"]["u"][i]
+            require(bool(torch.equal(got, want)), f"[I2] {tag} rdma: the iterate after {what} "
+                    f"differs from phase D's unsharded one, which H2's ppermute run equals "
+                    f"(max|Δ| {float((got - want).abs().max()):.3e})")
+        ms = time_ms(lambda: step(u, True), reps=3, rounds=3)
+        times[tag] = ms
+        per = {k: counts[k] / cycles for k in I_COUNTS if counts[k]}
+        say(f"[I2] {tag} on 8 z-shards, halo rdma: {ms:.3f} ms/cycle; bit-identical to phase D "
+            f"(and so to H2's ppermute run) after 1 and 4 cycles; launches per cycle {per}")
+        profile(f"{tag} on 8 z-shards, halo rdma, per cycle",
+                lambda: [step(u, True) for _ in range(3)], per=3)
+        return counts
+
+    c = run(H_V_CYCLE, lambda u, warm: tmg.v_cycle3_sharded(
+        u, fs, h, pol.mesh, n_min=5, pre=3, post=3, omega=0.857, halo="rdma"), "i_v_cycle3")
+    # JAX's depths 528, 264, 136, 72 (nl 66, 33, 17, 9): the ring legs at
+    # 513³; emit_residual, prolong-add and the ring smoother at 257³-65³
+    want = {"rdma_descend3": 1, "rdma_ascend3": 1, "rdma_jacobi3": 3, "jacobi3_residual": 24,
+            "descend3_shard": 0, "ascend3_shard": 0, "jacobi3_shard": 0}
+    require(all(c[k] == cycles * v for k, v in want.items()),
+            f"[I2] v_cycle3_sharded halo rdma took other routes than JAX's: {c}")
+    program = tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=3)
+    for compat, key in (("clean", "i_compiled3"), ("gpu", "i_compiled3_gpu")):
+        cfg = tmg.SolverConfig(omega=6.0 / 7.0, compat_error=True if compat == "clean" else "gpu",
+                               collect_node_stats=False, halo="rdma")
+        cc = tmg.compile_program3(program, prob, cfg, device="cuda", policy=pol)
+        run(H_COMPILED[compat], lambda u, warm: cc(u, fs, warm=warm)[0], key)
+    c, g = run_counts["i_compiled3"], run_counts["i_compiled3_gpu"]
+    # depths ×16 (nl 66, 34, 18, 10): the ring legs at every sharded level
+    # (clean); ring smoother passes and the sharded residual (gpu)
+    require(c["rdma_descend3"] == c["rdma_ascend3"] == cycles * 4 and not c["descend3_shard"]
+            and not c["ascend3_shard"] and g["rdma_jacobi3"] == cycles * 8
+            and not g["jacobi3_shard"] and g["residual3_shard"] == cycles * 4 * 8,
+            f"[I2] compile_program3 halo rdma took other routes than JAX's: clean {c}, gpu {g}")
+    return times
+
+
+def phase_i3(tmg, K, torch, run_counts, h3_runs, n=513):
+    """I3: phase H3's trigger V-cycle with halo="rdma" ("auto", batch 1,
+    batch 7): kernel 19 runs every trigger node at 257³-65³ (where JAX's
+    rdma_trigger3_fits admits the shard), before any batching, and none at
+    513³ (which it refuses). "auto" and batch 1 stop where H3's runs stop
+    and give its iterates bit for bit; batch 7's 513³ nodes stop where H3's
+    batch 7 does, and its ring levels where the exact loop does on the same
+    inputs (kernel 19 replaced by its twin)."""
+    from multigrid_poisson_solver_tpu_torch.ops import rdma3 as R3
+
+    program = tmg.v_cycle(n, n_min=8, steps=-1, coarse_option=0, coarsen=3)
+    prob = tmg.REFERENCE_PROBLEM_3D
+    pol = z_policy(8)
+    out = {}
+
+    def run(tag, batch, twin=False):
+        cfg = tmg.SolverConfig(omega=6.0 / 7.0, compat_error=False, collect_node_stats=False,
+                               trigger_batch=batch, max_trigger_sweeps=2000, halo="rdma")
+        cc = tmg.compile_program3(program, prob, cfg, device="cuda", policy=pol)
+        cc.trigger_sweeps = []
+        u0, f = cc.init()
+        K.reset_launch_counts()
+        with contextlib.ExitStack() as stack:
+            if twin:
+                stack.enter_context(ring3_twins_in_place(R3))
+            ms, (u, err) = wall_ms(lambda: cc(u0, f))
+        counts = dict(K.launches)
+        g = cc.unpad(u)
+        require(bool(torch.isfinite(g).all()) and bool(torch.isfinite(err)),
+                f"[I3] {tag}: non-finite result")
+        ring_nodes = sum(1 for m, _ in cc.trigger_sweeps if m < n and pol.is_sharded(m))
+        require(counts["rdma_trigger3"] == (0 if twin else ring_nodes),
+                f"[I3] {tag}: {counts['rdma_trigger3']} ring trigger launches for {ring_nodes} "
+                f"trigger nodes on sharded levels below {n}³")
+        say(f"[I3] trigger V-cycle {n}³ on 8 z-shards, halo rdma, {tag}: {ms:.1f} ms, sweeps per "
+            f"level {cc.trigger_sweeps}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        out[tag] = (g, cc.trigger_sweeps, ms, counts)
+        if tag == "auto":
+            cc.trigger_sweeps = None
+            profile(f"sharded trigger V-cycle {n}³ halo rdma {tag}", lambda: cc(u0, f))
+
+    twin7 = "batch 7, kernel 19's twin"
+    for tag, batch in (("auto", "auto"), ("batch 1", 1), ("batch 7", 7)):
+        run(tag, batch)
+    run(twin7, 7, twin=True)
+    run_counts["i_trigger3_auto"] = out["auto"][3]
+    for tag in ("auto", "batch 1"):
+        g, sweeps = h3_runs[f"kernels, {tag}"]
+        require(out[tag][1] == sweeps and bool(torch.equal(out[tag][0], g)),
+                f"[I3] {tag}: stop sweeps {out[tag][1]} against H3's {sweeps}, or iterates differ")
+    top = [s for s in out["batch 7"][1] if s[0] == n]
+    require(top == [s for s in h3_runs["kernels, batch 7"][1] if s[0] == n]
+            and out["batch 7"][1] == out[twin7][1],
+            f"[I3] batch 7: {out['batch 7'][1]} against H3's {n}³ nodes and the exact loop's "
+            f"{out[twin7][1]}")
+    say(f"[I3] stop sweeps per level: auto and batch 1 equal H3's (phase E's) and their iterates "
+        f"bit for bit; batch 7 at {n}³ as H3's batch 7, below it the exact loop's")
     return {tag: v[2] for tag, v in out.items()}
 
 
@@ -2078,11 +2368,27 @@ def main():
     t0 = time.perf_counter()
     ms_h2 = phase_h2(tmg, K, K3, torch, run_counts, runs_3d)
     say(f"[H2] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ms_h3, h3_runs = phase_h3(tmg, K, K3, torch, run_counts, {"auto": auto3_levels,
+                                                               "batch 1": exact3_levels})
+    say(f"[H3] done in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase I: the 3-D ring kernels on a ring of z-shards on one card ---------
+    t0 = time.perf_counter()
+    phase_i1(K3, torch, cmp)
+    for k in PHASE_I:
+        say(f"[I1] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
+            f"bit-identical to the twin: {cmp.bitwise[k]}")
+        require(cmp.bitwise[k], f"[I1] {k}: not bit-identical to its twin")
+    say(f"[I1] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ms_i2 = phase_i2(tmg, K, torch, run_counts, runs_3d)
+    say(f"[I2] done in {time.perf_counter() - t0:.1f} s")
     del runs_3d
     t0 = time.perf_counter()
-    ms_h3 = phase_h3(tmg, K, K3, torch, run_counts, {"auto": auto3_levels,
-                                                      "batch 1": exact3_levels})
-    say(f"[H3] done in {time.perf_counter() - t0:.1f} s")
+    ms_i3 = phase_i3(tmg, K, torch, run_counts, h3_runs)
+    del h3_runs
+    say(f"[I3] done in {time.perf_counter() - t0:.1f} s")
     for k, (_, _, run) in KERNELS.items():
         require(run_counts[run][k] > 0, f"the {run} run did not launch {k}")
 
@@ -2351,6 +2657,46 @@ def main():
                                    geo3_3, win3_3),
                             3 * g3, RES3_OPS * pts3),
     })
+    # the 3-D ring kernels at the sharded main paths' shapes: 513³ on 8
+    # z-shards of the card (the trigger loop at 257³, its largest ring
+    # level), the exchange inside the launch
+    from multigrid_poisson_solver_tpu_torch.ops import rdma3 as R3
+    from multigrid_poisson_solver_tpu_torch.solver import trigger_loop
+
+    zu3, zf3 = (S.shard(v, S.layout_of(zring, n3)) for v in (u3, f3))
+    zc3 = S.shard(c3, R3.coarse_layout3(zf3))
+    zu15, zf15 = (S.shard(v, S.layout_of(zring, n15)) for v in (u15, f15))
+    d3 = (h3, 3, w3, False, "full_weighting", True)
+    calls.update({
+        "rdma_trigger3": (f"{n15}³ on 8 z-shards, {t_sweeps} sweeps (trigger 0), clean error",
+                          lambda: R3.rdma_trigger3(zu15, zf15, *t15),
+                          lambda: R3.rdma_trigger3_torch(zu15, zf15, *t15),
+                          3 * 4 * n15 ** 3, t_sweeps * (SWEEP3_OPS + EXTRA3_OPS) * n15 ** 3),
+        "rdma_jacobi3": (f"{zon8}, 3 sweeps + gpu error",
+                         lambda: R3.rdma_jacobi3(zu3, zf3, h3, 3, w3, False, "gpu"),
+                         lambda: R3.rdma_jacobi3_torch(zu3, zf3, h3, 3, w3, False, "gpu"),
+                         3 * g3, (3 * SWEEP3_OPS + GPU_ERR3_OPS) * pts3),
+        "rdma_descend3": (f"{zon8}, 3 sweeps, full weighting, clean error",
+                          lambda: R3.rdma_descend3(zu3, zf3, *d3),
+                          lambda: R3.rdma_descend3_torch(zu3, zf3, *d3),
+                          3.125 * g3, (3 * SWEEP3_OPS + EXTRA3_OPS + 1) * pts3 + FW3_OPS * m3 ** 3),
+        "rdma_ascend3": (f"{zon8}, 3 sweeps",
+                         lambda: R3.rdma_ascend3(zu3, zf3, zc3, h3, 3, w3),
+                         lambda: R3.rdma_ascend3_torch(zu3, zf3, zc3, h3, 3, w3),
+                         3.125 * g3, (3 * SWEEP3_OPS + PROLONG3_OPS) * pts3),
+    })
+    # what each ring kernel replaces on the same inputs: the PR 6 exchange
+    # path (window copies, then a shard-mode launch per shard; the trigger
+    # loop as one-sweep sharded error steps with a host read each)
+    nl3, nl15 = zring.planes_per_device(n3), zring.planes_per_device(n15)
+    exchange = {
+        "rdma_trigger3": lambda: trigger_loop(lambda v: KS3.sharded_trigger_step3(
+            v, zf15, t15[0], w3, "clean", nl15), zu15, 0.0, t_sweeps),
+        "rdma_jacobi3": lambda: KS3.sharded_fused_jacobi3_err(zu3, zf3, h3, 3, w3, "gpu",
+                                                              nl=nl3),
+        "rdma_descend3": lambda: KS3.sharded_fused_descend3(zu3, zf3, *d3, nl3),
+        "rdma_ascend3": lambda: KS3.sharded_fused_ascend3(zu3, zf3, zc3, h3, 3, w3, nl=nl3),
+    }
     times = {}
     for k, (shape, kern, plain, nbytes, ops) in calls.items():
         bound_ms, bound_by = bound(nbytes, ops)
@@ -2385,6 +2731,10 @@ def main():
         cmp.cases[k] += 1
         say(f"[t] {k} at {shape}: held against its plain version, max|Δ| so far "
             f"{cmp.max_abs[k]:.3e}, bit-identical: {cmp.bitwise[k]}")
+    for k, fn in exchange.items():
+        ms = time_ms(fn, reps=1 if k == "rdma_trigger3" else 3)
+        say(f"[t] {k} at {calls[k][0]}: ring kernel {times[k][0]:.4f} ms; the exchange path "
+            f"(window copies and a shard-mode launch per shard) {ms:.4f} ms")
     ms_ex = time_ms(lambda: KS.sharded_fused_jacobi(us2, fs2, h, 8, 0.8), reps=5)
     ms_un = time_ms(lambda: K.fused_jacobi(u, f, h, 8, 0.8), reps=5)
     say(f"[t] 8 sweeps at {n}²: unsharded kernel {ms_un:.4f} ms; 8 shards through the exchange "
@@ -2431,6 +2781,11 @@ def main():
         + "; ".join(f"{tag} {ms:.3f}" for tag, ms in ms_h2.items()))
     say("[end] H3 sharded 3-D trigger V-cycle 513³ wall ms: "
         + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_h3.items()))
+    say("[end] I2 ms/cycle at 513³ on 8 z-shards of one card, halo rdma (H2's ppermute beside): "
+        + "; ".join(f"{tag} {ms:.3f} ({ms_h2[tag + ' kernels']:.3f})"
+                    for tag, ms in ms_i2.items()))
+    say("[end] I3 sharded 3-D trigger V-cycle 513³ wall ms, halo rdma: "
+        + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_i3.items()))
     say(f"[end] chip_smoke ran {time.perf_counter() - t_start:.0f} s")
 
     # no single PyTorch call computes any of these functions: library_ms is null

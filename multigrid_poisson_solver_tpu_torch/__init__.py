@@ -22,8 +22,9 @@ card are a real ring), the shard modes of the kernels and the two ring
 kernels of ``ops.rdma``; and the 3-D multi-device path on a z-plane mesh
 (``ZShardingPolicy3``, ``make_mesh_z``): ``v_cycle3_sharded`` and
 ``compile_program3(..., policy=...)`` with the shard modes of the 3-D
-kernels. Still to port: the 3-D ring kernels (``halo="rdma"`` in 3-D) and
-multi-process runs.
+kernels and, with ``halo="rdma"``, the four 3-D ring kernels of
+``ops.rdma3``. Every TPU kernel of the JAX package has a counterpart; not
+ported: multi-process runs.
 """
 
 __version__ = "0.1.0"

@@ -57,8 +57,22 @@ sharded residual and the restriction; the ascend leg per shard, its error
 fused in at the last node where the deeper halo fits, else one sharded
 residual pass. Without kernels the sharded levels run
 ``parallel.halo3``'s plain per-shard ops, which reproduce the unsharded
-plain path. ``halo="rdma"`` on a sharded level is refused (ROADMAP Queue 1
-item 2).
+plain path.
+
+With ``SolverConfig(halo="rdma")`` a sharded level on the kernel path takes
+JAX's ring kernels (``ops.rdma3``, one launch over the ring with the plane
+exchange inside) wherever JAX's admission predicates pass on its nl and
+padded (rp, cp), in JAX's order (``compiled3.py:140-151``, ``:204-220``,
+``:511-522``, ``:642-650``): the smoothing passes with the error
+(``rdma_jacobi3_fits`` of the final pass's min(k, 7) sweeps, the clean
+error's halo included); a trigger node's whole loop in one launch
+(``rdma_trigger3_fits``), tested before any batching, so under "rdma" a
+level that fits stops where the exact loop stops whatever
+``trigger_batch`` says; the descend leg (``rdma_descend3_fits``) and the
+ascend leg (``rdma_ascend3_fits``, the last node's error included). The
+results are the exchange path's, bit for bit. A ring launch runs every
+shard on one card: under "rdma" a mesh over several cards is refused, as
+in the 2-D engine.
 """
 
 from __future__ import annotations
@@ -71,6 +85,7 @@ from .grid import GridSpec
 from .models import poisson3d as p3
 from .models.poisson3d import KERNEL3_MIN_N, Problem3D
 from .ops import kernels3 as K3
+from .ops import rdma3 as R3
 from .ops import transfers3 as T3
 from .ops.zoom import zoom3
 from .parallel import halo3
@@ -120,10 +135,18 @@ def _layout3(x, n: int, policy, cfg: SolverConfig, device):
     return as_level(x, policy, n) if _sharded3(policy, cfg, n) else gather(x, device)
 
 
+def _ring3(cfg: SolverConfig, use_kernels: bool) -> bool:
+    """Whether sharded levels may take the ring kernels (``halo="rdma"``)."""
+    return use_kernels and cfg.halo == "rdma"
+
+
 def _trigger_sharded(lu, lf, n: int, h: float, cfg: SolverConfig, compat: str, nl: int,
                      use_kernels: bool):
     """A trigger node on a sharded level (JAX's sharded ``trigger_p``):
     (u, err, sweeps run), routed as in the module docstring."""
+    if _ring3(cfg, use_kernels) and R3.rdma_trigger3_fits(nl, *R3.padded_rc(n), cfg.dtype.itemsize):
+        return KS3.rdma_fused_trigger3(lu, lf, h, cfg.omega, compat, cfg.trigger,
+                                       cfg.max_trigger_sweeps)
     if not use_kernels:
         def plain(v):
             return halo3.sharded_smooth3_err(v, lf, h, 1, cfg.omega, compat)
@@ -163,6 +186,7 @@ def _run3(u0, f0, program: CycleProgram, problem: Problem3D, cfg: SolverConfig,
     compat = "gpu" if cfg.compat_error == "gpu" else "clean"
     jacobi = cfg.smoother == "jacobi"
     last_ins = program.instructions[-1]
+    ring, isz = _ring3(cfg, use_kernels), cfg.dtype.itemsize
 
     def sharded(n):
         return _sharded3(policy, cfg, n)
@@ -186,6 +210,10 @@ def _run3(u0, f0, program: CycleProgram, problem: Problem3D, cfg: SolverConfig,
         nl = policy.planes_per_device(n)
         if steps == -1:
             return _trigger_sharded(lu, lf, n, h, cfg, compat, nl, use_kernels)
+        k1 = min(steps, K3.MAX_FUSED_SWEEPS_3D, nl)
+        if ring and R3.rdma_jacobi3_fits(nl, *R3.padded_rc(n), min(k1, 7), isz, err=compat != "gpu"):
+            return (*KS3.rdma_fused_jacobi3_err(lu, lf, h, steps, cfg.omega, compat, nl=nl),
+                    None)
         if use_kernels:
             return (*KS3.sharded_fused_jacobi3_err(lu, lf, h, steps, cfg.omega, compat,
                                                     nl=nl), None)
@@ -254,8 +282,11 @@ def _run3(u0, f0, program: CycleProgram, problem: Problem3D, cfg: SolverConfig,
                 cap = K3.MAX_DESCEND3_SWEEPS_FW if fw else K3.MAX_DESCEND3_SWEEPS_SAMPLING
                 if (use_kernels and aligned and ins.steps >= 1 and compat == "clean"
                         and 0 <= k_nb <= cap and k_nb + 1 + fw <= nl):
-                    lu, f_c, last_err = KS3.sharded_fused_descend3(
-                        lu, lf, h, ins.steps, cfg.omega, fz, cfg.restriction, True, nl)
+                    down = KS3.sharded_fused_descend3
+                    if ring and R3.rdma_descend3_fits(nl, *R3.padded_rc(n), ins.steps, fz, isz, fw):
+                        down = KS3.rdma_fused_descend3
+                    lu, f_c, last_err = down(lu, lf, h, ins.steps, cfg.omega, fz,
+                                             cfg.restriction, True, nl)
                 else:
                     lu, last_err = smooth(lu, lf, n, h, ins.steps)
                     if use_kernels and aligned:
@@ -307,8 +338,10 @@ def _run3(u0, f0, program: CycleProgram, problem: Problem3D, cfg: SolverConfig,
                     ze, zc = KS3.ascend3_halo(ins.steps, True)
                     want_err = (ins is last_ins and ins.steps <= K3.MAX_FUSED_SWEEPS_3D - 1
                                 and ze <= nl and zc + 1 <= nl // 2)
-                    lu, err = KS3.sharded_fused_ascend3(lu, lf, cu, h, ins.steps, cfg.omega,
-                                                        want_err, nl)
+                    up = KS3.sharded_fused_ascend3
+                    if ring and R3.rdma_ascend3_fits(nl, *R3.padded_rc(n), ins.steps, want_err, isz):
+                        up = KS3.rdma_fused_ascend3
+                    lu, err = up(lu, lf, cu, h, ins.steps, cfg.omega, want_err, nl)
                     if want_err:
                         last_err = err
                     elif ins is last_ins:
@@ -385,11 +418,8 @@ class CompiledCycle3:
         self.warm = warm
         self.use_kernels = _use_kernels(config, self.device)
         _check_ported(config, self.use_kernels)
-        if config.halo not in ("ppermute", "rdma"):
-            raise ValueError(f"unknown halo {config.halo!r}; expected ppermute or rdma")
-        if (config.halo == "rdma" and self.use_kernels
-                and any(_sharded3(policy, config, n) for n in _level_sizes(program))):
-            KS3.check_halo3(config.halo)
+        KS3.check_halo3(config.halo, policy.mesh if policy is not None and self.use_kernels
+                        else None)
 
     @property
     def finest_spec(self) -> GridSpec:
@@ -426,11 +456,6 @@ class CompiledCycle3:
             return u
 
         return chained
-
-
-def _level_sizes(program: CycleProgram) -> set:
-    return {program.n_max} | {ins.next_n for ins in program.instructions
-                              if isinstance(ins, Descend)}
 
 
 def compile_program3(program: CycleProgram, problem: Problem3D,

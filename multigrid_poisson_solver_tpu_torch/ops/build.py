@@ -82,6 +82,13 @@ SIGNATURES = {
     "mg_rdma_jacobi": ([_P] * 4 + [_I] * 4 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
     "mg_rdma_trigger": ([_P] * 5 + [_I, _I] + [_P] * 7 + [_I, _F, _F, _F, _F, _F, _I, _U, _P],
                         _I),
+    # the 3-D ring kernels (ops.rdma3): shard pointer arrays, the shards'
+    # origins and z chunks, then the workspace's pointer array and the tag
+    "mg3_rdma_jacobi": ([_P] * 5 + [_I] * 7 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
+    "mg3_rdma_descend": ([_P] * 6 + [_I] * 8 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
+    "mg3_rdma_ascend": ([_P] * 6 + [_I] * 6 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
+    "mg3_rdma_trigger": ([_P] * 6 + [_I] * 5 + [_P] * 4 + [_U, _F, _F, _F, _D, _F, _I, _P],
+                         _I),
 }
 
 _lib = None

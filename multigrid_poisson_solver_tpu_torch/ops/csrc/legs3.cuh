@@ -61,6 +61,14 @@
 // compile-time constants, with the single-device kernels' arguments. EMIT_R
 // (kernel 10's emit_residual mode) stores both the final iterate and its
 // residual, the RESID stage after the sweeps.
+//
+// Ring mode (RING = true, with SHARD; the 3-D ring kernels of rdma3.cuh):
+// the launch owns the same planes, but a plane comes from one of three
+// places (RingSrc3): the shard's own block of u and f for its owned planes,
+// or a receive buffer that the neighbours posted the halo planes into (read
+// through L2), and the ascend leg's coarse correction likewise by coarse
+// plane. The arithmetic and every store are shard mode's, so owned planes
+// and error partials are those of a shard-mode launch on extended windows.
 #pragma once
 
 #include "common.cuh"
@@ -118,6 +126,22 @@ struct Planes3 {
 static inline Planes3 planes3_whole(int n) {
   return Planes3{0, n, 0, 0, (n + 1) / 2};
 }
+
+// The planes a receive buffer of the ring kernels holds a side (rdma3.cuh).
+constexpr int RING3_HALO = MAX_HALO3;
+
+// Where a ring launch reads shard planes: u and f (index 0 and 1; u nullptr
+// from zero) of the owned planes [z0, z0 + nz) from the shard's blocks, the
+// planes [z0 − RING3_HALO, z0) from `top` and [z0 + nz, z0 + nz + RING3_HALO)
+// from `bot`; the coarse correction's planes [cz0, cz1) from `cown`,
+// [cz0 − RING3_HALO, cz0) from `ctop` and [cz1, cz1 + RING3_HALO) from `cbot`.
+struct RingSrc3 {
+  const float* own[2];
+  const float* top[2];
+  const float* bot[2];
+  const float *cown, *ctop, *cbot;
+  int cz0, cz1;
+};
 
 static __host__ __device__ __forceinline__ int leg3_stages(const Leg3& L) {
   return L.sweeps + (L.last >= 0 ? 1 : 0);
@@ -186,6 +210,39 @@ static __device__ __forceinline__ float prolong_at(const float* c, int m, int c0
   const float a = pro_zy(c, m, c0, z, y, x >> 1);
   if (!(x & 1)) return a;
   return __fmul_rn(0.5f, __fadd_rn(a, pro_zy(c, m, c0, z, y, (x >> 1) + 1)));
+}
+
+// Coarse plane Z of a ring's correction: the shard's own block or a receive
+// buffer (RingSrc3). Chosen once per staged fine plane.
+static __device__ __forceinline__ const float* ring_cplane(const RingSrc3& R, int m, int Z) {
+  const size_t pl = (size_t)m * m;
+  if (Z < R.cz0) return R.ctop + (size_t)(Z - R.cz0 + RING3_HALO) * pl;
+  if (Z < R.cz1) return R.cown + (size_t)(Z - R.cz0) * pl;
+  return R.cbot + (size_t)(Z - R.cz1) * pl;
+}
+
+// prolong_at's arithmetic at fine plane z from coarse plane a = z >> 1 and,
+// for odd z, b = the next one, read through L2.
+static __device__ __forceinline__ float ring_pro_z(const float* a, const float* b, bool odd,
+                                                   int m, int I, int J) {
+  const size_t g = (size_t)I * m + J;
+  const float v = __ldcg(a + g);
+  if (!odd) return v;
+  return __fmul_rn(0.5f, __fadd_rn(v, __ldcg(b + g)));
+}
+
+static __device__ __forceinline__ float ring_pro_zy(const float* a, const float* b, bool odd,
+                                                    int m, int y, int J) {
+  const float v = ring_pro_z(a, b, odd, m, y >> 1, J);
+  if (!(y & 1)) return v;
+  return __fmul_rn(0.5f, __fadd_rn(v, ring_pro_z(a, b, odd, m, (y >> 1) + 1, J)));
+}
+
+static __device__ __forceinline__ float ring_prolong_at(const float* a, const float* b, bool odd,
+                                                        int m, int y, int x) {
+  const float v = ring_pro_zy(a, b, odd, m, y, x >> 1);
+  if (!(x & 1)) return v;
+  return __fmul_rn(0.5f, __fadd_rn(v, ring_pro_zy(a, b, odd, m, y, (x >> 1) + 1)));
 }
 
 // (Σnb − 6u): ((((z− + z+) + y−) + y+) + x−) + x+, then − 6u.
@@ -390,13 +447,38 @@ sum_partials3_raw_kernel(const double* __restrict__ partials, int count,
 
 // Issue the device-memory loads of staged plane t (u and f; 0 outside the
 // grid) into registers. They are consumed by store_plane one pipeline step
-// later, so their latency overlaps the stages in between.
-template <bool COHERENT, bool SHARD>
+// later, so their latency overlaps the stages in between. RING: from the
+// ring source R (the own block, or a receive buffer through L2).
+template <bool COHERENT, bool SHARD, bool RING = false>
 static __device__ __forceinline__ void fetch_plane(const Leg3& L, const Planes3& P, int t,
                                                    int cols, int plane, int gr0, int gc0,
-                                                   float (&ru)[PREF3], float (&rf)[PREF3]) {
+                                                   float (&ru)[PREF3], float (&rf)[PREF3],
+                                                   const RingSrc3* R = nullptr) {
   const int n = L.n;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
+  if constexpr (RING) {
+    const bool zin = t >= 0 && t < n;
+    const bool mine = t >= P.z0 && t < P.z0 + P.nz;
+    const int side = t < P.z0 ? 0 : 1;
+    const float* bu = mine ? R->own[0] : (side == 0 ? R->top[0] : R->bot[0]);
+    const float* bf = mine ? R->own[1] : (side == 0 ? R->top[1] : R->bot[1]);
+    const int zl = mine ? t - P.z0 : (side == 0 ? t - P.z0 + RING3_HALO : t - P.z0 - P.nz);
+#pragma unroll
+    for (int q = 0; q < PREF3; ++q) {
+      const int idx = tid + q * THREADS3;
+      const int i = idx / cols, j = idx - i * cols;
+      const int gi = gr0 + i, gj = gc0 + j;
+      float fv = 0.0f, uv = 0.0f;
+      if (idx < plane && zin && gi >= 0 && gi < n && gj >= 0 && gj < n) {
+        const size_t g = gidx3(n, zl, gi, gj);
+        fv = mine ? load_grid<COHERENT>(bf + g) : __ldcg(bf + g);
+        if (L.u != nullptr) uv = mine ? load_grid<COHERENT>(bu + g) : __ldcg(bu + g);
+      }
+      ru[q] = uv;
+      rf[q] = fv;
+    }
+    return;
+  }
   const int in0 = SHARD ? P.z0 - P.ext : 0;  // global plane of the inputs' plane 0
   const bool zin =
       t >= 0 && t < n && (!SHARD || (t >= in0 && t < P.z0 + P.nz + P.ext));
@@ -419,14 +501,21 @@ static __device__ __forceinline__ void fetch_plane(const Leg3& L, const Planes3&
 // The starting iterate and f of staged plane t into shared memory: u (plus
 // the prolonged coarse correction on the interior, for the ascend leg), or
 // from u ≡ 0 the closed-form first sweep (ω/6)·(−h²f) on the interior.
-template <bool SHARD>
+template <bool SHARD, bool RING = false>
 static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3& P, int t,
                                                    int cols, int plane, int gr0, int gc0,
                                                    const float (&ru)[PREF3],
                                                    const float (&rf)[PREF3], float* u0,
-                                                   float* fp) {
+                                                   float* fp, const RingSrc3* R = nullptr) {
   const int n = L.n, m = (n + 1) / 2;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
+  const float *ca = nullptr, *cb = nullptr;  // RING: the coarse planes plane t prolongs from
+  if constexpr (RING) {
+    if (L.c != nullptr && L.u != nullptr && inner(t, n)) {
+      ca = ring_cplane(*R, m, t >> 1);
+      cb = (t & 1) ? ring_cplane(*R, m, (t >> 1) + 1) : ca;
+    }
+  }
 #pragma unroll
   for (int q = 0; q < PREF3; ++q) {
     const int idx = tid + q * THREADS3;
@@ -437,8 +526,12 @@ static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3&
     if (inner(t, n) && inner(gi, n) && inner(gj, n)) {
       if (L.u == nullptr)
         uv = __fmul_rn(L.w, -__fmul_rn(L.h2, rf[q]));
-      else if (L.c != nullptr)
-        uv = __fadd_rn(uv, prolong_at(L.c, m, SHARD ? P.cz0 : 0, t, gi, gj));
+      else if (L.c != nullptr) {
+        if constexpr (RING)
+          uv = __fadd_rn(uv, ring_prolong_at(ca, cb, t & 1, m, gi, gj));
+        else
+          uv = __fadd_rn(uv, prolong_at(L.c, m, SHARD ? P.cz0 : 0, t, gi, gj));
+      }
     }
     u0[idx] = uv;
     fp[idx] = rf[q];
@@ -450,9 +543,11 @@ static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3&
 // block's number]. NSLOT: the error slots (MAX_STEPS3 for per_sweep, else
 // 1); COHERENT: a persistent kernel; SHARD: the launch owns P's planes, not
 // the whole grid (P is not read otherwise); EMIT_R: the final iterate to out
-// and the RESID stage's residual to r.
-template <int NSLOT, bool COHERENT, bool SHARD = false, bool EMIT_R = false>
-static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P, const Blk& b) {
+// and the RESID stage's residual to r; RING (with SHARD): the planes come
+// from the ring source R, not from windows at L.u and L.f.
+template <int NSLOT, bool COHERENT, bool SHARD = false, bool EMIT_R = false, bool RING = false>
+static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P, const Blk& b,
+                                   const RingSrc3* R = nullptr) {
   const int n = L.n, H = L.halo;
   const int rows = L.ty + 2 * H, cols = L.tx + 2 * H, plane = rows * cols;
   const int gr0 = b.y * L.ty - H, gc0 = b.x * L.tx - H;
@@ -473,14 +568,16 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P,
   const bool gpu_stored = L.partials != nullptr && L.err_mode == ERR_GPU && !L.per_sweep;
   float ru[PREF3], rf[PREF3];  // plane t's loads, in flight during step t − 1
   __syncthreads();             // the block's previous leg is done with smem
-  fetch_plane<COHERENT, SHARD>(L, P, zs, cols, plane, gr0, gc0, ru, rf);
+  fetch_plane<COHERENT, SHARD, RING>(L, P, zs, cols, plane, gr0, gc0, ru, rf, R);
 
   for (int t = zs; t < ze + S; ++t) {
     // stage plane t; its ring slots last held planes the previous step
     // finished with
-    if (t < ze) store_plane<SHARD>(L, P, t, cols, plane, gr0, gc0, ru, rf, ring(0, t), fpl(t));
+    if (t < ze)
+      store_plane<SHARD, RING>(L, P, t, cols, plane, gr0, gc0, ru, rf, ring(0, t), fpl(t), R);
     __syncthreads();
-    if (t + 1 < ze) fetch_plane<COHERENT, SHARD>(L, P, t + 1, cols, plane, gr0, gc0, ru, rf);
+    if (t + 1 < ze)
+      fetch_plane<COHERENT, SHARD, RING>(L, P, t + 1, cols, plane, gr0, gc0, ru, rf, R);
     for (int s = 1; s <= S; ++s) {
       const int p = t - s;
       if (p >= zs + s && p < ze - s) {

@@ -77,7 +77,9 @@ launches = {"jacobi": 0, "jacobi_errs": 0, "rbgs": 0, "residual": 0, "residual_m
             "ascend3_shard": 0, "residual3_shard": 0,
             # the shard modes of the 2-D kernels and the ring kernels (ops.rdma)
             "jacobi_shard": 0, "jacobi_errs_shard": 0, "rbgs_shard": 0, "residual_shard": 0,
-            "descend_shard": 0, "ascend_shard": 0, "rdma_jacobi": 0, "rdma_trigger": 0}
+            "descend_shard": 0, "ascend_shard": 0, "rdma_jacobi": 0, "rdma_trigger": 0,
+            # the 3-D ring kernels (ops.rdma3)
+            "rdma_jacobi3": 0, "rdma_descend3": 0, "rdma_ascend3": 0, "rdma_trigger3": 0}
 
 
 def reset_launch_counts() -> None:

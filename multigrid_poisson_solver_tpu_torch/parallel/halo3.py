@@ -31,6 +31,12 @@ def geo3(x: ShardedGrid, i: int, ext: int = 1) -> K3.ShardGeo3:
     return K3.ShardGeo3(x.n, z0, z1 - z0, ext)
 
 
+def sum_err3(raws, compat: str, n: int, h: float, dtype) -> torch.Tensor:
+    """The shards' raw float64 error sums added in shard order, scaled,
+    rounded to ``dtype`` once."""
+    return (psum(raws) * p3.error_scale3(compat, n, h)).to(dtype)
+
+
 def _per_shard(u: ShardedGrid, f: ShardedGrid, fn) -> ShardedGrid:
     """A grid of u's layout whose block i is fn(u_ext, f_ext, geo), the
     windows one plane deep."""
@@ -63,7 +69,7 @@ def sharded_smoothing_error3(u: ShardedGrid, f: ShardedGrid, h: float) -> torch.
     parts = [K3._raw3(torch.abs(K3._residual3_ext(
         extend(u, i, 0, 1), extend(f, i, 0, 1), geo3(u, i).inner(u.device), h)), geo3(u, i))
         for i in range(len(u.layout.rows))]
-    return (psum(parts) * p3.error_scale3("clean", u.n, h)).to(u.dtype)
+    return sum_err3(parts, "clean", u.n, h, u.dtype)
 
 
 def sharded_gpu_smoothing_error3(u_new: ShardedGrid, u_old: ShardedGrid,
@@ -71,7 +77,7 @@ def sharded_gpu_smoothing_error3(u_new: ShardedGrid, u_old: ShardedGrid,
     """The gpu metric Σ|u_new − u_old|·6/h²/n³ (``gpu_smoothing_error3``)."""
     parts = [K3._raw3(torch.abs(u_new.blocks[i][0] - u_old.blocks[i][0]), geo3(u_new, i, 0))
              for i in range(len(u_new.layout.rows))]
-    return (psum(parts) * p3.error_scale3("gpu", u_new.n, h)).to(u_new.dtype)
+    return sum_err3(parts, "gpu", u_new.n, h, u_new.dtype)
 
 
 def sharded_smooth3_err(u: ShardedGrid, f: ShardedGrid, h: float, steps: int, omega: float,

@@ -20,9 +20,17 @@ windows are assembled from every block they overlap, so a halo deeper than
 the port's neighbour block (JAX's nl can exceed the port's ``2⌊n/2P⌋`` by 2)
 is still exact.
 
-``halo="rdma"`` (JAX's ring kernels 19-22, ``ops/pallas_rdma3.py``) is not
-ported yet (ROADMAP Queue 1 item 2) and is refused rather than run on the
-ppermute path, which would change the route.
+``halo="rdma"``: JAX's ring kernels 19-22 (``ops/pallas_rdma3.py``,
+``pallas_shard3.py:505-720``), ``ops.rdma3``: the plane exchange inside one
+launch over the ring. ``rdma_fused_jacobi3``, ``rdma_fused_jacobi3_err``,
+``rdma_fused_descend3``, ``rdma_fused_ascend3`` and ``rdma_fused_trigger3``
+chunk their passes as JAX does (at most min(8, nl) sweeps, a pass cut down
+while ``rdma_jacobi3_fits`` refuses it; the clean error's last pass at most
+min(7, nl − 1)) and return what the exchange path returns, the same values
+bit for bit. Their callers route by JAX's admission predicates on JAX's nl
+and padded (rp, cp). A ring launch runs every shard on one card, so a mesh
+over several cards keeps the exchange path and refuses "rdma", as the 2-D
+engine does.
 
 The shard-mode kernels are looked up in ``ops.kernels3`` at each call, so
 replacing them there by their ``*_torch`` twins runs these wrappers on the
@@ -37,22 +45,23 @@ import torch
 from ..models import poisson3d as p3
 from ..ops import kernels as K
 from ..ops import kernels3 as K3
+from ..ops import rdma3 as R3
 from ..ops import transfers3 as T3
 from . import halo3
 from .mesh import Z_AXIS, padded_depth3
-from .sharded import Layout, ShardedGrid, as_level, extend, gather, home, on_device, planes, psum
+from .sharded import (Layout, ShardedGrid, as_level, each_shard, extend, gather, home, on_device,
+                      planes)
 
-RDMA3_REFUSAL = ("halo='rdma' on a 3-D z-sharded level needs the 3-D ring kernels 19-22 "
-                 "(ops/pallas_rdma3.py), which the port does not have yet (ROADMAP Queue 1 "
-                 "item 2); use halo='ppermute'")
-
-
-def check_halo3(halo: str) -> None:
-    """Refuse what the 3-D sharded path cannot run as JAX routes it."""
-    if halo == "rdma":
-        raise NotImplementedError(RDMA3_REFUSAL)
-    if halo != "ppermute":
+def check_halo3(halo: str, mesh=None) -> None:
+    """Refuse an unknown halo, and halo="rdma" on a mesh over several cards:
+    a ring kernel runs every shard of a ring in one launch on one card (the
+    2-D engine's refusal, ``compiled.py``)."""
+    if halo not in ("ppermute", "rdma"):
         raise ValueError(f"unknown halo {halo!r}; expected ppermute or rdma")
+    if halo == "rdma" and mesh is not None and len(set(mesh.devices)) > 1:
+        raise ValueError(f"halo='rdma' runs every shard of a ring in one launch on one card; "
+                         f"this mesh spans {sorted(set(map(str, mesh.devices)))}: use "
+                         f"halo='ppermute'")
 
 
 def _nl(x: ShardedGrid, nl) -> int:
@@ -67,23 +76,8 @@ def _geo(x: ShardedGrid, i: int, ext: int) -> K3.ShardGeo3:
     return halo3.geo3(x, i, ext)
 
 
-def _each(x: ShardedGrid, fn) -> list:
-    """[fn(i)] over x's shards in shard order, each call with its shard's
-    card current."""
-    out = []
-    for i in range(len(x.layout.rows)):
-        with on_device(x.layout.devices[i][0]):
-            out.append(fn(i))
-    return out
-
-
 def _grid(x: ShardedGrid, blocks) -> ShardedGrid:
     return x.map(lambda i, j, b: blocks[i])
-
-
-def _sum_err(raws, compat: str, n: int, h: float, dtype) -> torch.Tensor:
-    """The shards' raw float64 sums added in shard order, scaled, rounded once."""
-    return (psum(raws) * p3.error_scale3(compat, n, h)).to(dtype)
 
 
 def _passes(u: ShardedGrid, f: ShardedGrid, h: float, steps: int, omega: float,
@@ -99,7 +93,7 @@ def _passes(u: ShardedGrid, f: ShardedGrid, h: float, steps: int, omega: float,
             f_e[ext] = [extend(f, i, 0, ext) for i in range(len(f.layout.rows))]
         fz = from_zero and first
         src = u
-        u = _grid(u, _each(f, lambda i: K3.fused_jacobi3_shard(
+        u = _grid(u, each_shard(f, lambda i: K3.fused_jacobi3_shard(
             None if fz else extend(src, i, 0, ext), f_e[ext][i], _geo(f, i, ext), h, k, omega,
             fz)[0]))
         steps -= k
@@ -144,9 +138,9 @@ def sharded_fused_jacobi3_err(u: ShardedGrid, f: ShardedGrid, h: float, steps: i
         return K3.fused_jacobi3_shard(None if fz else extend(u, i, 0, ext), extend(f, i, 0, ext),
                                       geo, h, last, omega, fz, mode, plan)
 
-    res = _each(f, one)
+    res = each_shard(f, one)
     return (_grid(u, [b for b, _ in res]),
-            _sum_err([raw for _, raw in res], mode, f.n, h, f.dtype))
+            halo3.sum_err3([raw for _, raw in res], mode, f.n, h, f.dtype))
 
 
 def sharded_trigger_step3(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 6.0 / 7.0,
@@ -172,17 +166,17 @@ def sharded_fused_jacobi3_errs(u: ShardedGrid, f: ShardedGrid, h: float, steps: 
     if ext > _nl(f, nl):
         raise ValueError(f"a batched sharded trigger pass needs {ext} halo planes <= "
                          f"{_nl(f, nl)} planes per device")
-    res = _each(f, lambda i: K3.fused_jacobi3_errs_shard(
+    res = each_shard(f, lambda i: K3.fused_jacobi3_errs_shard(
         extend(u, i, 0, ext), extend(f, i, 0, ext), _geo(f, i, ext), h, steps, omega, mode))
     return (_grid(u, [b for b, _ in res]),
-            _sum_err([raws for _, raws in res], mode, f.n, h, f.dtype))
+            halo3.sum_err3([raws for _, raws in res], mode, f.n, h, f.dtype))
 
 
 def sharded_residual3(u: ShardedGrid, f: ShardedGrid, h: float,
                       negate: bool = False) -> ShardedGrid:
     """The 7-point residual of a z-sharded level (``sharded_residual3_pallas``;
     one halo plane)."""
-    return _grid(u, _each(f, lambda i: K3.residual3_shard(
+    return _grid(u, each_shard(f, lambda i: K3.residual3_shard(
         extend(u, i, 0, 1), extend(f, i, 0, 1), _geo(f, i, 1), h, negate)))
 
 
@@ -199,7 +193,7 @@ def sharded_smooth_residual3(u: ShardedGrid, f: ShardedGrid, h: float, steps: in
         out = sharded_fused_jacobi3(u, f, h, steps, omega, from_zero, nl)
         return out, sharded_residual3(out, f, h, negate)
     ext = k_eff + 1
-    res = _each(f, lambda i: K3.fused_jacobi3_residual_shard(
+    res = each_shard(f, lambda i: K3.fused_jacobi3_residual_shard(
         None if from_zero else extend(u, i, 0, ext), extend(f, i, 0, ext), _geo(f, i, ext), h,
         steps, omega, from_zero, negate))
     return _grid(u, [a for a, _ in res]), _grid(u, [b for _, b in res])
@@ -230,12 +224,12 @@ def sharded_fused_descend3(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
     if nl % 2 or not (1 <= steps and 0 <= k_nb <= cap and z_halo <= nl):
         raise ValueError(f"the sharded descend leg needs an even plane count per device "
                          f"holding its {z_halo}-plane halo, got nl={nl}, steps={steps}")
-    res = _each(f, lambda i: K3.fused_descend3_shard(
+    res = each_shard(f, lambda i: K3.fused_descend3_shard(
         None if from_zero else extend(u, i, 0, z_halo), extend(f, i, 0, z_halo),
         _geo(f, i, z_halo), h, steps, omega, from_zero, restriction, want_err))
     lay = _coarse_layout3(f)
     fc = ShardedGrid(lay, [[fc] for _, fc, _ in res])
-    err = (_sum_err([raw for _, _, raw in res], "clean", f.n, h, f.dtype) if want_err
+    err = (halo3.sum_err3([raw for _, _, raw in res], "clean", f.n, h, f.dtype) if want_err
            else None)
     return _grid(u, [b for b, _, _ in res]), fc, err
 
@@ -270,10 +264,95 @@ def sharded_fused_ascend3(u: ShardedGrid, f: ShardedGrid, child, h: float, steps
         return K3.fused_ascend3_shard(extend(u, i, 0, ext_z), extend(f, i, 0, ext_z), c_win,
                                       cz0, _geo(f, i, ext_z), h, steps, omega, want_err)
 
-    res = _each(f, one)
-    err = (_sum_err([raw for _, raw in res], "clean", f.n, h, f.dtype) if want_err
+    res = each_shard(f, one)
+    err = (halo3.sum_err3([raw for _, raw in res], "clean", f.n, h, f.dtype) if want_err
            else None)
     return _grid(u, [b for b, _ in res]), err
+
+
+# --- halo="rdma": the ring kernels 19-22 (ops.rdma3) ---------------------------------
+
+def _rdma_k(remaining: int, kmax: int, nl: int, rc, err: bool = False) -> int:
+    """A pass of at most ``kmax`` sweeps, cut down while JAX's
+    ``rdma_jacobi3_fits`` refuses it."""
+    k = min(remaining, kmax)
+    while k > 1 and not R3.rdma_jacobi3_fits(nl, *rc, k, err=err):
+        k -= 1
+    return k
+
+
+def rdma_fused_jacobi3(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
+                       omega: float = 6.0 / 7.0, from_zero: bool = False, nl=None):
+    """``steps`` sweeps of a z-sharded level through the ring smoother
+    (``rdma_fused_jacobi3``): passes of at most min(8, nl) sweeps, each cut
+    down while JAX's predicate refuses it; ``from_zero`` on the first."""
+    nl, rc, first = _nl(f, nl), R3.padded_rc(f.n), True
+    kmax = min(K3.MAX_FUSED_SWEEPS_3D, nl)
+    while steps > 0:
+        k = _rdma_k(steps, kmax, nl, rc)
+        u = R3.rdma_jacobi3(u, f, h, k, omega, from_zero and first)[0]
+        steps -= k
+        first = False
+    return u
+
+
+def rdma_fused_jacobi3_err(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
+                           omega: float = 6.0 / 7.0, compat: str = "clean", nl=None):
+    """``rdma_fused_jacobi3`` with the error of the result fused into the
+    final pass (``rdma_fused_jacobi3_err``): (u, err). The final pass runs at
+    most min(8, nl) sweeps (gpu) or min(7, nl − 1) (clean), cut while the
+    predicate refuses it with the error's halo; the passes before it at most
+    min(8, nl)."""
+    mode = "gpu" if compat == "gpu" else "clean"
+    if steps < 1:
+        raise ValueError(f"an error pass needs at least one sweep, got {steps}")
+    nl, rc = _nl(f, nl), R3.padded_rc(f.n)
+    kmax = min(K3.MAX_FUSED_SWEEPS_3D, nl)
+    last = _rdma_k(steps, kmax if mode == "gpu" else min(7, nl - 1), nl, rc, mode == "clean")
+    remaining = steps - last
+    while remaining > 0:
+        k = _rdma_k(remaining, kmax, nl, rc)
+        u = R3.rdma_jacobi3(u, f, h, k, omega)[0]
+        remaining -= k
+    u, raws = R3.rdma_jacobi3(u, f, h, last, omega, err_mode=mode)
+    return u, halo3.sum_err3(raws, mode, f.n, h, f.dtype)
+
+
+def rdma_fused_descend3(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
+                        omega: float = 6.0 / 7.0, from_zero: bool = False,
+                        restriction: str = "full_weighting", want_err: bool = False, nl=None):
+    """The whole descend leg through the ring kernel (``rdma_fused_descend3``):
+    what ``sharded_fused_descend3`` returns, from one launch. Needs an even
+    JAX nl, as the exchange leg."""
+    nl = _nl(f, nl)
+    if nl % 2:
+        raise ValueError(f"the sharded descend leg needs an even plane count per device, "
+                         f"got nl={nl}")
+    u, fc, raws = R3.rdma_descend3(u, f, h, steps, omega, from_zero, restriction, want_err)
+    return u, fc, (halo3.sum_err3(raws, "clean", f.n, h, f.dtype) if want_err else None)
+
+
+def rdma_fused_ascend3(u: ShardedGrid, f: ShardedGrid, child, h: float, steps: int,
+                       omega: float = 6.0 / 7.0, want_err: bool = False, nl=None):
+    """The whole ascend leg through the ring kernel (``rdma_fused_ascend3``):
+    what ``sharded_fused_ascend3`` returns, from one launch; ``child`` is the
+    coarse correction ((m, m, m), a tensor or a ShardedGrid)."""
+    nl = _nl(f, nl)
+    if nl % 2:
+        raise ValueError(f"the sharded ascend leg needs an even plane count per device, "
+                         f"got nl={nl}")
+    u, raws = R3.rdma_ascend3(u, f, child, h, steps, omega, want_err)
+    return u, (halo3.sum_err3(raws, "clean", f.n, h, f.dtype) if want_err else None)
+
+
+def rdma_fused_trigger3(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 6.0 / 7.0,
+                        compat: str = "clean", trigger: float = 0.01,
+                        max_sweeps: int = 100_000):
+    """The whole trigger loop of a z-sharded level in one ring launch
+    (``rdma_fused_trigger3``): (u, err, sweeps), those of the loop of
+    ``sharded_trigger_step3`` launches, bit for bit."""
+    mode = "gpu" if compat == "gpu" else "clean"
+    return R3.rdma_trigger3(u, f, h, omega, mode, trigger, max_sweeps)
 
 
 class CyclePolicy3:
@@ -318,15 +397,19 @@ def v_cycle3_sharded(u, f, h: float, mesh, n_min: int = 5, pre: int = 3, post: i
     child's depth is half the level's, else the prolongation and add on the
     gathered level and ``sharded_fused_jacobi3``. ``kernels="torch"``: the
     plain per-shard ops (``parallel.halo3``) and the plain cycle below, as
-    ``v_cycle3(kernels="torch")`` runs them. ``halo="rdma"`` is refused
-    (ROADMAP Queue 1 item 2)."""
-    check_halo3(halo)
+    ``v_cycle3(kernels="torch")`` runs them. ``halo="rdma"`` on the kernel
+    path takes the ring kernels where JAX's predicates admit them on its nl
+    and padded (rp, cp) (``pallas_shard3.py:795-839``): the descend leg, the
+    ascend leg and the post-smoothing after the prolongation and add; the
+    emit_residual fallback keeps the exchange."""
     pol = CyclePolicy3(mesh, threshold_planes)
     ndev = pol.n_devices
     dev = home(pol)
     n = u.shape[0]
     sizes = p3._sizes(n, n_min)
     use_k = K.use_kernels(kernels, dev)
+    check_halo3(halo, mesh if use_k else None)
+    ring = use_k and halo == "rdma"
 
     def lay(x, nn):
         return as_level(x, pol, nn)
@@ -349,8 +432,10 @@ def v_cycle3_sharded(u, f, h: float, mesh, n_min: int = 5, pre: int = 3, post: i
             fc = T3.restrict3(gather(halo3.sharded_residual3(up, fp, hh, negate=True)), m)
             zp_c = m
         elif nl % 2 == 0 and 1 <= k_nb <= K3.MAX_DESCEND3_SWEEPS_FW and k_nb + 2 <= nl:
-            up, fc, _ = sharded_fused_descend3(up, fp, hh, pre, omega, from_zero,
-                                               "full_weighting", nl=nl)
+            down = sharded_fused_descend3
+            if ring and R3.rdma_descend3_fits(nl, *R3.padded_rc(nn), pre, from_zero):
+                down = rdma_fused_descend3
+            up, fc, _ = down(up, fp, hh, pre, omega, from_zero, "full_weighting", nl=nl)
             zp_c = zp // 2
         else:
             up, rneg = sharded_smooth_residual3(up, fp, hh, pre, omega, from_zero, True, nl)
@@ -362,10 +447,17 @@ def v_cycle3_sharded(u, f, h: float, mesh, n_min: int = 5, pre: int = 3, post: i
         ext_z, ext_c = ascend3_halo(post, False)
         if (use_k and nl % 2 == 0 and 1 <= post <= K3.MAX_FUSED_SWEEPS_3D and 2 * zp_c == zp
                 and ext_z <= nl and ext_c + 1 <= nl // 2):
-            return sharded_fused_ascend3(up, fp, ec, hh, post, omega, nl=nl)[0]
+            up_fn = sharded_fused_ascend3
+            if ring and R3.rdma_ascend3_fits(nl, *R3.padded_rc(nn), post, False):
+                up_fn = rdma_fused_ascend3
+            return up_fn(up, fp, ec, hh, post, omega, nl=nl)[0]
         if use_k:
             up = lay(T3.prolong3_add(gather(up), gather(ec, dev)), nn)
-            return sharded_fused_jacobi3(up, fp, hh, post, omega, nl=nl)
+            smooth = sharded_fused_jacobi3
+            if ring and R3.rdma_jacobi3_fits(nl, *R3.padded_rc(nn),
+                                             min(post, K3.MAX_FUSED_SWEEPS_3D, nl)):
+                smooth = rdma_fused_jacobi3
+            return smooth(up, fp, hh, post, omega, nl=nl)
         # the plain v_cycle3's add (its z faces kept at 0)
         g = gather(up) + p3.prolong3(gather(ec, dev), nn)
         g[0] = 0

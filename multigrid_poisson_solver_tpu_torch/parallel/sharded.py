@@ -106,6 +106,16 @@ def on_device(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
+def each_shard(x: "ShardedGrid", fn) -> list:
+    """[fn(i)] over the z blocks (or row blocks) of x in shard order, each
+    call with its shard's card current."""
+    out = []
+    for i in range(len(x.layout.rows)):
+        with on_device(x.layout.devices[i][0]):
+            out.append(fn(i))
+    return out
+
+
 def home(policy, default="cpu") -> torch.device:
     """Where a policy keeps replicated levels: its mesh's first device."""
     return torch.device(default) if policy is None else policy.mesh.devices[0]

@@ -45,6 +45,7 @@ from multigrid_poisson_solver_tpu_torch.convert import (config_from_jax, grid3_f
                                                         program_from_jax)
 from multigrid_poisson_solver_tpu_torch.ops import kernels3 as K3
 from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
+from multigrid_poisson_solver_tpu_torch.parallel.mesh import ZShardingPolicy3, make_mesh_z
 
 U_RTOL, ERR_RTOL = 5e-5, 1e-4
 NEAR_TIE_ERR_RTOL = 1e-2
@@ -259,20 +260,25 @@ def test_policy_state_and_chained_cycles(jpolicy, kernel_routing):
 
 
 def test_rdma_on_a_sharded_level_is_refused(jpolicy, kernel_routing):
-    """halo='rdma' needs the 3-D ring kernels (ROADMAP Queue 1 item 2); a
-    quiet run on the ppermute path would change the route. Single-device
-    runs and plain runs have no ring to refuse."""
+    """halo='rdma' on a sharded level takes the 3-D ring kernels (on the CPU
+    their twins: the ppermute engine's result, bit for bit); it is refused on
+    a mesh over several cards, where one launch cannot span the ring (the
+    plain path has no ring to refuse), and an unknown halo is refused."""
     policy = policy3_from_jax(jpolicy)
     program = tmg.v_cycle(N, n_min=5, steps=3, coarse_target=1e-8, coarsen=3)
     cfg = tmg.SolverConfig(omega=OMEGA3, halo="rdma")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        tmg.compile_program3(program, tmg.REFERENCE_PROBLEM_3D, cfg, device="cpu",
-                             policy=policy)
-    tmg.compile_program3(program, tmg.REFERENCE_PROBLEM_3D, cfg, device="cpu")
+    ring = tmg.compile_program3(program, tmg.REFERENCE_PROBLEM_3D, cfg, device="cpu",
+                                policy=policy)
+    exchange = tmg.compile_program3(program, tmg.REFERENCE_PROBLEM_3D,
+                                    dataclasses.replace(cfg, halo="ppermute"), device="cpu",
+                                    policy=policy)
+    (ur, er), (ux, ex) = ring(*ring.init()), exchange(*exchange.init())
+    assert torch.equal(ring.unpad(ur), exchange.unpad(ux)) and torch.equal(er, ex)
+    cards = ZShardingPolicy3(make_mesh_z(["cuda:0", "cuda:1"] * 4))
+    with pytest.raises(ValueError, match="one card.*halo='ppermute'"):
+        tmg.compile_program3(program, tmg.REFERENCE_PROBLEM_3D, cfg, device="cpu", policy=cards)
     tmg.compile_program3(program, tmg.REFERENCE_PROBLEM_3D,
-                         dataclasses.replace(cfg, kernels="torch"), device="cpu", policy=policy)
-    small = tmg.v_cycle(33, n_min=5, steps=3, coarse_target=1e-8, coarsen=3)
-    tmg.compile_program3(small, tmg.REFERENCE_PROBLEM_3D, cfg, device="cpu", policy=policy)
+                         dataclasses.replace(cfg, kernels="torch"), device="cpu", policy=cards)
     with pytest.raises(ValueError, match="unknown halo"):
         tmg.compile_program3(program, tmg.REFERENCE_PROBLEM_3D,
                              dataclasses.replace(cfg, halo="nccl"), device="cpu", policy=policy)

@@ -556,14 +556,23 @@ def test_v_cycle3_sharded_129_matches_jax_and_unsharded(monkeypatch):
     _close(got, np.asarray(want), CYCLE_RTOL)
 
 
-def test_v_cycle3_sharded_refuses_rdma():
+def test_v_cycle3_sharded_refuses_rdma(monkeypatch):
+    """halo="rdma" takes the ring kernels on a ring of shards on one card (on
+    the CPU their twins: the ppermute cycle, bit for bit); it is refused on
+    a mesh over several cards, where one launch cannot span the ring, and an
+    unknown halo is refused."""
     u, f = _cycle_data(65)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        KS3.v_cycle3_sharded(_th(u), _th(f), 1.0 / 64, M.make_mesh_z(["cpu"] * NDEV),
+    mesh = M.make_mesh_z(["cpu"] * NDEV)
+    monkeypatch.setattr(K, "use_kernels", lambda kernels, device: kernels != "torch")
+    got = KS3.v_cycle3_sharded(_th(u), _th(f), 1.0 / 64, mesh, halo="rdma")
+    assert torch.equal(S.gather(got), S.gather(KS3.v_cycle3_sharded(_th(u), _th(f), 1.0 / 64,
+                                                                    mesh)))
+    monkeypatch.setattr(K, "use_kernels", lambda kernels, device: True)
+    with pytest.raises(ValueError, match="one card.*halo='ppermute'"):
+        KS3.v_cycle3_sharded(_th(u), _th(f), 1.0 / 64, M.make_mesh_z(["cuda:0", "cuda:1"] * 4),
                              halo="rdma")
     with pytest.raises(ValueError, match="unknown halo"):
-        KS3.v_cycle3_sharded(_th(u), _th(f), 1.0 / 64, M.make_mesh_z(["cpu"] * NDEV),
-                             halo="nccl")
+        KS3.v_cycle3_sharded(_th(u), _th(f), 1.0 / 64, mesh, halo="nccl")
 
 
 def test_v_cycle3_sharded_small_grid_runs_replicated():
