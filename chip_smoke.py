@@ -25,7 +25,8 @@ Phases (progress on stdout; the first failure exits non-zero):
      to the loop of one-sweep launches bit for bit) and the multi-word
      residual (df32, tw32); and at the 3-D main paths' shapes (legs at 513³
      and 257³, smoother, residual, per-sweep errors and multi-word residual
-     at 513³, the streamed trigger loop at 257³, the whole-loop one at 129³);
+     at 513³, the streamed trigger loop at 257³, the whole-loop one at 129³
+     and 65³);
   3. the library path: 4097² V(3,3) (ω = 0.8, coarsen=3, dense coarse solve)
      through compile_program, one cold and five warm cycles, with the CUDA
      kernels and with plain PyTorch: the iterates after 1 and 6 cycles,
@@ -938,8 +939,9 @@ def phase2_3d(K3, torch, cmp, small=((65, (6, 10, 6)), (129, (8, 16, 10)), (131,
     errs(main, u, f, h, all_counts=False)
     del u, f
     residual_mw(main)
-    # the trigger loops at their main-path sizes, planned tiles
-    for n, name in ((257, "trigger3_stream"), (129, "trigger3")):
+    # the trigger loops at their main-path sizes, planned tiles (65³: the
+    # smallest level kernel 16 takes, where its blocks are fewest)
+    for n, name in ((257, "trigger3_stream"), (129, "trigger3"), (65, "trigger3")):
         h = 1.0 / (n - 1)
         u, f = rand(n, n, n) * 0.01, rand(n, n, n)
         b = K3.errs3_sweep_cap("clean") if name == "trigger3_stream" else 1
@@ -2751,6 +2753,29 @@ def main():
             f"{times[k][1] / t_sweeps:.4f}; per-sweep bounds: operations "
             f"{(SWEEP3_OPS + EXTRA3_OPS) * m ** 3 / FP32 * 1e3:.4f} ms, 12 B per point unblocked "
             f"{12 * m ** 3 / HBM * 1e3:.4f} ms")
+    # the column pass's other main-path shapes: kernel 16 at 65³ (the trigger
+    # V-cycle's smallest kernel level) and the per-sweep pass with the gpu
+    # metric's 8 sweeps
+    n65 = 65
+    u65, f65 = (torch.randn(n65, n65, n65, generator=gen, device="cuda") for _ in range(2))
+    t65 = (1.0 / (n65 - 1), w3, "clean", 0.0, t_sweeps)
+    ms = time_ms(lambda: K3.trigger_smooth3(u65, f65, *t65), reps=10)
+    say(f"[t] trigger3 at {n65}³: {ms / t_sweeps:.4f} ms per sweep ({t_sweeps} sweeps, trigger "
+        f"0, clean error); per-sweep bound: operations "
+        f"{(SWEEP3_OPS + EXTRA3_OPS) * n65 ** 3 / FP32 * 1e3:.4f} ms")
+    ms = time_ms(lambda: K3.fused_jacobi3_errs(u3, f3, h3, 8, w3, "gpu"), reps=3)
+    say(f"[t] jacobi3_errs at {n3}³, 8 sweeps, gpu error of every iterate: {ms:.4f} ms, bound "
+        f"{bound(3 * g3, 8 * (SWEEP3_OPS + GPU_ERR3_OPS) * pts3)[0]:.4f} ms; 7 sweeps, clean: "
+        f"{times['jacobi3_errs'][0]:.4f} ms; on 8 z-shards, 7 sweeps, clean: "
+        f"{times['jacobi3_errs_shard'][0]:.4f} ms")
+    del u65, f65
+    # the card's streaming rate at the pass's 12 B a point: one elementwise
+    # PyTorch op that reads two 513³ volumes and writes a third
+    o3 = torch.empty_like(u3)
+    ms = time_ms(lambda: torch.add(u3, f3, out=o3), reps=10)
+    say(f"[t] reference: torch.add of two {n3}³ volumes {ms:.4f} ms "
+        f"({3 * g3 / ms / 1e9:.3f} TB/s)")
+    del o3
 
     # -- phase 5: smoother throughput at 8193² -------------------------------------
     u, f = rnd(n8), rnd(n8)

@@ -10,7 +10,12 @@ main paths' shapes (2-D at 4097² and 8193², 3-D at 513³), with one V(3,3)
 cycle at 4097² (ω 0.8, coarsen=3) and one 3-D ``v_cycle3`` V(3,3) at 513³;
 then the ring kernels on rings of 8 shards of the card: the 2-D ones at
 4097², and, where the tree has them (``ops/rdma3.py``), the 3-D ones at 513³
-(the trigger loop at 257³). It prints one JSON line of milliseconds. Compare two trees in one process run
+(the trigger loop at 257³). The 3-D trigger kernels follow: the whole-loop
+one at 129³ and 65³ and the streamed one at 257³ (98 sweeps, trigger 0,
+clean error; ms per sweep), the per-sweep pass at 513³ on 8 z-shards (7
+sweeps, clean error; windows of 8 halo planes), and the host wall clock of
+the 513³ trigger V-cycle at trigger_batch 7 (median of 3 warm runs). It
+prints one JSON line of milliseconds. Compare two trees in one process run
 each, alternating (A, B, B, A), on one card: a card set below its power
 limit, or another card, moves every number.
 """
@@ -19,6 +24,7 @@ import json
 import os
 import statistics
 import sys
+import time
 
 import torch
 
@@ -118,4 +124,32 @@ if os.path.exists(os.path.join(root, "multigrid_poisson_solver_tpu_torch", "ops"
         "rdma_trigger3_98_257": timed(lambda: rdma3.rdma_trigger3(
             zu15, zf15, 1 / (n15 - 1), w3, "clean", 0.0, 98), reps=3),
     })
+# the 3-D trigger loops' kernels at their main-path shapes, ms per sweep
+t_sweeps = 98
+for name, m in (("trigger3", 129), ("trigger3", 65), ("trigger3_stream", 257)):
+    um, fm = (torch.randn(m, m, m, generator=g, device="cuda") for _ in range(2))
+    fn = K3.trigger_smooth3 if name == "trigger3" else K3.trigger_smooth3_stream
+    res[f"{name}_sweep_{m}"] = timed(lambda: fn(um, fm, 1 / (m - 1), w3, "clean", 0.0, t_sweeps),
+                                     reps=3) / t_sweeps
+    del um, fm
+zpol = M.ZShardingPolicy3(M.make_mesh_z(["cuda:0"] * 8), threshold_planes=8)
+zgeos = [K3.ShardGeo3(n3, z0, z1 - z0, 8) for z0, z1 in S.layout_of(zpol, n3).rows]
+zwins = [[S.planes(v, gz.z0 - 8, gz.z0 + gz.nz + 8) for v in (u3, f3)] for gz in zgeos]
+res["jacobi3_errs7_shard_513"] = timed(lambda: [K3.fused_jacobi3_errs_shard(
+    ue, fe, gz, h3, 7, w3, "clean") for gz, (ue, fe) in zip(zgeos, zwins)], reps=3)
+del zwins, u3, f3, c3
+# the 513³ trigger V-cycle (chip_smoke.py's phase E at trigger_batch 7), host wall clock
+tcfg = tmg.SolverConfig(omega=w3, compat_error=False, collect_node_stats=False, trigger_batch=7,
+                        max_trigger_sweeps=2000)
+tprog = tmg.compile_program3(tmg.v_cycle(n3, n_min=8, steps=-1, coarse_option=0, coarsen=3),
+                             p3, tcfg, device="cuda")
+tu0, tf0 = tprog.init()
+walls = []
+for _ in range(4):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tprog(tu0, tf0)
+    torch.cuda.synchronize()
+    walls.append((time.perf_counter() - t0) * 1e3)
+res["trigger_vcycle3_b7_513_wall"] = statistics.median(walls[1:])
 print(json.dumps({"root": sys.argv[1], **{k: round(v, 4) for k, v in res.items()}}), flush=True)

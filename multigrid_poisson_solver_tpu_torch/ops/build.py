@@ -55,11 +55,10 @@ SIGNATURES = {
                      _P], _I),
     "mg3_ascend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D, _P], _I),
     "mg3_residual": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
-    "mg3_jacobi_errs": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D, _P], _I),
-    "mg3_trigger": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _D, _F, _I,
-                     _P], _I),
-    "mg3_trigger_stream": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D,
-                            _F, _I, _P], _I),
+    # the column-pass kernels (col3.cuh) take scratch volumes and a workspace
+    "mg3_jacobi_errs": ([_P] * 7 + [_I] * 6 + [_F] * 3 + [_D, _P], _I),
+    "mg3_trigger": ([_P] * 8 + [_I] * 5 + [_F] * 3 + [_D, _F, _I, _P], _I),
+    "mg3_trigger_stream": ([_P] * 9 + [_I] * 6 + [_F] * 3 + [_D, _F, _I, _P], _I),
     "mg3_residual_mw": ([_P, _P, _P, _P, _P, _I, _I, _F, _P], _I),
     # shard modes: the block's geometry (n, row0, col0, rows, cols, ext_r, ext_c)
     "mg_num_tiles_block": ([_I, _I], _I),
@@ -71,7 +70,7 @@ SIGNATURES = {
     "mg_ascend_shard": ([_P] * 6 + [_I] * 7 + [_I] * 4 + [_I, _I, _F, _F, _F, _F, _P], _I),
     # 3-D shard modes: the shard's planes (n, z0, nz, ext)
     "mg3_jacobi_shard": ([_P] * 5 + [_I] * 4 + [_I] * 3 + [_I] * 3 + [_F] * 3 + [_P], _I),
-    "mg3_jacobi_errs_shard": ([_P] * 5 + [_I] * 4 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P], _I),
+    "mg3_jacobi_errs_shard": ([_P] * 8 + [_I] * 4 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P], _I),
     "mg3_jacobi_residual_shard": ([_P] * 4 + [_I] * 4 + [_I] * 3 + [_I] * 3 + [_F] * 3 + [_P],
                                   _I),
     "mg3_descend_shard": ([_P] * 6 + [_I] * 4 + [_I] * 4 + [_I] * 3 + [_F] * 3 + [_P], _I),

@@ -35,7 +35,7 @@ static __global__ void __launch_bounds__(THREADS3) ascend3_kernel(Leg3 L) {
 static __global__ void __launch_bounds__(THREADS3)
 ascend3_shard_kernel(Leg3 L, Planes3 P) {
   extern __shared__ float smem[];
-  run_leg3<1, true>(smem, L, P);
+  run_leg3<true>(smem, L, P);
 }
 
 static bool ascend3_leg(Leg3& L, const float* u, const float* f, const float* c, float* out,

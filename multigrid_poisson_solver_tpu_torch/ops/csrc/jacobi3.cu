@@ -20,14 +20,19 @@
 // second kernel in a fixed order.
 //
 // per_sweep (the trigger loop's batched passes, mg3_jacobi_errs): the error
-// of every iterate u_1..u_k in the same pass, k <= 7 (clean) or 8 (gpu). The
-// clean error of u_s is taken by the stage that reads u_s (sweep s + 1; the
-// EXTRA stage for u_k), the gpu error of u_s by sweep s, which forms u_s and
-// has u_{s−1} at hand. Each stage adds its owned cells to its own
-// row of partials (k rows of one double per block), in the order every error
-// launch of the same tile plan uses, so row s − 1 sums to what a launch of s
-// sweeps reports. Bound: the same 12 B per point as k unfused sweeps' one;
-// at 513³, 7 sweeps, 3 grids of 540 MB in 0.48 ms at 3.35 TB/s.
+// of every iterate u_1..u_k of k <= 7 (clean) or 8 (gpu) sweeps. This mode
+// does not fuse: it runs the column pass of col3.cuh once a sweep, one
+// launch each (and for the clean error one more that reads u_k and writes
+// nothing), iterates alternating between out and a scratch volume so that
+// u_k lands in out. A pass takes the clean error of the iterate it reads
+// and the gpu error of the one it writes, each into its own row of partials
+// (k rows of one double per tile of the trigger loops' plan, err_plan3), in
+// the order every error launch of that plan uses, so row s − 1 sums to what
+// a launch of s sweeps reports. Bound: k unfused sweeps, 12 B per point
+// each (+ 8 B for the clean error's last read); the 7-sweep clean pass at
+// 513³ moves 7 · 1.62 GB + 1.08 GB, 3.7 ms at 3.35 TB/s (legs3.cuh's fused
+// trapezoid moves 1.62 GB, but its pipeline ran 5× longer than these passes:
+// PERF.md).
 //
 // Shard mode (pallas3d.py, _fused_jacobi3_shard_call, reached through
 // parallel/pallas_shard3.py's sharded_fused_jacobi3, _err, _errs and
@@ -40,7 +45,7 @@
 // stored from one pass; on the whole grid, fused_jacobi3_residual_padded)
 // saves the separate residual pass's re-read of u and f: 16 B per point for
 // both outputs against 24 B as two passes.
-#include "legs3.cuh"
+#include "col3.cuh"
 
 using namespace mgk3;
 
@@ -52,29 +57,24 @@ static __global__ void __launch_bounds__(THREADS3) jacobi3_kernel(Leg3 L) {
 static __global__ void __launch_bounds__(THREADS3)
 jacobi3_shard_kernel(Leg3 L, Planes3 P) {
   extern __shared__ float smem[];
-  run_leg3<1, true>(smem, L, P);
+  run_leg3<true>(smem, L, P);
 }
 
-static __global__ void __launch_bounds__(THREADS3) jacobi3_errs_kernel(Leg3 L) {
-  extern __shared__ float smem[];
-  run_leg3<MAX_STEPS3>(smem, L, Planes3{});
-}
-
-static __global__ void __launch_bounds__(THREADS3)
-jacobi3_errs_shard_kernel(Leg3 L, Planes3 P) {
-  extern __shared__ float smem[];
-  run_leg3<MAX_STEPS3, true>(smem, L, P);
+// One column pass (col3.cuh) a launch: block b is the pass's unit b.
+template <bool SHARD>
+static __global__ void __launch_bounds__(COL3_THREADS) jacobi3_col_kernel(Col3 C, Col3Pass P) {
+  col3_unit<false, SHARD>(C, P, blockIdx.x);
 }
 
 static __global__ void __launch_bounds__(THREADS3) jacobi3_residual_kernel(Leg3 L) {
   extern __shared__ float smem[];
-  run_leg3<1, false, true>(smem, L, Planes3{});
+  run_leg3<false, true>(smem, L, Planes3{});
 }
 
 static __global__ void __launch_bounds__(THREADS3)
 jacobi3_residual_shard_kernel(Leg3 L, Planes3 P) {
   extern __shared__ float smem[];
-  run_leg3<1, true, true>(smem, L, P);
+  run_leg3<true, true>(smem, L, P);
 }
 
 // The sweeps' leg: steps sweeps of u (unread when from_zero) into out, with
@@ -103,31 +103,36 @@ static bool jacobi3_leg(Leg3& L, const float* u, const float* f, float* out, dou
   return true;
 }
 
-// The per-sweep leg: steps sweeps of u into out with the error of every
-// iterate (ERR_CLEAN: steps <= 7; ERR_GPU: steps <= 8).
-static bool jacobi3_errs_leg(Leg3& L, const float* u, const float* f, float* out,
-                             double* partials, int steps, int err_mode, int ty, int tx, int cz,
-                             float h2, float w, float inv_h2) {
-  if ((err_mode != ERR_CLEAN && err_mode != ERR_GPU) || steps < 1 ||
-      steps > (err_mode == ERR_CLEAN ? MAX_STEPS3 - 1 : MAX_STEPS3) || partials == nullptr)
-    return false;
-  L.u = u;
-  L.f = f;
-  L.out = out;
-  L.partials = partials;
-  L.per_sweep = 1;
-  L.sweeps = steps;
-  L.last = err_mode == ERR_CLEAN ? EXTRA : -1;
-  L.err_mode = err_mode;
-  L.restrict_mode = R_NONE;
-  L.ty = ty;
-  L.tx = tx;
-  L.cz = cz;
-  L.halo = leg3_stages(L);
-  L.h2 = h2;
-  L.w = w;
-  L.inv_h2 = inv_h2;
-  return true;
+// The per-sweep mode on the owned planes [z0, z0 + nz) of a level (inputs
+// extended by ext planes per side): steps sweeps of u into it[0] (and its
+// owned planes into `own`, or nullptr), it[1] a scratch volume shaped as u
+// (unused for one sweep), with the error of iterate s into row s − 1 of
+// partials (one per tile of the plan): col3_schedule's passes, one launch
+// each. Returns the tile count in *tiles.
+static cudaError_t jacobi3_errs_passes(bool shard, const float* u, const float* f,
+                                       float* const it[2], float* own, double* partials,
+                                       double* work, int n, int z0, int nz, int ext, int steps,
+                                       int err_mode, int ty, int tx, int cz, float h2, float w,
+                                       float inv_h2, int* tiles, cudaStream_t stream) {
+  const int stages = steps + (err_mode == ERR_CLEAN);
+  if ((err_mode != ERR_CLEAN && err_mode != ERR_GPU) || steps < 1 || stages > MAX_STEPS3 ||
+      partials == nullptr || it[0] == nullptr || (steps > 1 && it[1] == nullptr))
+    return cudaErrorInvalidValue;
+  Col3 C;
+  cudaError_t e = col3_setup(C, stages, f, work, n, z0, nz, ext, ty, tx, cz, h2, w, inv_h2,
+                             stream);
+  if (e != cudaSuccess) return e;
+  *tiles = col3_tiles(C);
+  Col3Pass P;
+  for (int j = 0; col3_schedule(C, P, j, steps, err_mode, u, it[0], it[1], own, partials, *tiles);
+       ++j) {
+    if (shard)
+      jacobi3_col_kernel<true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+    else
+      jacobi3_col_kernel<false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // steps <= 8 sweeps of u (unread when from_zero) into out. err_mode ERR_NONE,
@@ -171,39 +176,40 @@ extern "C" int mg3_jacobi_shard(const float* u, const float* f, float* out, doub
 }
 
 // steps <= 8 sweeps of u into out with the error of every iterate: partials
-// holds steps rows of one double per block, errs[s − 1] receives the metric of
-// iterate s times err_scale. err_mode ERR_CLEAN (steps <= 7) or ERR_GPU.
-extern "C" int mg3_jacobi_errs(const float* u, const float* f, float* out, double* partials,
-                               float* errs, int n, int steps, int err_mode, int ty, int tx,
-                               int cz, float h2, float w, float inv_h2, double err_scale,
-                               void* stream) {
-  Leg3 L{};
-  L.n = n;
-  if (!jacobi3_errs_leg(L, u, f, out, partials, steps, err_mode, ty, tx, cz, h2, w, inv_h2))
-    return (int)cudaErrorInvalidValue;
+// holds steps rows of one double per tile, errs[s − 1] receives the metric of
+// iterate s times err_scale. err_mode ERR_CLEAN (steps <= 7) or ERR_GPU. mid
+// is an n^3 scratch volume (unused for one sweep), work the column pass's
+// workspace (ops.kernels3.col3_work of the plan's tile count).
+extern "C" int mg3_jacobi_errs(const float* u, const float* f, float* out, float* mid,
+                               double* partials, double* work, float* errs, int n, int steps,
+                               int err_mode, int ty, int tx, int cz, float h2, float w,
+                               float inv_h2, double err_scale, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = launch_leg3(jacobi3_errs_kernel, jacobi3_errs_shard_kernel, L,
-                                    planes3_whole(n), s);
+  float* const it[2] = {out, mid};
+  int tiles = 0;
+  const cudaError_t e = jacobi3_errs_passes(false, u, f, it, nullptr, partials, work, n, 0, n, 0,
+                                            steps, err_mode, ty, tx, cz, h2, w, inv_h2, &tiles, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)finish_error3(L, err_scale, errs, s);
+  sum_partials3_kernel<<<steps, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, err_scale, errs);
+  return (int)cudaGetLastError();
 }
 
 // The same on a shard's planes (geometry as mg3_jacobi_shard): raws[s − 1]
-// receives the shard's raw sum for iterate s.
-extern "C" int mg3_jacobi_errs_shard(const float* u, const float* f, float* out,
-                                     double* partials, double* raws, int n, int z0, int nz,
-                                     int ext, int steps, int err_mode, int ty, int tx, int cz,
-                                     float h2, float w, float inv_h2, void* stream) {
-  Leg3 L{};
-  L.n = n;
-  const Planes3 P{z0, nz, ext, 0, 0};
-  if (!jacobi3_errs_leg(L, u, f, out, partials, steps, err_mode, ty, tx, cz, h2, w, inv_h2))
-    return (int)cudaErrorInvalidValue;
+// receives the shard's raw sum for iterate s. wa and wb are scratch windows
+// shaped as u (wb unused for one sweep); out receives the owned planes.
+extern "C" int mg3_jacobi_errs_shard(const float* u, const float* f, float* out, float* wa,
+                                     float* wb, double* partials, double* work, double* raws,
+                                     int n, int z0, int nz, int ext, int steps, int err_mode,
+                                     int ty, int tx, int cz, float h2, float w, float inv_h2,
+                                     void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e =
-      launch_leg3(jacobi3_errs_kernel, jacobi3_errs_shard_kernel, L, P, s);
+  float* const it[2] = {wa, wb};
+  int tiles = 0;
+  const cudaError_t e = jacobi3_errs_passes(true, u, f, it, out, partials, work, n, z0, nz, ext,
+                                            steps, err_mode, ty, tx, cz, h2, w, inv_h2, &tiles, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)finish_raw3(L, P, raws, s);
+  sum_partials3_raw_kernel<<<steps, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, raws);
+  return (int)cudaGetLastError();
 }
 
 // emit_residual: steps sweeps of u (unread when from_zero; at most 7 after

@@ -21,8 +21,7 @@
 // TPU kernels take it from the step Δ of a further sweep as 6Δ/(ωh²)), so a
 // cycle on the kernels reproduces the plain cycle's iterates. The clean error
 // of an iterate is Σ|r| over the owned interior cells, r in the same
-// arithmetic, taken by the stage that reads the iterate: EXTRA for the final
-// one, and with per_sweep the SWEEP stages for the earlier ones.
+// arithmetic, taken by the stage that reads the iterate (EXTRA).
 //
 // Arithmetic uses the round-to-nearest intrinsics in the plain twins'
 // operation order (ops/kernels3.py), so a kernel reproduces its twin bit for
@@ -37,15 +36,15 @@
 // (mod THREADS3) of a plane, the planes in z order, whichever stage produced
 // them. So every launch of a trigger loop, which all use one plan
 // (ops.kernels3.err_plan3, the deepest per-sweep pass's), reports the error
-// of an iterate bit for bit alike: a one-sweep launch, a pass with the error
-// of every iterate (per_sweep) and the persistent trigger loops (trigger3.cu,
-// trigger3_stream.cu), which walk the same blocks with run_leg3_at.
+// of an iterate bit for bit alike: a one-sweep launch here, and the column
+// pass of col3.cuh (kernel 10's per_sweep mode and the persistent trigger
+// loops trigger3.cu and trigger3_stream.cu), which sums the same cells in
+// the same order.
 //
-// The pipeline is a template on the number of error slots it carries in
-// registers (1, or MAX_STEPS3 for per_sweep) and on how it reads the grids:
-// the persistent kernels read, after a grid barrier, iterates other blocks
-// wrote in the same launch, so they load through __ldcg (L2 only); the
-// one-launch kernels through the read-only cache.
+// The pipeline is a template on how it reads the grids: the persistent
+// kernels read, after a grid barrier, iterates other blocks wrote in the
+// same launch, so they load through __ldcg (L2 only); the one-launch
+// kernels through the read-only cache.
 //
 // Shard mode (SHARD = true; pallas3d.py's *_shard_call, reached through
 // parallel/pallas_shard3.py): a launch owns the planes [z0, z0 + nz) of a
@@ -99,15 +98,13 @@ struct Leg3 {
   float* out;       // the stored level: the final iterate, or the residual
   float* r;         // EMIT_R: the residual of the final iterate (out holds the iterate)
   float* fc;        // descend: the m^3 restricted −r
-  double* partials; // one error partial per block (per_sweep: a row of them per
-                    // iterate, row s − 1 for iterate s), or nullptr
+  double* partials; // one error partial per block, or nullptr
   int n;
   int sweeps;       // SWEEP stages
   int last;         // -1, or EXTRA / RESID: one more stage after the sweeps
   int err_mode;     // ERR_NONE, ERR_CLEAN (needs the EXTRA stage) or ERR_GPU
   int restrict_mode;
   int negate;       // RESID: store −r
-  int per_sweep;    // with an error: the error of every iterate, not the last's
   int ty, tx, cz, halo;
   float h2, w, inv_h2;  // h², ω/6, 1/h²
 };
@@ -335,22 +332,6 @@ static __device__ double err_plane(const Leg3& L, int p, const float* a, const f
   return e;
 }
 
-// The error slot stage s feeds, or -1: per_sweep, clean: stage s reads
-// iterate s − 1 (s >= 2); gpu: stage s makes iterate s. Otherwise the clean
-// error comes from the EXTRA stage, the gpu one from the stored level.
-static __device__ __forceinline__ int err_slot(const Leg3& L, int s, int S) {
-  if (L.partials == nullptr) return -1;
-  if (L.per_sweep) return L.err_mode == ERR_CLEAN ? s - 2 : s - 1;
-  return L.err_mode == ERR_CLEAN && s == S ? 0 : -1;
-}
-
-template <int NSLOT>
-static __device__ __forceinline__ void add_slot(double (&acc)[NSLOT], int slot, double v) {
-#pragma unroll
-  for (int q = 0; q < NSLOT; ++q)
-    if (q == slot) acc[q] += v;
-}
-
 // A grid value: through L2 only in a persistent kernel, else the read-only cache.
 template <bool COHERENT>
 static __device__ __forceinline__ float load_grid(const float* p) {
@@ -539,13 +520,13 @@ static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3&
 }
 
 // The whole leg of block b (of leg3_blocks(L), or of leg3_blocks(L, P.nz)
-// with SHARD); the error partials go to L.partials[slot * (that count) + the
-// block's number]. NSLOT: the error slots (MAX_STEPS3 for per_sweep, else
-// 1); COHERENT: a persistent kernel; SHARD: the launch owns P's planes, not
+// with SHARD); the error partial goes to L.partials[the block's number]
+// (the clean error from the EXTRA stage, the gpu one from the stored
+// level); COHERENT: a persistent kernel; SHARD: the launch owns P's planes, not
 // the whole grid (P is not read otherwise); EMIT_R: the final iterate to out
 // and the RESID stage's residual to r; RING (with SHARD): the planes come
 // from the ring source R, not from windows at L.u and L.f.
-template <int NSLOT, bool COHERENT, bool SHARD = false, bool EMIT_R = false, bool RING = false>
+template <bool COHERENT, bool SHARD = false, bool EMIT_R = false, bool RING = false>
 static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P, const Blk& b,
                                    const RingSrc3* R = nullptr) {
   const int n = L.n, H = L.halo;
@@ -562,10 +543,8 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P,
     return smem + (size_t)(level * 3 + (p - zs) % 3) * plane;
   };
   auto fpl = [&](int p) -> float* { return fring + (size_t)((p - zs) % (S + 1)) * plane; };
-  double acc[NSLOT];
-#pragma unroll
-  for (int q = 0; q < NSLOT; ++q) acc[q] = 0.0;
-  const bool gpu_stored = L.partials != nullptr && L.err_mode == ERR_GPU && !L.per_sweep;
+  double acc = 0.0;
+  const bool gpu_stored = L.partials != nullptr && L.err_mode == ERR_GPU;
   float ru[PREF3], rf[PREF3];  // plane t's loads, in flight during step t − 1
   __syncthreads();             // the block's previous leg is done with smem
   fetch_plane<COHERENT, SHARD, RING>(L, P, zs, cols, plane, gr0, gc0, ru, rf, R);
@@ -583,15 +562,15 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P,
       if (p >= zs + s && p < ze - s) {
         const int kind = s <= L.sweeps ? SWEEP : L.last;
         const float *a = ring(s - 1, p), *am = ring(s - 1, p - 1), *ap = ring(s - 1, p + 1);
-        const int slot = err_slot(L, s, S);
-        const bool own_err = slot >= 0 && p >= z0 && p < zo_end;
+        const bool own_err = L.partials != nullptr && L.err_mode == ERR_CLEAN && s == S &&
+                             p >= z0 && p < zo_end;
         const bool in_stage = own_err && kind == EXTRA && L.restrict_mode != R_NONE;
         double e = 0.0;
         run_stage(L, kind, s, p, a, am, ap, fpl(p), ring(s, p), rows, cols, gr0, gc0,
                   in_stage ? &e : nullptr);
         if (own_err) {
           if (!in_stage) e = err_plane(L, p, a, am, ap, fpl(p), cols, gr0, gc0);
-          add_slot(acc, slot, e);
+          acc += e;
         }
       }
       __syncthreads();
@@ -611,7 +590,7 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P,
         if (gpu_stored && inner(q, n) && inner(gi, n) && inner(gj, n))
           e += (double)fabsf(prev ? __fsub_rn(src[k], prev[k]) : src[k]);
       }
-      acc[0] += e;
+      acc += e;
     }
     // EMIT_R: the owned cells of the residual's plane
     const int qr = t - S;
@@ -636,23 +615,15 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P,
     __syncthreads();
   }
   if (L.partials != nullptr) {
-    const int nslots = L.per_sweep ? L.sweeps : 1;
-    const int nb = SHARD ? leg3_blocks(L, P.nz) : leg3_blocks(L);
-    const int me = (b.z * leg3_gy(L) + b.y) * leg3_gx(L) + b.x;
-#pragma unroll
-    for (int q = 0; q < NSLOT; ++q) {
-      if (q < nslots) {
-        const double total = block_sum3(acc[q]);
-        if (tid == 0) L.partials[(size_t)q * nb + me] = total;
-      }
-    }
+    const double total = block_sum3(acc);
+    if (tid == 0) L.partials[(b.z * leg3_gy(L) + b.y) * leg3_gx(L) + b.x] = total;
   }
 }
 
 // The leg of the block of a one-launch grid (launch_leg3).
-template <int NSLOT = 1, bool SHARD = false, bool EMIT_R = false>
+template <bool SHARD = false, bool EMIT_R = false>
 static __device__ __forceinline__ void run_leg3(float* smem, const Leg3& L, const Planes3& P) {
-  run_leg3_at<NSLOT, false, SHARD, EMIT_R>(smem, L, P,
+  run_leg3_at<false, SHARD, EMIT_R>(smem, L, P,
                                           Blk{(int)blockIdx.x, (int)blockIdx.y, (int)blockIdx.z});
 }
 
@@ -670,7 +641,6 @@ static inline cudaError_t check_leg3(const Leg3& L, const Planes3& P) {
   if (L.n < 3 || L.ty < 2 || L.tx < 2 || L.cz < 2 || ((L.ty | L.tx | L.cz) & 1) ||
       L.halo < S || L.halo > MAX_HALO3 || S > MAX_STEPS3 + 1 ||
       (L.ty + 2 * L.halo) * (L.tx + 2 * L.halo) > PREF3 * THREADS3 ||
-      (L.per_sweep && (L.partials == nullptr || L.sweeps < 1 || L.sweeps > MAX_STEPS3)) ||
       leg3_smem(S, L.halo, L.ty, L.tx) > SMEM_MAX3)
     return cudaErrorInvalidValue;
   // the planes: owned ones inside the grid, inputs holding every plane the
@@ -712,21 +682,20 @@ static inline cudaError_t launch_leg3(void (*whole)(Leg3), void (*shard)(Leg3, P
   return cudaGetLastError();
 }
 
-// Sum each row of block partials (one, or one per iterate with per_sweep) in
-// a fixed order and scale it into err_out[row].
+// Sum the block partials in a fixed order and scale the sum into err_out[0].
 static inline cudaError_t finish_error3(const Leg3& L, double scale, float* err_out,
                                         cudaStream_t stream) {
   if (L.partials == nullptr) return cudaSuccess;
-  sum_partials3_kernel<<<L.per_sweep ? L.sweeps : 1, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(
+  sum_partials3_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(
       L.partials, leg3_blocks(L), scale, err_out);
   return cudaGetLastError();
 }
 
-// The same for a shard's planes P: each row's raw float64 sum into raw_out[row].
+// The same for a shard's planes P: the raw float64 sum into raw_out[0].
 static inline cudaError_t finish_raw3(const Leg3& L, const Planes3& P, double* raw_out,
                                       cudaStream_t stream) {
   if (L.partials == nullptr) return cudaSuccess;
-  sum_partials3_raw_kernel<<<L.per_sweep ? L.sweeps : 1, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(
+  sum_partials3_raw_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(
       L.partials, leg3_blocks(L, P.nz), raw_out);
   return cudaGetLastError();
 }

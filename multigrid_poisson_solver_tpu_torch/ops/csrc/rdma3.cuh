@@ -259,7 +259,7 @@ static __device__ void ring_leg3(const RingLeg3Args& a, float* smem) {
         wait_senders(W, s, L.halo, COARSE, a.tag);
         ready = true;
       }
-      run_leg3_at<1, false, true, false, true>(smem, L, x.P, b, &R);
+      run_leg3_at<false, true, false, true>(smem, L, x.P, b, &R);
     }
   }
   if (L.partials != nullptr && mgk::arrive_last(W.count + P + s, nb)) {

@@ -126,7 +126,7 @@ static __global__ void __launch_bounds__(THREADS3) rdma_trigger3_kernel(RingTrig
           wait_senders(W, s, L.halo, false, tag);
           ready = true;
         }
-        run_leg3_at<1, true, true, false, true>(smem, L, x.P, b, &R);
+        run_leg3_at<true, true, false, true>(smem, L, x.P, b, &R);
         __syncthreads();
         post_tile(W, s, L, b, nxt, slot);
       }

@@ -26,7 +26,7 @@ static __global__ void __launch_bounds__(THREADS3) residual3_kernel(Leg3 L) {
 static __global__ void __launch_bounds__(THREADS3)
 residual3_shard_kernel(Leg3 L, Planes3 P) {
   extern __shared__ float smem[];
-  run_leg3<1, true>(smem, L, P);
+  run_leg3<true>(smem, L, P);
 }
 
 // The residual of the owned planes [z0, z0 + nz) of an n^3 level into r (the

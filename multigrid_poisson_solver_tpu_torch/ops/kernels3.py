@@ -38,11 +38,12 @@ kernels' brick geometry (``_brick_geometry``: ×8-row and ×128-lane padding,
 VMEM budgets) has no counterpart: the port's levels are plain contiguous
 (n, n, n) tensors, and ``plan3`` picks a column tile and a z chunk that fit
 a block's shared memory. Every launch of a trigger loop uses one plan,
-``err_plan3`` (the deepest per-sweep pass's): the kernels sum a block's
-error cells in an order fixed by the plan alone, so the error of an iterate
-is the same float whether a one-sweep step, a per-sweep pass or a
-whole-loop trigger kernel measured it, and the trigger routes stop at the
-same sweep by construction. (The errors are float64 sums rounded once, so
+``err_plan3`` (the deepest fused pass's): the kernels sum a tile's error
+cells in an order fixed by the plan alone, so the error of an iterate is
+the same float whether a one-sweep step (``csrc/legs3.cuh``), a per-sweep
+pass or a whole-loop trigger kernel (the column pass of ``csrc/col3.cuh``)
+measured it, and the trigger routes stop at the same sweep by
+construction. (The errors are float64 sums rounded once, so
 launches with other plans report the same float but for a double sum that
 falls within 1e-16 of an fp32 rounding boundary.)
 
@@ -157,6 +158,16 @@ def err_plan3(n: int):
 def blocks3(n: int, ty: int, tx: int, cz: int, nz=None) -> int:
     """Blocks of a launch over the n³ grid, or over nz of its planes."""
     return -(-n // tx) * -(-n // ty) * -(-(n if nz is None else nz) // cz)
+
+
+WARPS3 = 16   # warps of a 512-thread tile (block_sum3's first tree, csrc/col3.cuh)
+
+
+def col3_work(tiles: int) -> int:
+    """float64 words of the column pass's workspace (``col3_setup`` in
+    ``csrc/col3.cuh``) for a plan of ``tiles`` error tiles: the warp sums
+    of each tile, then one 32-bit arrival counter per tile."""
+    return WARPS3 * tiles + -(-tiles // 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -688,12 +699,16 @@ def fused_jacobi3_errs(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
     n, dev, lib, stream = _grid3_args(f)
     K._check("u", u, (n, n, n), dev)
     plan = err_plan3(n)
+    tiles = blocks3(n, *plan)
     out = torch.empty_like(f)
-    partials = torch.empty(steps * blocks3(n, *plan), dtype=torch.float64, device=dev)
+    mid = torch.empty_like(f) if steps > 1 else None   # the pass's other iterates
+    partials = torch.empty(steps * tiles, dtype=torch.float64, device=dev)
+    work = torch.empty(col3_work(tiles), dtype=torch.float64, device=dev)
     errs = torch.empty(steps, dtype=torch.float32, device=dev)
-    rc = lib.mg3_jacobi_errs(u.data_ptr(), f.data_ptr(), out.data_ptr(), partials.data_ptr(),
-                             errs.data_ptr(), n, steps, _ERR_CODES3[compat], *plan, h * h,
-                             omega / 6.0, 1.0 / (h * h), p3.error_scale3(compat, n, h), stream)
+    rc = lib.mg3_jacobi_errs(u.data_ptr(), f.data_ptr(), out.data_ptr(), K._ptr(mid),
+                             partials.data_ptr(), work.data_ptr(), errs.data_ptr(), n, steps,
+                             _ERR_CODES3[compat], *plan, h * h, omega / 6.0, 1.0 / (h * h),
+                             p3.error_scale3(compat, n, h), stream)
     K._raise_on(lib, rc, "jacobi3_errs")
     K.launches["jacobi3_errs"] += 1
     return out, errs
@@ -707,16 +722,20 @@ def _trigger3_cuda(name: str, u, f, h: float, omega: float, compat: str, trigger
     n, dev, lib, stream = _grid3_args(f)
     K._check("u", u, (n, n, n), dev)
     plan = err_plan3(n)
-    batch = errs3_sweep_cap(compat) if name == "trigger3_stream" else 1
+    tiles = blocks3(n, *plan)
+    streamed = name == "trigger3_stream"
+    batch = errs3_sweep_cap(compat) if streamed else 1
     out, tmp = torch.empty_like(f), torch.empty_like(f)
-    partials = torch.empty(2 * batch * blocks3(n, *plan), dtype=torch.float64, device=dev)
+    grids = (out, tmp, torch.empty_like(f)) if streamed else (out, tmp)   # + a pass's iterates
+    partials = torch.empty(2 * batch * tiles, dtype=torch.float64, device=dev)
+    work = torch.empty(col3_work(tiles), dtype=torch.float64, device=dev)
     err = torch.empty(1, dtype=torch.float32, device=dev)
     sweeps = torch.empty(1, dtype=torch.int32, device=dev)
-    head = (u.data_ptr(), f.data_ptr(), out.data_ptr(), tmp.data_ptr(), partials.data_ptr(),
-            err.data_ptr(), sweeps.data_ptr(), n, _ERR_CODES3[compat])
+    head = (u.data_ptr(), f.data_ptr(), *(g.data_ptr() for g in grids), partials.data_ptr(),
+            work.data_ptr(), err.data_ptr(), sweeps.data_ptr(), n, _ERR_CODES3[compat])
     tail = (*plan, h * h, omega / 6.0, 1.0 / (h * h), p3.error_scale3(compat, n, h), trigger,
             max_sweeps, stream)
-    if name == "trigger3_stream":
+    if streamed:
         rc = lib.mg3_trigger_stream(*head, batch, *tail)
     else:
         rc = lib.mg3_trigger(*head, *tail)
@@ -862,9 +881,14 @@ def fused_jacobi3_errs_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
     lib, stream, dev = _shard3_args(u_ext, f_ext, geo, steps + (compat == "clean"))
     plan = err_plan3(geo.nz)
     out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
+    # the iterates on the windows, alternating
+    wins = [torch.empty_like(f_ext) for _ in range(min(steps, 2))] + [None]
     partials, raws = _raw_buffers3(True, geo, plan, dev, steps)
+    work = torch.empty(col3_work(blocks3(geo.n, *plan, nz=geo.nz)), dtype=torch.float64,
+                       device=dev)
     rc = lib.mg3_jacobi_errs_shard(u_ext.data_ptr(), f_ext.data_ptr(), out.data_ptr(),
-                                   partials.data_ptr(), raws.data_ptr(), *_planes3(geo), steps,
+                                   wins[0].data_ptr(), K._ptr(wins[1]), partials.data_ptr(),
+                                   work.data_ptr(), raws.data_ptr(), *_planes3(geo), steps,
                                    _ERR_CODES3[compat], *plan, h * h, omega / 6.0,
                                    1.0 / (h * h), stream)
     K._raise_on(lib, rc, "jacobi3_errs shard")

@@ -441,7 +441,8 @@ def test_c_entry_points_match_ctypes_signatures():
         "common.cuh", "legs.cuh", "jacobi.cu", "residual.cu", "descend.cu", "ascend.cu",
         "chain_descend.cu", "chain_ascend.cu", "trigger.cu", "residual_mw.cu",
         "trigger_stream.cu", "legs3.cuh", "jacobi3.cu", "descend3.cu", "ascend3.cu",
-        "residual3.cu", "trigger3.cu", "trigger3_stream.cu", "residual_mw3.cu", "ring.cuh",
+        "residual3.cu", "trigger3.cu", "trigger3_stream.cu", "residual_mw3.cu", "col3.cuh",
+        "ring.cuh",
         "rdma.cuh", "rdma_jacobi.cu", "rdma_trigger.cu", "rdma3.cuh", "rdma_jacobi3.cu",
         "rdma_descend3.cu", "rdma_ascend3.cu", "rdma_trigger3.cu"}
     assert build.library_path().parent == build.BUILD_DIR

@@ -23,6 +23,7 @@ another order: 1e-4 relative. Sweep counts are equal: the triggers below lie
 between two slopes of the loop, far from either (see ``_slopes``).
 """
 
+import re
 from functools import partial
 
 import jax
@@ -208,3 +209,43 @@ def test_err_plan3_fits_every_error_launch():
         for stages in range(1, 9):
             assert K3.smem3(stages, stages, ty, tx) <= K3.smem3(8, 8, ty, tx) <= K3.SMEM_MAX3
         assert (ty + 16) * (tx + 16) <= K3.PLANE_MAX3
+
+
+def _header_int(name, header):
+    from multigrid_poisson_solver_tpu_torch.ops import build
+
+    text = (build.CSRC / header).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_col3_constants_match_the_headers():
+    """The column pass (csrc/col3.cuh) splits block_sum3's 512 threads, 16
+    warps, over whole warps of its blocks; kernels3.WARPS3 sizes its
+    workspace by the same count."""
+    threads3 = _header_int("BLOCK_X", "common.cuh") * _header_int("BLOCK3_Y", "legs3.cuh")
+    col_threads = _header_int("COL3_THREADS", "col3.cuh")
+    assert threads3 == 512 and K3.WARPS3 == threads3 // 32
+    assert col_threads % 32 == 0 and threads3 % col_threads == 0
+
+
+@pytest.mark.parametrize("n,nz", [(65, None), (129, None), (170, None), (257, None),
+                                  (513, None), (513, 64), (513, 65), (65, 8), (65, 9)])
+def test_col3_workspace_holds_the_warp_sums_and_counters(n, nz):
+    """col3_work(tiles) float64 words: 16 warp sums a tile, then a 32-bit
+    arrival counter a tile, and no more than one word of slack; the tile
+    count is the error plan's (a shard's plan over its own depth)."""
+    plan = K3.err_plan3(n if nz is None else nz)
+    tiles = K3.blocks3(n, *plan, nz=nz)
+    need = tiles * K3.WARPS3 * 8 + tiles * 4
+    assert 0 <= K3.col3_work(tiles) * 8 - need < 8
+
+
+@pytest.mark.parametrize("n", [65, 129, 170, 257, 513])
+def test_err_plan3_tiles_fit_the_column_pass(n):
+    """The column pass gives each cell of an error tile one thread of
+    block_sum3's 512, so the trigger loops' plan (and the forced tiles the
+    card's checks use) may hold at most 512 cells a tile."""
+    ty, tx, _ = K3.err_plan3(n)
+    assert ty * tx <= 512
+    for ty, tx, _ in ((6, 10, 6), (8, 16, 10)):
+        assert ty * tx <= 512
