@@ -80,12 +80,15 @@ Phases (progress on stdout; the first failure exits non-zero):
      plain versions at the timed main-path shapes.
   H. the 3-D multi-device path on rings of z-shards, every shard on cuda:0
      (one card: no scaling). H1: the shard modes of kernels 10-13 (kernel
-     10 in every mode: plain, from_zero, clean and gpu errors, per_sweep) and
-     kernel 10's emit_residual mode against their twins, bit for bit, and
-     their owned planes against the unsharded kernels, at 65³ and 129³ with
-     tiles forced small on rings of 2, 3, 4 and 8 z-shards (ragged last
-     shards); each per-sweep error against the one-sweep sharded steps, bit
-     for bit. H2: 513³ on 8 z-shards (threshold 8): v_cycle3_sharded V(3,3)
+     10 in every mode: plain, from_zero, clean and gpu errors with 1-8
+     sweeps, per_sweep, the lagged one-sweep pass) and kernel 10's
+     emit_residual mode against their twins, bit for bit, and their owned
+     planes against the unsharded kernels, at 65³ and 129³ with tiles forced
+     small on rings of 2, 3, 4 and 8 z-shards (ragged last shards); each
+     per-sweep error against the one-sweep sharded steps, and each lagged
+     pass's error against the step's, bit for bit; the step and the lagged
+     pass again at 129³ and 65³ on 8 z-shards with the planned tiles. H2:
+     513³ on 8 z-shards (threshold 8): v_cycle3_sharded V(3,3)
      and compile_program3(policy=...) V(3,3) with the clean and gpu metrics,
      on the kernels, the twins and the plain path, one cold and three warm
      cycles, the kernel iterates bit for bit against phase D's unsharded
@@ -111,7 +114,13 @@ Phases (progress on stdout; the first failure exits non-zero):
      kernel 19 once per trigger node at 257³-65³ and never at 513³; "auto"
      and batch 1 stop where H3 stops, with its iterates; batch 7 at 513³ as
      H3's, below it as the exact loop. The ring kernels are timed beside
-     their twins and the exchange path they replace on the same inputs.
+     their twins and the exchange path they replace on the same inputs;
+     kernel 19 with the planned tiles at 257³ is held bit for bit against
+     the loop of one-sweep sharded error steps, and timed a sweep at 257³,
+     129³ and 65³. Kernel 10's one-sweep shard step (129³, 65³ on 8
+     z-shards; device time from the profiler) and its fixed modes at 513³
+     (3 sweeps + clean, + gpu, from zero; whole grid and 8 z-shards) are
+     timed too.
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -266,10 +275,9 @@ def wall_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def profile(label, fn, per=1):
-    """Device time by kernel over one call of fn (torch.profiler), per
-    ``per`` units of work, and the device's idle share of the wall time
-    (the profiler slows the host, so the idle share is an upper bound)."""
+def device_events(fn):
+    """One call of fn under torch.profiler after a warm one: (its wall ms,
+    [(event, device ms, count)] largest first)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -281,15 +289,29 @@ def profile(label, fn, per=1):
         wall, _ = wall_ms(fn)
     # the device's own events (kernels, copies, fills), not the host ops
     # that launched them, which carry the same device time again
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
+    return wall, sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                         for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                        key=lambda r: -r[1])
+
+
+def profile(label, fn, per=1):
+    """Device time by kernel over one call of fn (torch.profiler), per
+    ``per`` units of work, and the device's idle share of the wall time
+    (the profiler slows the host, so the idle share is an upper bound)."""
+    wall, rows = device_events(fn)
     busy = sum(r[1] for r in rows)
     say(f"[p] {label}: wall {wall / per:.3f} ms, device busy {busy / per:.3f} ms per unit, "
         f"idle {max(0.0, 1 - busy / wall):.1%} (under the profiler)")
     for key, ms, count in rows[:8]:
         say(f"[p]     {ms / per:8.3f} ms  {count / per:6.1f}×  {key[:90]}")
+
+
+def device_ms(fn, per=1):
+    """Device time of one call of fn (the sum of its kernels', copies' and
+    fills' device times), per ``per`` units; unlike CUDA events it leaves
+    out the gaps in which the card waits for the host."""
+    return sum(r[1] for r in device_events(fn)[1]) / per
 
 
 def bound(nbytes, ops):
@@ -1220,7 +1242,7 @@ def sharded3_twins_in_place(K3):
     looks them up at each call)."""
     names = ["fused_jacobi3_shard", "fused_jacobi3_errs_shard", "fused_jacobi3_residual_shard",
              "fused_descend3_shard", "fused_ascend3_shard", "residual3_shard",
-             "fused_jacobi3_residual"]
+             "fused_jacobi3_residual", "trigger_pass3_shard"]
     saved = {name: getattr(K3, name) for name in names}
     for name in names:
         setattr(K3, name, getattr(K3, name + "_torch"))
@@ -1266,6 +1288,26 @@ def phase_h1(K3, torch, cmp, sizes=((65, (6, 10, 6)), (129, (8, 16, 10))), rings
         require(bool(torch.equal(got, want)), f"{what}: owned planes differ from the unsharded "
                 f"kernel (max|Δ| {float((got - want).abs().max()):.3e})")
 
+    def lagged(w, us, fs, h, compat, nl, count=3):
+        """The lagged one-sweep pass (the route of a sharded clean trigger
+        node): its iterate and its error of the iterate it reads against its
+        twin and against the one-sweep step, bit for bit."""
+        v, prev = us, None
+        for s in range(count):
+            gv, ge = KS3.sharded_trigger_pass3(v, fs, h, omega, compat)
+            tv, te = twin(KS3.sharded_trigger_pass3, v, fs, h, omega, compat)
+            sv, se = KS3.sharded_trigger_step3(v, fs, h, omega, compat, nl)
+            cmp.grid("jacobi3_shard", f"{w} lagged pass {s}", G(gv), G(tv))
+            cmp.scalar("jacobi3_shard", f"{w} lagged pass {s}", ge, te)
+            cmp.cases["jacobi3_shard"] += 1
+            same(f"jacobi3_shard {w} lagged pass {s}", G(gv), G(sv))
+            # clean: the error of v, the previous step's; gpu: of the result
+            want = se if compat == "gpu" else prev
+            if want is not None:
+                require(bool(torch.equal(ge, want)), f"jacobi3_shard {w}: the lagged pass {s} "
+                        f"measured {float(ge):.9e}, the one-sweep step {float(want):.9e}")
+            v, prev = sv, se
+
     def sweeps(u, f, h, steps, fz):
         """The unsharded kernel's passes of at most 8 sweeps."""
         first = True
@@ -1290,7 +1332,7 @@ def phase_h1(K3, torch, cmp, sizes=((65, (6, 10, 6)), (129, (8, 16, 10))), rings
                 lay = S.layout_of(pol, n)
                 us, fs = S.shard(u, lay), S.shard(f, lay)
                 what = f"n={n} {p} z-shards {lay.rows}"
-                for steps in (1, 3, 8, 11):
+                for steps in (*range(1, 9), 11):
                     for fz in (False, True):
                         w = f"{what} steps={steps} fz={fz}"
                         got = G(KS3.sharded_fused_jacobi3(us, fs, h, steps, omega, fz, nl))
@@ -1299,7 +1341,7 @@ def phase_h1(K3, torch, cmp, sizes=((65, (6, 10, 6)), (129, (8, 16, 10))), rings
                         cmp.cases["jacobi3_shard"] += 1
                         same(f"jacobi3_shard {w}", got, sweeps(u, f, h, steps, fz))
                 for compat in ("clean", "gpu"):
-                    for steps, fz in ((1, False), (3, False), (3, True), (8, False)):
+                    for steps, fz in ((k, z) for k in range(1, 9) for z in (False, True)):
                         w = f"{what} steps={steps} fz={fz} err={compat}"
                         gu, ge = KS3.sharded_fused_jacobi3_err(us, fs, h, steps, omega, compat,
                                                                fz, nl)
@@ -1332,6 +1374,7 @@ def phase_h1(K3, torch, cmp, sizes=((65, (6, 10, 6)), (129, (8, 16, 10))), rings
                         require(bool(torch.equal(ge[s - 1], e)),
                                 f"jacobi3_errs_shard {w}: errs[{s - 1}] differs from the error "
                                 f"of the {s}th one-sweep sharded step")
+                    lagged(w, us, fs, h, compat, nl)
                 for steps, fz, negate in ((3, False, True), (3, True, True), (1, True, False),
                                           (7, False, False)):
                     w = f"{what} emit_residual steps={steps} fz={fz} negate={negate}"
@@ -1391,6 +1434,21 @@ def phase_h1(K3, torch, cmp, sizes=((65, (6, 10, 6)), (129, (8, 16, 10))), rings
             torch.cuda.synchronize()
     finally:
         K3.FORCE_TILE3 = saved
+    # H3's exact loops at their sizes with the planned tiles: the one-sweep
+    # step and the lagged pass at 129³ and 65³ on 8 z-shards
+    for n in (129, 65):
+        h = 1.0 / (n - 1)
+        pol = z_policy(8)
+        lay = S.layout_of(pol, n)
+        us, fs = S.shard(rand(n, n, n) * 0.01, lay), S.shard(rand(n, n, n), lay)
+        for compat in ("clean", "gpu"):
+            w = f"n={n} 8 z-shards {lay.rows} planned tiles {compat}"
+            gu, ge = KS3.sharded_trigger_step3(us, fs, h, omega, compat)
+            wu, we = twin(KS3.sharded_trigger_step3, us, fs, h, omega, compat)
+            cmp.grid("jacobi3_shard", f"{w} one-sweep step", G(gu), G(wu))
+            cmp.scalar("jacobi3_shard", f"{w} one-sweep step", ge, we)
+            cmp.cases["jacobi3_shard"] += 1
+            lagged(w, us, fs, h, compat, pol.planes_per_device(n), count=4)
 
 
 H_V_CYCLE = "v_cycle3 513³ V(3,3)"
@@ -2737,6 +2795,15 @@ def main():
         ms = time_ms(fn, reps=1 if k == "rdma_trigger3" else 3)
         say(f"[t] {k} at {calls[k][0]}: ring kernel {times[k][0]:.4f} ms; the exchange path "
             f"(window copies and a shard-mode launch per shard) {ms:.4f} ms")
+    # kernel 19 with the planned tiles against the loop it replaces, which
+    # sums the same partials in the same order: the same iterate and error
+    (gu, ge, gk), (ru, re_, rk) = calls["rdma_trigger3"][1](), exchange["rdma_trigger3"]()
+    require(int(gk) == rk and bool(torch.equal(S.gather(gu), S.gather(ru)))
+            and bool(torch.equal(ge, re_)), f"rdma_trigger3 at {calls['rdma_trigger3'][0]}: "
+            f"differs from the loop of one-sweep sharded error steps")
+    say(f"[t] rdma_trigger3 at {calls['rdma_trigger3'][0]}: bit for bit the loop of one-sweep "
+        f"sharded error steps; {times['rdma_trigger3'][0] / t_sweeps:.4f} ms a sweep")
+    del gu, ru
     ms_ex = time_ms(lambda: KS.sharded_fused_jacobi(us2, fs2, h, 8, 0.8), reps=5)
     ms_un = time_ms(lambda: K.fused_jacobi(u, f, h, 8, 0.8), reps=5)
     say(f"[t] 8 sweeps at {n}²: unsharded kernel {ms_un:.4f} ms; 8 shards through the exchange "
@@ -2768,7 +2835,49 @@ def main():
         f"{bound(3 * g3, 8 * (SWEEP3_OPS + GPU_ERR3_OPS) * pts3)[0]:.4f} ms; 7 sweeps, clean: "
         f"{times['jacobi3_errs'][0]:.4f} ms; on 8 z-shards, 7 sweeps, clean: "
         f"{times['jacobi3_errs_shard'][0]:.4f} ms")
-    del u65, f65
+    # kernel 19 a sweep at its other ring levels (129³, 65³ on 8 z-shards)
+    for m, um, fm in ((n16, u16, f16), (n65, u65, f65)):
+        zu, zf = (S.shard(v, S.layout_of(zring, m)) for v in (um, fm))
+        tm = (1.0 / (m - 1), w3, "clean", 0.0, t_sweeps)
+        ms = time_ms(lambda: R3.rdma_trigger3(zu, zf, *tm), reps=5)
+        say(f"[t] rdma_trigger3 at {m}³ on 8 z-shards: {ms / t_sweeps:.4f} ms a sweep "
+            f"({t_sweeps} sweeps, trigger 0, clean error); per-sweep bound: operations "
+            f"{(SWEEP3_OPS + EXTRA3_OPS) * m ** 3 / FP32 * 1e3:.4f} ms")
+    # kernel 10's one-sweep shard step, H3 "auto"'s exact loops at 129³ and
+    # 65³ on 8 z-shards: the step (a sweep, a pass that reads its result and
+    # the sum) and the lagged pass (one sweep that measures the iterate it
+    # reads), on windows exchanged beforehand; device time a shard step from
+    # the profiler (the host's launch rate sets the events' time here)
+    for m, um, fm in ((n16, u16, f16), (n65, u65, f65)):
+        hm = 1.0 / (m - 1)
+        for ext, label, fn in (
+                (2, "one-sweep step (sweep + read-only pass)",
+                 lambda g, ue, fe: K3.fused_jacobi3_shard(ue, fe, g, hm, 1, w3, False, "clean",
+                                                          K3.err_plan3(g.nz))),
+                (1, "lagged pass (one sweep)",
+                 lambda g, ue, fe: K3.trigger_pass3_shard(ue, fe, g, hm, w3, "clean"))):
+            geos, wins = z_windows(m, ext, um, fm)
+            us_ = device_ms(lambda: [fn(g, *wi) for _ in range(10) for g, wi in zip(geos, wins)],
+                            per=10 * len(geos)) * 1e3
+            say(f"[t] jacobi3_shard at {m}³ on 8 z-shards, {label}, clean error: {us_:.2f} µs "
+                f"device a shard step; bound {bound(12 * m ** 3 / 8, 0)[0] * 1e3:.2f} µs")
+    # kernel 10's fixed modes at 513³, whole grid and on 8 z-shards
+    geo3_4, win3_4 = z_windows(n3, 4, u3, f3)      # 3 sweeps + the clean error's read
+    for label, fn, shard_fn, geos, wins in (
+            ("3 sweeps + clean error", lambda: K3.fused_jacobi3_err(u3, f3, h3, 3, w3, "clean"),
+             lambda g, ue, fe: K3.fused_jacobi3_shard(ue, fe, g, h3, 3, w3, False, "clean"),
+             geo3_4, win3_4),
+            ("3 sweeps + gpu error", lambda: K3.fused_jacobi3_err(u3, f3, h3, 3, w3, "gpu"),
+             lambda g, ue, fe: K3.fused_jacobi3_shard(ue, fe, g, h3, 3, w3, False, "gpu"),
+             geo3_3, win3_3),
+            ("3 sweeps from zero", lambda: K3.fused_jacobi3(u3, f3, h3, 3, w3, True),
+             lambda g, ue, fe: K3.fused_jacobi3_shard(None, fe, g, h3, 3, w3, True),
+             geo3_3, win3_3)):
+        ms_w = time_ms(fn, reps=5)
+        ms_s = time_ms(on_shards(shard_fn, geos, wins), reps=5)
+        say(f"[t] jacobi3 at {n3}³, {label}: {ms_w:.4f} ms whole grid, {ms_s:.4f} ms on 8 "
+            f"z-shards; bound {bound(3 * g3, 0)[0]:.4f} ms")
+    del u65, f65, geo3_4, win3_4
     # the card's streaming rate at the pass's 12 B a point: one elementwise
     # PyTorch op that reads two 513³ volumes and writes a third
     o3 = torch.empty_like(u3)

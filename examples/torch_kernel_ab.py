@@ -10,14 +10,22 @@ main paths' shapes (2-D at 4097² and 8193², 3-D at 513³), with one V(3,3)
 cycle at 4097² (ω 0.8, coarsen=3) and one 3-D ``v_cycle3`` V(3,3) at 513³;
 then the ring kernels on rings of 8 shards of the card: the 2-D ones at
 4097², and, where the tree has them (``ops/rdma3.py``), the 3-D ones at 513³
-(the trigger loop at 257³). The 3-D trigger kernels follow: the whole-loop
-one at 129³ and 65³ and the streamed one at 257³ (98 sweeps, trigger 0,
-clean error; ms per sweep), the per-sweep pass at 513³ on 8 z-shards (7
-sweeps, clean error; windows of 8 halo planes), and the host wall clock of
-the 513³ trigger V-cycle at trigger_batch 7 (median of 3 warm runs). It
-prints one JSON line of milliseconds. Compare two trees in one process run
-each, alternating (A, B, B, A), on one card: a card set below its power
-limit, or another card, moves every number.
+(the trigger loop at 257³, 129³ and 65³, ms per sweep). The 3-D trigger
+kernels follow: the whole-loop one at 129³ and 65³ and the streamed one at
+257³ (98 sweeps, trigger 0, clean error; ms per sweep), the per-sweep pass
+at 513³ on 8 z-shards (7 sweeps, clean error; windows of 8 halo planes);
+kernel 10's fixed modes at 513³ (3 sweeps + gpu error, 3 from zero, 8
+sweeps; whole grid, and with the clean error on 8 z-shards) and at 129³ and
+65³ (1 and 8 sweeps, 3 with either error), its one-sweep shard step
+with the clean error at 129³ and 65³ on 8 z-shards (device µs a shard step
+from torch.profiler, the host's launch rate hiding it from CUDA events) and,
+where the tree has it, the lagged pass that replaces it in the sharded
+trigger loops; then the host wall clock of the 513³ trigger V-cycle at
+trigger_batch 7, and on 8 z-shards with "auto" (halo ppermute, and rdma
+where the tree has the ring kernels), medians of the warm runs. It prints
+one JSON line of milliseconds (µs where the key says so). Compare two trees
+in one process run each, alternating (A, B, B, A), on one card: a card set
+below its power limit, or another card, moves every number.
 """
 
 import json
@@ -40,6 +48,32 @@ if not K.__file__.startswith(root):
     sys.exit(f"imported {K.__file__}, not the tree under {root}")
 build.build()
 build.load()
+
+
+def device_ms(fn, per):
+    """Device time of one call of fn by torch.profiler, per ``per`` units."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / per
+
+
+def walls(fn, runs=3):
+    """Median host wall ms of ``runs`` calls after a warm one."""
+    out = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out[1:])
 
 
 def timed(fn, reps=10, rounds=5):
@@ -96,11 +130,25 @@ u3, f3 = (torch.randn(n3, n3, n3, generator=g, device="cuda") for _ in range(2))
 c3 = torch.randn((n3 + 1) // 2, (n3 + 1) // 2, (n3 + 1) // 2, generator=g, device="cuda")
 res.update({
     "jacobi3_3err_513": timed(lambda: K3.fused_jacobi3_err(u3, f3, h3, 3, w3, "clean")),
+    "jacobi3_3gpu_513": timed(lambda: K3.fused_jacobi3_err(u3, f3, h3, 3, w3, "gpu")),
+    "jacobi3_3fz_513": timed(lambda: K3.fused_jacobi3(u3, f3, h3, 3, w3, True)),
+    "jacobi3_8_513": timed(lambda: K3.fused_jacobi3(u3, f3, h3, 8, w3), reps=3),
     "jacobi3_errs7_513": timed(lambda: K3.fused_jacobi3_errs(u3, f3, h3, 7, w3, "clean"), reps=3),
     "descend3_513": timed(lambda: K3.fused_descend3(u3, f3, h3, 3, w3, want_err=True)),
     "ascend3_513": timed(lambda: K3.fused_ascend3(u3, f3, c3, h3, 3, w3)),
     "residual3_513": timed(lambda: K3.residual3(u3, f3, h3, True)),
 })
+# kernel 10's fixed modes on the smaller kernel levels (65³ the smallest),
+# device µs a call (the host's launch rate would set CUDA events' time)
+for m in (129, 65):
+    um, fm = (torch.randn(m, m, m, generator=g, device="cuda") for _ in range(2))
+    hm = 1 / (m - 1)
+    for key, fn in (("1", lambda: K3.fused_jacobi3(um, fm, hm, 1, w3)),
+                    ("3gpu", lambda: K3.fused_jacobi3_err(um, fm, hm, 3, w3, "gpu")),
+                    ("3clean", lambda: K3.fused_jacobi3_err(um, fm, hm, 3, w3, "clean")),
+                    ("8", lambda: K3.fused_jacobi3(um, fm, hm, 8, w3))):
+        res[f"jacobi3_{key}_{m}_us"] = 1e3 * device_ms(lambda: [fn() for _ in range(10)], 10)
+    del um, fm
 p3 = tmg.REFERENCE_PROBLEM_3D
 b3 = p3.boundary_grid(n3, torch.float32, "cuda")
 s3 = p3.source_grid(n3, torch.float32, "cuda") + b3
@@ -124,6 +172,12 @@ if os.path.exists(os.path.join(root, "multigrid_poisson_solver_tpu_torch", "ops"
         "rdma_trigger3_98_257": timed(lambda: rdma3.rdma_trigger3(
             zu15, zf15, 1 / (n15 - 1), w3, "clean", 0.0, 98), reps=3),
     })
+    for m in (129, 65):
+        um, fm = (torch.randn(m, m, m, generator=g, device="cuda") for _ in range(2))
+        zum, zfm = (S.shard(v, S.layout_of(zring, m)) for v in (um, fm))
+        res[f"rdma_trigger3_sweep_{m}"] = timed(lambda: rdma3.rdma_trigger3(
+            zum, zfm, 1 / (m - 1), w3, "clean", 0.0, 98), reps=3) / 98
+        del um, fm, zum, zfm
 # the 3-D trigger loops' kernels at their main-path shapes, ms per sweep
 t_sweeps = 98
 for name, m in (("trigger3", 129), ("trigger3", 65), ("trigger3_stream", 257)):
@@ -137,19 +191,50 @@ zgeos = [K3.ShardGeo3(n3, z0, z1 - z0, 8) for z0, z1 in S.layout_of(zpol, n3).ro
 zwins = [[S.planes(v, gz.z0 - 8, gz.z0 + gz.nz + 8) for v in (u3, f3)] for gz in zgeos]
 res["jacobi3_errs7_shard_513"] = timed(lambda: [K3.fused_jacobi3_errs_shard(
     ue, fe, gz, h3, 7, w3, "clean") for gz, (ue, fe) in zip(zgeos, zwins)], reps=3)
+# kernel 10's fixed modes on 8 z-shards (windows of 8 planes: every halo fits)
+for key, steps, fz, mode in (("3gpu", 3, False, "gpu"), ("3clean", 3, False, "clean"),
+                             ("3fz", 3, True, None)):
+    res[f"jacobi3_shard_{key}_513"] = timed(lambda: [K3.fused_jacobi3_shard(
+        None if fz else ue, fe, gz, h3, steps, w3, fz, mode) for gz, (ue, fe) in zip(zgeos, zwins)],
+        reps=3)
 del zwins, u3, f3, c3
+# the one-sweep shard step with the clean error at H3's exact-loop levels, and
+# the lagged pass that replaces it where the tree has one (device µs a step)
+for m in (129, 65):
+    um, fm = (torch.randn(m, m, m, generator=g, device="cuda") for _ in range(2))
+    rows = S.layout_of(zpol, m).rows
+    for key, ext in (("step1_clean_shard", 2), ("pass1_lagged_shard", 1)):
+        if key == "pass1_lagged_shard" and not hasattr(K3, "trigger_pass3_shard"):
+            continue
+        geos = [K3.ShardGeo3(m, z0, z1 - z0, ext) for z0, z1 in rows]
+        wins = [[S.planes(v, gz.z0 - ext, gz.z0 + gz.nz + ext) for v in (um, fm)] for gz in geos]
+        if key == "step1_clean_shard":
+            def one(gz, ue, fe):
+                return K3.fused_jacobi3_shard(ue, fe, gz, 1 / (m - 1), 1, w3, False, "clean",
+                                              K3.err_plan3(gz.nz))
+        else:
+            def one(gz, ue, fe):
+                return K3.trigger_pass3_shard(ue, fe, gz, 1 / (m - 1), w3, "clean")
+        res[f"{key}_{m}_us"] = 1e3 * device_ms(
+            lambda: [one(gz, ue, fe) for _ in range(10) for gz, (ue, fe) in zip(geos, wins)],
+            10 * len(geos))
+    del um, fm
 # the 513³ trigger V-cycle (chip_smoke.py's phase E at trigger_batch 7), host wall clock
 tcfg = tmg.SolverConfig(omega=w3, compat_error=False, collect_node_stats=False, trigger_batch=7,
                         max_trigger_sweeps=2000)
 tprog = tmg.compile_program3(tmg.v_cycle(n3, n_min=8, steps=-1, coarse_option=0, coarsen=3),
                              p3, tcfg, device="cuda")
 tu0, tf0 = tprog.init()
-walls = []
-for _ in range(4):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tprog(tu0, tf0)
-    torch.cuda.synchronize()
-    walls.append((time.perf_counter() - t0) * 1e3)
-res["trigger_vcycle3_b7_513_wall"] = statistics.median(walls[1:])
+res["trigger_vcycle3_b7_513_wall"] = walls(lambda: tprog(tu0, tf0))
+# the same V-cycle on 8 z-shards, trigger_batch "auto" (chip_smoke.py's H3 and I3)
+for halo in ("ppermute", "rdma"):
+    if halo == "rdma" and not os.path.exists(os.path.join(root, "multigrid_poisson_solver_tpu_torch",
+                                                          "ops", "rdma3.py")):
+        continue
+    hcfg = tmg.SolverConfig(omega=w3, compat_error=False, collect_node_stats=False,
+                            trigger_batch="auto", max_trigger_sweeps=2000, halo=halo)
+    hprog = tmg.compile_program3(tmg.v_cycle(n3, n_min=8, steps=-1, coarse_option=0, coarsen=3),
+                                 p3, hcfg, device="cuda", policy=zpol)
+    hu0, hf0 = hprog.init()
+    res[f"trigger_vcycle3_auto_513_8z_{halo}_wall"] = walls(lambda: hprog(hu0, hf0), runs=2)
 print(json.dumps({"root": sys.argv[1], **{k: round(v, 4) for k, v in res.items()}}), flush=True)

@@ -49,9 +49,12 @@ levels route in JAX's order (``compiled3.py:126-300``, ``:496-545``,
 ``:619-676``), with JAX's planes per device (``padded_depth // P``):
 smoothing passes with the error fused into the last
 (``parallel.kernel_shard3``); a trigger node as the one-sweep sharded error
-loop, with an integer batch one exact sweep and then per-sweep passes of B
-sweeps (B cut until its halo fits), with "auto" 2B exact sweeps and then
-such passes where the single-device engine would batch too; the descend leg
+loop (with the clean metric taking each error from the next sweep's
+stencil read, ``solver.trigger_loop_lagged``: one pass a sweep, the same
+iterates and stop sweep), with an integer batch one exact sweep and then
+per-sweep passes of B sweeps (B cut until its halo fits), with "auto" 2B
+exact sweeps and then such passes where the single-device engine would
+batch too; the descend leg
 per shard where the clean metric and JAX's nl admit it, else smoothing, the
 sharded residual and the restriction; the ascend leg per shard, its error
 fused in at the last node where the deeper halo fits, else one sharded
@@ -92,7 +95,7 @@ from .parallel import halo3
 from .parallel import kernel_shard3 as KS3
 from .parallel.sharded import as_level, gather, home, on_device
 from .schedule import Ascend, CoarseSolve, CycleProgram, Descend
-from .solver import SolverConfig, trigger_loop
+from .solver import SolverConfig, trigger_loop, trigger_loop_lagged
 from .solver3 import _prolong_add3, _restrict_residual3, coarse_solve3, smooth3_node
 
 
@@ -172,6 +175,11 @@ def _trigger_sharded(lu, lf, n: int, h: float, cfg: SolverConfig, compat: str, n
     if (cfg.trigger_batch == "auto" and batch > 1
             and not (K3.trigger3_fits(n) or K3.trigger3_stream_fits(n))):
         return _two_phase_trigger(step, passes, lu, cfg, batch)
+    if compat == "clean":
+        # the clean error one sweep behind: one pass a sweep, not a sweep
+        # and a read-only pass (the same iterates, errors and stop sweep)
+        return trigger_loop_lagged(lambda v: KS3.sharded_trigger_pass3(v, lf, h, cfg.omega, compat),
+                                   lu, cfg.trigger, cfg.max_trigger_sweeps)
     return trigger_loop(step, lu, cfg.trigger, cfg.max_trigger_sweeps)
 
 

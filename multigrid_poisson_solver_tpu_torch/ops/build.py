@@ -50,12 +50,12 @@ SIGNATURES = {
     "mg_trigger": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P], _I),
     "mg_trigger_stream": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I,
                            _P], _I),
-    "mg3_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D, _P], _I),
     "mg3_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D,
                      _P], _I),
     "mg3_ascend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D, _P], _I),
     "mg3_residual": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
     # the column-pass kernels (col3.cuh) take scratch volumes and a workspace
+    "mg3_jacobi": ([_P] * 7 + [_I] * 7 + [_F] * 3 + [_D, _P], _I),
     "mg3_jacobi_errs": ([_P] * 7 + [_I] * 6 + [_F] * 3 + [_D, _P], _I),
     "mg3_trigger": ([_P] * 8 + [_I] * 5 + [_F] * 3 + [_D, _F, _I, _P], _I),
     "mg3_trigger_stream": ([_P] * 9 + [_I] * 6 + [_F] * 3 + [_D, _F, _I, _P], _I),
@@ -69,7 +69,7 @@ SIGNATURES = {
     "mg_descend_shard": ([_P] * 6 + [_I] * 7 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
     "mg_ascend_shard": ([_P] * 6 + [_I] * 7 + [_I] * 4 + [_I, _I, _F, _F, _F, _F, _P], _I),
     # 3-D shard modes: the shard's planes (n, z0, nz, ext)
-    "mg3_jacobi_shard": ([_P] * 5 + [_I] * 4 + [_I] * 3 + [_I] * 3 + [_F] * 3 + [_P], _I),
+    "mg3_jacobi_shard": ([_P] * 8 + [_I] * 4 + [_I] * 4 + [_I] * 3 + [_F] * 3 + [_P], _I),
     "mg3_jacobi_errs_shard": ([_P] * 8 + [_I] * 4 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P], _I),
     "mg3_jacobi_residual_shard": ([_P] * 4 + [_I] * 4 + [_I] * 3 + [_I] * 3 + [_F] * 3 + [_P],
                                   _I),
@@ -86,7 +86,7 @@ SIGNATURES = {
     "mg3_rdma_jacobi": ([_P] * 5 + [_I] * 7 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
     "mg3_rdma_descend": ([_P] * 6 + [_I] * 8 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
     "mg3_rdma_ascend": ([_P] * 6 + [_I] * 6 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
-    "mg3_rdma_trigger": ([_P] * 6 + [_I] * 5 + [_P] * 4 + [_U, _F, _F, _F, _D, _F, _I, _P],
+    "mg3_rdma_trigger": ([_P] * 6 + [_I] * 5 + [_P] * 5 + [_U, _F, _F, _F, _D, _F, _I, _P],
                          _I),
 }
 

@@ -1,10 +1,13 @@
-// The column pass of the port's 3-D trigger loops: one damped-Jacobi sweep
-// of the 7-point stencil over a level (or a z-shard's planes) and the
-// smoothing error of an iterate, with each thread streaming one (y, x)
-// column down z. It is the pass of kernel 10's per_sweep mode (jacobi3.cu:
-// one launch a sweep), of the whole-loop trigger kernel (trigger3.cu: one
-// pass a sweep between grid barriers) and of the streamed one
-// (trigger3_stream.cu: passes of B sweeps).
+// The column pass of the port's 3-D smoothers and trigger loops: one
+// damped-Jacobi sweep of the 7-point stencil over a level (or a z-shard's
+// planes) and the smoothing error of an iterate, with each thread streaming
+// one (y, x) column down z. It is the pass of kernel 10 (jacobi3.cu: its
+// fixed-sweep and per_sweep modes, one launch a sweep), of the whole-loop
+// trigger kernel (trigger3.cu: one pass a sweep between grid barriers), of
+// the streamed one (trigger3_stream.cu: passes of B sweeps) and of the ring
+// trigger kernel (rdma_trigger3.cu: one pass a sweep per z-shard, its halo
+// planes read from and posted to receive buffers through a plane source of
+// its own in place of Col3Io below).
 //
 // Why not the tile pipeline of legs3.cuh: a fused k-sweep trapezoid there
 // runs one 512-thread block an SM with a barrier after every stage of every
@@ -64,7 +67,7 @@ struct Col3 {
 
 // One pass.
 struct Col3Pass {
-  const float* src;   // the iterate read
+  const float* src;   // the iterate read; nullptr: u ≡ 0 (the closed-form first sweep)
   float* dst;         // the iterate written (planes [plo, phi)), or nullptr
   float* own;         // also the owned planes of the iterate written, or nullptr
   double* partials;   // the pass's row of error partials (one per tile), or nullptr
@@ -97,19 +100,42 @@ struct Col3Plane {
   float c, ym, yp, xm, xp, f;
 };
 
+// u and f point at the column's cell of the plane.
 template <bool COHERENT>
 static __device__ __forceinline__ void col3_load(Col3Plane& p, const float* __restrict__ u,
-                                                 const float* __restrict__ f, size_t g, int n,
-                                                 bool cin) {
-  p.c = col3_ld<COHERENT>(u + g);
+                                                 const float* __restrict__ f, int n, bool cin) {
+  p.c = col3_ld<COHERENT>(u);
   if (cin) {
-    p.ym = col3_ld<COHERENT>(u + g - n);
-    p.yp = col3_ld<COHERENT>(u + g + n);
-    p.xm = col3_ld<COHERENT>(u + g - 1);
-    p.xp = col3_ld<COHERENT>(u + g + 1);
-    p.f = col3_ld<COHERENT>(f + g);
+    p.ym = col3_ld<COHERENT>(u - n);
+    p.yp = col3_ld<COHERENT>(u + n);
+    p.xm = col3_ld<COHERENT>(u - 1);
+    p.xp = col3_ld<COHERENT>(u + 1);
+    p.f = col3_ld<COHERENT>(f);
   }
 }
+
+// Where a walk reads the planes of u and f and writes the iterate it makes:
+// volumes laid out as the inputs (plane z at z · n² from global plane 0 of
+// the inputs' layout), the written iterate into dst (or nullptr) and its
+// owned planes into own (or nullptr) (kernels 10, 15 and 16). The ring
+// kernel's source (rdma_trigger3.cu) takes planes beyond its shard's block
+// from receive buffers and also writes its boundary planes into its
+// neighbours' ones. A plane's source is chosen per plane, the same in every
+// thread.
+struct Col3Io {
+  const float* u;
+  const float* f;
+  float* dst;
+  float* own;
+  __device__ __forceinline__ const float* up(int z, size_t pl) const { return u + z * pl; }
+  __device__ __forceinline__ const float* fp(int z, size_t pl) const { return f + z * pl; }
+  __device__ __forceinline__ bool writes() const { return dst != nullptr || own != nullptr; }
+  __device__ __forceinline__ void put(const Col3& C, int z, size_t pl, size_t col,
+                                      float v) const {
+    if (dst != nullptr) dst[z * pl + col] = v;
+    if (own != nullptr && z >= C.z0 && z < C.z0 + C.nz) own[(z - C.z0) * pl + col] = v;
+  }
+};
 
 // Planes whose loads a column keeps in flight: a ring of COL3_AHEAD + 1
 // planes in registers, its slots fixed at compile time by unrolling the walk
@@ -119,30 +145,41 @@ static __device__ __forceinline__ void col3_load(Col3Plane& p, const float* __re
 constexpr int COL3_AHEAD = 3;
 constexpr int COL3_RING = COL3_AHEAD + 1;
 
-// Column (y, x) over the planes [zs, ze): the sweep into dst (and own) and
-// this thread's error sum over the chunk's planes [e0, e1). u, f and dst
-// point at global plane 0 of the inputs' layout (plane z at z · n²). Face
-// columns and planes are frozen and carry no error. The arithmetic is
-// legs3.cuh's: (Σnb − 6u) as ((((z− + z+) + y−) + y+) + x−) + x+, then − 6u;
-// the sweep u + (ω/6)·((Σnb − 6u) − h²f); the residual (1/h²)(Σnb − 6u) − f.
-template <bool COHERENT>
-static __device__ __forceinline__ double col3_walk(const Col3& C, int err,
-                                                   const float* __restrict__ u,
-                                                   const float* __restrict__ f,
-                                                   float* __restrict__ dst,
-                                                   float* __restrict__ own, int y, int x,
-                                                   int zs, int ze, int e0, int e1) {
+// Column (y, x) over the planes [zs, ze): the sweep into the source's
+// written iterate and this thread's error sum over the chunk's planes
+// [e0, e1). Face columns and planes are frozen and carry no error. The
+// arithmetic is legs3.cuh's: (Σnb − 6u) as ((((z− + z+) + y−) + y+) + x−) +
+// x+, then − 6u; the sweep u + (ω/6)·((Σnb − 6u) − h²f); the residual
+// (1/h²)(Σnb − 6u) − f. ZERO: u ≡ 0 is not read, and the sweep is the closed
+// form (ω/6)·(−h²f) (legs3.cuh's store_plane), pointwise, so it is exact on
+// every plane it writes, halo planes included; its gpu error is |u_1 − 0|.
+template <bool COHERENT, bool ZERO = false, class Io = Col3Io>
+static __device__ __forceinline__ double col3_walk(const Col3& C, int err, const Io& io, int y,
+                                                   int x, int zs, int ze, int e0, int e1) {
   const int n = C.n;
   const size_t pl = (size_t)n * n, col = (size_t)y * n + x;
   const bool cin = inner(y, n) && inner(x, n);
   double acc = 0.0;
+  if constexpr (ZERO) {
+#pragma unroll 4
+    for (int z = zs; z < ze; ++z) {
+      float v = 0.0f;
+      if (cin && inner(z, n)) {
+        v = __fmul_rn(C.w, -__fmul_rn(C.h2, col3_ld<COHERENT>(io.fp(z, pl) + col)));
+        if (err == ERR_GPU && z >= e0 && z < e1) acc += (double)fabsf(v);
+      }
+      if (io.writes()) io.put(C, z, pl, col, v);
+    }
+    return acc;
+  }
   // slot r holds plane zs + t for t ≡ r (mod COL3_RING); plane p is loaded
   // while p <= ze (plane ze is the last one's z + 1) and p < n
   Col3Plane ring[COL3_RING];
-  float cm = cin && zs >= 1 ? col3_ld<COHERENT>(u + (zs - 1) * pl + col) : 0.0f;
+  float cm = cin && zs >= 1 ? col3_ld<COHERENT>(io.up(zs - 1, pl) + col) : 0.0f;
 #pragma unroll
   for (int r = 0; r < COL3_AHEAD; ++r)
-    if (zs + r <= ze && zs + r < n) col3_load<COHERENT>(ring[r], u, f, (zs + r) * pl + col, n, cin);
+    if (zs + r <= ze && zs + r < n)
+      col3_load<COHERENT>(ring[r], io.up(zs + r, pl) + col, io.fp(zs + r, pl) + col, n, cin);
   for (int t0 = 0; t0 < ze - zs; t0 += COL3_RING) {
 #pragma unroll
     for (int r = 0; r < COL3_RING; ++r) {
@@ -150,7 +187,8 @@ static __device__ __forceinline__ double col3_walk(const Col3& C, int err,
       if (z >= ze) break;
       const int za = z + COL3_AHEAD;  // into the slot plane z − 1 has left
       if (za <= ze && za < n)
-        col3_load<COHERENT>(ring[(r + COL3_AHEAD) % COL3_RING], u, f, za * pl + col, n, cin);
+        col3_load<COHERENT>(ring[(r + COL3_AHEAD) % COL3_RING], io.up(za, pl) + col,
+                            io.fp(za, pl) + col, n, cin);
       const Col3Plane& p = ring[r];
       float v = p.c;
       if (cin && inner(z, n)) {
@@ -167,10 +205,7 @@ static __device__ __forceinline__ double col3_walk(const Col3& C, int err,
             acc += (double)fabsf(__fsub_rn(v, p.c));
         }
       }
-      if (dst != nullptr) {
-        dst[z * pl + col] = v;
-        if (own != nullptr && z >= C.z0 && z < C.z0 + C.nz) own[(z - C.z0) * pl + col] = v;
-      }
+      if (io.writes()) io.put(C, z, pl, col, v);
       cm = p.c;
     }
   }
@@ -199,28 +234,37 @@ static __device__ __forceinline__ void col3_finish(const Col3& C, double* partia
 
 // Block `unit` of a pass (tile unit / COL3_QUARTERS, its part unit %
 // COL3_QUARTERS): its columns over its chunk, and for a shard the first and
-// the last chunk's blocks also over the halo planes the pass writes.
-template <bool COHERENT, bool SHARD>
-static __device__ __forceinline__ void col3_unit(const Col3& C, const Col3Pass& P, int unit) {
+// the last chunk's blocks also over the halo planes the pass writes; the
+// planes come from and go to the source io.
+template <bool COHERENT, bool SHARD, bool ZERO = false, class Io = Col3Io>
+static __device__ __forceinline__ void col3_unit_io(const Col3& C, const Col3Pass& P, int unit,
+                                                    const Io& io) {
   const int n = C.n, gx = col3_gx(C), gy = col3_gy(C);
   const int tile = unit / COL3_QUARTERS, q = unit - tile * COL3_QUARTERS;
   const int bx = tile % gx, by = (tile / gx) % gy, bz = tile / (gx * gy);
   const int zlo = SHARD ? C.z0 : 0, zhi = SHARD ? C.z0 + C.nz : n;
   const int e0 = zlo + bz * C.cz, e1 = min(e0 + C.cz, zhi);
   const int zs = SHARD && e0 == zlo ? P.plo : e0, ze = SHARD && e1 == zhi ? P.phi : e1;
-  // the inputs' global plane 0 (a shard's windows start at z0 − ext)
-  const ptrdiff_t base = SHARD ? -(ptrdiff_t)(C.z0 - C.ext) * n * n : 0;
   const int v = q * COL3_THREADS + threadIdx.x;  // the tile's thread (block_sum3's numbering)
   double acc = 0.0;
   if (v < C.ty * C.tx) {
     const int i = v / C.tx;
     const int y = by * C.ty + i, x = bx * C.tx + (v - i * C.tx);
-    if (y < n && x < n)
-      acc = col3_walk<COHERENT>(C, P.err, P.src + base, C.f + base,
-                                P.dst != nullptr ? P.dst + base : nullptr, P.own, y, x, zs, ze,
-                                e0, e1);
+    if (y < n && x < n) acc = col3_walk<COHERENT, ZERO>(C, P.err, io, y, x, zs, ze, e0, e1);
   }
   if (P.partials != nullptr) col3_finish(C, P.partials, tile, q, acc);
+}
+
+// The same on the call's volumes (Col3Io from the pass's pointers; ZERO:
+// the closed-form first sweep, P.src unread).
+template <bool COHERENT, bool SHARD, bool ZERO = false>
+static __device__ __forceinline__ void col3_unit(const Col3& C, const Col3Pass& P, int unit) {
+  const int n = C.n;
+  // the inputs' global plane 0 (a shard's windows start at z0 − ext)
+  const ptrdiff_t base = SHARD ? -(ptrdiff_t)(C.z0 - C.ext) * n * n : 0;
+  const Col3Io io{ZERO ? nullptr : P.src + base, C.f + base,
+                  P.dst != nullptr ? P.dst + base : nullptr, P.own};
+  col3_unit_io<COHERENT, SHARD, ZERO>(C, P, unit, io);
 }
 
 // fixed_sum3 (thread-strided over THREADS3 threads, then block_sum3's tree)
@@ -250,33 +294,51 @@ static __device__ double col3_fixed_sum(const double* partials, int count) {
   return t;
 }
 
-// Pass j of k sweeps from src (iterate 0) to dst (iterate k) with the error
-// of every iterate, in rows of one partial per tile (row s − 1 for iterate
-// s; rows nullptr: no error): one pass a sweep, the iterates alternating
-// between dst and mid so that the last lands in dst (and its owned planes
-// in own), then with the clean error one pass that reads iterate k and
-// writes nothing. A pass takes the clean error of the iterate it reads and
-// the gpu error of the one it writes. Sweep s writes the owned planes and
-// the k + clean − s more per side that the later passes read. Sets P for
-// pass j and returns false past the last pass.
+// Which iterates a call's passes measure: every one (row s − 1 for iterate
+// s), the last (one row), or, lagged, the one the last sweep reads (one row:
+// the clean error of iterate k − 1 from the stencil read that makes iterate
+// k, for a trigger loop that takes the clean error one sweep behind; the
+// gpu error stays iterate k's).
+enum Col3Rows { ROWS_EVERY = 0, ROWS_LAST = 1, ROWS_LAGGED = 2 };
+
+// Pass j of k sweeps from src (iterate 0; nullptr: u ≡ 0, and pass 0 is the
+// closed-form sweep) to dst (iterate k) with the errors `kind` names, in
+// rows of one partial per tile; rows nullptr: no error. One pass a sweep,
+// the iterates alternating between dst and mid so that the last lands in
+// dst, or with own only in own's owned planes, then with the clean error of
+// iterate k one pass that reads it (from dst) and writes nothing. A pass
+// takes the clean error of the iterate it reads and the gpu error of the
+// one it writes. Sweep s writes the owned planes and the k + clean − s more
+// per side that the later passes read. Sets P for pass j and returns false
+// past the last pass. col3_scratch says which of dst and mid a call uses.
 static __host__ __device__ __forceinline__ bool col3_schedule(const Col3& C, Col3Pass& P, int j,
                                                               int k, int mode,
                                                               const float* src, float* dst,
                                                               float* mid, float* own,
-                                                              double* rows, int tiles) {
-  const int clean = rows != nullptr && mode == ERR_CLEAN;
+                                                              double* rows, int tiles,
+                                                              int kind = ROWS_EVERY) {
+  const int clean = rows != nullptr && mode == ERR_CLEAN && kind != ROWS_LAGGED;
   if (j >= k + clean) return false;
   auto it = [&](int s) -> float* { return (k - s) % 2 == 0 ? dst : mid; };  // iterate s >= 1
   P.src = j == 0 ? src : it(j);
-  P.dst = j < k ? it(j + 1) : nullptr;
+  P.dst = j < k - 1 || (j == k - 1 && (own == nullptr || clean)) ? it(j + 1) : nullptr;
   P.own = j == k - 1 ? own : nullptr;
-  const int row = j - clean;  // clean: the error of iterate j; gpu: of iterate j + 1
+  // clean: the error of iterate j; gpu: of iterate j + 1
+  const int row = kind == ROWS_EVERY ? j - clean : (j == k + clean - 1 ? 0 : -1);
   P.err = rows != nullptr && row >= 0 ? mode : ERR_NONE;
   P.partials = P.err != ERR_NONE ? rows + (size_t)row * tiles : nullptr;
   const int lo = C.z0 - (k + clean - j - 1), hi = C.z0 + C.nz + (k + clean - j - 1);
   P.plo = lo > 0 ? lo : 0;
   P.phi = hi < C.n ? hi : C.n;
   return true;
+}
+
+// Whether col3_schedule's k sweeps write into dst and into mid: mid holds
+// iterates k − 1, k − 3, ..., dst iterates k − 2, k − 4, ... and k itself
+// unless it goes only to own (own given, no read-only pass after it).
+static inline void col3_scratch(int k, bool own, bool clean, bool* dst, bool* mid) {
+  *mid = k >= 2;
+  *dst = k >= 3 || !own || clean;
 }
 
 // The geometry checks of a call's column passes: the plan's tile has at
@@ -295,12 +357,16 @@ static inline bool col3_ok(const Col3& C, int stages) {
 // planes, f, the plan and the constants, and the workspace at `work`
 // (ops.kernels3.col3_work doubles: WARPS3 warp sums per tile, then the
 // tiles' arrival counters, which are zeroed here, on the stream before the
-// launches that use them).
+// launches that use them). A call that measures no error may pass no
+// workspace (errors false).
 static inline cudaError_t col3_setup(Col3& C, int stages, const float* f, double* work, int n,
                                      int z0, int nz, int ext, int ty, int tx, int cz, float h2,
-                                     float w, float inv_h2, cudaStream_t stream) {
+                                     float w, float inv_h2, cudaStream_t stream,
+                                     bool errors = true) {
   C = Col3{f, nullptr, nullptr, n, z0, nz, ext, ty, tx, cz, h2, w, inv_h2};
-  if (work == nullptr || !col3_ok(C, stages)) return cudaErrorInvalidValue;
+  if (f == nullptr || !col3_ok(C, stages)) return cudaErrorInvalidValue;
+  if (!errors) return cudaSuccess;
+  if (work == nullptr) return cudaErrorInvalidValue;
   const int tiles = col3_tiles(C);
   C.wsum = work;
   C.arrivals = reinterpret_cast<unsigned*>(work + (size_t)tiles * WARPS3);

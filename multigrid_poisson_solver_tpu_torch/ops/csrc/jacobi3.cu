@@ -1,69 +1,58 @@
-// Fused multi-sweep damped-Jacobi smoother for the 7-point stencil, with an
-// optional fused smoothing error, of the final iterate or of every iterate.
+// Multi-sweep damped-Jacobi smoother for the 7-point stencil, with an
+// optional smoothing error, of the final iterate or of every iterate.
 //
 // Replaces: multigrid_poisson_solver_tpu/ops/pallas3d.py,
 // _fused_jacobi3_kernel (its plain, from_zero, clean, gpu and per_sweep
 // modes), reached through fused_jacobi3_padded and fused_jacobi3_errs_padded.
 //
 // Bound: device-memory bandwidth. One unfused fp32 sweep reads u and f and
-// writes u, 12 B per point; k <= 8 sweeps in one pass move the same 12 B for
-// all k. Design: 2.5-D temporal blocking (legs3.cuh). A block owns a column
-// tile of (y, x) over a chunk of z planes, stages it with a halo of k (+1 for
-// the clean error's extra stencil read) and streams z through rings of three planes
-// per sweep level in shared memory, so only the owned cells go back to device
-// memory. The cost is redundant work on the halo rings, which the largest
-// tile that fits shared memory keeps small. from_zero: the starting iterate is
-// the closed-form first sweep (ω/6)·(−h²f) and u is never read. The clean
-// error is Σ|r|/n³ with r the plain path's residual (the TPU kernel takes it
-// from the step Δ of one more sweep as 6Δ/(ωh²)); the gpu error
-// Σ|u_k − u_{k−1}|·6/h²/n³. Per-block partials are summed in float64 by a
-// second kernel in a fixed order.
+// writes u, 12 B per point; the TPU kernel fuses k <= 8 sweeps into one pass
+// that moves the same 12 B for all k. Design: not fused. k sweeps are k
+// column passes of col3.cuh, one launch each (a thread streams one (y, x)
+// column down z with no barrier inside the pass), the iterates alternating
+// between out and a scratch volume so that u_k lands in out. legs3.cuh's
+// fused trapezoid (a 2.5-D pipeline with a barrier after every stage and
+// plane, one 512-thread block an SM) took 5.48 ms for 3 sweeps and the
+// clean error at 513³, where a column pass takes 0.72 ms a sweep (PERF.md).
+// from_zero: the first pass reads only f and writes the closed form
+// (ω/6)·(−h²f) (u is never read), on every plane a later pass reads. The
+// clean error of u_k is Σ|r|/n³, r the plain path's residual, from one more
+// pass that reads u_k and writes nothing; the gpu error Σ|u_k −
+// u_{k−1}|·6/h²/n³ from the pass that makes u_k. Errors are summed in
+// float64 per tile of the tile plan (ops.kernels3.err_plan3 by default, the
+// trigger loops' plan) in block_sum3's order, then by a second kernel in a
+// fixed order, so an error launch's partials are those of every other
+// launch with that plan, bit for bit (col3.cuh).
 //
-// per_sweep (the trigger loop's batched passes, mg3_jacobi_errs): the error
-// of every iterate u_1..u_k of k <= 7 (clean) or 8 (gpu) sweeps. This mode
-// does not fuse: it runs the column pass of col3.cuh once a sweep, one
-// launch each (and for the clean error one more that reads u_k and writes
-// nothing), iterates alternating between out and a scratch volume so that
-// u_k lands in out. A pass takes the clean error of the iterate it reads
-// and the gpu error of the one it writes, each into its own row of partials
-// (k rows of one double per tile of the trigger loops' plan, err_plan3), in
-// the order every error launch of that plan uses, so row s − 1 sums to what
-// a launch of s sweeps reports. Bound: k unfused sweeps, 12 B per point
-// each (+ 8 B for the clean error's last read); the 7-sweep clean pass at
-// 513³ moves 7 · 1.62 GB + 1.08 GB, 3.7 ms at 3.35 TB/s (legs3.cuh's fused
-// trapezoid moves 1.62 GB, but its pipeline ran 5× longer than these passes:
-// PERF.md).
+// per_sweep (the trigger loop's batched passes, mg3_jacobi_errs): the same
+// passes with the error of every iterate u_1..u_k of k <= 7 (clean) or 8
+// (gpu) sweeps, each into its own row of partials (k rows of one double per
+// tile of err_plan3), so row s − 1 sums to what a launch of s sweeps
+// reports. The 7-sweep clean pass at 513³ moves 7 · 1.62 GB + 1.08 GB, 3.7
+// ms at 3.35 TB/s.
 //
 // Shard mode (pallas3d.py, _fused_jacobi3_shard_call, reached through
 // parallel/pallas_shard3.py's sharded_fused_jacobi3, _err, _errs and
 // sharded_smooth_residual3): every mode above on one z-shard's planes of a
-// sharded level (legs3.cuh, SHARD), the inputs the owned planes extended by
-// the ring neighbours' planes; a shard's errors come back as raw float64
-// sums over its owned planes, for the caller to add in shard order and scale
-// once. The emit_residual mode (mg3_jacobi_residual_shard: k <= 7 effective
-// sweeps, then the optionally negated residual of the last iterate, both
-// stored from one pass; on the whole grid, fused_jacobi3_residual_padded)
-// saves the separate residual pass's re-read of u and f: 16 B per point for
-// both outputs against 24 B as two passes.
+// sharded level, the inputs the owned planes extended by the ring
+// neighbours' planes; sweep s writes the owned planes and the k + clean − s
+// more per side that the later passes read, the iterates alternating
+// between two scratch windows; a shard's errors come back as raw float64
+// sums over its owned planes, for the caller to add in shard order and
+// scale once. The emit_residual mode (mg3_jacobi_residual_shard: k <= 7
+// effective sweeps, then the optionally negated residual of the last
+// iterate, both stored from one pass; on the whole grid,
+// fused_jacobi3_residual_padded) stays on legs3.cuh's pipeline (SHARD,
+// EMIT_R): 16 B per point for both outputs against 24 B as two passes.
 #include "col3.cuh"
 
 using namespace mgk3;
 
-static __global__ void __launch_bounds__(THREADS3) jacobi3_kernel(Leg3 L) {
-  extern __shared__ float smem[];
-  run_leg3(smem, L, Planes3{});
-}
-
-static __global__ void __launch_bounds__(THREADS3)
-jacobi3_shard_kernel(Leg3 L, Planes3 P) {
-  extern __shared__ float smem[];
-  run_leg3<true>(smem, L, P);
-}
-
-// One column pass (col3.cuh) a launch: block b is the pass's unit b.
-template <bool SHARD>
+// One column pass (col3.cuh) a launch: block b is the pass's unit b. ZERO:
+// the closed-form first sweep from u ≡ 0.
+template <bool SHARD, bool ZERO>
 static __global__ void __launch_bounds__(COL3_THREADS) jacobi3_col_kernel(Col3 C, Col3Pass P) {
-  col3_unit<false, SHARD>(C, P, blockIdx.x);
+  col3_unit<false, SHARD, ZERO>(C, P, blockIdx.x);
 }
 
 static __global__ void __launch_bounds__(THREADS3) jacobi3_residual_kernel(Leg3 L) {
@@ -77,102 +66,95 @@ jacobi3_residual_shard_kernel(Leg3 L, Planes3 P) {
   run_leg3<true, true>(smem, L, P);
 }
 
-// The sweeps' leg: steps sweeps of u (unread when from_zero) into out, with
-// an ERR_NONE, ERR_CLEAN (effective sweeps <= 7) or ERR_GPU error.
-static bool jacobi3_leg(Leg3& L, const float* u, const float* f, float* out, double* partials,
-                        int steps, int from_zero, int err_mode, int ty, int tx, int cz, float h2,
-                        float w, float inv_h2) {
-  if (steps < 1 || steps > MAX_STEPS3 ||
-      (err_mode != ERR_NONE && err_mode != ERR_CLEAN && err_mode != ERR_GPU))
-    return false;
-  L.u = from_zero ? nullptr : u;
-  L.f = f;
-  L.out = out;
-  L.partials = err_mode == ERR_NONE ? nullptr : partials;
-  L.sweeps = steps - (from_zero ? 1 : 0);
-  L.last = err_mode == ERR_CLEAN ? EXTRA : -1;
-  L.err_mode = err_mode;
-  L.restrict_mode = R_NONE;
-  L.ty = ty;
-  L.tx = tx;
-  L.cz = cz;
-  L.halo = leg3_stages(L);
-  L.h2 = h2;
-  L.w = w;
-  L.inv_h2 = inv_h2;
-  return true;
-}
-
-// The per-sweep mode on the owned planes [z0, z0 + nz) of a level (inputs
-// extended by ext planes per side): steps sweeps of u into it[0] (and its
-// owned planes into `own`, or nullptr), it[1] a scratch volume shaped as u
-// (unused for one sweep), with the error of iterate s into row s − 1 of
-// partials (one per tile of the plan): col3_schedule's passes, one launch
-// each. Returns the tile count in *tiles.
-static cudaError_t jacobi3_errs_passes(bool shard, const float* u, const float* f,
-                                       float* const it[2], float* own, double* partials,
-                                       double* work, int n, int z0, int nz, int ext, int steps,
-                                       int err_mode, int ty, int tx, int cz, float h2, float w,
-                                       float inv_h2, int* tiles, cudaStream_t stream) {
-  const int stages = steps + (err_mode == ERR_CLEAN);
-  if ((err_mode != ERR_CLEAN && err_mode != ERR_GPU) || steps < 1 || stages > MAX_STEPS3 ||
-      partials == nullptr || it[0] == nullptr || (steps > 1 && it[1] == nullptr))
+// steps sweeps of u (nullptr: from zero) on the owned planes [z0, z0 + nz)
+// of a level (inputs extended by ext planes per side) into it[0] (or, given
+// `own`, into its owned planes there; it[0] then holds earlier iterates or
+// nothing), it[1] a scratch volume shaped as u (col3_scratch says which the
+// call needs), with the errors (ERR_NONE, ERR_CLEAN or ERR_GPU)
+// that `kind` names (Col3Rows; rows of one double per tile of the plan):
+// col3_schedule's passes, one launch each. Returns the tile count in *tiles.
+static cudaError_t jacobi3_col_passes(bool shard, const float* u, const float* f,
+                                      float* const it[2], float* own, double* partials,
+                                      double* work, int n, int z0, int nz, int ext, int steps,
+                                      int err_mode, int kind, int ty, int tx, int cz, float h2,
+                                      float w, float inv_h2, int* tiles, cudaStream_t stream) {
+  const bool errors = err_mode != ERR_NONE;
+  const bool clean = err_mode == ERR_CLEAN && kind != ROWS_LAGGED;  // a read-only pass last
+  const int stages = steps - (u == nullptr) + clean;
+  bool need_dst, need_mid;
+  col3_scratch(steps, own != nullptr, clean, &need_dst, &need_mid);
+  if ((errors && err_mode != ERR_CLEAN && err_mode != ERR_GPU) || steps < 1 ||
+      steps > MAX_STEPS3 || stages > MAX_STEPS3 || (errors && partials == nullptr) ||
+      (need_dst && it[0] == nullptr) || (need_mid && it[1] == nullptr))
     return cudaErrorInvalidValue;
   Col3 C;
   cudaError_t e = col3_setup(C, stages, f, work, n, z0, nz, ext, ty, tx, cz, h2, w, inv_h2,
-                             stream);
+                             stream, errors);
   if (e != cudaSuccess) return e;
   *tiles = col3_tiles(C);
   Col3Pass P;
-  for (int j = 0; col3_schedule(C, P, j, steps, err_mode, u, it[0], it[1], own, partials, *tiles);
+  for (int j = 0; col3_schedule(C, P, j, steps, err_mode, u, it[0], it[1], own,
+                                errors ? partials : nullptr, *tiles, kind);
        ++j) {
-    if (shard)
-      jacobi3_col_kernel<true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+    const bool zero = P.src == nullptr;
+    if (shard && zero)
+      jacobi3_col_kernel<true, true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+    else if (shard)
+      jacobi3_col_kernel<true, false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+    else if (zero)
+      jacobi3_col_kernel<false, true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
     else
-      jacobi3_col_kernel<false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+      jacobi3_col_kernel<false, false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
 
 // steps <= 8 sweeps of u (unread when from_zero) into out. err_mode ERR_NONE,
-// ERR_CLEAN (effective sweeps <= 7) or ERR_GPU; with an error, partials holds
-// one double per block and err_out[0] receives the metric times err_scale.
-extern "C" int mg3_jacobi(const float* u, const float* f, float* out, double* partials,
-                          float* err_out, int n, int steps, int from_zero, int err_mode, int ty,
-                          int tx, int cz, float h2, float w, float inv_h2, double err_scale,
-                          void* stream) {
-  Leg3 L{};
-  L.n = n;
-  if (!jacobi3_leg(L, u, f, out, partials, steps, from_zero, err_mode, ty, tx, cz, h2, w,
-                   inv_h2))
-    return (int)cudaErrorInvalidValue;
+// ERR_CLEAN (effective sweeps <= 7) or ERR_GPU; with an error, partials
+// holds one double per tile of the plan (ty, tx, cz; at most THREADS3 cells
+// a tile), and err_out[0] receives the metric times err_scale. mid is an
+// n^3 scratch volume (unused for one sweep), work the column pass's
+// workspace (ops.kernels3.col3_work of the tile count; unused without an
+// error).
+extern "C" int mg3_jacobi(const float* u, const float* f, float* out, float* mid,
+                          double* partials, double* work, float* err_out, int n, int steps,
+                          int from_zero, int err_mode, int ty, int tx, int cz, float h2, float w,
+                          float inv_h2, double err_scale, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  float* const it[2] = {out, mid};
+  int tiles = 0;
   const cudaError_t e =
-      launch_leg3(jacobi3_kernel, jacobi3_shard_kernel, L, planes3_whole(n), s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)finish_error3(L, err_scale, err_out, s);
+      jacobi3_col_passes(false, from_zero ? nullptr : u, f, it, nullptr, partials, work, n, 0, n,
+                         0, steps, err_mode, ROWS_LAST, ty, tx, cz, h2, w, inv_h2, &tiles, s);
+  if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
+  sum_partials3_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, err_scale, err_out);
+  return (int)cudaGetLastError();
 }
 
 // The same on the owned planes [z0, z0 + nz) of a z-sharded n^3 level: u and
 // f are those planes extended by ext planes per side (ext >= the pass's halo
-// wherever a neighbour lies), out the owned planes; with an error, raw_out[0]
-// receives the shard's raw sum over its owned planes (partials one double per
-// block of the shard).
-extern "C" int mg3_jacobi_shard(const float* u, const float* f, float* out, double* partials,
-                                double* raw_out, int n, int z0, int nz, int ext, int steps,
-                                int from_zero, int err_mode, int ty, int tx, int cz, float h2,
-                                float w, float inv_h2, void* stream) {
-  Leg3 L{};
-  L.n = n;
-  const Planes3 P{z0, nz, ext, 0, 0};
-  if (!jacobi3_leg(L, u, f, out, partials, steps, from_zero, err_mode, ty, tx, cz, h2, w,
-                   inv_h2))
-    return (int)cudaErrorInvalidValue;
+// wherever a neighbour lies), out the owned planes, wa and wb scratch
+// windows shaped as u (col3_scratch: wa for three sweeps or more or the
+// clean error's read, wb for two or more); with an error, raw_out[0]
+// receives the shard's raw sum over its owned planes (partials one double
+// per tile of the shard). lagged: the clean error is that of the iterate
+// the last sweep reads, from that sweep's stencil read (ROWS_LAGGED).
+extern "C" int mg3_jacobi_shard(const float* u, const float* f, float* out, float* wa, float* wb,
+                                double* partials, double* work, double* raw_out, int n, int z0,
+                                int nz, int ext, int steps, int from_zero, int err_mode,
+                                int lagged, int ty, int tx, int cz, float h2, float w,
+                                float inv_h2, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = launch_leg3(jacobi3_kernel, jacobi3_shard_kernel, L, P, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)finish_raw3(L, P, raw_out, s);
+  float* const it[2] = {wa, wb};
+  int tiles = 0;
+  const cudaError_t e = jacobi3_col_passes(true, from_zero ? nullptr : u, f, it, out, partials,
+                                           work, n, z0, nz, ext, steps, err_mode,
+                                           lagged ? ROWS_LAGGED : ROWS_LAST, ty, tx, cz, h2, w,
+                                           inv_h2, &tiles, s);
+  if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
+  sum_partials3_raw_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, raw_out);
+  return (int)cudaGetLastError();
 }
 
 // steps <= 8 sweeps of u into out with the error of every iterate: partials
@@ -187,8 +169,10 @@ extern "C" int mg3_jacobi_errs(const float* u, const float* f, float* out, float
   const cudaStream_t s = (cudaStream_t)stream;
   float* const it[2] = {out, mid};
   int tiles = 0;
-  const cudaError_t e = jacobi3_errs_passes(false, u, f, it, nullptr, partials, work, n, 0, n, 0,
-                                            steps, err_mode, ty, tx, cz, h2, w, inv_h2, &tiles, s);
+  if (err_mode != ERR_CLEAN && err_mode != ERR_GPU) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = jacobi3_col_passes(false, u, f, it, nullptr, partials, work, n, 0, n, 0,
+                                           steps, err_mode, ROWS_EVERY, ty, tx, cz, h2, w,
+                                           inv_h2, &tiles, s);
   if (e != cudaSuccess) return (int)e;
   sum_partials3_kernel<<<steps, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, err_scale, errs);
   return (int)cudaGetLastError();
@@ -196,7 +180,7 @@ extern "C" int mg3_jacobi_errs(const float* u, const float* f, float* out, float
 
 // The same on a shard's planes (geometry as mg3_jacobi_shard): raws[s − 1]
 // receives the shard's raw sum for iterate s. wa and wb are scratch windows
-// shaped as u (wb unused for one sweep); out receives the owned planes.
+// shaped as u (as mg3_jacobi_shard's); out receives the owned planes.
 extern "C" int mg3_jacobi_errs_shard(const float* u, const float* f, float* out, float* wa,
                                      float* wb, double* partials, double* work, double* raws,
                                      int n, int z0, int nz, int ext, int steps, int err_mode,
@@ -205,8 +189,10 @@ extern "C" int mg3_jacobi_errs_shard(const float* u, const float* f, float* out,
   const cudaStream_t s = (cudaStream_t)stream;
   float* const it[2] = {wa, wb};
   int tiles = 0;
-  const cudaError_t e = jacobi3_errs_passes(true, u, f, it, out, partials, work, n, z0, nz, ext,
-                                            steps, err_mode, ty, tx, cz, h2, w, inv_h2, &tiles, s);
+  if (err_mode != ERR_CLEAN && err_mode != ERR_GPU) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = jacobi3_col_passes(true, u, f, it, out, partials, work, n, z0, nz, ext,
+                                           steps, err_mode, ROWS_EVERY, ty, tx, cz, h2, w,
+                                           inv_h2, &tiles, s);
   if (e != cudaSuccess) return (int)e;
   sum_partials3_raw_kernel<<<steps, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, raws);
   return (int)cudaGetLastError();

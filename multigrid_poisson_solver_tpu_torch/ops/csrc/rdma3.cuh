@@ -1,10 +1,12 @@
 // Shared pieces of the 3-D ring kernels (rdma_jacobi3.cu, rdma_descend3.cu,
 // rdma_ascend3.cu, rdma_trigger3.cu): one launch runs every z-shard of a
-// sharded n^3 level, with the tag, flag and launch protocol of ring.cuh, and
-// each block walks its shard's tiles with the pipeline of legs3.cuh in ring
-// mode (run_leg3_at with RING: a plane comes from the shard's own block or
-// from a receive buffer), so the owned planes and the error partials are
-// those of the shard-mode launch on extended windows, bit for bit.
+// sharded n^3 level, with the tag, flag and launch protocol of ring.cuh.
+// In kernels 20-22 each block walks its shard's tiles with the pipeline of
+// legs3.cuh in ring mode (run_leg3_at with RING: a plane comes from the
+// shard's own block or from a receive buffer), so the owned planes and the
+// error partials are those of the shard-mode launch on extended windows,
+// bit for bit; kernel 19 runs col3.cuh's column pass over the same buffers
+// (rdma_trigger3.cu).
 //
 // What a shard owns in the workspace (ops/rdma3.py allocates it once per
 // device, shard count and n, zeroed; Ring3 holds its base pointers):
@@ -120,23 +122,26 @@ static __device__ void wait_senders(const Ring3& W, int s, int halo, bool coarse
   __syncthreads();
 }
 
-// Copy `count` floats, the work split over the nb blocks of a shard.
+// Copy `count` floats, the work split over the nb blocks of a shard (blocks
+// of THREADS threads).
+template <int THREADS = THREADS3>
 static __device__ void copy_floats(float* __restrict__ dst, const float* src, size_t count, int lb,
                                    int nb) {
-  for (size_t i = (size_t)lb * THREADS3 + threadIdx.y * BLOCK_X + threadIdx.x; i < count;
-       i += (size_t)nb * THREADS3)
+  for (size_t i = (size_t)lb * THREADS + threadIdx.y * BLOCK_X + threadIdx.x; i < count;
+       i += (size_t)nb * THREADS)
     dst[i] = __ldcg(src + i);
 }
 
 // Post the planes of src (planes [b0, b1) of a level whose planes are `pl`
 // floats) that shard r's window `win` takes into r's buffer, which holds the
 // planes from `origin` on.
+template <int THREADS = THREADS3>
 static __device__ void post_span(float* buf, int origin, const float* src, int b0, int b1,
                                  PlaneRange win, size_t pl, int lb, int nb) {
   const PlaneRange x = meet(win, b0, b1);
   if (x.lo < x.hi)
-    copy_floats(buf + (size_t)(x.lo - origin) * pl, src + (size_t)(x.lo - b0) * pl,
-                (size_t)(x.hi - x.lo) * pl, lb, nb);
+    copy_floats<THREADS>(buf + (size_t)(x.lo - origin) * pl, src + (size_t)(x.lo - b0) * pl,
+                         (size_t)(x.hi - x.lo) * pl, lb, nb);
 }
 
 // Shard s's blocks post their inputs to every other shard's windows: u (into

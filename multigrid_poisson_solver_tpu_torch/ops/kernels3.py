@@ -6,7 +6,7 @@ reaches:
 
   * ``fused_jacobi3``, ``fused_jacobi3_err``: ``csrc/jacobi3.cu``, replaces
     ``_fused_jacobi3_kernel`` (plain sweeps, from_zero, the clean and gpu
-    errors);
+    errors) with one column pass a sweep (``csrc/col3.cuh``);
   * ``fused_descend3``: ``csrc/descend3.cu``, replaces
     ``_fused_descend3_kernel`` and the lane pass ``restrict3_lanes_p``;
   * ``fused_ascend3``: ``csrc/ascend3.cu``, replaces ``_fused_ascend3_kernel``
@@ -33,19 +33,22 @@ reaches:
     ``_residual3_shard_call``; ``parallel.kernel_shard3`` runs them per
     shard.
 
-All but the last share the tile pipeline of ``csrc/legs3.cuh``. The TPU
-kernels' brick geometry (``_brick_geometry``: ×8-row and ×128-lane padding,
-VMEM budgets) has no counterpart: the port's levels are plain contiguous
-(n, n, n) tensors, and ``plan3`` picks a column tile and a z chunk that fit
-a block's shared memory. Every launch of a trigger loop uses one plan,
-``err_plan3`` (the deepest fused pass's): the kernels sum a tile's error
-cells in an order fixed by the plan alone, so the error of an iterate is
-the same float whether a one-sweep step (``csrc/legs3.cuh``), a per-sweep
-pass or a whole-loop trigger kernel (the column pass of ``csrc/col3.cuh``)
-measured it, and the trigger routes stop at the same sweep by
-construction. (The errors are float64 sums rounded once, so
-launches with other plans report the same float but for a double sum that
-falls within 1e-16 of an fp32 rounding boundary.)
+Kernel 10 and the trigger kernels run the column pass of
+``csrc/col3.cuh`` (one unfused sweep a pass); the legs, the residuals and
+kernel 10's emit_residual mode the tile pipeline of ``csrc/legs3.cuh``. The
+TPU kernels' brick geometry (``_brick_geometry``: ×8-row and ×128-lane
+padding, VMEM budgets) has no counterpart: the port's levels are plain
+contiguous (n, n, n) tensors, and ``plan3`` picks a column tile and a z
+chunk that fit a block's shared memory. Kernel 10's launches take
+``err_plan3`` (the deepest fused pass's plan, 512 cells a tile, which the
+column pass needs) unless the caller gives a plan, and so does every launch
+of a trigger loop: the kernels sum a tile's error cells in an order fixed
+by the plan alone, so the error of an iterate is the same float whether a
+one-sweep step, a per-sweep pass or a whole-loop trigger kernel measured
+it, and the trigger routes stop at the same sweep by construction. (The
+errors are float64 sums rounded once, so launches with other plans report
+the same float but for a double sum that falls within 1e-16 of an fp32
+rounding boundary.)
 
 Routing is by the tensors' device and nothing else: CPU tensors run the plain
 twin (``*_torch``, built from ``models.poisson3d``), CUDA tensors launch the
@@ -415,6 +418,16 @@ def fused_jacobi3_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int
     return geo.owned(u).contiguous(), raw
 
 
+def trigger_pass3_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, omega: float = 6.0 / 7.0,
+                              compat: str = "clean"):
+    """Twin of ``trigger_pass3_shard``: (owned planes of one sweep, the raw
+    clean error of u or gpu error of the sweep)."""
+    zin = geo.inner(f_ext.device)
+    u = _sweep3_ext(u_ext, f_ext, zin, h, omega)
+    fin = u_ext if compat == "clean" else u
+    return geo.owned(u).contiguous(), _raw_error3(fin, u_ext, f_ext, geo, zin, h, compat)
+
+
 def fused_jacobi3_errs_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
                                    omega: float = 6.0 / 7.0, compat: str = "clean"):
     """Twin of ``fused_jacobi3_errs_shard``: (owned planes, the raw error of
@@ -556,14 +569,15 @@ def _jacobi3_cuda(u, f, h: float, steps: int, omega: float, from_zero: bool, mod
     n, dev, lib, stream = _grid3_args(f)
     if not from_zero:
         K._check("u", u, (n, n, n), dev)
-    stages = steps - int(from_zero) + (mode == "clean")
-    plan = plan or plan3(n, stages, stages)
+    plan = plan or err_plan3(n)
     out = torch.empty_like(f)
+    mid = torch.empty_like(f) if steps > 1 else None   # the other iterates
     partials, err = _err_buffers3(mode is not None, n, plan, dev)
+    work = None if partials is None else torch.empty(col3_work(partials.numel()),
+                                                     dtype=torch.float64, device=dev)
     rc = lib.mg3_jacobi(K._ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
-                        K._ptr(partials), K._ptr(err), n, steps, int(from_zero),
-                        _ERR_CODES3[mode], *plan, h * h, omega / 6.0, 1.0 / (h * h),
-                        p3.error_scale3(mode, n, h), stream)
+                        K._ptr(mid), K._ptr(partials), K._ptr(work), K._ptr(err), n, steps, int(from_zero), _ERR_CODES3[mode], *plan, h * h,
+                        omega / 6.0, 1.0 / (h * h), p3.error_scale3(mode, n, h), stream)
     K._raise_on(lib, rc, "jacobi3")
     K.launches["jacobi3"] += 1
     return out, _scalar(err)
@@ -573,9 +587,9 @@ def _jacobi3_cuda(u, f, h: float, steps: int, omega: float, from_zero: bool, mod
 
 def fused_jacobi3(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
                   from_zero: bool = False):
-    """1..8 damped-Jacobi sweeps in one pass over memory (counterpart of
-    ``fused_jacobi3_padded``). ``from_zero``: the caller guarantees u ≡ 0,
-    and u is not read."""
+    """1..8 damped-Jacobi sweeps (counterpart of ``fused_jacobi3_padded``;
+    on the card one column pass a sweep). ``from_zero``: the caller
+    guarantees u ≡ 0, and u is not read."""
     _check_steps3(steps, MAX_FUSED_SWEEPS_3D, "fused_jacobi3")
     if not f.is_cuda:
         return fused_jacobi3_torch(u, f, h, steps, omega, from_zero)
@@ -584,10 +598,10 @@ def fused_jacobi3(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
 
 def fused_jacobi3_err(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
                       err_mode: str = "clean", from_zero: bool = False):
-    """1..8 sweeps with the smoothing error of the result fused into the
-    pass (``fused_jacobi3_padded(err_mode=...)``, divided by n³): (u, err).
-    "clean" takes one more halo ring, so at most 7 sweeps after from_zero's
-    closed-form one."""
+    """1..8 sweeps with the smoothing error of the result
+    (``fused_jacobi3_padded(err_mode=...)``, divided by n³): (u, err).
+    "clean" takes one more stencil read (on the card a pass that only
+    reads), so at most 7 sweeps after from_zero's closed-form one."""
     if err_mode not in ("clean", "gpu"):
         raise ValueError(f"unknown err_mode {err_mode!r}; expected 'clean' or 'gpu'")
     _check_steps3(steps, MAX_FUSED_SWEEPS_3D, "fused_jacobi3_err")
@@ -600,7 +614,7 @@ def fused_jacobi3_err(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
 
 def trigger_step3(u, f, h: float, omega: float = 6.0 / 7.0, compat: str = "clean"):
     """One sweep and the error of the result, a step of a trigger loop: on
-    the card a one-sweep ``fused_jacobi3_err`` launch with the trigger loops'
+    the card a one-sweep ``fused_jacobi3_err`` call with the trigger loops'
     tile plan (``err_plan3``), so its error is the float the per-sweep passes
     and the whole-loop kernels report for the same iterate. (u, err)."""
     _check_compat3(compat)
@@ -828,25 +842,42 @@ def _planes3(geo: ShardGeo3):
     return geo.n, geo.z0, geo.nz, geo.ext
 
 
-def _raw_buffers3(want: bool, geo: ShardGeo3, plan, device, rows: int = 1):
-    """(the float64 block partials, the shard's raw sums), or Nones."""
+def _raw_buffers3(want: bool, geo: ShardGeo3, plan, device):
+    """(the float64 block partials, the shard's raw sum), or Nones."""
     if not want:
         return None, None
     nb = blocks3(geo.n, *plan, nz=geo.nz)
-    return (torch.empty(rows * nb, dtype=torch.float64, device=device),
-            torch.empty(rows, dtype=torch.float64, device=device))
+    return (torch.empty(nb, dtype=torch.float64, device=device),
+            torch.empty(1, dtype=torch.float64, device=device))
+
+
+def _col3_buffers3(geo: ShardGeo3, plan, device, rows: int = 1):
+    """A shard's float64 scratch for the column pass, one allocation: (the
+    tile partials, rows of them; the raw sums, rows; the workspace)."""
+    tiles = blocks3(geo.n, *plan, nz=geo.nz)
+    buf = torch.empty(rows * (tiles + 1) + col3_work(tiles), dtype=torch.float64, device=device)
+    return buf[:rows * tiles], buf[rows * tiles:rows * (tiles + 1)], buf[rows * (tiles + 1):]
+
+
+def _windows3(f_ext, steps: int, clean: bool):
+    """The scratch windows a shard's column passes write (``col3_scratch``
+    in ``csrc/col3.cuh``; the last iterate goes to the owned planes): wa
+    for three sweeps or more or the clean error's read, wb for two or
+    more; None where unused."""
+    return (torch.empty_like(f_ext) if steps >= 3 or clean else None,
+            torch.empty_like(f_ext) if steps >= 2 else None)
 
 
 def fused_jacobi3_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
                         omega: float = 6.0 / 7.0, from_zero: bool = False, err_mode=None,
                         plan=None):
-    """One pass of 1..8 sweeps on one z-shard's planes (kernel 10's shard
-    mode): ``u_ext``, ``f_ext`` are its windows (u unread when
-    ``from_zero``); ``err_mode`` None, "clean" (at most 7 sweeps after the
-    closed-form one) or "gpu" adds the shard's raw error over its owned
-    planes, a float64 Σ|r| or Σ|Δu|. ``plan``: the tile plan (``err_plan3``
-    of the shard's depth in a trigger loop). Returns (owned planes, raw
-    error as a 0-d float64 tensor, or None)."""
+    """1..8 sweeps on one z-shard's planes (kernel 10's shard mode; on the
+    card one column pass a sweep): ``u_ext``, ``f_ext`` are its windows (u
+    unread when ``from_zero``); ``err_mode`` None, "clean" (at most 7 sweeps
+    after the closed-form one) or "gpu" adds the shard's raw error over its
+    owned planes, a float64 Σ|r| or Σ|Δu|. ``plan``: the tile plan (by
+    default ``err_plan3`` of the shard's depth, the trigger loops'). Returns
+    (owned planes, raw error as a 0-d float64 tensor, or None)."""
     if err_mode not in (None, "clean", "gpu"):
         raise ValueError(f"unknown err_mode {err_mode!r}; expected None, 'clean' or 'gpu'")
     _check_steps3(steps, MAX_FUSED_SWEEPS_3D, "fused_jacobi3_shard")
@@ -856,14 +887,44 @@ def fused_jacobi3_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
     if not f_ext.is_cuda:
         return fused_jacobi3_shard_torch(u_ext, f_ext, geo, h, steps, omega, from_zero, err_mode)
     lib, stream, dev = _shard3_args(u_ext, f_ext, geo, stages, not from_zero)
-    plan = plan or plan3(geo.nz, stages, stages)
+    plan = plan or err_plan3(geo.nz)
     out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
-    partials, raw = _raw_buffers3(err_mode is not None, geo, plan, dev)
+    wins = _windows3(f_ext, steps, err_mode == "clean")
+    partials, raw, work = (_col3_buffers3(geo, plan, dev) if err_mode is not None
+                           else (None, None, None))
     rc = lib.mg3_jacobi_shard(K._ptr(None if from_zero else u_ext), f_ext.data_ptr(),
-                              out.data_ptr(), K._ptr(partials), K._ptr(raw), *_planes3(geo),
-                              steps, int(from_zero), _ERR_CODES3[err_mode], *plan, h * h,
-                              omega / 6.0, 1.0 / (h * h), stream)
+                              out.data_ptr(), K._ptr(wins[0]), K._ptr(wins[1]), K._ptr(partials),
+                              K._ptr(work), K._ptr(raw), *_planes3(geo), steps, int(from_zero),
+                              _ERR_CODES3[err_mode], 0, *plan, h * h, omega / 6.0, 1.0 / (h * h),
+                              stream)
     K._raise_on(lib, rc, "jacobi3 shard")
+    K.launches["jacobi3_shard"] += 1
+    return out, _scalar(raw)
+
+
+def trigger_pass3_shard(u_ext, f_ext, geo: ShardGeo3, h: float, omega: float = 6.0 / 7.0,
+                        compat: str = "clean"):
+    """One sweep on one z-shard's planes with the raw error a trigger loop
+    that takes the clean error one sweep behind reads
+    (``solver.trigger_loop_lagged``): the clean error of the iterate read,
+    from the sweep's own stencil read, or the gpu error of the result;
+    windows of one halo plane, the trigger loops' tile plan (``err_plan3``
+    of the shard's depth), so the raw sum is the one a one-sweep error step
+    (``fused_jacobi3_shard``) reports for the same iterate. On the card one
+    column pass of kernel 10's shard mode. Returns (owned planes, raw error
+    as a 0-d float64 tensor)."""
+    _check_compat3(compat)
+    if not f_ext.is_cuda:
+        return trigger_pass3_shard_torch(u_ext, f_ext, geo, h, omega, compat)
+    lib, stream, dev = _shard3_args(u_ext, f_ext, geo, 1)
+    plan = err_plan3(geo.nz)
+    out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
+    partials, raw, work = _col3_buffers3(geo, plan, dev)   # no window: one pass into out
+    rc = lib.mg3_jacobi_shard(u_ext.data_ptr(), f_ext.data_ptr(), out.data_ptr(), None, None,
+                              partials.data_ptr(), work.data_ptr(), raw.data_ptr(), *_planes3(geo),
+                              1, 0, _ERR_CODES3[compat], 1, *plan, h * h, omega / 6.0,
+                              1.0 / (h * h), stream)
+    K._raise_on(lib, rc, "jacobi3 shard (lagged error)")
     K.launches["jacobi3_shard"] += 1
     return out, _scalar(raw)
 
@@ -881,13 +942,10 @@ def fused_jacobi3_errs_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
     lib, stream, dev = _shard3_args(u_ext, f_ext, geo, steps + (compat == "clean"))
     plan = err_plan3(geo.nz)
     out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
-    # the iterates on the windows, alternating
-    wins = [torch.empty_like(f_ext) for _ in range(min(steps, 2))] + [None]
-    partials, raws = _raw_buffers3(True, geo, plan, dev, steps)
-    work = torch.empty(col3_work(blocks3(geo.n, *plan, nz=geo.nz)), dtype=torch.float64,
-                       device=dev)
+    wins = _windows3(f_ext, steps, compat == "clean")
+    partials, raws, work = _col3_buffers3(geo, plan, dev, steps)
     rc = lib.mg3_jacobi_errs_shard(u_ext.data_ptr(), f_ext.data_ptr(), out.data_ptr(),
-                                   wins[0].data_ptr(), K._ptr(wins[1]), partials.data_ptr(),
+                                   K._ptr(wins[0]), K._ptr(wins[1]), partials.data_ptr(),
                                    work.data_ptr(), raws.data_ptr(), *_planes3(geo), steps,
                                    _ERR_CODES3[compat], *plan, h * h, omega / 6.0,
                                    1.0 / (h * h), stream)

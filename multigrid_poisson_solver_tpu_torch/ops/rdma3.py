@@ -14,7 +14,9 @@ PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_rdma3.py``:
     post-sweeps, optionally the clean error) over every shard;
   * ``rdma_trigger3``: ``csrc/rdma_trigger3.cu``, replaces
     ``_rdma_trigger3_kernel``: the whole |err_k − err_{k−1}| > trigger loop
-    over the ring, the shards' raw error sums all-to-all per sweep.
+    over the ring, one column pass a sweep per shard (``csrc/col3.cuh``)
+    with one halo plane a side, the shards' raw error sums all-to-all per
+    sweep.
 
 The JAX kernels run one program per chip and move planes by remote DMA;
 here one launch spans the ring (every shard's blocks resident at once), and
@@ -29,11 +31,15 @@ parity and sender, 64-bit flags per sender and two arrival counts: at 513³
 on 8 shards 8 planes of 513² floats are 8.4 MB a side and array, about
 440 MB for the ring.
 
-Every shard uses its shard-mode launch's tile plan (``ops.kernels3.plan3``
-of its depth, ``err_plan3`` in the trigger loop), so its owned planes and
-its raw float64 error sum are those of the exchange path
-(``parallel.kernel_shard3``), bit for bit; the wrappers return the raw sums
-per shard and the callers add them in shard order and scale them once.
+The owned planes are those of the exchange path (``parallel.kernel_shard3``)
+bit for bit. Each shard's error partials follow a tile plan: kernels 21 and
+22 take their shard-mode launch's (``ops.kernels3.plan3`` of the shard's
+depth) and kernel 19 the trigger loops' (``err_plan3``), so their raw
+float64 sums are the exchange path's bit for bit; kernel 20 takes
+``plan3``, while kernel 10's shard mode sums over ``err_plan3``, so their
+raw sums agree bit for bit where the plans do (forced tiles) and otherwise
+up to the order of a float64 sum. The wrappers return the raw sums per
+shard and the callers add them in shard order and scale them once.
 
 Routing copies JAX's admission predicates (``rdma_*3_fits``) and the brick
 geometry they call (``pallas3d._brick_geometry``): TPU VMEM arithmetic on
@@ -523,16 +529,19 @@ def rdma_trigger3(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 6.0 /
     shards, n = len(z0s) - 1, f.n
     tile, czs = _plans(f, 0, 0, err_plan=True)
     partials, _ = _partials(f, tile, czs, True)
+    work = torch.empty(K3.col3_work(partials.numel()), dtype=torch.float64, device=dev)
     ws = _workspace(dev, shards, n)
     out = [torch.empty_like(b) for b in _blocks(f)]
     tmp = [torch.empty_like(b) for b in _blocks(f)]
     err = torch.empty(1, dtype=torch.float32, device=dev)
     sweeps = torch.empty(1, dtype=torch.int32, device=dev)
+    # tags: the first post, then one a pass (max_sweeps + 1 with the clean
+    # metric's last, read-only pass)
     rc = lib.mg3_rdma_trigger(_ptrs(_blocks(u)), _ptrs(_blocks(f)), _ptrs(out), _ptrs(tmp),
                               K._c_array(ctypes.c_int, z0s), K._c_array(ctypes.c_int, czs),
                               shards, n, K3._ERR_CODES3[compat], *tile, partials.data_ptr(),
-                              err.data_ptr(), sweeps.data_ptr(), ws.ptrs,
-                              ws.take(max_sweeps + 1), h * h, omega / 6.0, 1.0 / (h * h),
+                              work.data_ptr(), err.data_ptr(), sweeps.data_ptr(), ws.ptrs,
+                              ws.take(max_sweeps + 2), h * h, omega / 6.0, 1.0 / (h * h),
                               p3.error_scale3(compat, n, h), trigger, max_sweeps, stream)
     K._raise_on(lib, rc, "rdma_trigger3")
     K.launches["rdma_trigger3"] += 1

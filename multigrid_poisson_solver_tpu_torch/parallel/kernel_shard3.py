@@ -152,6 +152,21 @@ def sharded_trigger_step3(u: ShardedGrid, f: ShardedGrid, h: float, omega: float
     return sharded_fused_jacobi3_err(u, f, h, 1, omega, compat, nl=nl, err_plan=True)
 
 
+def sharded_trigger_pass3(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 6.0 / 7.0,
+                          compat: str = "clean"):
+    """One sweep of a z-sharded level with the error a trigger loop that
+    takes the clean error one sweep behind reads (``solver.
+    trigger_loop_lagged``): (u_next, err), err the clean error of u itself
+    or the gpu error of u_next, from one pass per shard after a one-plane
+    exchange; the same float ``sharded_trigger_step3`` reports for that
+    iterate."""
+    mode = "gpu" if compat == "gpu" else "clean"
+    res = each_shard(f, lambda i: K3.trigger_pass3_shard(
+        extend(u, i, 0, 1), extend(f, i, 0, 1), _geo(f, i, 1), h, omega, mode))
+    return (_grid(u, [b for b, _ in res]),
+            halo3.sum_err3([raw for _, raw in res], mode, f.n, h, f.dtype))
+
+
 def sharded_fused_jacobi3_errs(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
                                omega: float = 6.0 / 7.0, compat: str = "clean", nl=None):
     """One pass of ``steps`` ≤ ``errs3_sweep_cap(compat)`` sweeps with the

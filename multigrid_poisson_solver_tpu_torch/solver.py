@@ -127,6 +127,26 @@ def trigger_loop(step: Callable, u: torch.Tensor, trigger: float, max_sweeps: in
     return u, err, k
 
 
+def trigger_loop_lagged(pass_: Callable, u: torch.Tensor, trigger: float, max_sweeps: int):
+    """``trigger_loop`` for a sweep that measures the iterate it reads:
+    ``pass_(u) -> (u_next, err(u))`` (the clean error from the stencil read
+    that makes u_next). Sweep k's error comes from the pass that makes
+    u_{k+1}, so K sweeps take K + 1 passes instead of K sweeps and K error
+    reads, and u_k is kept beside u_{k+1}; the iterates, errors and stop
+    sweep are ``trigger_loop``'s with step(u) = (u_next, err(u_next)).
+    Returns (u, err, sweeps)."""
+    cur, _ = pass_(u)
+    nxt, err = pass_(cur)
+    k = 1
+    above = True
+    while above and k < max_sweeps:
+        cur, (nxt, new_err) = nxt, pass_(nxt)
+        above = bool(torch.abs(new_err - err) > trigger)
+        err = new_err
+        k += 1
+    return cur, err, k
+
+
 def coarse_solve(f: torch.Tensor, h: float, ins: CoarseSolve,
                  dtype: torch.dtype, gs_norm: str):
     """doExactSolver: option 0 dense; 1 Gauss-Seidel in float64 (the

@@ -121,7 +121,10 @@ def _run(cc):
     return cc.unpad(u), err
 
 
-ROUTED = {"fused_jacobi3_shard": "jacobi3_shard", "fused_jacobi3_errs_shard": "jacobi3_errs_shard",
+# trigger_pass3_shard is kernel 10's shard mode too (one sweep, the clean
+# error of its input)
+ROUTED = {"fused_jacobi3_shard": "jacobi3_shard", "trigger_pass3_shard": "jacobi3_shard",
+          "fused_jacobi3_errs_shard": "jacobi3_errs_shard",
           "fused_descend3_shard": "descend3_shard", "fused_ascend3_shard": "ascend3_shard",
           "residual3_shard": "residual3_shard", "fused_jacobi3_residual_shard": "10r",
           "fused_descend3": "descend3", "fused_ascend3": "ascend3",
@@ -151,8 +154,9 @@ def _routes(**want):
     # before the restriction
     ("gpu", _routes(jacobi3_shard=16, residual3_shard=8)),
     # a trigger node: the one-sweep sharded error loop (30 sweeps a node at
-    # 65³, down and up); 33³ down replicate on their own tiers
-    ("trigger1", _routes(jacobi3_shard=2 * 30 * 8, residual3_shard=8)),
+    # 65³, down and up, the clean error one sweep behind: 31 passes); 33³
+    # down replicate on their own tiers
+    ("trigger1", _routes(jacobi3_shard=2 * 31 * 8, residual3_shard=8)),
     # no kernels: parallel.halo3's plain per-shard ops
     ("xla", _routes()),
 ])

@@ -429,14 +429,22 @@ def test_kernel_path_refuses_other_dtypes():
 def test_c_entry_points_match_ctypes_signatures():
     """Nothing compiles the CUDA sources on a CPU box, so check statically
     that every extern "C" entry point is declared to ctypes with its arity."""
-    found = {}
+    found, names = {}, {}
     for src in build.sources():
         text = src.read_text()
         for name, params in re.findall(r'extern "C" [\w\s\*]+?\b(mg3?_\w+)\(([^)]*)\)', text):
             found[name] = len([p for p in params.split(",") if p.strip()])
+            names[name] = [p.split()[-1].lstrip("*") for p in params.split(",") if p.strip()]
     assert set(found) == set(build.SIGNATURES)
     for name, (argtypes, _) in build.SIGNATURES.items():
         assert len(argtypes) == found[name], name
+    # the column-pass entry points take their scratch iterates and the
+    # workspace (kernel 10's fixed modes, kernel 19), kernel 10's shard mode
+    # the lagged clean error
+    assert names["mg3_jacobi"][3:6] == ["mid", "partials", "work"]
+    assert names["mg3_jacobi_shard"][3:7] == ["wa", "wb", "partials", "work"]
+    assert names["mg3_jacobi_shard"][15] == "lagged"
+    assert names["mg3_rdma_trigger"][11:13] == ["partials", "work"]
     assert {s.name for s in build.sources()} == {
         "common.cuh", "legs.cuh", "jacobi.cu", "residual.cu", "descend.cu", "ascend.cu",
         "chain_descend.cu", "chain_ascend.cu", "trigger.cu", "residual_mw.cu",

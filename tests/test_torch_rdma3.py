@@ -472,7 +472,7 @@ def test_ring_wrappers_refuse_what_the_kernels_refuse():
 
 RING_WRAPPERS = ("rdma_jacobi3", "rdma_descend3", "rdma_ascend3", "rdma_trigger3")
 SHARD_MODES = ("fused_jacobi3_shard", "fused_descend3_shard", "fused_ascend3_shard",
-               "fused_jacobi3_errs_shard")
+               "fused_jacobi3_errs_shard", "trigger_pass3_shard")
 
 
 def _spy(monkeypatch, module, names):
@@ -580,6 +580,7 @@ def test_trigger_route_at_phase_h_sizes(monkeypatch, n, ring):
 
     monkeypatch.setattr(KS3, "rdma_fused_trigger3", stop("ring"))
     monkeypatch.setattr(KS3, "sharded_trigger_step3", stop("step"))
+    monkeypatch.setattr(KS3, "sharded_trigger_pass3", stop("step"))
     pol = M.ZShardingPolicy3(M.make_mesh_z(["cpu"] * 8))
     cfg = tmg.SolverConfig(halo="rdma", trigger_batch=1)
     nl = pol.planes_per_device(n)
