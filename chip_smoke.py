@@ -120,7 +120,9 @@ Phases (progress on stdout; the first failure exits non-zero):
      129³ and 65³. Kernel 10's one-sweep shard step (129³, 65³ on 8
      z-shards; device time from the profiler) and its fixed modes at 513³
      (3 sweeps + clean, + gpu, from zero; whole grid and 8 z-shards) are
-     timed too.
+     timed too, and the legs (kernels 11 and 12 on their column passes)
+     at 129³ and 65³, whole grid and on 8 z-shards (device time from the
+     profiler), with kernel 11 from zero at 513³.
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -2877,6 +2879,37 @@ def main():
         ms_s = time_ms(on_shards(shard_fn, geos, wins), reps=5)
         say(f"[t] jacobi3 at {n3}³, {label}: {ms_w:.4f} ms whole grid, {ms_s:.4f} ms on 8 "
             f"z-shards; bound {bound(3 * g3, 0)[0]:.4f} ms")
+    # the legs (kernels 11 and 12) at v_cycle3's smaller kernel levels (129³
+    # and 65³, where the descent starts from zero), whole grid and on 8
+    # z-shards, device µs a call from the profiler (the host's launch rate
+    # sets CUDA events' time there; late in this process the profiler can
+    # drop events, which only lowers a sum: the largest of three profiles);
+    # kernel 11 from zero at 513³
+    for m, um, fm in ((n16, u16, f16), (n65, u65, f65)):
+        hm, mc = 1.0 / (m - 1), (m + 1) // 2
+        cm = torch.randn(mc, mc, mc, generator=gen, device="cuda")
+        geos5, wins5 = z_windows(m, 5, um, fm)      # 3 sweeps + −r + FW ring
+        geos4, wins4 = z_windows(m, 4, um, fm)      # ascend3_halo(3, False)
+        cwins = [S.planes(cm, g.z0 // 2 - ext_c, (g.z0 + g.nz + 1) // 2 + ext_c + 1)
+                 for g in geos4]
+        for label, fn in (
+                ("descend3, 3 sweeps, full weighting, clean error",
+                 lambda: K3.fused_descend3(um, fm, hm, 3, w3, want_err=True)),
+                ("descend3, 3 sweeps from zero, full weighting",
+                 lambda: K3.fused_descend3(um, fm, hm, 3, w3, True)),
+                ("ascend3, 3 sweeps", lambda: K3.fused_ascend3(um, fm, cm, hm, 3, w3)),
+                ("descend3_shard on 8 z-shards, 3 sweeps, full weighting, clean error",
+                 lambda: [K3.fused_descend3_shard(ue, fe, g, hm, 3, w3, False, "full_weighting",
+                                                  True) for g, (ue, fe) in zip(geos5, wins5)]),
+                ("ascend3_shard on 8 z-shards, 3 sweeps",
+                 lambda: [K3.fused_ascend3_shard(ue, fe, c, g.z0 // 2 - ext_c, g, hm, 3, w3)
+                          for g, (ue, fe), c in zip(geos4, wins4, cwins)])):
+            us_ = max(device_ms(lambda: [fn() for _ in range(10)], per=10) for _ in range(3)) * 1e3
+            say(f"[t] {label} at {m}³: {us_:.2f} µs device a call; bound "
+                f"{bound(12.5 * m ** 3, 0)[0] * 1e3:.2f} µs")
+    ms = time_ms(lambda: K3.fused_descend3(u3, f3, h3, 3, w3, True), reps=5)
+    say(f"[t] descend3 at {n3}³, 3 sweeps from zero, full weighting: {ms:.4f} ms; bound "
+        f"{bound(8.5 * pts3, 0)[0]:.4f} ms (f read, u and the coarse grid written)")
     del u65, f65, geo3_4, win3_4
     # the card's streaming rate at the pass's 12 B a point: one elementwise
     # PyTorch op that reads two 513³ volumes and writes a third

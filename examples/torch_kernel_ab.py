@@ -16,7 +16,11 @@ kernels follow: the whole-loop one at 129³ and 65³ and the streamed one at
 at 513³ on 8 z-shards (7 sweeps, clean error; windows of 8 halo planes);
 kernel 10's fixed modes at 513³ (3 sweeps + gpu error, 3 from zero, 8
 sweeps; whole grid, and with the clean error on 8 z-shards) and at 129³ and
-65³ (1 and 8 sweeps, 3 with either error), its one-sweep shard step
+65³ (1 and 8 sweeps, 3 with either error), the legs (kernels 11 and 12)
+at 129³ and 65³ (3 sweeps: the descend leg with full weighting and the
+clean error, or from zero; device µs a call) and at 513³ on 8 z-shards,
+one ``v_cycle3_sharded`` V(3,3) cycle at 513³ on 8 z-shards (host wall
+clock), its one-sweep shard step
 with the clean error at 129³ and 65³ on 8 z-shards (device µs a shard step
 from torch.profiler, the host's launch rate hiding it from CUDA events) and,
 where the tree has it, the lagged pass that replaces it in the sharded
@@ -148,7 +152,13 @@ for m in (129, 65):
                     ("3clean", lambda: K3.fused_jacobi3_err(um, fm, hm, 3, w3, "clean")),
                     ("8", lambda: K3.fused_jacobi3(um, fm, hm, 8, w3))):
         res[f"jacobi3_{key}_{m}_us"] = 1e3 * device_ms(lambda: [fn() for _ in range(10)], 10)
-    del um, fm
+    # the legs (kernels 11 and 12), v_cycle3's levels below the top one
+    cm = torch.randn((m + 1) // 2, (m + 1) // 2, (m + 1) // 2, generator=g, device="cuda")
+    for key, fn in (("descend3_3err", lambda: K3.fused_descend3(um, fm, hm, 3, w3, want_err=True)),
+                    ("descend3_3fz", lambda: K3.fused_descend3(um, fm, hm, 3, w3, True)),
+                    ("ascend3_3", lambda: K3.fused_ascend3(um, fm, cm, hm, 3, w3))):
+        res[f"{key}_{m}_us"] = 1e3 * device_ms(lambda: [fn() for _ in range(10)], 10)
+    del um, fm, cm
 p3 = tmg.REFERENCE_PROBLEM_3D
 b3 = p3.boundary_grid(n3, torch.float32, "cuda")
 s3 = p3.source_grid(n3, torch.float32, "cuda") + b3
@@ -197,7 +207,22 @@ for key, steps, fz, mode in (("3gpu", 3, False, "gpu"), ("3clean", 3, False, "cl
     res[f"jacobi3_shard_{key}_513"] = timed(lambda: [K3.fused_jacobi3_shard(
         None if fz else ue, fe, gz, h3, steps, w3, fz, mode) for gz, (ue, fe) in zip(zgeos, zwins)],
         reps=3)
-del zwins, u3, f3, c3
+# the legs on 8 z-shards (windows of 8 planes: every halo fits; the ascend
+# leg's coarse windows as sharded_fused_ascend3 cuts them for 3 sweeps)
+ext_c = 2
+cwins = [S.planes(c3, gz.z0 // 2 - ext_c, (gz.z0 + gz.nz + 1) // 2 + ext_c + 1) for gz in zgeos]
+res["descend3_shard_3err_513"] = timed(lambda: [K3.fused_descend3_shard(
+    ue, fe, gz, h3, 3, w3, False, "full_weighting", True) for gz, (ue, fe) in zip(zgeos, zwins)],
+    reps=3)
+res["ascend3_shard_3_513"] = timed(lambda: [K3.fused_ascend3_shard(
+    ue, fe, c, gz.z0 // 2 - ext_c, gz, h3, 3, w3) for gz, (ue, fe), c in zip(zgeos, zwins, cwins)],
+    reps=3)
+# one v_cycle3_sharded V(3,3) cycle at 513³ on the 8 z-shards (chip_smoke.py's
+# H2), host wall clock
+zf3 = S.as_level(s3, zpol, n3)
+res["v_cycle3_sharded_513_8z_wall"] = walls(lambda: tmg.v_cycle3_sharded(
+    b3, zf3, h3, zpol.mesh, n_min=5, pre=3, post=3, omega=0.857))
+del zwins, cwins, u3, f3, c3, zf3
 # the one-sweep shard step with the clean error at H3's exact-loop levels, and
 # the lagged pass that replaces it where the tree has one (device µs a step)
 for m in (129, 65):

@@ -50,11 +50,10 @@ SIGNATURES = {
     "mg_trigger": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P], _I),
     "mg_trigger_stream": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I,
                            _P], _I),
-    "mg3_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D,
-                     _P], _I),
-    "mg3_ascend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _D, _P], _I),
     "mg3_residual": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
     # the column-pass kernels (col3.cuh) take scratch volumes and a workspace
+    "mg3_descend": ([_P] * 9 + [_I] * 8 + [_F] * 3 + [_D, _P], _I),
+    "mg3_ascend": ([_P] * 8 + [_I] * 6 + [_F] * 3 + [_D, _P], _I),
     "mg3_jacobi": ([_P] * 7 + [_I] * 7 + [_F] * 3 + [_D, _P], _I),
     "mg3_jacobi_errs": ([_P] * 7 + [_I] * 6 + [_F] * 3 + [_D, _P], _I),
     "mg3_trigger": ([_P] * 8 + [_I] * 5 + [_F] * 3 + [_D, _F, _I, _P], _I),
@@ -73,8 +72,8 @@ SIGNATURES = {
     "mg3_jacobi_errs_shard": ([_P] * 8 + [_I] * 4 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P], _I),
     "mg3_jacobi_residual_shard": ([_P] * 4 + [_I] * 4 + [_I] * 3 + [_I] * 3 + [_F] * 3 + [_P],
                                   _I),
-    "mg3_descend_shard": ([_P] * 6 + [_I] * 4 + [_I] * 4 + [_I] * 3 + [_F] * 3 + [_P], _I),
-    "mg3_ascend_shard": ([_P] * 6 + [_I] * 4 + [_I] * 2 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P],
+    "mg3_descend_shard": ([_P] * 10 + [_I] * 4 + [_I] * 4 + [_I] * 3 + [_F] * 3 + [_P], _I),
+    "mg3_ascend_shard": ([_P] * 9 + [_I] * 4 + [_I] * 2 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P],
                          _I),
     "mg3_residual_shard": ([_P] * 3 + [_I] * 4 + [_I] + [_I] * 3 + [_F, _P], _I),
     # the ring kernels (ops.rdma)

@@ -1,6 +1,6 @@
-// The whole 3-D ascend leg in one kernel: the trilinear prolongation of the
-// coarse correction, its add on the interior and k post-sweeps, with the
-// clean smoothing error optionally fused in.
+// The whole 3-D ascend leg: the trilinear prolongation of the coarse
+// correction, its add on the interior and k post-sweeps, with the clean
+// smoothing error optionally.
 //
 // Replaces: multigrid_poisson_solver_tpu/ops/pallas3d.py,
 // _fused_ascend3_kernel, reached through fused_ascend3_padded, together with
@@ -8,96 +8,165 @@
 //
 // Bound: device-memory bandwidth. Fused, the leg reads u, f and the coarse
 // grid (an eighth of the points) once and writes u once: 12.5 B per fine
-// point, against a prolongation pass, an add pass and 12 B per sweep as
-// separate passes. Design: the 2.5-D pipeline of legs3.cuh; the starting
-// iterate of each staged plane is u plus the prolonged correction, formed
-// from the coarse grid directly (even points copy, odd ones average two,
-// four or eight coarse values, along z, then y, then x), so the fine
-// correction never exists in device memory. The halo is k (+1 for the clean
-// error's extra stencil read).
+// point. Design: not fused (PERF.md: legs3.cuh's fused trapezoid ran one
+// 512-thread block an SM with a barrier after every stage and plane, and
+// lost to column passes on the same sweeps at every size measured). A call
+// is one prolongation pass and the k (+1) column passes of col3.cuh:
+//   1. u0 = u plus the prolonged correction on the interior (even points
+//      copy, odd ones average two, four or eight coarse values, along z,
+//      then y, then x: legs3.cuh's prolong_at, the coarse values held in
+//      registers), u elsewhere, a thread per (y, x) column over PRO3_CHUNK
+//      planes: 4.5 B read and 4 B written a point, into the scratch volume
+//      the first sweep does not write;
+//   2. col3_schedule's k sweeps from u0, as kernel 10's fixed modes run
+//      them, iterate k landing in out, and with the clean error one more
+//      pass that only reads it (the partials of kernel 10's read-only pass).
 //
 // Shard mode (pallas3d.py, _fused_ascend3_shard_call, reached through
-// parallel/pallas_shard3.py's sharded_fused_ascend3): the leg on one
-// z-shard's planes (legs3.cuh, SHARD) with an even global origin, reading a
-// window of the coarse correction's planes around the shard's coarse points
-// (the TPU kernel reads a lane-expanded window; here the prolongation is
-// formed in the kernel on all three axes); the error, when asked for, comes
-// back as the shard's raw float64 sum over its owned planes.
-#include "legs3.cuh"
+// parallel/pallas_shard3.py's sharded_fused_ascend3): the same passes on
+// one z-shard's planes with an even global origin, reading a window of the
+// coarse correction's planes around the shard's coarse points (the TPU
+// kernel reads a lane-expanded window; here the prolongation is formed on
+// all three axes); the prolongation applies on every window plane a sweep
+// reads (k + clean a side beyond the owned ones), halo planes included; the
+// error, when asked for, comes back as the shard's raw float64 sum over its
+// owned planes.
+#include "col3.cuh"
 
 using namespace mgk3;
 
-static __global__ void __launch_bounds__(THREADS3) ascend3_kernel(Leg3 L) {
-  extern __shared__ float smem[];
-  run_leg3(smem, L, Planes3{});
+// Planes a thread of the prolongation pass takes, its loads of u kept in
+// flight by unrolling.
+constexpr int PRO3_CHUNK = 8;
+
+// u0 = u + prolong(c) on the interior, u elsewhere: column (y, x) of a 32 x
+// 8 tile over the planes [plo + PRO3_CHUNK · blockIdx.z, ...) ∩ [plo, phi)
+// of a level whose windows start at global plane zb; c holds the coarse
+// planes from cz0 on. prolong_at's arithmetic (legs3.cuh) with the column's
+// coarse values in registers: the (up to) four coarse columns (I, J), (I,
+// J + 1), (I + 1, J), (I + 1, J + 1) of coarse planes Z and Z + 1, so a
+// coarse plane is loaded once for the two fine planes that read it (on an
+// H100 the pass took 0.64 ms a 513³ v_cycle3 cycle, against 0.72 for
+// prolong_at per point, PERF.md).
+static __global__ void __launch_bounds__(256)
+ascend3_prolong_kernel(const float* __restrict__ u, const float* __restrict__ c,
+                       float* __restrict__ u0, int n, int zb, int plo, int phi, int cz0) {
+  const int x = blockIdx.x * 32 + threadIdx.x, y = blockIdx.y * 8 + threadIdx.y;
+  if (x >= n || y >= n) return;
+  const int zs = plo + PRO3_CHUNK * blockIdx.z, ze = min(zs + PRO3_CHUNK, phi);
+  const bool cin = inner(y, n) && inner(x, n);
+  const int m = (n + 1) / 2, yo = y & 1, xo = x & 1;
+  const size_t mp = (size_t)m * m, o00 = (size_t)(y >> 1) * m + (x >> 1);
+  const size_t o01 = o00 + xo, o10 = o00 + yo * m, o11 = o10 + xo;
+  const size_t pl = (size_t)n * n, g = ((size_t)(zs - zb) * n + y) * n + x;
+  float p0[4], p1[4];  // the four columns of coarse planes Z and Z + 1
+  auto load = [&](float(&p)[4], int Z) {
+    const float* cz = c + (size_t)(Z - cz0) * mp;
+    p[0] = __ldg(cz + o00);
+    p[1] = __ldg(cz + o01);
+    p[2] = __ldg(cz + o10);
+    p[3] = __ldg(cz + o11);
+  };
+  if (cin) load(p0, zs >> 1);
+#pragma unroll
+  for (int t = 0; t < PRO3_CHUNK; ++t) {
+    const int z = zs + t;
+    if (z >= ze) break;
+    float v = __ldg(u + g + t * pl);
+    if (cin && inner(z, n)) {
+      // along z (odd planes ½·(a + b)), then y, then x
+      float a[4];
+      if (z & 1) {
+        load(p1, (z >> 1) + 1);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[k] = __fmul_rn(0.5f, __fadd_rn(p0[k], p1[k]));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) p0[k] = p1[k];  // plane Z + 1 is the next plane's Z
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[k] = p0[k];
+      }
+      const float b0 = yo ? __fmul_rn(0.5f, __fadd_rn(a[0], a[2])) : a[0];
+      const float b1 = yo ? __fmul_rn(0.5f, __fadd_rn(a[1], a[3])) : a[1];
+      v = __fadd_rn(v, xo ? __fmul_rn(0.5f, __fadd_rn(b0, b1)) : b0);
+    }
+    u0[g + t * pl] = v;
+  }
 }
 
-static __global__ void __launch_bounds__(THREADS3)
-ascend3_shard_kernel(Leg3 L, Planes3 P) {
-  extern __shared__ float smem[];
-  run_leg3<true>(smem, L, P);
-}
-
-static bool ascend3_leg(Leg3& L, const float* u, const float* f, const float* c, float* out,
-                        double* partials, int steps, int err_mode, int ty, int tx, int cz,
-                        float h2, float w, float inv_h2) {
-  if (steps < 1 || steps > MAX_STEPS3 || L.n % 2 == 0 ||
-      (err_mode != ERR_NONE && err_mode != ERR_CLEAN))
-    return false;
-  L.u = u;
-  L.f = f;
-  L.c = c;
-  L.out = out;
-  L.partials = err_mode == ERR_NONE ? nullptr : partials;
-  L.sweeps = steps;
-  L.last = err_mode == ERR_CLEAN ? EXTRA : -1;
-  L.err_mode = err_mode;
-  L.restrict_mode = R_NONE;
-  L.ty = ty;
-  L.tx = tx;
-  L.cz = cz;
-  L.halo = leg3_stages(L);
-  L.h2 = h2;
-  L.w = w;
-  L.inv_h2 = inv_h2;
-  return true;
+// The leg on the owned planes [z0, z0 + nz) (z0 even; u and f extended by
+// ext planes per side, c the coarse planes [cz0, cz0 + cnz)): the
+// prolongation into one of it[0], it[1] (both shaped as u), then
+// col3_schedule's sweeps into it[0] (or, given `own`, into its owned
+// planes) with the error err_mode names. Returns the tile count in *tiles.
+static cudaError_t ascend3_passes(bool shard, const float* u, const float* f, const float* c,
+                                  int cz0, int cnz, float* const it[2], float* own,
+                                  double* partials, double* work, int n, int z0, int nz, int ext,
+                                  int steps, int err_mode, int ty, int tx, int cz, float h2,
+                                  float w, float inv_h2, int* tiles, cudaStream_t stream) {
+  if (steps < 1 || steps > MAX_STEPS3 || n % 2 == 0 || z0 % 2 || u == nullptr || c == nullptr ||
+      it[0] == nullptr || it[1] == nullptr || (err_mode != ERR_NONE && err_mode != ERR_CLEAN))
+    return cudaErrorInvalidValue;
+  // the planes the sweeps read: k + clean a side, within the window
+  const int halo = steps + (err_mode == ERR_CLEAN);
+  Col3 C;
+  cudaError_t e = col3_setup(C, halo, f, nullptr, n, z0, nz, ext, ty, tx, cz, h2, w, inv_h2,
+                             stream, false);
+  if (e != cudaSuccess) return e;
+  const int plo = z0 - halo > 0 ? z0 - halo : 0, phi = z0 + nz + halo < n ? z0 + nz + halo : n;
+  // the coarse planes its interior planes [flo, fhi] prolong from
+  const int flo = plo > 1 ? plo : 1, fhi = phi - 1 < n - 2 ? phi - 1 : n - 2;
+  if (flo <= fhi && (cz0 > (flo >> 1) || cz0 + cnz <= ((fhi + 1) >> 1)))
+    return cudaErrorInvalidValue;
+  // iterate 1 goes to it[0] when k − 1 is even (col3_schedule), so u0 to the other
+  float* const u0 = (steps - 1) % 2 == 0 ? it[1] : it[0];
+  const dim3 grid((n + 31) / 32, (n + 7) / 8, (phi - plo + PRO3_CHUNK - 1) / PRO3_CHUNK);
+  ascend3_prolong_kernel<<<grid, dim3(32, 8), 0, stream>>>(u, c, u0, n, z0 - ext, plo, phi, cz0);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return col3_passes(shard, u0, f, it, own, partials, work, n, z0, nz, ext, steps, err_mode,
+                     ROWS_LAST, ty, tx, cz, h2, w, inv_h2, tiles, stream);
 }
 
 // u plus the prolonged m^3 correction c on the interior of the n^3 level
-// (n = 2m − 1), then steps <= 8 sweeps into out. err_mode ERR_NONE or
-// ERR_CLEAN (steps <= 7; partials one double per block, err_out[0] the metric
-// times err_scale).
-extern "C" int mg3_ascend(const float* u, const float* f, const float* c, float* out,
-                          double* partials, float* err_out, int n, int steps, int err_mode,
-                          int ty, int tx, int cz, float h2, float w, float inv_h2,
+// (n = 2m − 1), then steps <= 8 sweeps into out; mid is an n^3 scratch
+// volume. err_mode ERR_NONE or ERR_CLEAN (steps <= 7; partials one double
+// per tile of the plan (ty, tx, cz; at most THREADS3 cells a tile), work the
+// column pass's workspace (ops.kernels3.col3_work of the tile count),
+// err_out[0] the metric times err_scale).
+extern "C" int mg3_ascend(const float* u, const float* f, const float* c, float* out, float* mid,
+                          double* partials, double* work, float* err_out, int n, int steps,
+                          int err_mode, int ty, int tx, int cz, float h2, float w, float inv_h2,
                           double err_scale, void* stream) {
-  Leg3 L{};
-  L.n = n;
-  if (!ascend3_leg(L, u, f, c, out, partials, steps, err_mode, ty, tx, cz, h2, w, inv_h2))
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e =
-      launch_leg3(ascend3_kernel, ascend3_shard_kernel, L, planes3_whole(n), s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)finish_error3(L, err_scale, err_out, s);
+  float* const it[2] = {out, mid};
+  int tiles = 0;
+  const cudaError_t e = ascend3_passes(false, u, f, c, 0, (n + 1) / 2, it, nullptr, partials,
+                                       work, n, 0, n, 0, steps, err_mode, ty, tx, cz, h2, w,
+                                       inv_h2, &tiles, s);
+  if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
+  sum_partials3_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, err_scale, err_out);
+  return (int)cudaGetLastError();
 }
 
 // The same on the owned planes [z0, z0 + nz) of a z-sharded level, z0 even:
-// u and f those planes extended by ext planes per side, c the coarse planes
-// [cz0, cz0 + cnz) (m^2 each; every plane the staged interior interpolates
-// from), out the owned planes; with ERR_CLEAN, raw_out[0] receives the
-// shard's raw Σ|r| over its owned planes.
+// u and f those planes extended by ext >= steps + clean planes per side
+// wherever a neighbour lies, c the coarse planes [cz0, cz0 + cnz) (m^2 each;
+// every plane the prolonged window planes interpolate from), out the owned
+// planes, wa and wb scratch windows shaped as u; with ERR_CLEAN, raw_out[0]
+// receives the shard's raw Σ|r| over its owned planes (partials one double
+// per tile of the shard's plan).
 extern "C" int mg3_ascend_shard(const float* u, const float* f, const float* c, float* out,
-                                double* partials, double* raw_out, int n, int z0, int nz,
-                                int ext, int cz0, int cnz, int steps, int err_mode, int ty,
-                                int tx, int cz, float h2, float w, float inv_h2, void* stream) {
-  Leg3 L{};
-  L.n = n;
-  const Planes3 P{z0, nz, ext, cz0, cnz};
-  if (z0 % 2 || !ascend3_leg(L, u, f, c, out, partials, steps, err_mode, ty, tx, cz, h2, w, inv_h2))
-    return (int)cudaErrorInvalidValue;
+                                float* wa, float* wb, double* partials, double* work,
+                                double* raw_out, int n, int z0, int nz, int ext, int cz0, int cnz,
+                                int steps, int err_mode, int ty, int tx, int cz, float h2,
+                                float w, float inv_h2, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = launch_leg3(ascend3_kernel, ascend3_shard_kernel, L, P, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)finish_raw3(L, P, raw_out, s);
+  float* const it[2] = {wa, wb};
+  int tiles = 0;
+  const cudaError_t e = ascend3_passes(true, u, f, c, cz0, cnz, it, out, partials, work, n, z0,
+                                       nz, ext, steps, err_mode, ty, tx, cz, h2, w, inv_h2,
+                                       &tiles, s);
+  if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
+  sum_partials3_raw_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, raw_out);
+  return (int)cudaGetLastError();
 }

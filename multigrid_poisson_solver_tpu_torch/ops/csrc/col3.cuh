@@ -7,7 +7,9 @@
 // the streamed one (trigger3_stream.cu: passes of B sweeps) and of the ring
 // trigger kernel (rdma_trigger3.cu: one pass a sweep per z-shard, its halo
 // planes read from and posted to receive buffers through a plane source of
-// its own in place of Col3Io below).
+// its own in place of Col3Io below), and the sweeps of the 3-D legs
+// (descend3.cu, ascend3.cu, whose residual and prolongation passes are
+// their own; the residual pass streams its columns through col3_stream).
 //
 // Why not the tile pipeline of legs3.cuh: a fused k-sweep trapezoid there
 // runs one 512-thread block an SM with a barrier after every stage of every
@@ -145,6 +147,45 @@ struct Col3Io {
 constexpr int COL3_AHEAD = 3;
 constexpr int COL3_RING = COL3_AHEAD + 1;
 
+// (Σnb − 6u) of a plane's loads p between the column's u at z − 1 (cm) and
+// z + 1 (cp): ((((z− + z+) + y−) + y+) + x−) + x+, then − 6u.
+static __device__ __forceinline__ float col3_lap(const Col3Plane& p, float cm, float cp) {
+  const float nb =
+      __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(cm, cp), p.ym), p.yp), p.xm), p.xp);
+  return __fsub_rn(nb, __fmul_rn(6.0f, p.c));
+}
+
+// Stream column col of the source's iterate down the planes [zs, ze),
+// calling at(z, p, cm, cp) for each plane: p its loads (col3_load; the
+// neighbours and f only in an interior column, cin), cm and cp the column's
+// u at z − 1 and z + 1 (cm 0 before plane 0; cp is read for interior planes
+// only, and plane ze is loaded for it where ze < n).
+template <bool COHERENT, class Io, class At>
+static __device__ __forceinline__ void col3_stream(const Io& io, int n, size_t pl, size_t col,
+                                                   bool cin, int zs, int ze, At&& at) {
+  // slot r holds plane zs + t for t ≡ r (mod COL3_RING); plane p is loaded
+  // while p <= ze (plane ze is the last one's z + 1) and p < n
+  Col3Plane ring[COL3_RING];
+  float cm = cin && zs >= 1 ? col3_ld<COHERENT>(io.up(zs - 1, pl) + col) : 0.0f;
+#pragma unroll
+  for (int r = 0; r < COL3_AHEAD; ++r)
+    if (zs + r <= ze && zs + r < n)
+      col3_load<COHERENT>(ring[r], io.up(zs + r, pl) + col, io.fp(zs + r, pl) + col, n, cin);
+  for (int t0 = 0; t0 < ze - zs; t0 += COL3_RING) {
+#pragma unroll
+    for (int r = 0; r < COL3_RING; ++r) {
+      const int z = zs + t0 + r;
+      if (z >= ze) break;
+      const int za = z + COL3_AHEAD;  // into the slot plane z − 1 has left
+      if (za <= ze && za < n)
+        col3_load<COHERENT>(ring[(r + COL3_AHEAD) % COL3_RING], io.up(za, pl) + col,
+                            io.fp(za, pl) + col, n, cin);
+      at(z, ring[r], cm, ring[(r + 1) % COL3_RING].c);
+      cm = ring[r].c;
+    }
+  }
+}
+
 // Column (y, x) over the planes [zs, ze): the sweep into the source's
 // written iterate and this thread's error sum over the chunk's planes
 // [e0, e1). Face columns and planes are frozen and carry no error. The
@@ -172,43 +213,21 @@ static __device__ __forceinline__ double col3_walk(const Col3& C, int err, const
     }
     return acc;
   }
-  // slot r holds plane zs + t for t ≡ r (mod COL3_RING); plane p is loaded
-  // while p <= ze (plane ze is the last one's z + 1) and p < n
-  Col3Plane ring[COL3_RING];
-  float cm = cin && zs >= 1 ? col3_ld<COHERENT>(io.up(zs - 1, pl) + col) : 0.0f;
-#pragma unroll
-  for (int r = 0; r < COL3_AHEAD; ++r)
-    if (zs + r <= ze && zs + r < n)
-      col3_load<COHERENT>(ring[r], io.up(zs + r, pl) + col, io.fp(zs + r, pl) + col, n, cin);
-  for (int t0 = 0; t0 < ze - zs; t0 += COL3_RING) {
-#pragma unroll
-    for (int r = 0; r < COL3_RING; ++r) {
-      const int z = zs + t0 + r;
-      if (z >= ze) break;
-      const int za = z + COL3_AHEAD;  // into the slot plane z − 1 has left
-      if (za <= ze && za < n)
-        col3_load<COHERENT>(ring[(r + COL3_AHEAD) % COL3_RING], io.up(za, pl) + col,
-                            io.fp(za, pl) + col, n, cin);
-      const Col3Plane& p = ring[r];
-      float v = p.c;
-      if (cin && inner(z, n)) {
-        const float nb = __fadd_rn(
-            __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(cm, ring[(r + 1) % COL3_RING].c), p.ym), p.yp),
-                      p.xm),
-            p.xp);
-        const float lap = __fsub_rn(nb, __fmul_rn(6.0f, p.c));
-        v = __fadd_rn(p.c, __fmul_rn(C.w, __fsub_rn(lap, __fmul_rn(C.h2, p.f))));
-        if (z >= e0 && z < e1) {
-          if (err == ERR_CLEAN)
-            acc += (double)fabsf(__fsub_rn(__fmul_rn(C.inv_h2, lap), p.f));
-          else if (err == ERR_GPU)
-            acc += (double)fabsf(__fsub_rn(v, p.c));
-        }
+  auto at = [&](int z, const Col3Plane& p, float cm, float cp) {
+    float v = p.c;
+    if (cin && inner(z, n)) {
+      const float lap = col3_lap(p, cm, cp);
+      v = __fadd_rn(p.c, __fmul_rn(C.w, __fsub_rn(lap, __fmul_rn(C.h2, p.f))));
+      if (z >= e0 && z < e1) {
+        if (err == ERR_CLEAN)
+          acc += (double)fabsf(__fsub_rn(__fmul_rn(C.inv_h2, lap), p.f));
+        else if (err == ERR_GPU)
+          acc += (double)fabsf(__fsub_rn(v, p.c));
       }
-      if (io.writes()) io.put(C, z, pl, col, v);
-      cm = p.c;
     }
-  }
+    if (io.writes()) io.put(C, z, pl, col, v);
+  };
+  col3_stream<COHERENT>(io, n, pl, col, cin, zs, ze, at);
   return acc;
 }
 
@@ -308,26 +327,31 @@ enum Col3Rows { ROWS_EVERY = 0, ROWS_LAST = 1, ROWS_LAGGED = 2 };
 // dst, or with own only in own's owned planes, then with the clean error of
 // iterate k one pass that reads it (from dst) and writes nothing. A pass
 // takes the clean error of the iterate it reads and the gpu error of the
-// one it writes. Sweep s writes the owned planes and the k + clean − s more
-// per side that the later passes read. Sets P for pass j and returns false
-// past the last pass. col3_scratch says which of dst and mid a call uses.
+// one it writes. Sweep s writes the owned planes and the k + clean + tail −
+// s more per side that the later passes read, tail being the stencil reads
+// of iterate k that the caller's own passes make after these (the descend
+// leg's −r and its restriction; iterate k then lands in dst as well). Sets P
+// for pass j and returns false past the last pass. col3_scratch says which
+// of dst and mid a call uses.
 static __host__ __device__ __forceinline__ bool col3_schedule(const Col3& C, Col3Pass& P, int j,
                                                               int k, int mode,
                                                               const float* src, float* dst,
                                                               float* mid, float* own,
                                                               double* rows, int tiles,
-                                                              int kind = ROWS_EVERY) {
+                                                              int kind = ROWS_EVERY,
+                                                              int tail = 0) {
   const int clean = rows != nullptr && mode == ERR_CLEAN && kind != ROWS_LAGGED;
   if (j >= k + clean) return false;
   auto it = [&](int s) -> float* { return (k - s) % 2 == 0 ? dst : mid; };  // iterate s >= 1
   P.src = j == 0 ? src : it(j);
-  P.dst = j < k - 1 || (j == k - 1 && (own == nullptr || clean)) ? it(j + 1) : nullptr;
+  P.dst = j < k - 1 || (j == k - 1 && (own == nullptr || clean || tail)) ? it(j + 1) : nullptr;
   P.own = j == k - 1 ? own : nullptr;
   // clean: the error of iterate j; gpu: of iterate j + 1
   const int row = kind == ROWS_EVERY ? j - clean : (j == k + clean - 1 ? 0 : -1);
   P.err = rows != nullptr && row >= 0 ? mode : ERR_NONE;
   P.partials = P.err != ERR_NONE ? rows + (size_t)row * tiles : nullptr;
-  const int lo = C.z0 - (k + clean - j - 1), hi = C.z0 + C.nz + (k + clean - j - 1);
+  const int more = k + clean + tail - j - 1;
+  const int lo = C.z0 - more, hi = C.z0 + C.nz + more;
   P.plo = lo > 0 ? lo : 0;
   P.phi = hi < C.n ? hi : C.n;
   return true;
@@ -335,10 +359,11 @@ static __host__ __device__ __forceinline__ bool col3_schedule(const Col3& C, Col
 
 // Whether col3_schedule's k sweeps write into dst and into mid: mid holds
 // iterates k − 1, k − 3, ..., dst iterates k − 2, k − 4, ... and k itself
-// unless it goes only to own (own given, no read-only pass after it).
-static inline void col3_scratch(int k, bool own, bool clean, bool* dst, bool* mid) {
+// unless it goes only to own (own given, and no pass reads it after the
+// sweeps: `reread` false).
+static inline void col3_scratch(int k, bool own, bool reread, bool* dst, bool* mid) {
   *mid = k >= 2;
-  *dst = k >= 3 || !own || clean;
+  *dst = k >= 3 || !own || reread;
 }
 
 // The geometry checks of a call's column passes: the plan's tile has at
@@ -371,6 +396,60 @@ static inline cudaError_t col3_setup(Col3& C, int stages, const float* f, double
   C.wsum = work;
   C.arrivals = reinterpret_cast<unsigned*>(work + (size_t)tiles * WARPS3);
   return cudaMemsetAsync(C.arrivals, 0, sizeof(unsigned) * tiles, stream);
+}
+
+// One column pass a launch: block b is the pass's unit b. ZERO: the
+// closed-form first sweep from u ≡ 0.
+template <bool SHARD, bool ZERO>
+static __global__ void __launch_bounds__(COL3_THREADS) col3_pass_kernel(Col3 C, Col3Pass P) {
+  col3_unit<false, SHARD, ZERO>(C, P, blockIdx.x);
+}
+
+// steps sweeps of u (nullptr: from zero) on the owned planes [z0, z0 + nz)
+// of a level (inputs extended by ext planes per side) into it[0] (or, given
+// `own`, into its owned planes there; it[0] then holds earlier iterates or
+// nothing), it[1] a scratch volume shaped as u (col3_scratch says which the
+// call needs), with the errors (ERR_NONE, ERR_CLEAN or ERR_GPU) that `kind`
+// names (Col3Rows; rows of one double per tile of the plan): col3_schedule's
+// passes, one launch each (kernel 10's fixed and per-sweep modes, and the
+// sweeps of the legs, whose own passes read iterate k on `tail` more planes
+// a side). Returns the tile count in *tiles.
+static inline cudaError_t col3_passes(bool shard, const float* u, const float* f,
+                                      float* const it[2], float* own, double* partials,
+                                      double* work, int n, int z0, int nz, int ext, int steps,
+                                      int err_mode, int kind, int ty, int tx, int cz, float h2,
+                                      float w, float inv_h2, int* tiles, cudaStream_t stream,
+                                      int tail = 0) {
+  const bool errors = err_mode != ERR_NONE;
+  const bool clean = err_mode == ERR_CLEAN && kind != ROWS_LAGGED;  // a read-only pass last
+  const int stages = steps - (u == nullptr) + clean + tail;
+  bool need_dst, need_mid;
+  col3_scratch(steps, own != nullptr, clean || tail > 0, &need_dst, &need_mid);
+  if ((errors && err_mode != ERR_CLEAN && err_mode != ERR_GPU) || steps < 1 ||
+      steps > MAX_STEPS3 || stages > MAX_STEPS3 || tail < 0 || (errors && partials == nullptr) ||
+      (need_dst && it[0] == nullptr) || (need_mid && it[1] == nullptr))
+    return cudaErrorInvalidValue;
+  Col3 C;
+  cudaError_t e = col3_setup(C, stages, f, work, n, z0, nz, ext, ty, tx, cz, h2, w, inv_h2,
+                             stream, errors);
+  if (e != cudaSuccess) return e;
+  *tiles = col3_tiles(C);
+  Col3Pass P;
+  for (int j = 0; col3_schedule(C, P, j, steps, err_mode, u, it[0], it[1], own,
+                                errors ? partials : nullptr, *tiles, kind, tail);
+       ++j) {
+    const bool zero = P.src == nullptr;
+    if (shard && zero)
+      col3_pass_kernel<true, true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+    else if (shard)
+      col3_pass_kernel<true, false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+    else if (zero)
+      col3_pass_kernel<false, true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+    else
+      col3_pass_kernel<false, false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace mgk3

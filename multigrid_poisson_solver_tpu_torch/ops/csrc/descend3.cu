@@ -1,7 +1,6 @@
-// The whole 3-D descend leg in one kernel: k damped-Jacobi sweeps, the
-// residual of the final iterate and its 2:1 restriction (full weighting or
-// sampling) written straight into the coarse right-hand side, with the clean
-// smoothing error fused in.
+// The whole 3-D descend leg: k damped-Jacobi sweeps, the residual of the
+// final iterate and its 2:1 restriction (full weighting or sampling) into
+// the coarse right-hand side, with the clean smoothing error.
 //
 // Replaces: multigrid_poisson_solver_tpu/ops/pallas3d.py,
 // _fused_descend3_kernel, reached through fused_descend3_padded, together
@@ -10,102 +9,208 @@
 //
 // Bound: device-memory bandwidth. Fused, the leg reads u and f once, writes
 // u once and writes the coarse grid (an eighth of the points): 12.5 B per
-// fine point for the whole leg, against 12 B per sweep plus 12 for the
-// residual and more for the restriction as separate passes. Design: the
-// 2.5-D pipeline of legs3.cuh with one stage more than the sweeps, which
-// reads the final iterate's neighbors once for both the clean error (Σ|r|)
-// and −r, which lands in that stage's ring of three planes; each coarse
-// plane K is formed from fine planes 2K − 1 .. 2K + 1 as soon as they are
-// there. r is the direct stencil (the TPU kernel takes it from the step Δ of
-// a further sweep as 6Δ/(ωh²)): that way a cycle on the kernels keeps the
-// plain cycle's iterates, where the Δ form drifted 1.04e-5·max|u| from them
-// in four 513³ cycles. Tiles, chunks and their
-// origins are even, so a block's fine
-// tile is exactly a tile of coarse points and no exchange is needed. The
-// halo is k + 1 (+1 for full weighting). Coarse boundary points are 0.
+// fine point. Design: not fused (PERF.md: legs3.cuh's fused trapezoid ran
+// one 512-thread block an SM with a barrier after every stage and plane, and
+// lost to column passes on the same sweeps at every size measured). A call
+// is k + 2 launches of column passes (col3.cuh), each thread streaming one
+// (y, x) column down z:
+//   1. the k sweeps of col3_schedule, as kernel 10's fixed modes run them
+//      (from_zero: the first a closed form over f), the iterates alternating
+//      between out and a scratch volume so that iterate k lands in out, on
+//      the owned planes and the 1 + (full weighting) more a side that the
+//      next pass reads;
+//   2. the residual pass: −r of iterate k from one stencil read, its clean
+//      error summed in the error plan's order (the partial of kernel 10's
+//      read-only pass), and the restriction's z step in the registers of the
+//      column: s_K = (¼·d(2K − 1) + ½·d(2K)) + ¼·d(2K + 1) (or d(2K) for
+//      sampling) stored per coarse plane K, n² floats each, so neither −r
+//      nor the fine iterate is read again: 8 B read and 2 B written a point;
+//   3. the restriction's y and x steps, a thread per coarse point reading
+//      s_K at fine (2I + dy, 2J + dx), 0 on the coarse faces.
+// Each z chunk of the plan walks one plane beyond it a side (full
+// weighting), so its coarse planes need nothing from another block. The
+// arithmetic is legs3.cuh's run_stage and restrict_plane, in the twins'
+// order; r is the direct stencil (the TPU kernel takes it from the step Δ
+// of a further sweep as 6Δ/(ωh²)), which keeps a cycle on the kernels on the
+// plain cycle's iterates. Coarse boundary points are 0.
 //
 // Shard mode (pallas3d.py, _fused_descend3_shard_call, reached through
-// parallel/pallas_shard3.py's sharded_fused_descend3): the leg on one
-// z-shard's planes (legs3.cuh, SHARD) with an even global origin, so the
-// shard's coarse planes start at z0 / 2 and a fine plane's parity is its
-// global one; each shard writes its own slab of the coarse right-hand side,
-// all three axes restricted in the kernel, and its error as a raw float64
-// sum over its owned planes.
-#include "legs3.cuh"
+// parallel/pallas_shard3.py's sharded_fused_descend3): the same passes on
+// one z-shard's planes with an even global origin, so the shard's coarse
+// planes start at z0 / 2 and a fine plane's parity is its global one; the
+// sweeps write k + 1 + (full weighting) − s planes a side beyond the owned
+// ones into two scratch windows (the halo the caller exchanged), the
+// residual pass reads one plane beyond the owned ones and writes the
+// shard's coarse planes [z0 / 2, (z0 + nz + 1) / 2), and the error comes
+// back as a raw float64 sum over the owned planes.
+#include "col3.cuh"
 
 using namespace mgk3;
 
-static __global__ void __launch_bounds__(THREADS3) descend3_kernel(Leg3 L) {
-  extern __shared__ float smem[];
-  run_leg3(smem, L, Planes3{});
+// ¼·a + ½·b, then + ¼·c: one step of full weighting.
+static __device__ __forceinline__ float fw3(float a, float b, float c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(0.25f, a), __fmul_rn(0.5f, b)), __fmul_rn(0.25f, c));
 }
 
-static __global__ void __launch_bounds__(THREADS3)
-descend3_shard_kernel(Leg3 L, Planes3 P) {
-  extern __shared__ float smem[];
-  run_leg3<true>(smem, L, P);
+// Block `unit` of the residual pass over iterate k (u, laid out as the
+// inputs): the tile's columns over its z chunk [e0, e1) of the owned planes,
+// −r on the planes [e0 − FW, e1 + FW) of the grid, the error of the chunk's
+// planes into the tile's partial, and s_K for the chunk's coarse planes K
+// (2K in [e0, e1)) into s (plane K − z0 / 2; interior K only). A face column
+// has −r = 0 and no coarse point reads it.
+template <bool FW>
+static __global__ void __launch_bounds__(COL3_THREADS)
+descend3_residual_kernel(Col3 C, const float* u, float* s, double* partials) {
+  const int n = C.n, m = (n + 1) / 2, gx = col3_gx(C), gy = col3_gy(C);
+  const int unit = blockIdx.x, tile = unit / COL3_QUARTERS, q = unit - tile * COL3_QUARTERS;
+  const int bx = tile % gx, by = (tile / gx) % gy, bz = tile / (gx * gy);
+  const int e0 = C.z0 + bz * C.cz, e1 = min(e0 + C.cz, C.z0 + C.nz);
+  const int v = q * COL3_THREADS + threadIdx.x;  // the tile's thread (block_sum3's numbering)
+  double acc = 0.0;
+  if (v < C.ty * C.tx) {
+    const int i = v / C.tx;
+    const int y = by * C.ty + i, x = bx * C.tx + (v - i * C.tx);
+    if (y < n && x < n && inner(y, n) && inner(x, n)) {
+      const size_t pl = (size_t)n * n, col = (size_t)y * n + x;
+      const ptrdiff_t base = -(ptrdiff_t)(C.z0 - C.ext) * n * n;  // the inputs' global plane 0
+      const Col3Io io{u + base, C.f + base, nullptr, nullptr};
+      const int K0 = C.z0 / 2;
+      float d2 = 0.0f, d1 = 0.0f;  // −r at z − 2 and z − 1
+      auto at = [&](int z, const Col3Plane& p, float cm, float cp) {
+        float d = 0.0f;
+        if (inner(z, n)) {
+          d = -__fsub_rn(__fmul_rn(C.inv_h2, col3_lap(p, cm, cp)), p.f);
+          if (z >= e0 && z < e1) acc += (double)fabsf(d);
+        }
+        // coarse plane K once its fine planes are in the registers
+        const int K = FW ? (z - 1) >> 1 : z >> 1;
+        if ((FW ? (z & 1) : !(z & 1)) && 2 * K >= e0 && 2 * K < e1 && inner(K, m))
+          s[(size_t)(K - K0) * pl + col] = FW ? fw3(d2, d1, d) : d;
+        d2 = d1;
+        d1 = d;
+      };
+      col3_stream<false>(io, n, pl, col, true, max(e0 - FW, 0), min(e1 + FW, n), at);
+    }
+  }
+  if (partials != nullptr) col3_finish(C, partials, tile, q, acc);
 }
 
-static bool descend3_leg(Leg3& L, const float* u, const float* f, float* out, float* fc,
-                         double* partials, int steps, int from_zero, int full_weighting,
-                         int want_err, int ty, int tx, int cz, float h2, float w, float inv_h2) {
-  const int sweeps = steps - (from_zero ? 1 : 0);
-  if (steps < 1 || sweeps > (full_weighting ? 6 : 7) || L.n % 2 == 0) return false;
-  L.u = from_zero ? nullptr : u;
-  L.f = f;
-  L.out = out;
-  L.fc = fc;
-  L.partials = want_err ? partials : nullptr;
-  L.sweeps = sweeps;
-  L.last = EXTRA;
-  L.err_mode = want_err ? ERR_CLEAN : ERR_NONE;
-  L.restrict_mode = full_weighting ? R_FW : R_SAMPLING;
-  L.ty = ty;
-  L.tx = tx;
-  L.cz = cz;
-  L.halo = leg3_stages(L) + (full_weighting ? 1 : 0);
-  L.h2 = h2;
-  L.w = w;
-  L.inv_h2 = inv_h2;
-  return true;
+// The restriction's y and x steps: coarse point (K0 + k, I, J) of the m^3
+// grid from s (plane k: the z step at coarse plane K0 + k on the fine n x n
+// plane), into fc's plane k; 0 on the coarse boundary.
+template <bool FW>
+static __global__ void __launch_bounds__(256)
+descend3_restrict_kernel(const float* __restrict__ s, float* __restrict__ fc, int n, int K0) {
+  const int m = (n + 1) / 2;
+  const int J = blockIdx.x * 32 + threadIdx.x, I = blockIdx.y * 8 + threadIdx.y, k = blockIdx.z;
+  if (I >= m || J >= m) return;
+  float v = 0.0f;
+  if (inner(K0 + k, m) && inner(I, m) && inner(J, m)) {
+    const float* const c = s + ((size_t)k * n + 2 * I) * n + 2 * J;
+    if (FW) {
+      float sy[3];
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx)
+        sy[dx + 1] = fw3(__ldg(c - n + dx), __ldg(c + dx), __ldg(c + n + dx));
+      v = fw3(sy[0], sy[1], sy[2]);
+    } else {
+      v = __ldg(c);
+    }
+  }
+  fc[((size_t)k * m + I) * m + J] = v;
+}
+
+// The leg on the owned planes [z0, z0 + nz) (z0 even): col3_schedule's
+// sweeps of u (nullptr: from zero) into it[0] (and the owned planes into
+// `own` when given), then the residual pass into s (the shard's coarse
+// planes from z0 / 2 on, n² floats each) with the clean error's partials
+// (partials nullptr: none), then the restriction into fc. Returns the
+// error plan's tile count in *tiles.
+static cudaError_t descend3_passes(bool shard, const float* u, const float* f,
+                                   float* const it[2], float* own, float* s, float* fc,
+                                   double* partials, double* work, int n, int z0, int nz, int ext,
+                                   int steps, int full_weighting, int ty, int tx, int cz,
+                                   float h2, float w, float inv_h2, int* tiles,
+                                   cudaStream_t stream) {
+  const int fw = full_weighting ? 1 : 0;
+  const int sweeps = steps - (u == nullptr);
+  if (steps < 1 || sweeps > (fw ? 6 : 7) || n % 2 == 0 || z0 % 2 || s == nullptr ||
+      fc == nullptr || (partials != nullptr && work == nullptr))
+    return cudaErrorInvalidValue;
+  // iterate k on the owned planes and 1 + fw more a side, in it[0]
+  cudaError_t e = col3_passes(shard, u, f, it, own, nullptr, nullptr, n, z0, nz, ext, steps,
+                              ERR_NONE, ROWS_LAST, ty, tx, cz, h2, w, inv_h2, tiles, stream,
+                              1 + fw);
+  if (e != cudaSuccess) return e;
+  Col3 C;
+  if ((e = col3_setup(C, 1 + fw, f, work, n, z0, nz, ext, ty, tx, cz, h2, w, inv_h2, stream,
+                      partials != nullptr)) != cudaSuccess)
+    return e;
+  *tiles = col3_tiles(C);
+  if (fw)
+    descend3_residual_kernel<true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, it[0], s,
+                                                                                partials);
+  else
+    descend3_residual_kernel<false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, it[0], s,
+                                                                                 partials);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int m = (n + 1) / 2, K0 = z0 / 2, nk = (z0 + nz + 1) / 2 - K0;
+  const dim3 grid((m + 31) / 32, (m + 7) / 8, nk), block(32, 8);
+  if (fw)
+    descend3_restrict_kernel<true><<<grid, block, 0, stream>>>(s, fc, n, K0);
+  else
+    descend3_restrict_kernel<false><<<grid, block, 0, stream>>>(s, fc, n, K0);
+  return cudaGetLastError();
 }
 
 // steps sweeps of the n^3 level (n = 2m − 1; u unread when from_zero) into
-// out, the restricted −r into the m^3 fc. want_err: the clean error, with
-// partials holding one double per block, into err_out[0] (times err_scale).
-extern "C" int mg3_descend(const float* u, const float* f, float* out, float* fc,
-                           double* partials, float* err_out, int n, int steps, int from_zero,
-                           int full_weighting, int want_err, int ty, int tx, int cz, float h2,
-                           float w, float inv_h2, double err_scale, void* stream) {
-  Leg3 L{};
-  L.n = n;
-  if (!descend3_leg(L, u, f, out, fc, partials, steps, from_zero, full_weighting, want_err, ty,
-                    tx, cz, h2, w, inv_h2))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
+// out, the restricted −r into the m^3 fc. mid is an n^3 scratch volume
+// (unused for one sweep), s one of m planes of n² floats (the restriction's
+// z step). want_err: the clean error, with partials one double per tile of
+// the plan (ty, tx, cz; at most THREADS3 cells a tile) and work the column
+// pass's workspace (ops.kernels3.col3_work of the tile count), into
+// err_out[0] (times err_scale).
+extern "C" int mg3_descend(const float* u, const float* f, float* out, float* mid, float* s,
+                           float* fc, double* partials, double* work, float* err_out, int n,
+                           int steps, int from_zero, int full_weighting, int want_err, int ty,
+                           int tx, int cz, float h2, float w, float inv_h2, double err_scale,
+                           void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* const it[2] = {out, mid};
+  int tiles = 0;
+  if (want_err && partials == nullptr) return (int)cudaErrorInvalidValue;
   const cudaError_t e =
-      launch_leg3(descend3_kernel, descend3_shard_kernel, L, planes3_whole(n), s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)finish_error3(L, err_scale, err_out, s);
+      descend3_passes(false, from_zero ? nullptr : u, f, it, nullptr, s, fc,
+                      want_err ? partials : nullptr, work, n, 0, n, 0, steps, full_weighting, ty,
+                      tx, cz, h2, w, inv_h2, &tiles, st);
+  if (e != cudaSuccess || !want_err) return (int)e;
+  sum_partials3_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, st>>>(partials, tiles, err_scale,
+                                                              err_out);
+  return (int)cudaGetLastError();
 }
 
 // The same on the owned planes [z0, z0 + nz) of a z-sharded level, z0 even:
-// u and f those planes extended by ext planes per side, out the owned planes,
-// fc the coarse planes [z0 / 2, (z0 + nz + 1) / 2) (m^2 each); with want_err,
-// raw_out[0] receives the shard's raw Σ|r| over its owned planes.
-extern "C" int mg3_descend_shard(const float* u, const float* f, float* out, float* fc,
-                                 double* partials, double* raw_out, int n, int z0, int nz,
-                                 int ext, int steps, int from_zero, int full_weighting,
-                                 int want_err, int ty, int tx, int cz, float h2, float w,
-                                 float inv_h2, void* stream) {
-  Leg3 L{};
-  L.n = n;
-  const Planes3 P{z0, nz, ext, 0, 0};
-  if (z0 % 2 || !descend3_leg(L, u, f, out, fc, partials, steps, from_zero, full_weighting,
-                              want_err, ty, tx, cz, h2, w, inv_h2))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = launch_leg3(descend3_kernel, descend3_shard_kernel, L, P, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)finish_raw3(L, P, raw_out, s);
+// u and f those planes extended by ext >= k + 1 + full_weighting planes per
+// side (k the neighbour-reading sweeps) wherever a neighbour lies, out the
+// owned planes, wa and wb scratch windows shaped as u (wb unused for one
+// sweep), s the (z0 + nz + 1) / 2 − z0 / 2 coarse planes' z steps (n² floats
+// each), fc those coarse planes [z0 / 2, (z0 + nz + 1) / 2) (m² each); with
+// want_err, raw_out[0] receives the shard's raw Σ|r| over its owned planes
+// (partials one double per tile of the shard's plan).
+extern "C" int mg3_descend_shard(const float* u, const float* f, float* out, float* wa,
+                                 float* wb, float* s, float* fc, double* partials, double* work,
+                                 double* raw_out, int n, int z0, int nz, int ext, int steps,
+                                 int from_zero, int full_weighting, int want_err, int ty, int tx,
+                                 int cz, float h2, float w, float inv_h2, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* const it[2] = {wa, wb};
+  int tiles = 0;
+  if (want_err && partials == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      descend3_passes(true, from_zero ? nullptr : u, f, it, out, s, fc,
+                      want_err ? partials : nullptr, work, n, z0, nz, ext, steps, full_weighting,
+                      ty, tx, cz, h2, w, inv_h2, &tiles, st);
+  if (e != cudaSuccess || !want_err) return (int)e;
+  sum_partials3_raw_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, st>>>(partials, tiles, raw_out);
+  return (int)cudaGetLastError();
 }

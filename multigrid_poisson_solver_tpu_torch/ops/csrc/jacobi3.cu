@@ -48,13 +48,6 @@
 
 using namespace mgk3;
 
-// One column pass (col3.cuh) a launch: block b is the pass's unit b. ZERO:
-// the closed-form first sweep from u ≡ 0.
-template <bool SHARD, bool ZERO>
-static __global__ void __launch_bounds__(COL3_THREADS) jacobi3_col_kernel(Col3 C, Col3Pass P) {
-  col3_unit<false, SHARD, ZERO>(C, P, blockIdx.x);
-}
-
 static __global__ void __launch_bounds__(THREADS3) jacobi3_residual_kernel(Leg3 L) {
   extern __shared__ float smem[];
   run_leg3<false, true>(smem, L, Planes3{});
@@ -64,50 +57,6 @@ static __global__ void __launch_bounds__(THREADS3)
 jacobi3_residual_shard_kernel(Leg3 L, Planes3 P) {
   extern __shared__ float smem[];
   run_leg3<true, true>(smem, L, P);
-}
-
-// steps sweeps of u (nullptr: from zero) on the owned planes [z0, z0 + nz)
-// of a level (inputs extended by ext planes per side) into it[0] (or, given
-// `own`, into its owned planes there; it[0] then holds earlier iterates or
-// nothing), it[1] a scratch volume shaped as u (col3_scratch says which the
-// call needs), with the errors (ERR_NONE, ERR_CLEAN or ERR_GPU)
-// that `kind` names (Col3Rows; rows of one double per tile of the plan):
-// col3_schedule's passes, one launch each. Returns the tile count in *tiles.
-static cudaError_t jacobi3_col_passes(bool shard, const float* u, const float* f,
-                                      float* const it[2], float* own, double* partials,
-                                      double* work, int n, int z0, int nz, int ext, int steps,
-                                      int err_mode, int kind, int ty, int tx, int cz, float h2,
-                                      float w, float inv_h2, int* tiles, cudaStream_t stream) {
-  const bool errors = err_mode != ERR_NONE;
-  const bool clean = err_mode == ERR_CLEAN && kind != ROWS_LAGGED;  // a read-only pass last
-  const int stages = steps - (u == nullptr) + clean;
-  bool need_dst, need_mid;
-  col3_scratch(steps, own != nullptr, clean, &need_dst, &need_mid);
-  if ((errors && err_mode != ERR_CLEAN && err_mode != ERR_GPU) || steps < 1 ||
-      steps > MAX_STEPS3 || stages > MAX_STEPS3 || (errors && partials == nullptr) ||
-      (need_dst && it[0] == nullptr) || (need_mid && it[1] == nullptr))
-    return cudaErrorInvalidValue;
-  Col3 C;
-  cudaError_t e = col3_setup(C, stages, f, work, n, z0, nz, ext, ty, tx, cz, h2, w, inv_h2,
-                             stream, errors);
-  if (e != cudaSuccess) return e;
-  *tiles = col3_tiles(C);
-  Col3Pass P;
-  for (int j = 0; col3_schedule(C, P, j, steps, err_mode, u, it[0], it[1], own,
-                                errors ? partials : nullptr, *tiles, kind);
-       ++j) {
-    const bool zero = P.src == nullptr;
-    if (shard && zero)
-      jacobi3_col_kernel<true, true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
-    else if (shard)
-      jacobi3_col_kernel<true, false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
-    else if (zero)
-      jacobi3_col_kernel<false, true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
-    else
-      jacobi3_col_kernel<false, false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  return cudaSuccess;
 }
 
 // steps <= 8 sweeps of u (unread when from_zero) into out. err_mode ERR_NONE,
@@ -125,8 +74,8 @@ extern "C" int mg3_jacobi(const float* u, const float* f, float* out, float* mid
   float* const it[2] = {out, mid};
   int tiles = 0;
   const cudaError_t e =
-      jacobi3_col_passes(false, from_zero ? nullptr : u, f, it, nullptr, partials, work, n, 0, n,
-                         0, steps, err_mode, ROWS_LAST, ty, tx, cz, h2, w, inv_h2, &tiles, s);
+      col3_passes(false, from_zero ? nullptr : u, f, it, nullptr, partials, work, n, 0, n, 0,
+                  steps, err_mode, ROWS_LAST, ty, tx, cz, h2, w, inv_h2, &tiles, s);
   if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
   sum_partials3_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, err_scale, err_out);
   return (int)cudaGetLastError();
@@ -148,10 +97,10 @@ extern "C" int mg3_jacobi_shard(const float* u, const float* f, float* out, floa
   const cudaStream_t s = (cudaStream_t)stream;
   float* const it[2] = {wa, wb};
   int tiles = 0;
-  const cudaError_t e = jacobi3_col_passes(true, from_zero ? nullptr : u, f, it, out, partials,
-                                           work, n, z0, nz, ext, steps, err_mode,
-                                           lagged ? ROWS_LAGGED : ROWS_LAST, ty, tx, cz, h2, w,
-                                           inv_h2, &tiles, s);
+  const cudaError_t e = col3_passes(true, from_zero ? nullptr : u, f, it, out, partials, work,
+                                    n, z0, nz, ext, steps, err_mode,
+                                    lagged ? ROWS_LAGGED : ROWS_LAST, ty, tx, cz, h2, w, inv_h2,
+                                    &tiles, s);
   if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
   sum_partials3_raw_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, raw_out);
   return (int)cudaGetLastError();
@@ -170,9 +119,8 @@ extern "C" int mg3_jacobi_errs(const float* u, const float* f, float* out, float
   float* const it[2] = {out, mid};
   int tiles = 0;
   if (err_mode != ERR_CLEAN && err_mode != ERR_GPU) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = jacobi3_col_passes(false, u, f, it, nullptr, partials, work, n, 0, n, 0,
-                                           steps, err_mode, ROWS_EVERY, ty, tx, cz, h2, w,
-                                           inv_h2, &tiles, s);
+  const cudaError_t e = col3_passes(false, u, f, it, nullptr, partials, work, n, 0, n, 0, steps,
+                                    err_mode, ROWS_EVERY, ty, tx, cz, h2, w, inv_h2, &tiles, s);
   if (e != cudaSuccess) return (int)e;
   sum_partials3_kernel<<<steps, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, err_scale, errs);
   return (int)cudaGetLastError();
@@ -190,9 +138,8 @@ extern "C" int mg3_jacobi_errs_shard(const float* u, const float* f, float* out,
   float* const it[2] = {wa, wb};
   int tiles = 0;
   if (err_mode != ERR_CLEAN && err_mode != ERR_GPU) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = jacobi3_col_passes(true, u, f, it, out, partials, work, n, z0, nz, ext,
-                                           steps, err_mode, ROWS_EVERY, ty, tx, cz, h2, w,
-                                           inv_h2, &tiles, s);
+  const cudaError_t e = col3_passes(true, u, f, it, out, partials, work, n, z0, nz, ext, steps,
+                                    err_mode, ROWS_EVERY, ty, tx, cz, h2, w, inv_h2, &tiles, s);
   if (e != cudaSuccess) return (int)e;
   sum_partials3_raw_kernel<<<steps, dim3(BLOCK_X, BLOCK3_Y), 0, s>>>(partials, tiles, raws);
   return (int)cudaGetLastError();

@@ -1,5 +1,7 @@
-// The tile pipeline of the port's 3-D stencil kernels (jacobi3.cu, descend3.cu,
-// ascend3.cu, residual3.cu): 2.5-D temporal blocking of the 7-point stencil.
+// The tile pipeline of the port's 3-D stencil kernels (kernel 10's
+// emit_residual mode in jacobi3.cu, residual3.cu, and the ring legs of
+// rdma3.cuh; the other 3-D kernels run the column pass of col3.cuh): 2.5-D
+// temporal blocking of the 7-point stencil.
 //
 // Grids are contiguous n x n x n fp32 volumes indexed [z][y][x]. A block owns
 // a TY x TX column tile of (y, x) over CZ planes of z (one z chunk) and stages
@@ -118,11 +120,6 @@ struct Leg3 {
 struct Planes3 {
   int z0, nz, ext, cz0, cnz;
 };
-
-// The whole n^3 grid as the launch's planes (every single-device launch).
-static inline Planes3 planes3_whole(int n) {
-  return Planes3{0, n, 0, 0, (n + 1) / 2};
-}
 
 // The planes a receive buffer of the ring kernels holds a side (rdma3.cuh).
 constexpr int RING3_HALO = MAX_HALO3;
@@ -679,24 +676,6 @@ static inline cudaError_t launch_leg3(void (*whole)(Leg3), void (*shard)(Leg3, P
     whole<<<grid, block, smem, stream>>>(L);
   else
     shard<<<grid, block, smem, stream>>>(L, P);
-  return cudaGetLastError();
-}
-
-// Sum the block partials in a fixed order and scale the sum into err_out[0].
-static inline cudaError_t finish_error3(const Leg3& L, double scale, float* err_out,
-                                        cudaStream_t stream) {
-  if (L.partials == nullptr) return cudaSuccess;
-  sum_partials3_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(
-      L.partials, leg3_blocks(L), scale, err_out);
-  return cudaGetLastError();
-}
-
-// The same for a shard's planes P: the raw float64 sum into raw_out[0].
-static inline cudaError_t finish_raw3(const Leg3& L, const Planes3& P, double* raw_out,
-                                      cudaStream_t stream) {
-  if (L.partials == nullptr) return cudaSuccess;
-  sum_partials3_raw_kernel<<<1, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(
-      L.partials, leg3_blocks(L, P.nz), raw_out);
   return cudaGetLastError();
 }
 

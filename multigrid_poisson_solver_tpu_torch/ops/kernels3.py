@@ -8,9 +8,12 @@ reaches:
     ``_fused_jacobi3_kernel`` (plain sweeps, from_zero, the clean and gpu
     errors) with one column pass a sweep (``csrc/col3.cuh``);
   * ``fused_descend3``: ``csrc/descend3.cu``, replaces
-    ``_fused_descend3_kernel`` and the lane pass ``restrict3_lanes_p``;
+    ``_fused_descend3_kernel`` and the lane pass ``restrict3_lanes_p`` (the
+    sweeps' column passes, then one pass for −r and the restriction's z
+    step, one for its y and x steps);
   * ``fused_ascend3``: ``csrc/ascend3.cu``, replaces ``_fused_ascend3_kernel``
-    and the lane pass ``prolong3_lanes_p``;
+    and the lane pass ``prolong3_lanes_p`` (a prolongation pass, then the
+    sweeps' column passes);
   * ``residual3``: ``csrc/residual3.cu``, replaces ``_residual3_kernel``;
   * ``fused_jacobi3_errs``: ``csrc/jacobi3.cu``, ``_fused_jacobi3_kernel``'s
     per_sweep mode (``fused_jacobi3_errs_padded``: the error of every
@@ -33,19 +36,21 @@ reaches:
     ``_residual3_shard_call``; ``parallel.kernel_shard3`` runs them per
     shard.
 
-Kernel 10 and the trigger kernels run the column pass of
-``csrc/col3.cuh`` (one unfused sweep a pass); the legs, the residuals and
+Kernel 10, the two legs and the trigger kernels run the column pass of
+``csrc/col3.cuh`` (one unfused sweep a pass; the legs add a residual and
+restriction pass or a prolongation pass of their own); the residuals and
 kernel 10's emit_residual mode the tile pipeline of ``csrc/legs3.cuh``. The
 TPU kernels' brick geometry (``_brick_geometry``: ×8-row and ×128-lane
 padding, VMEM budgets) has no counterpart: the port's levels are plain
 contiguous (n, n, n) tensors, and ``plan3`` picks a column tile and a z
 chunk that fit a block's shared memory. Kernel 10's launches take
 ``err_plan3`` (the deepest fused pass's plan, 512 cells a tile, which the
-column pass needs) unless the caller gives a plan, and so does every launch
-of a trigger loop: the kernels sum a tile's error cells in an order fixed
-by the plan alone, so the error of an iterate is the same float whether a
-one-sweep step, a per-sweep pass or a whole-loop trigger kernel measured
-it, and the trigger routes stop at the same sweep by construction. (The
+column pass needs) unless the caller gives a plan, the legs always, and so
+does every launch of a trigger loop: the kernels sum a tile's error cells
+in an order fixed by the plan alone, so the error of an iterate is the
+same float whether a one-sweep step, a per-sweep pass or a whole-loop
+trigger kernel measured it, and the trigger routes stop at the same sweep
+by construction. (The
 errors are float64 sums rounded once, so launches with other plans report
 the same float but for a double sum that falls within 1e-16 of an fp32
 rounding boundary.)
@@ -548,11 +553,14 @@ def _grid3_args(f: torch.Tensor, aligned: bool = False):
 
 
 def _err_buffers3(want: bool, n: int, plan, device):
-    """(the float64 block partials, the 1-element fp32 metric), or Nones."""
+    """(the float64 tile partials, the 1-element fp32 metric, the column
+    pass's workspace), or Nones."""
     if not want:
-        return None, None
-    return (torch.empty(blocks3(n, *plan), dtype=torch.float64, device=device),
-            torch.empty(1, dtype=torch.float32, device=device))
+        return None, None, None
+    tiles = blocks3(n, *plan)
+    return (torch.empty(tiles, dtype=torch.float64, device=device),
+            torch.empty(1, dtype=torch.float32, device=device),
+            torch.empty(col3_work(tiles), dtype=torch.float64, device=device))
 
 
 def _scalar(err):
@@ -572,9 +580,7 @@ def _jacobi3_cuda(u, f, h: float, steps: int, omega: float, from_zero: bool, mod
     plan = plan or err_plan3(n)
     out = torch.empty_like(f)
     mid = torch.empty_like(f) if steps > 1 else None   # the other iterates
-    partials, err = _err_buffers3(mode is not None, n, plan, dev)
-    work = None if partials is None else torch.empty(col3_work(partials.numel()),
-                                                     dtype=torch.float64, device=dev)
+    partials, err, work = _err_buffers3(mode is not None, n, plan, dev)
     rc = lib.mg3_jacobi(K._ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
                         K._ptr(mid), K._ptr(partials), K._ptr(work), K._ptr(err), n, steps, int(from_zero), _ERR_CODES3[mode], *plan, h * h,
                         omega / 6.0, 1.0 / (h * h), p3.error_scale3(mode, n, h), stream)
@@ -627,9 +633,11 @@ def fused_descend3(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
                    from_zero: bool = False, restriction: str = "full_weighting",
                    want_err: bool = False):
     """The descend leg on an aligned level n = 2m − 1: ``steps`` sweeps, −r
-    of the result and its 2:1 restriction, in one pass (counterpart of
-    ``fused_descend3_padded`` + ``restrict3_lanes_p``). Returns (u,
-    f_coarse (m, m, m), the clean error or None)."""
+    of the result and its 2:1 restriction (counterpart of
+    ``fused_descend3_padded`` + ``restrict3_lanes_p``; on the card one
+    column pass a sweep, one for −r and the restriction's z step, one for
+    its y and x steps). Returns (u, f_coarse (m, m, m), the clean error or
+    None)."""
     fw = restriction == "full_weighting"
     if not fw and restriction != "sampling":
         raise ValueError(f"unknown restriction mode {restriction!r}")
@@ -643,15 +651,16 @@ def fused_descend3(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
     if not from_zero:
         K._check("u", u, (n, n, n), dev)
     m = (n + 1) // 2
-    stages = steps - int(from_zero) + 1
-    plan = plan3(n, stages, stages + int(fw))
+    plan = err_plan3(n)
     out = torch.empty_like(f)
+    mid = torch.empty_like(f) if steps > 1 else None   # the other iterates
+    s = torch.empty((m, n, n), dtype=f.dtype, device=dev)   # the restriction's z step
     fc = torch.empty((m, m, m), dtype=f.dtype, device=dev)
-    partials, err = _err_buffers3(want_err, n, plan, dev)
+    partials, err, work = _err_buffers3(want_err, n, plan, dev)
     rc = lib.mg3_descend(K._ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
-                         fc.data_ptr(), K._ptr(partials), K._ptr(err), n, steps, int(from_zero),
-                         int(fw), int(want_err), *plan, h * h, omega / 6.0, 1.0 / (h * h),
-                         p3.error_scale3("clean", n, h), stream)
+                         K._ptr(mid), s.data_ptr(), fc.data_ptr(), K._ptr(partials), K._ptr(work),
+                         K._ptr(err), n, steps, int(from_zero), int(fw), int(want_err), *plan,
+                         h * h, omega / 6.0, 1.0 / (h * h), p3.error_scale3("clean", n, h), stream)
     K._raise_on(lib, rc, "descend3")
     K.launches["descend3"] += 1
     return out, fc, _scalar(err)
@@ -660,9 +669,10 @@ def fused_descend3(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
 def fused_ascend3(u, f, uc, h: float, steps: int, omega: float = 6.0 / 7.0,
                   want_err: bool = False):
     """The ascend leg on an aligned level n = 2m − 1: prolong the coarse
-    (m, m, m) correction ``uc``, add it on the interior, ``steps`` sweeps, in
-    one pass (counterpart of ``prolong3_lanes_p`` + ``fused_ascend3_padded``).
-    Returns (u, the clean error or None); the error needs steps ≤ 7."""
+    (m, m, m) correction ``uc``, add it on the interior, ``steps`` sweeps
+    (counterpart of ``prolong3_lanes_p`` + ``fused_ascend3_padded``; on the
+    card a prolongation pass, then one column pass a sweep). Returns (u, the
+    clean error or None); the error needs steps ≤ 7."""
     _check_steps3(steps, MAX_FUSED_SWEEPS_3D - int(want_err), "fused_ascend3")
     if not f.is_cuda:
         return fused_ascend3_torch(u, f, uc, h, steps, omega, want_err)
@@ -670,15 +680,14 @@ def fused_ascend3(u, f, uc, h: float, steps: int, omega: float = 6.0 / 7.0,
     m = (n + 1) // 2
     K._check("u", u, (n, n, n), dev)
     K._check("uc", uc, (m, m, m), dev)
-    stages = steps + int(want_err)
-    plan = plan3(n, stages, stages)
+    plan = err_plan3(n)
     out = torch.empty_like(f)
-    partials, err = _err_buffers3(want_err, n, plan, dev)
-    rc = lib.mg3_ascend(u.data_ptr(), f.data_ptr(), uc.data_ptr(), out.data_ptr(),
-                        K._ptr(partials), K._ptr(err), n, steps, _ERR_CODES3["clean" if want_err
-                                                                              else None],
-                        *plan, h * h, omega / 6.0, 1.0 / (h * h),
-                        p3.error_scale3("clean", n, h), stream)
+    mid = torch.empty_like(f)   # u plus the prolonged correction, then iterates
+    partials, err, work = _err_buffers3(want_err, n, plan, dev)
+    rc = lib.mg3_ascend(u.data_ptr(), f.data_ptr(), uc.data_ptr(), out.data_ptr(), mid.data_ptr(),
+                        K._ptr(partials), K._ptr(work), K._ptr(err), n, steps,
+                        _ERR_CODES3["clean" if want_err else None], *plan, h * h, omega / 6.0,
+                        1.0 / (h * h), p3.error_scale3("clean", n, h), stream)
     K._raise_on(lib, rc, "ascend3")
     K.launches["ascend3"] += 1
     return out, _scalar(err)
@@ -842,15 +851,6 @@ def _planes3(geo: ShardGeo3):
     return geo.n, geo.z0, geo.nz, geo.ext
 
 
-def _raw_buffers3(want: bool, geo: ShardGeo3, plan, device):
-    """(the float64 block partials, the shard's raw sum), or Nones."""
-    if not want:
-        return None, None
-    nb = blocks3(geo.n, *plan, nz=geo.nz)
-    return (torch.empty(nb, dtype=torch.float64, device=device),
-            torch.empty(1, dtype=torch.float64, device=device))
-
-
 def _col3_buffers3(geo: ShardGeo3, plan, device, rows: int = 1):
     """A shard's float64 scratch for the column pass, one allocation: (the
     tile partials, rows of them; the raw sums, rows; the workspace)."""
@@ -859,12 +859,13 @@ def _col3_buffers3(geo: ShardGeo3, plan, device, rows: int = 1):
     return buf[:rows * tiles], buf[rows * tiles:rows * (tiles + 1)], buf[rows * (tiles + 1):]
 
 
-def _windows3(f_ext, steps: int, clean: bool):
+def _windows3(f_ext, steps: int, reread: bool):
     """The scratch windows a shard's column passes write (``col3_scratch``
-    in ``csrc/col3.cuh``; the last iterate goes to the owned planes): wa
-    for three sweeps or more or the clean error's read, wb for two or
-    more; None where unused."""
-    return (torch.empty_like(f_ext) if steps >= 3 or clean else None,
+    in ``csrc/col3.cuh``; the last iterate goes to the owned planes, and to
+    wa too where a later pass reads it, ``reread``: the clean error's pass
+    or the descend leg's residual pass): wa for three sweeps or more or a
+    reread, wb for two or more; None where unused."""
+    return (torch.empty_like(f_ext) if steps >= 3 or reread else None,
             torch.empty_like(f_ext) if steps >= 2 else None)
 
 
@@ -1034,12 +1035,15 @@ def fused_descend3_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
     lib, stream, dev = _shard3_args(u_ext, f_ext, geo, stages + int(fw), not from_zero)
     m = (geo.n + 1) // 2
     k0, k1 = coarse_planes3(geo)
-    plan = plan3(geo.nz, stages, stages + int(fw))
+    plan = err_plan3(geo.nz)
     out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
+    wins = _windows3(f_ext, steps, True)   # the residual pass reads the last iterate
+    s = torch.empty((k1 - k0, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
     fc = torch.empty((k1 - k0, m, m), dtype=f_ext.dtype, device=dev)
-    partials, raw = _raw_buffers3(want_err, geo, plan, dev)
+    partials, raw, work = (_col3_buffers3(geo, plan, dev) if want_err else (None, None, None))
     rc = lib.mg3_descend_shard(K._ptr(None if from_zero else u_ext), f_ext.data_ptr(),
-                               out.data_ptr(), fc.data_ptr(), K._ptr(partials), K._ptr(raw),
+                               out.data_ptr(), K._ptr(wins[0]), K._ptr(wins[1]), s.data_ptr(),
+                               fc.data_ptr(), K._ptr(partials), K._ptr(work), K._ptr(raw),
                                *_planes3(geo), steps, int(from_zero), int(fw), int(want_err),
                                *plan, h * h, omega / 6.0, 1.0 / (h * h), stream)
     K._raise_on(lib, rc, "descend3 shard")
@@ -1063,13 +1067,16 @@ def fused_ascend3_shard(u_ext, f_ext, c_win, cz0: int, geo: ShardGeo3, h: float,
     lib, stream, dev = _shard3_args(u_ext, f_ext, geo, stages)
     m = (geo.n + 1) // 2
     K._check("c", c_win, (c_win.shape[0], m, m), dev)
-    plan = plan3(geo.nz, stages, stages)
+    plan = err_plan3(geo.nz)
     out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
-    partials, raw = _raw_buffers3(want_err, geo, plan, dev)
+    # u plus the prolonged correction and the iterates
+    wa, wb = torch.empty_like(f_ext), torch.empty_like(f_ext)
+    partials, raw, work = (_col3_buffers3(geo, plan, dev) if want_err else (None, None, None))
     rc = lib.mg3_ascend_shard(u_ext.data_ptr(), f_ext.data_ptr(), c_win.data_ptr(),
-                              out.data_ptr(), K._ptr(partials), K._ptr(raw), *_planes3(geo), cz0,
-                              c_win.shape[0], steps, _ERR_CODES3["clean" if want_err else None],
-                              *plan, h * h, omega / 6.0, 1.0 / (h * h), stream)
+                              out.data_ptr(), wa.data_ptr(), wb.data_ptr(), K._ptr(partials),
+                              K._ptr(work), K._ptr(raw), *_planes3(geo), cz0, c_win.shape[0],
+                              steps, _ERR_CODES3["clean" if want_err else None], *plan, h * h,
+                              omega / 6.0, 1.0 / (h * h), stream)
     K._raise_on(lib, rc, "ascend3 shard")
     K.launches["ascend3_shard"] += 1
     return out, _scalar(raw)

@@ -32,14 +32,15 @@ on 8 shards 8 planes of 513² floats are 8.4 MB a side and array, about
 440 MB for the ring.
 
 The owned planes are those of the exchange path (``parallel.kernel_shard3``)
-bit for bit. Each shard's error partials follow a tile plan: kernels 21 and
-22 take their shard-mode launch's (``ops.kernels3.plan3`` of the shard's
-depth) and kernel 19 the trigger loops' (``err_plan3``), so their raw
-float64 sums are the exchange path's bit for bit; kernel 20 takes
-``plan3``, while kernel 10's shard mode sums over ``err_plan3``, so their
-raw sums agree bit for bit where the plans do (forced tiles) and otherwise
-up to the order of a float64 sum. The wrappers return the raw sums per
-shard and the callers add them in shard order and scale them once.
+bit for bit. Each shard's error partials follow a tile plan: kernel 19
+takes the trigger loops' (``err_plan3``), so its raw float64 sums are the
+exchange path's bit for bit; kernels 20-22 take ``plan3`` of the shard's
+depth, while the shard modes of kernels 10-12 (column passes) sum over
+``err_plan3`` in their own order, so those raw sums agree up to the order
+of a float64 sum, and the error rounded once to fp32 is the same float but
+for a sum within 1e-16 of a rounding boundary. The wrappers return the raw
+sums per shard and the callers add them in shard order and scale them
+once.
 
 Routing copies JAX's admission predicates (``rdma_*3_fits``) and the brick
 geometry they call (``pallas3d._brick_geometry``): TPU VMEM arithmetic on

@@ -227,7 +227,7 @@ def sharded_fused_descend3(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
                            restriction: str = "full_weighting", want_err: bool = False,
                            nl=None):
     """The whole descend leg per shard (``sharded_fused_descend3``): sweeps,
-    −r and its restriction in one pass per shard, the halo k + 2 planes (full
+    −r and its restriction in one leg call per shard, the halo k + 2 planes (full
     weighting) or k + 1, k the neighbour-reading sweeps. Needs an even JAX nl
     holding the halo. Returns (u, the coarse right-hand side laid out as the
     shards' coarse planes, the clean error or None)."""
@@ -261,7 +261,7 @@ def sharded_fused_ascend3(u: ShardedGrid, f: ShardedGrid, child, h: float, steps
                           omega: float = 6.0 / 7.0, want_err: bool = False, nl=None):
     """The whole ascend leg per shard (``sharded_fused_ascend3``): prolongation
     of the coarse correction ``child`` ((m, m, m), a tensor or a ShardedGrid
-    in any layout), its add and ``steps`` sweeps in one pass per shard, the
+    in any layout), its add and ``steps`` sweeps in one leg call per shard, the
     fine halo ext_z (even) and the coarse window ext_c planes above the
     shard's coarse planes and ext_c + 1 below. Returns (u, clean error or
     None)."""

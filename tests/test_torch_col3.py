@@ -55,6 +55,16 @@ OMEGA3 = 6.0 / 7.0
 NAN = float("nan")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulations run thousands of small tensor ops: one intra-op thread
+    each, as several test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _fields(n, seed, scale=1.0):
     rng = np.random.default_rng(seed)
     u = torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32)) * scale

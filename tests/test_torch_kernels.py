@@ -445,6 +445,12 @@ def test_c_entry_points_match_ctypes_signatures():
     assert names["mg3_jacobi_shard"][3:7] == ["wa", "wb", "partials", "work"]
     assert names["mg3_jacobi_shard"][15] == "lagged"
     assert names["mg3_rdma_trigger"][11:13] == ["partials", "work"]
+    # the legs on column passes (kernels 11 and 12): scratch iterates, the
+    # descend leg's restriction buffer, the workspace
+    assert names["mg3_descend"][3:8] == ["mid", "s", "fc", "partials", "work"]
+    assert names["mg3_descend_shard"][3:9] == ["wa", "wb", "s", "fc", "partials", "work"]
+    assert names["mg3_ascend"][4:7] == ["mid", "partials", "work"]
+    assert names["mg3_ascend_shard"][4:8] == ["wa", "wb", "partials", "work"]
     assert {s.name for s in build.sources()} == {
         "common.cuh", "legs.cuh", "jacobi.cu", "residual.cu", "descend.cu", "ascend.cu",
         "chain_descend.cu", "chain_ascend.cu", "trigger.cu", "residual_mw.cu",
