@@ -307,6 +307,7 @@ def profile(label, fn, per=1):
         f"idle {max(0.0, 1 - busy / wall):.1%} (under the profiler)")
     for key, ms, count in rows[:8]:
         say(f"[p]     {ms / per:8.3f} ms  {count / per:6.1f}×  {key[:90]}")
+    return rows
 
 
 def device_ms(fn, per=1):
@@ -1658,8 +1659,10 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
     each cut), on rings of 2, 3, 4, 8 and (65³) 16 z-shards of cuda:0
     (ragged last shards; on 16 shards of 4 planes a window of up to 8 planes
     spans two neighbours' blocks). Owned planes, coarse slabs and errors bit
-    for bit against the shard-mode path; against the twins the iterates bit
-    for bit and the errors within ERR_RTOL; kernel 19's stop sweep against
+    for bit against the shard-mode path, and kernels 21 and 22's raw float64
+    sums per shard against the shard modes' (the same tile plans); against
+    the twins the iterates bit for bit and the errors within ERR_RTOL;
+    kernel 19's stop sweep against
     the loop of one-sweep sharded error launches, with a trigger that stops
     it after at least 50 sweeps."""
     from multigrid_poisson_solver_tpu_torch.ops import rdma3 as R3
@@ -1685,6 +1688,35 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
         got = halo3.sum_err3(got_raws, compat, n, h, torch.float32)
         same(f"{name} {what} error", got, want)
         cmp.scalar(name, what, got, halo3.sum_err3(twin_raws, compat, n, h, torch.float32))
+
+    def raws(name, what, got_raws, shard_raws):
+        """The ring legs' raw float64 sums per shard against the shard
+        modes' (the same tile plans), bit for bit."""
+        got, want = torch.stack(got_raws), torch.stack(shard_raws)
+        require(bool(torch.equal(got, want)), f"{name} {what}: raw float64 sums {got.tolist()} "
+                f"differ from the shard modes' {want.tolist()}")
+
+    def shard_descend_raws(us, fs, h, steps, fz, restriction):
+        """Kernel 11's shard mode on each shard's window (the exchange
+        path's halo): its raw clean sums."""
+        ext = steps - int(fz) + 1 + int(restriction == "full_weighting")
+        return [K3.fused_descend3_shard(None if fz else S.extend(us, i, 0, ext),
+                                        S.extend(fs, i, 0, ext), halo3.geo3(fs, i, ext), h,
+                                        steps, omega, fz, restriction, True)[2]
+                for i in range(len(fs.layout.rows))]
+
+    def shard_ascend_raws(us, fs, child, h, steps):
+        """Kernel 12's shard mode with the clean error on each shard's
+        windows: its raw sums."""
+        ext, ext_c = steps + 1, (steps + 2) // 2
+        out = []
+        for i, (z0, z1) in enumerate(fs.layout.rows):
+            cz0 = z0 // 2 - ext_c
+            c_win = S.planes(child, cz0, (z1 + 1) // 2 + ext_c + 1, "cuda:0")
+            out.append(K3.fused_ascend3_shard(S.extend(us, i, 0, ext), S.extend(fs, i, 0, ext),
+                                              c_win, cz0, halo3.geo3(fs, i, ext), h, steps,
+                                              omega, True)[1])
+        return out
 
     saved = K3.FORCE_TILE3
     try:
@@ -1726,6 +1758,8 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
                             same(f"rdma_descend3 {w} u", G(gu), G(ru))
                             same(f"rdma_descend3 {w} f_coarse", G(gfc), G(rfc))
                             errs("rdma_descend3", w, graw, traw, rerr, "clean", n, h)
+                            raws("rdma_descend3", w, graw,
+                                 shard_descend_raws(us, fs, h, steps, fz, restriction))
                             cmp.cases["rdma_descend3"] += 1
                 children = {"tensor": uc, "coarse blocks": S.shard(uc, R3.coarse_layout3(fs)),
                             "m split": S.shard(uc, S.z_layout(m, ["cuda:0"] * p))}
@@ -1740,6 +1774,8 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
                         same(f"rdma_ascend3 {w}", G(gu), G(ru))
                         if want_err:
                             errs("rdma_ascend3", w, graw, traw, rerr, "clean", n, h)
+                            raws("rdma_ascend3", w, graw,
+                                 shard_ascend_raws(us, fs, child, h, steps))
                         cmp.cases["rdma_ascend3"] += 1
                 for compat in ("clean", "gpu"):
                     # a trigger at the 55th sweep's slope of the one-sweep loop
@@ -1812,8 +1848,11 @@ def phase_i2(tmg, K, torch, run_counts, unsharded, n=513):
         per = {k: counts[k] / cycles for k in I_COUNTS if counts[k]}
         say(f"[I2] {tag} on 8 z-shards, halo rdma: {ms:.3f} ms/cycle; bit-identical to phase D "
             f"(and so to H2's ppermute run) after 1 and 4 cycles; launches per cycle {per}")
-        profile(f"{tag} on 8 z-shards, halo rdma, per cycle",
-                lambda: [step(u, True) for _ in range(3)], per=3)
+        rows = profile(f"{tag} on 8 z-shards, halo rdma, per cycle",
+                       lambda: [step(u, True) for _ in range(3)], per=3)
+        # kernels 21 and 22's launches (csrc/rdma3.cuh's ring_*3 kernels)
+        legs = sum(ms for key, ms, _ in rows if "ring_" in key and "3_kernel" in key) / 3
+        say(f"[p]     kernels 21 + 22 (ring_*3 launches): {legs:.3f} ms device a cycle")
         return counts
 
     c = run(H_V_CYCLE, lambda u, warm: tmg.v_cycle3_sharded(
@@ -2793,10 +2832,14 @@ def main():
         cmp.cases[k] += 1
         say(f"[t] {k} at {shape}: held against its plain version, max|Δ| so far "
             f"{cmp.max_abs[k]:.3e}, bit-identical: {cmp.bitwise[k]}")
+    # the ring legs beside the shard modes alone on windows exchanged
+    # beforehand (the same inputs; kernels 11 and 12's shard-mode rows)
+    alone = {"rdma_descend3": "descend3_shard", "rdma_ascend3": "ascend3_shard"}
     for k, fn in exchange.items():
         ms = time_ms(fn, reps=1 if k == "rdma_trigger3" else 3)
         say(f"[t] {k} at {calls[k][0]}: ring kernel {times[k][0]:.4f} ms; the exchange path "
-            f"(window copies and a shard-mode launch per shard) {ms:.4f} ms")
+            f"(window copies and a shard-mode launch per shard) {ms:.4f} ms"
+            + (f"; the shard mode alone {times[alone[k]][0]:.4f} ms" if k in alone else ""))
     # kernel 19 with the planned tiles against the loop it replaces, which
     # sums the same partials in the same order: the same iterate and error
     (gu, ge, gk), (ru, re_, rk) = calls["rdma_trigger3"][1](), exchange["rdma_trigger3"]()
@@ -2906,6 +2949,20 @@ def main():
                           for g, (ue, fe), c in zip(geos4, wins4, cwins)])):
             us_ = max(device_ms(lambda: [fn() for _ in range(10)], per=10) for _ in range(3)) * 1e3
             say(f"[t] {label} at {m}³: {us_:.2f} µs device a call; bound "
+                f"{bound(12.5 * m ** 3, 0)[0] * 1e3:.2f} µs")
+    # the ring legs (kernels 21 and 22) at 129³ and 65³ on 8 z-shards,
+    # device µs a call (the largest of three profiles, as above)
+    for m, um, fm in ((n16, u16, f16), (n65, u65, f65)):
+        hm, mc = 1.0 / (m - 1), (m + 1) // 2
+        zum, zfm = (S.shard(v, S.layout_of(zring, m)) for v in (um, fm))
+        zcm = S.shard(torch.randn(mc, mc, mc, generator=gen, device="cuda"),
+                      R3.coarse_layout3(zfm))
+        for label, fn in (
+                ("rdma_descend3, 3 sweeps, full weighting, clean error",
+                 lambda: R3.rdma_descend3(zum, zfm, hm, 3, w3, False, "full_weighting", True)),
+                ("rdma_ascend3, 3 sweeps", lambda: R3.rdma_ascend3(zum, zfm, zcm, hm, 3, w3))):
+            us_ = max(device_ms(lambda: [fn() for _ in range(10)], per=10) for _ in range(3)) * 1e3
+            say(f"[t] {label} at {m}³ on 8 z-shards: {us_:.2f} µs device a call; bound "
                 f"{bound(12.5 * m ** 3, 0)[0] * 1e3:.2f} µs")
     ms = time_ms(lambda: K3.fused_descend3(u3, f3, h3, 3, w3, True), reps=5)
     say(f"[t] descend3 at {n3}³, 3 sweeps from zero, full weighting: {ms:.4f} ms; bound "

@@ -10,10 +10,12 @@ main paths' shapes (2-D at 4097² and 8193², 3-D at 513³), with one V(3,3)
 cycle at 4097² (ω 0.8, coarsen=3) and one 3-D ``v_cycle3`` V(3,3) at 513³;
 then the ring kernels on rings of 8 shards of the card: the 2-D ones at
 4097², and, where the tree has them (``ops/rdma3.py``), the 3-D ones at 513³
-(the trigger loop at 257³, 129³ and 65³, ms per sweep). The 3-D trigger
+(the trigger loop at 257³, 129³ and 65³, ms per sweep; the descend and
+ascend legs also at 129³ and 65³, device µs a call). The 3-D trigger
 kernels follow: the whole-loop one at 129³ and 65³ and the streamed one at
 257³ (98 sweeps, trigger 0, clean error; ms per sweep), the per-sweep pass
-at 513³ on 8 z-shards (7 sweeps, clean error; windows of 8 halo planes);
+at 513³ on 8 z-shards (7 sweeps, clean error; windows of 8 halo planes)
+and the residual's shard mode on the same windows;
 kernel 10's fixed modes at 513³ (3 sweeps + gpu error, 3 from zero, 8
 sweeps; whole grid, and with the clean error on 8 z-shards) and at 129³ and
 65³ (1 and 8 sweeps, 3 with either error), the legs (kernels 11 and 12)
@@ -187,7 +189,17 @@ if os.path.exists(os.path.join(root, "multigrid_poisson_solver_tpu_torch", "ops"
         zum, zfm = (S.shard(v, S.layout_of(zring, m)) for v in (um, fm))
         res[f"rdma_trigger3_sweep_{m}"] = timed(lambda: rdma3.rdma_trigger3(
             zum, zfm, 1 / (m - 1), w3, "clean", 0.0, 98), reps=3) / 98
-        del um, fm, zum, zfm
+        # the ring legs (kernels 21 and 22) at v_cycle3's lower ring levels,
+        # device µs a call
+        mc = (m + 1) // 2
+        zcm = S.shard(torch.randn(mc, mc, mc, generator=g, device="cuda"),
+                      rdma3.coarse_layout3(zfm))
+        for key, fn in (("rdma_descend3_3err", lambda: rdma3.rdma_descend3(
+                zum, zfm, 1 / (m - 1), 3, w3, False, "full_weighting", True)),
+                        ("rdma_ascend3_3", lambda: rdma3.rdma_ascend3(zum, zfm, zcm, 1 / (m - 1),
+                                                                      3, w3))):
+            res[f"{key}_{m}_us"] = 1e3 * device_ms(lambda: [fn() for _ in range(10)], 10)
+        del um, fm, zum, zfm, zcm
 # the 3-D trigger loops' kernels at their main-path shapes, ms per sweep
 t_sweeps = 98
 for name, m in (("trigger3", 129), ("trigger3", 65), ("trigger3_stream", 257)):
@@ -201,6 +213,9 @@ zgeos = [K3.ShardGeo3(n3, z0, z1 - z0, 8) for z0, z1 in S.layout_of(zpol, n3).ro
 zwins = [[S.planes(v, gz.z0 - 8, gz.z0 + gz.nz + 8) for v in (u3, f3)] for gz in zgeos]
 res["jacobi3_errs7_shard_513"] = timed(lambda: [K3.fused_jacobi3_errs_shard(
     ue, fe, gz, h3, 7, w3, "clean") for gz, (ue, fe) in zip(zgeos, zwins)], reps=3)
+# kernel 13's shard mode on the same windows
+res["residual3_shard_513"] = timed(lambda: [K3.residual3_shard(ue, fe, gz, h3, True)
+                                            for gz, (ue, fe) in zip(zgeos, zwins)], reps=3)
 # kernel 10's fixed modes on 8 z-shards (windows of 8 planes: every halo fits)
 for key, steps, fz, mode in (("3gpu", 3, False, "gpu"), ("3clean", 3, False, "clean"),
                              ("3fz", 3, True, None)):

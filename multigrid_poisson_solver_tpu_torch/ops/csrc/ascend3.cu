@@ -31,67 +31,23 @@
 // reads (k + clean a side beyond the owned ones), halo planes included; the
 // error, when asked for, comes back as the shard's raw float64 sum over its
 // owned planes.
-#include "col3.cuh"
+#include "col3_legs.cuh"
 
 using namespace mgk3;
 
-// Planes a thread of the prolongation pass takes, its loads of u kept in
-// flight by unrolling.
-constexpr int PRO3_CHUNK = 8;
-
-// u0 = u + prolong(c) on the interior, u elsewhere: column (y, x) of a 32 x
-// 8 tile over the planes [plo + PRO3_CHUNK · blockIdx.z, ...) ∩ [plo, phi)
-// of a level whose windows start at global plane zb; c holds the coarse
-// planes from cz0 on. prolong_at's arithmetic (legs3.cuh) with the column's
-// coarse values in registers: the (up to) four coarse columns (I, J), (I,
-// J + 1), (I + 1, J), (I + 1, J + 1) of coarse planes Z and Z + 1, so a
-// coarse plane is loaded once for the two fine planes that read it (on an
-// H100 the pass took 0.64 ms a 513³ v_cycle3 cycle, against 0.72 for
-// prolong_at per point, PERF.md).
+// u0 = u + prolong(c) on the interior, u elsewhere (ascend3_prolong_col):
+// column (y, x) of a 32 x 8 tile over the planes [plo + PRO3_CHUNK ·
+// blockIdx.z, ...) ∩ [plo, phi) of a level whose windows start at global
+// plane zb; c holds the coarse planes from cz0 on.
 static __global__ void __launch_bounds__(256)
 ascend3_prolong_kernel(const float* __restrict__ u, const float* __restrict__ c,
                        float* __restrict__ u0, int n, int zb, int plo, int phi, int cz0) {
   const int x = blockIdx.x * 32 + threadIdx.x, y = blockIdx.y * 8 + threadIdx.y;
   if (x >= n || y >= n) return;
   const int zs = plo + PRO3_CHUNK * blockIdx.z, ze = min(zs + PRO3_CHUNK, phi);
-  const bool cin = inner(y, n) && inner(x, n);
-  const int m = (n + 1) / 2, yo = y & 1, xo = x & 1;
-  const size_t mp = (size_t)m * m, o00 = (size_t)(y >> 1) * m + (x >> 1);
-  const size_t o01 = o00 + xo, o10 = o00 + yo * m, o11 = o10 + xo;
-  const size_t pl = (size_t)n * n, g = ((size_t)(zs - zb) * n + y) * n + x;
-  float p0[4], p1[4];  // the four columns of coarse planes Z and Z + 1
-  auto load = [&](float(&p)[4], int Z) {
-    const float* cz = c + (size_t)(Z - cz0) * mp;
-    p[0] = __ldg(cz + o00);
-    p[1] = __ldg(cz + o01);
-    p[2] = __ldg(cz + o10);
-    p[3] = __ldg(cz + o11);
-  };
-  if (cin) load(p0, zs >> 1);
-#pragma unroll
-  for (int t = 0; t < PRO3_CHUNK; ++t) {
-    const int z = zs + t;
-    if (z >= ze) break;
-    float v = __ldg(u + g + t * pl);
-    if (cin && inner(z, n)) {
-      // along z (odd planes ½·(a + b)), then y, then x
-      float a[4];
-      if (z & 1) {
-        load(p1, (z >> 1) + 1);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) a[k] = __fmul_rn(0.5f, __fadd_rn(p0[k], p1[k]));
-#pragma unroll
-        for (int k = 0; k < 4; ++k) p0[k] = p1[k];  // plane Z + 1 is the next plane's Z
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) a[k] = p0[k];
-      }
-      const float b0 = yo ? __fmul_rn(0.5f, __fadd_rn(a[0], a[2])) : a[0];
-      const float b1 = yo ? __fmul_rn(0.5f, __fadd_rn(a[1], a[3])) : a[1];
-      v = __fadd_rn(v, xo ? __fmul_rn(0.5f, __fadd_rn(b0, b1)) : b0);
-    }
-    u0[g + t * pl] = v;
-  }
+  const size_t pl = (size_t)n * n, mp = (size_t)((n + 1) / 2) * ((n + 1) / 2);
+  ascend3_prolong_col(flat3(u, zb, pl), flat3(c, cz0, mp), u0 - (ptrdiff_t)zb * (ptrdiff_t)pl,
+                      n, y, x, zs, ze);
 }
 
 // The leg on the owned planes [z0, z0 + nz) (z0 even; u and f extended by

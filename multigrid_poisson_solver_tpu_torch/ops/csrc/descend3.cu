@@ -43,81 +43,27 @@
 // residual pass reads one plane beyond the owned ones and writes the
 // shard's coarse planes [z0 / 2, (z0 + nz + 1) / 2), and the error comes
 // back as a raw float64 sum over the owned planes.
-#include "col3.cuh"
+#include "col3_legs.cuh"
 
 using namespace mgk3;
 
-// ¼·a + ½·b, then + ¼·c: one step of full weighting.
-static __device__ __forceinline__ float fw3(float a, float b, float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(0.25f, a), __fmul_rn(0.5f, b)), __fmul_rn(0.25f, c));
-}
-
-// Block `unit` of the residual pass over iterate k (u, laid out as the
-// inputs): the tile's columns over its z chunk [e0, e1) of the owned planes,
-// −r on the planes [e0 − FW, e1 + FW) of the grid, the error of the chunk's
-// planes into the tile's partial, and s_K for the chunk's coarse planes K
-// (2K in [e0, e1)) into s (plane K − z0 / 2; interior K only). A face column
-// has −r = 0 and no coarse point reads it.
+// The residual pass over iterate k (u, laid out as the inputs): block b is
+// unit b of descend3_residual_unit.
 template <bool FW>
 static __global__ void __launch_bounds__(COL3_THREADS)
 descend3_residual_kernel(Col3 C, const float* u, float* s, double* partials) {
-  const int n = C.n, m = (n + 1) / 2, gx = col3_gx(C), gy = col3_gy(C);
-  const int unit = blockIdx.x, tile = unit / COL3_QUARTERS, q = unit - tile * COL3_QUARTERS;
-  const int bx = tile % gx, by = (tile / gx) % gy, bz = tile / (gx * gy);
-  const int e0 = C.z0 + bz * C.cz, e1 = min(e0 + C.cz, C.z0 + C.nz);
-  const int v = q * COL3_THREADS + threadIdx.x;  // the tile's thread (block_sum3's numbering)
-  double acc = 0.0;
-  if (v < C.ty * C.tx) {
-    const int i = v / C.tx;
-    const int y = by * C.ty + i, x = bx * C.tx + (v - i * C.tx);
-    if (y < n && x < n && inner(y, n) && inner(x, n)) {
-      const size_t pl = (size_t)n * n, col = (size_t)y * n + x;
-      const ptrdiff_t base = -(ptrdiff_t)(C.z0 - C.ext) * n * n;  // the inputs' global plane 0
-      const Col3Io io{u + base, C.f + base, nullptr, nullptr};
-      const int K0 = C.z0 / 2;
-      float d2 = 0.0f, d1 = 0.0f;  // −r at z − 2 and z − 1
-      auto at = [&](int z, const Col3Plane& p, float cm, float cp) {
-        float d = 0.0f;
-        if (inner(z, n)) {
-          d = -__fsub_rn(__fmul_rn(C.inv_h2, col3_lap(p, cm, cp)), p.f);
-          if (z >= e0 && z < e1) acc += (double)fabsf(d);
-        }
-        // coarse plane K once its fine planes are in the registers
-        const int K = FW ? (z - 1) >> 1 : z >> 1;
-        if ((FW ? (z & 1) : !(z & 1)) && 2 * K >= e0 && 2 * K < e1 && inner(K, m))
-          s[(size_t)(K - K0) * pl + col] = FW ? fw3(d2, d1, d) : d;
-        d2 = d1;
-        d1 = d;
-      };
-      col3_stream<false>(io, n, pl, col, true, max(e0 - FW, 0), min(e1 + FW, n), at);
-    }
-  }
-  if (partials != nullptr) col3_finish(C, partials, tile, q, acc);
+  const ptrdiff_t base = -(ptrdiff_t)(C.z0 - C.ext) * C.n * C.n;  // the inputs' global plane 0
+  descend3_residual_unit<FW>(C, Col3Io{u + base, C.f + base, nullptr, nullptr}, s, partials,
+                             blockIdx.x);
 }
 
-// The restriction's y and x steps: coarse point (K0 + k, I, J) of the m^3
-// grid from s (plane k: the z step at coarse plane K0 + k on the fine n x n
-// plane), into fc's plane k; 0 on the coarse boundary.
+// The restriction's y and x steps: a thread per coarse point (32 x 8 a
+// block, blockIdx.z the coarse plane).
 template <bool FW>
 static __global__ void __launch_bounds__(256)
 descend3_restrict_kernel(const float* __restrict__ s, float* __restrict__ fc, int n, int K0) {
-  const int m = (n + 1) / 2;
-  const int J = blockIdx.x * 32 + threadIdx.x, I = blockIdx.y * 8 + threadIdx.y, k = blockIdx.z;
-  if (I >= m || J >= m) return;
-  float v = 0.0f;
-  if (inner(K0 + k, m) && inner(I, m) && inner(J, m)) {
-    const float* const c = s + ((size_t)k * n + 2 * I) * n + 2 * J;
-    if (FW) {
-      float sy[3];
-#pragma unroll
-      for (int dx = -1; dx <= 1; ++dx)
-        sy[dx + 1] = fw3(__ldg(c - n + dx), __ldg(c + dx), __ldg(c + n + dx));
-      v = fw3(sy[0], sy[1], sy[2]);
-    } else {
-      v = __ldg(c);
-    }
-  }
-  fc[((size_t)k * m + I) * m + J] = v;
+  descend3_restrict_at<FW>(s, fc, n, K0, blockIdx.z, blockIdx.y * 8 + threadIdx.y,
+                           blockIdx.x * 32 + threadIdx.x);
 }
 
 // The leg on the owned planes [z0, z0 + nz) (z0 even): col3_schedule's

@@ -1,6 +1,6 @@
 // The tile pipeline of the port's 3-D stencil kernels (kernel 10's
-// emit_residual mode in jacobi3.cu, residual3.cu, and the ring legs of
-// rdma3.cuh; the other 3-D kernels run the column pass of col3.cuh): 2.5-D
+// emit_residual mode in jacobi3.cu, residual3.cu, and the ring smoother of
+// rdma_jacobi3.cu; the other 3-D kernels run the column pass of col3.cuh): 2.5-D
 // temporal blocking of the 7-point stencil.
 //
 // Grids are contiguous n x n x n fp32 volumes indexed [z][y][x]. A block owns
@@ -63,13 +63,13 @@
 // (kernel 10's emit_residual mode) stores both the final iterate and its
 // residual, the RESID stage after the sweeps.
 //
-// Ring mode (RING = true, with SHARD; the 3-D ring kernels of rdma3.cuh):
+// Ring mode (RING = true, with SHARD; the ring smoother of rdma_jacobi3.cu):
 // the launch owns the same planes, but a plane comes from one of three
 // places (RingSrc3): the shard's own block of u and f for its owned planes,
 // or a receive buffer that the neighbours posted the halo planes into (read
-// through L2), and the ascend leg's coarse correction likewise by coarse
-// plane. The arithmetic and every store are shard mode's, so owned planes
-// and error partials are those of a shard-mode launch on extended windows.
+// through L2). The arithmetic and every store are shard mode's, so owned
+// planes and error partials are those of a shard-mode launch on extended
+// windows.
 #pragma once
 
 #include "common.cuh"
@@ -127,14 +127,11 @@ constexpr int RING3_HALO = MAX_HALO3;
 // Where a ring launch reads shard planes: u and f (index 0 and 1; u nullptr
 // from zero) of the owned planes [z0, z0 + nz) from the shard's blocks, the
 // planes [z0 − RING3_HALO, z0) from `top` and [z0 + nz, z0 + nz + RING3_HALO)
-// from `bot`; the coarse correction's planes [cz0, cz1) from `cown`,
-// [cz0 − RING3_HALO, cz0) from `ctop` and [cz1, cz1 + RING3_HALO) from `cbot`.
+// from `bot`.
 struct RingSrc3 {
   const float* own[2];
   const float* top[2];
   const float* bot[2];
-  const float *cown, *ctop, *cbot;
-  int cz0, cz1;
 };
 
 static __host__ __device__ __forceinline__ int leg3_stages(const Leg3& L) {
@@ -204,39 +201,6 @@ static __device__ __forceinline__ float prolong_at(const float* c, int m, int c0
   const float a = pro_zy(c, m, c0, z, y, x >> 1);
   if (!(x & 1)) return a;
   return __fmul_rn(0.5f, __fadd_rn(a, pro_zy(c, m, c0, z, y, (x >> 1) + 1)));
-}
-
-// Coarse plane Z of a ring's correction: the shard's own block or a receive
-// buffer (RingSrc3). Chosen once per staged fine plane.
-static __device__ __forceinline__ const float* ring_cplane(const RingSrc3& R, int m, int Z) {
-  const size_t pl = (size_t)m * m;
-  if (Z < R.cz0) return R.ctop + (size_t)(Z - R.cz0 + RING3_HALO) * pl;
-  if (Z < R.cz1) return R.cown + (size_t)(Z - R.cz0) * pl;
-  return R.cbot + (size_t)(Z - R.cz1) * pl;
-}
-
-// prolong_at's arithmetic at fine plane z from coarse plane a = z >> 1 and,
-// for odd z, b = the next one, read through L2.
-static __device__ __forceinline__ float ring_pro_z(const float* a, const float* b, bool odd,
-                                                   int m, int I, int J) {
-  const size_t g = (size_t)I * m + J;
-  const float v = __ldcg(a + g);
-  if (!odd) return v;
-  return __fmul_rn(0.5f, __fadd_rn(v, __ldcg(b + g)));
-}
-
-static __device__ __forceinline__ float ring_pro_zy(const float* a, const float* b, bool odd,
-                                                    int m, int y, int J) {
-  const float v = ring_pro_z(a, b, odd, m, y >> 1, J);
-  if (!(y & 1)) return v;
-  return __fmul_rn(0.5f, __fadd_rn(v, ring_pro_z(a, b, odd, m, (y >> 1) + 1, J)));
-}
-
-static __device__ __forceinline__ float ring_prolong_at(const float* a, const float* b, bool odd,
-                                                        int m, int y, int x) {
-  const float v = ring_pro_zy(a, b, odd, m, y, x >> 1);
-  if (!(x & 1)) return v;
-  return __fmul_rn(0.5f, __fadd_rn(v, ring_pro_zy(a, b, odd, m, y, (x >> 1) + 1)));
 }
 
 // (Σnb − 6u): ((((z− + z+) + y−) + y+) + x−) + x+, then − 6u.
@@ -477,23 +441,18 @@ static __device__ __forceinline__ void fetch_plane(const Leg3& L, const Planes3&
 }
 
 // The starting iterate and f of staged plane t into shared memory: u (plus
-// the prolonged coarse correction on the interior, for the ascend leg), or
-// from u ≡ 0 the closed-form first sweep (ω/6)·(−h²f) on the interior.
+// the prolonged coarse correction on the interior, for the ascend leg; not
+// compiled into the RING instance, which no leg takes: the ring smoother
+// with it took 128 registers and spilled, 16% slower on an H100), or from
+// u ≡ 0 the closed-form first sweep (ω/6)·(−h²f) on the interior.
 template <bool SHARD, bool RING = false>
 static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3& P, int t,
                                                    int cols, int plane, int gr0, int gc0,
                                                    const float (&ru)[PREF3],
                                                    const float (&rf)[PREF3], float* u0,
-                                                   float* fp, const RingSrc3* R = nullptr) {
+                                                   float* fp) {
   const int n = L.n, m = (n + 1) / 2;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
-  const float *ca = nullptr, *cb = nullptr;  // RING: the coarse planes plane t prolongs from
-  if constexpr (RING) {
-    if (L.c != nullptr && L.u != nullptr && inner(t, n)) {
-      ca = ring_cplane(*R, m, t >> 1);
-      cb = (t & 1) ? ring_cplane(*R, m, (t >> 1) + 1) : ca;
-    }
-  }
 #pragma unroll
   for (int q = 0; q < PREF3; ++q) {
     const int idx = tid + q * THREADS3;
@@ -504,12 +463,8 @@ static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3&
     if (inner(t, n) && inner(gi, n) && inner(gj, n)) {
       if (L.u == nullptr)
         uv = __fmul_rn(L.w, -__fmul_rn(L.h2, rf[q]));
-      else if (L.c != nullptr) {
-        if constexpr (RING)
-          uv = __fadd_rn(uv, ring_prolong_at(ca, cb, t & 1, m, gi, gj));
-        else
-          uv = __fadd_rn(uv, prolong_at(L.c, m, SHARD ? P.cz0 : 0, t, gi, gj));
-      }
+      else if (!RING && L.c != nullptr)
+        uv = __fadd_rn(uv, prolong_at(L.c, m, SHARD ? P.cz0 : 0, t, gi, gj));
     }
     u0[idx] = uv;
     fp[idx] = rf[q];
@@ -550,7 +505,7 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P,
     // stage plane t; its ring slots last held planes the previous step
     // finished with
     if (t < ze)
-      store_plane<SHARD, RING>(L, P, t, cols, plane, gr0, gc0, ru, rf, ring(0, t), fpl(t), R);
+      store_plane<SHARD, RING>(L, P, t, cols, plane, gr0, gc0, ru, rf, ring(0, t), fpl(t));
     __syncthreads();
     if (t + 1 < ze)
       fetch_plane<COHERENT, SHARD, RING>(L, P, t + 1, cols, plane, gr0, gc0, ru, rf, R);

@@ -1,12 +1,13 @@
 // Shared pieces of the 3-D ring kernels (rdma_jacobi3.cu, rdma_descend3.cu,
 // rdma_ascend3.cu, rdma_trigger3.cu): one launch runs every z-shard of a
 // sharded n^3 level, with the tag, flag and launch protocol of ring.cuh.
-// In kernels 20-22 each block walks its shard's tiles with the pipeline of
-// legs3.cuh in ring mode (run_leg3_at with RING: a plane comes from the
-// shard's own block or from a receive buffer), so the owned planes and the
-// error partials are those of the shard-mode launch on extended windows,
-// bit for bit; kernel 19 runs col3.cuh's column pass over the same buffers
-// (rdma_trigger3.cu).
+// Kernel 20 walks its shard's tiles with the pipeline of legs3.cuh in ring
+// mode (ring_leg3: run_leg3_at with RING, a plane from the shard's own
+// block or from a receive buffer); kernel 19 runs col3.cuh's column pass
+// over the same buffers (rdma_trigger3.cu); kernels 21 and 22 post their
+// halos once and then run their shard modes' column passes on each shard
+// (RingCol3 below). Owned planes and error partials are those of the
+// shard-mode launches on extended windows, bit for bit.
 //
 // What a shard owns in the workspace (ops/rdma3.py allocates it once per
 // device, shard count and n, zeroed; Ring3 holds its base pointers):
@@ -19,17 +20,17 @@
 //   * flags: one 64-bit tag per sender; arrival counts of its own blocks
 //     (two: the first post, then the sweeps or the pass's error).
 //
-// A shard's window is halo planes a side (the leg's pipeline halo, at most
-// RING3_HALO). Blocks may be shallower than that (the port's split gives
-// the last shard the remainder and JAX's planes per device can exceed a
-// block), so a window may span several shards: every sender posts to every
-// shard whose window meets its block, and a receiver waits for each of
-// them. The coarse correction is split like the fine level, shard s owning
-// coarse planes [z0 / 2, (z1 + 1) / 2) of its block [z0, z1); its window is
-// the coarse planes the staged fine planes interpolate from.
+// A shard's window is halo planes a side (at most RING3_HALO). Blocks may be
+// shallower than that (the port's split gives the last shard the remainder
+// and JAX's planes per device can exceed a block), so a window may span
+// several shards: every sender posts to every shard whose window meets its
+// block, and a receiver waits for each of them. The coarse correction is
+// split like the fine level, shard s owning coarse planes [z0 / 2, (z1 + 1)
+// / 2) of its block [z0, z1); its window is the coarse planes the window's
+// fine planes interpolate from.
 #pragma once
 
-#include "legs3.cuh"
+#include "col3_legs.cuh"
 #include "ring.cuh"
 
 namespace mgk3 {
@@ -146,7 +147,8 @@ static __device__ void post_span(float* buf, int origin, const float* src, int b
 
 // Shard s's blocks post their inputs to every other shard's windows: u (into
 // the parity `par` buffers; skipped when null), f, and the coarse correction
-// c (skipped when null). Split over the shard's nb blocks.
+// c (skipped when null). Split over the shard's nb blocks of THREADS threads.
+template <int THREADS = THREADS3>
 static __device__ void post_inputs(const Ring3& W, int s, const float* u, const float* f,
                                    const float* c, int halo, int par, int lb, int nb) {
   const int n = W.n, m = (n + 1) / 2;
@@ -156,12 +158,14 @@ static __device__ void post_inputs(const Ring3& W, int s, const float* u, const 
       const PlaneRange win = fine_window(W, r, side, halo);
       const int origin = side == 0 ? W.z0[r] - RING3_HALO : W.z0[r + 1];
       if (u != nullptr)
-        post_span(ubuf3(W, r, par, side), origin, u, W.z0[s], W.z0[s + 1], win, plane3(n), lb, nb);
-      post_span(fbuf3(W, r, side), origin, f, W.z0[s], W.z0[s + 1], win, plane3(n), lb, nb);
+        post_span<THREADS>(ubuf3(W, r, par, side), origin, u, W.z0[s], W.z0[s + 1], win,
+                           plane3(n), lb, nb);
+      post_span<THREADS>(fbuf3(W, r, side), origin, f, W.z0[s], W.z0[s + 1], win, plane3(n),
+                         lb, nb);
       if (c != nullptr) {
         const int corigin = side == 0 ? cz0_of(W, r) - RING3_HALO : cz1_of(W, r);
-        post_span(cbuf3(W, r, side), corigin, c, cz0_of(W, s), cz1_of(W, s),
-                  coarse_window(W, r, side, halo), plane3(m), lb, nb);
+        post_span<THREADS>(cbuf3(W, r, side), corigin, c, cz0_of(W, s), cz1_of(W, s),
+                           coarse_window(W, r, side, halo), plane3(m), lb, nb);
       }
     }
   }
@@ -169,7 +173,7 @@ static __device__ void post_inputs(const Ring3& W, int s, const float* u, const 
 
 // Shard s's ring source: its blocks, and its receive buffers (u of parity par).
 static __device__ RingSrc3 ring_src3(const Ring3& W, int s, int par, const float* u,
-                                     const float* f, const float* c) {
+                                     const float* f) {
   RingSrc3 R;
   R.own[0] = u;
   R.own[1] = f;
@@ -177,11 +181,6 @@ static __device__ RingSrc3 ring_src3(const Ring3& W, int s, int par, const float
   R.top[1] = fbuf3(W, s, 0);
   R.bot[0] = ubuf3(W, s, par, 1);
   R.bot[1] = fbuf3(W, s, 1);
-  R.cown = c;
-  R.ctop = W.cbuf != nullptr ? cbuf3(W, s, 0) : nullptr;
-  R.cbot = W.cbuf != nullptr ? cbuf3(W, s, 1) : nullptr;
-  R.cz0 = cz0_of(W, s);
-  R.cz1 = cz1_of(W, s);
   return R;
 }
 
@@ -213,18 +212,16 @@ static __device__ __forceinline__ ShardLeg3 shard_leg3(const Leg3& base, const R
   return x;
 }
 
-// One pass of a leg over the ring (kernels 20-22): post the inputs, release
-// this shard's tag, run the tiles that stage no other shard's plane, wait
-// for the senders, run the others; then the last block of the shard sums
-// its tile partials in the one-launch reduction's order into raw[s].
+// One pass of the ring smoother (kernel 20): post the inputs, release this
+// shard's tag, run the tiles that stage no other shard's plane, wait for
+// the senders, run the others; then the last block of the shard sums its
+// tile partials in the one-launch reduction's order into raw[s].
 struct RingLeg3Args {
   Leg3 L;                          // the leg; per-shard pointers below
   Ring3 W;
   const float* u[MAX_SHARDS3];     // shard blocks (unread when L.u is null: from zero)
   const float* f[MAX_SHARDS3];
-  const float* c[MAX_SHARDS3];     // ascend: the shard's coarse planes [cz0, cz1)
   float* out[MAX_SHARDS3];
-  float* fc[MAX_SHARDS3];          // descend: the shard's coarse planes from z0 / 2
   int cz[MAX_SHARDS3];             // z chunk of shard s's tile plan
   int part0[MAX_SHARDS3 + 1];      // shard s's partials from part0[s]
   double* partials;                // or null: no error
@@ -233,7 +230,6 @@ struct RingLeg3Args {
   int blocks_per_shard;
 };
 
-template <bool COARSE>
 static __device__ void ring_leg3(const RingLeg3Args& a, float* smem) {
   const int s = blockIdx.x / a.blocks_per_shard, lb = blockIdx.x % a.blocks_per_shard;
   const int nb = a.blocks_per_shard;
@@ -244,16 +240,14 @@ static __device__ void ring_leg3(const RingLeg3Args& a, float* smem) {
   Leg3& L = x.L;
   if (a.L.u != nullptr) L.u = a.u[s];
   L.f = a.f[s];
-  L.c = COARSE ? a.c[s] : nullptr;
   L.out = a.out[s];
-  L.fc = a.fc[s];
 
-  post_inputs(W, s, L.u, L.f, L.c, L.halo, par, lb, nb);
+  post_inputs(W, s, L.u, L.f, nullptr, L.halo, par, lb, nb);
   if (mgk::arrive_last(W.count + s, nb) && threadIdx.x == 0 && threadIdx.y == 0)
     for (int r = 0; r < P; ++r)
       if (r != s) mgk::release_tag(W.flags + (size_t)r * P + s, a.tag);
 
-  const RingSrc3 R = ring_src3(W, s, par, L.u, L.f, L.c);
+  const RingSrc3 R = ring_src3(W, s, par, L.u, L.f);
   bool ready = false;
   for (int pass = 0; pass < 2; ++pass) {  // tiles within the shard, then the others
     for (int t = lb; t < x.count; t += nb) {
@@ -261,7 +255,7 @@ static __device__ void ring_leg3(const RingLeg3Args& a, float* smem) {
       const bool ring = tile_reads_ring(W, s, L, b);
       if (ring != (pass == 1)) continue;
       if (ring && !ready) {
-        wait_senders(W, s, L.halo, COARSE, a.tag);
+        wait_senders(W, s, L.halo, false, a.tag);
         ready = true;
       }
       run_leg3_at<false, true, false, true>(smem, L, x.P, b, &R);
@@ -297,20 +291,12 @@ static inline cudaError_t ring3_setup(Ring3& W, const int* z0s, int shards, int 
 }
 
 // Validate shard s's leg (tile plan z chunk cz) as check_leg3 does a shard
-// launch with a window of L.halo planes, its coarse window included.
+// launch with a window of L.halo planes.
 static inline cudaError_t check_ring_leg3(const Leg3& base, const Ring3& W, int s, int cz) {
   Leg3 L = base;
   L.cz = cz;
-  Planes3 P{W.z0[s], W.z0[s + 1] - W.z0[s], L.halo, 0, 0};
   if (L.halo > RING3_HALO) return cudaErrorInvalidValue;
-  if (L.c != nullptr) {
-    const PlaneRange top = coarse_window(W, s, 0, L.halo), bot = coarse_window(W, s, 1, L.halo);
-    if (cz0_of(W, s) - top.lo > RING3_HALO || bot.hi - cz1_of(W, s) > RING3_HALO)
-      return cudaErrorInvalidValue;
-    P.cz0 = top.lo;
-    P.cnz = bot.hi - top.lo;
-  }
-  return check_leg3(L, P);
+  return check_leg3(L, Planes3{W.z0[s], W.z0[s + 1] - W.z0[s], L.halo, 0, 0});
 }
 
 // Validate every shard's leg (z chunk czs[s]) and lay out its tile plan:
@@ -333,7 +319,7 @@ static inline int ring_plans3(const Leg3& base, const Ring3& W, const int* czs, 
   return max_tiles;
 }
 
-// Launch a ring pass of the legs (RingLeg3Args with L, W, the shard
+// Launch a pass of the ring smoother (RingLeg3Args with L, W, the shard
 // pointers, raw and tag set) with tile plans czs and the partials buffer.
 template <typename Kernel>
 static inline cudaError_t launch_ring_leg3(Kernel kernel, RingLeg3Args& a, const int* czs,
@@ -343,6 +329,218 @@ static inline cudaError_t launch_ring_leg3(Kernel kernel, RingLeg3Args& a, const
   a.partials = partials;
   return mgk::launch_ring(kernel, a, leg3_smem(leg3_stages(a.L), a.L.halo, a.L.ty, a.L.tx),
                           a.W.shards, max_tiles, stream, dim3(BLOCK_X, BLOCK3_Y));
+}
+
+// --- The ring legs (kernels 21 and 22): one post, then column passes ---
+//
+// A call posts the planes of its inputs that the neighbours' windows take
+// (u and f; the ascend leg also the coarse correction; the descend leg from
+// zero no u) into their receive buffers and releases its tag (a launch of
+// its own, ring_post3_kernel); the first pass waits for the senders. From
+// then on every pass is shard-local: each shard runs its shard mode's column
+// passes (descend3.cu's, ascend3.cu's: the bodies of col3_legs.cuh and
+// col3_unit_io), reading a plane of the inputs from its block or from a
+// receive buffer (ring_vol3) and the iterates from two scratch windows of
+// its own (planes [z0 − depth, z1 + depth)), so its owned planes, coarse
+// planes and tile partials are those of the shard mode on windows of
+// `depth` planes, bit for bit, with the same tile plan; ring_raw3_kernel
+// sums each shard's partials in fixed_sum3's order into raw[s]. A pass is
+// one launch over every shard (blockIdx.y the shard), as the shard mode's
+// passes are, so a pass reads the planes the one before wrote through L1:
+// one cooperative launch with a barrier per shard between the passes, its
+// loads through L2, took 8.17 ms against 5.56 for the descend leg at 513³
+// on 8 z-shards of an H100 (PERF.md).
+struct RingCol3 {
+  Ring3 W;
+  Col3 C[MAX_SHARDS3];          // shard s: planes (ext = depth), tile plan, workspace
+  const float* u[MAX_SHARDS3];  // shard blocks (nullptr: from zero)
+  const float* f[MAX_SHARDS3];
+  const float* c[MAX_SHARDS3];  // ascend: the shard's coarse planes [cz0, cz1)
+  float* out[MAX_SHARDS3];
+  float* wa[MAX_SHARDS3];       // scratch windows, planes [z0 − depth, z1 + depth)
+  float* wb[MAX_SHARDS3];
+  float* s[MAX_SHARDS3];        // descend: the restriction's z steps from coarse plane z0 / 2
+  float* fc[MAX_SHARDS3];       // descend: the shard's coarse planes from z0 / 2
+  int part0[MAX_SHARDS3 + 1];   // shard s's tile partials from part0[s]
+  double* partials;             // or nullptr: no error
+  unsigned long long tag;       // the post's
+  int steps, mode, tail, depth; // the sweeps (col3_schedule's k, error mode and tail)
+  int fw;                       // descend: full weighting (else sampling)
+  int wait;                     // this launch is the first pass: wait for the senders
+};
+
+// A shard's input planes (its block `own`, planes [z0, z1), and its receive
+// buffers top and bot of planes `pl` floats) as a Vol3.
+static __device__ __forceinline__ Vol3 ring_vol3(const float* own, const float* top,
+                                                 const float* bot, int z0, int z1, size_t pl) {
+  const ptrdiff_t p = (ptrdiff_t)pl;
+  return Vol3{top - (z0 - RING3_HALO) * p, own - z0 * p, bot - z1 * p, z0, z1};
+}
+
+// f of shard s as its passes read it.
+static __device__ __forceinline__ Vol3 ring_f3(const RingCol3& a, int s) {
+  const Ring3& W = a.W;
+  return ring_vol3(a.f[s], fbuf3(W, s, 0), fbuf3(W, s, 1), W.z0[s], W.z0[s + 1], plane3(W.n));
+}
+
+// A scratch window of shard s, offset so that plane z is at z · pl.
+static __device__ __forceinline__ float* ring_window(const RingCol3& a, float* w, int s) {
+  return w - (ptrdiff_t)(a.W.z0[s] - a.depth) * (ptrdiff_t)plane3(a.W.n);
+}
+
+// Whether a sweep's unit `unit` of shard s reads only planes of its own
+// block: its z chunk [e0, e1) and one plane a side within [z0, z1). Such a
+// unit takes its planes from the block alone (Col3Io), without the choice of
+// place per plane (the window sweeps 1.14 → 1.10 ms at 513³ on 8 z-shards
+// of an H100); the others also read receive buffers or halo planes.
+static __device__ __forceinline__ bool ring_inner_unit(const Col3& C, int unit) {
+  const int bz = unit / COL3_QUARTERS / (col3_gx(C) * col3_gy(C));
+  const int e0 = C.z0 + bz * C.cz, e1 = min(e0 + C.cz, C.z0 + C.nz);
+  return e0 > C.z0 && e1 < C.z0 + C.nz;
+}
+
+// The first pass waits for the shard's senders in each block that reads a
+// receive buffer (block-uniform `halo`).
+static __device__ __forceinline__ void ring_wait(const RingCol3& a, int s, bool halo,
+                                                 bool coarse) {
+  if (a.wait && halo) wait_senders(a.W, s, a.depth, coarse, a.tag);
+}
+
+// The post: shard blockIdx.y's blocks copy the planes of its inputs that
+// the other shards' windows take into their receive buffers (coarse: the
+// ascend leg's correction too), and the last of them releases the tag.
+static __global__ void __launch_bounds__(COL3_THREADS) ring_post3_kernel(RingCol3 a,
+                                                                         int coarse) {
+  const int s = blockIdx.y, lb = blockIdx.x, nb = gridDim.x, P = a.W.shards;
+  post_inputs<COL3_THREADS>(a.W, s, a.u[s], a.f[s], coarse ? a.c[s] : nullptr, a.depth,
+                            (int)(a.tag & 1), lb, nb);
+  __threadfence();
+  if (mgk::arrive_last(a.W.count + s, nb) && threadIdx.x == 0)
+    for (int r = 0; r < P; ++r)
+      if (r != s) mgk::release_tag(a.W.flags + (size_t)r * P + s, a.tag);
+}
+
+// Sweep j of col3_schedule's a.steps on shard blockIdx.y (unit blockIdx.x):
+// from the shard's input (INPUT: its block and receive buffers), from u ≡ 0
+// (ZERO), or from a scratch window, into the windows and the owned planes.
+template <bool ZERO, bool INPUT>
+static __global__ void __launch_bounds__(COL3_THREADS) ring_sweep3_kernel(RingCol3 a, int j) {
+  const int s = blockIdx.y, unit = blockIdx.x;
+  const Col3& C = a.C[s];
+  const bool inner = unit < col3_units(C) && ring_inner_unit(C, unit);
+  ring_wait(a, s, !inner, false);
+  if (unit >= col3_units(C)) return;
+  const Ring3& W = a.W;
+  const int z0 = W.z0[s], z1 = W.z0[s + 1];
+  float* const wa = ring_window(a, a.wa[s], s);
+  float* const wb = ring_window(a, a.wb[s], s);
+  // the sweeps' iterate 0: the input, nothing, or u + prolong(c) in the
+  // window iterate 1 does not go to
+  const float* const src0 = ZERO ? nullptr : INPUT ? a.u[s] : (a.steps - 1) % 2 == 0 ? wb : wa;
+  Col3Pass P;
+  col3_schedule(C, P, j, a.steps, a.mode, src0, wa, wb, a.out[s],
+                a.partials != nullptr ? a.partials + a.part0[s] : nullptr, col3_tiles(C),
+                ROWS_LAST, a.tail);
+  const size_t pl = plane3(W.n);
+  if (inner) {
+    const ptrdiff_t base = -(ptrdiff_t)z0 * (ptrdiff_t)pl;  // the blocks' global plane 0
+    col3_unit_io<false, true, ZERO>(
+        C, P, unit, Col3Io{INPUT ? a.u[s] + base : P.src, a.f[s] + base, P.dst, P.own});
+  } else if (INPUT) {
+    const int par = (int)(a.tag & 1);
+    col3_unit_io<false, true, ZERO>(
+        C, P, unit,
+        col3_src(ring_vol3(a.u[s], ubuf3(W, s, par, 0), ubuf3(W, s, par, 1), z0, z1, pl),
+                 ring_f3(a, s), P.dst, P.own));
+  } else {
+    col3_unit_io<false, true, ZERO>(C, P, unit,
+                                    col3_src(Flat3{P.src}, ring_f3(a, s), P.dst, P.own));
+  }
+}
+
+// Shard s's raw error sum: its tile partials in fixed_sum3's order (the
+// shard mode's sum_partials3_raw_kernel), block s for shard s.
+static __global__ void __launch_bounds__(THREADS3) ring_raw3_kernel(RingCol3 a, double* raw) {
+  const int s = blockIdx.x;
+  const double total = fixed_sum3(a.partials + a.part0[s], col3_tiles(a.C[s]));
+  if (threadIdx.x == 0 && threadIdx.y == 0) raw[s] = total;
+}
+
+// Host side: shard s's column passes over windows of `depth` planes (tile
+// plan ty x tx x czs[s], validated by col3_ok for `depth` stencil reads;
+// the receive buffers hold at most RING3_HALO planes), the partials' layout
+// and the workspace `work` (ops.kernels3.col3_work of every shard's tiles;
+// its arrival counters zeroed on the stream). errors false: no workspace.
+// Returns the most column-pass units of a shard in *units.
+static inline cudaError_t ring_col3_setup(RingCol3& a, const unsigned long long* f_ptrs,
+                                          const int* czs, int depth, int ty, int tx,
+                                          double* work, bool errors, float h2, float w,
+                                          float inv_h2, int* units, cudaStream_t stream) {
+  const Ring3& W = a.W;
+  if (depth < 1 || depth > RING3_HALO || (errors && work == nullptr))
+    return cudaErrorInvalidValue;
+  int total = 0;
+  *units = 0;
+  for (int s = 0; s < W.shards; ++s) {
+    if (W.z0[s] % 2) return cudaErrorInvalidValue;  // a 2:1 leg: even origins
+    Col3& C = a.C[s];
+    C = Col3{(const float*)f_ptrs[s], nullptr, nullptr, W.n, W.z0[s], W.z0[s + 1] - W.z0[s],
+             depth, ty, tx, czs[s], h2, w, inv_h2};
+    if (C.f == nullptr || !col3_ok(C, depth)) return cudaErrorInvalidValue;
+    a.f[s] = C.f;
+    a.part0[s] = total;
+    total += col3_tiles(C);
+    *units = col3_units(C) > *units ? col3_units(C) : *units;
+  }
+  a.part0[W.shards] = total;
+  a.depth = depth;
+  if (!errors) return cudaSuccess;
+  unsigned* const arrivals = reinterpret_cast<unsigned*>(work + (size_t)total * WARPS3);
+  for (int s = 0; s < W.shards; ++s) {
+    a.C[s].wsum = work + (size_t)a.part0[s] * WARPS3;
+    a.C[s].arrivals = arrivals + a.part0[s];
+  }
+  return cudaMemsetAsync(arrivals, 0, sizeof(unsigned) * total, stream);
+}
+
+// Blocks a shard of the post: enough to stream its halo planes (64 took
+// 0.31 ms for the descend leg's at 513³ on 8 z-shards of an H100).
+constexpr int RING_POST3_BLOCKS = 256;
+
+// The post (then the first pass waits for the senders where it reads a
+// receive buffer).
+static inline cudaError_t ring_post3(RingCol3& a, bool coarse, cudaStream_t stream) {
+  ring_post3_kernel<<<dim3(RING_POST3_BLOCKS, a.W.shards), COL3_THREADS, 0, stream>>>(a, coarse);
+  a.wait = 1;
+  return cudaGetLastError();
+}
+
+// col3_schedule's passes of a leg's sweeps on every shard (a.steps, and the
+// clean error's read-only pass with a.partials and ERR_CLEAN), from the
+// input (from zero where a.u is null) or from a window; units: the most of
+// a shard.
+static inline cudaError_t ring_sweeps3(RingCol3& a, bool input, int passes, int units,
+                                       cudaStream_t stream) {
+  const bool zero = input && a.u[0] == nullptr;
+  for (int j = 0; j < passes; ++j) {
+    const dim3 grid(units, a.W.shards);
+    if (j == 0 && zero)
+      ring_sweep3_kernel<true, false><<<grid, COL3_THREADS, 0, stream>>>(a, j);
+    else if (j == 0 && input)
+      ring_sweep3_kernel<false, true><<<grid, COL3_THREADS, 0, stream>>>(a, j);
+    else
+      ring_sweep3_kernel<false, false><<<grid, COL3_THREADS, 0, stream>>>(a, j);
+    a.wait = 0;
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// Each shard's raw sum into raw[s].
+static inline cudaError_t ring_raw3(const RingCol3& a, double* raw, cudaStream_t stream) {
+  ring_raw3_kernel<<<a.W.shards, dim3(BLOCK_X, BLOCK3_Y), 0, stream>>>(a, raw);
+  return cudaGetLastError();
 }
 
 }  // namespace mgk3

@@ -29,7 +29,7 @@ using namespace mgk3;
 
 static __global__ void __launch_bounds__(THREADS3) rdma_jacobi3_kernel(RingLeg3Args a) {
   extern __shared__ float smem[];
-  ring_leg3<false>(a, smem);
+  ring_leg3(a, smem);
 }
 
 // steps <= 8 sweeps (the first the closed form from u ≡ 0 with from_zero) of

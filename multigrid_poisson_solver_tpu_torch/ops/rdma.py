@@ -106,7 +106,8 @@ def _check_ring(u: ShardedGrid, f: ShardedGrid, min_rows: int):
 
 
 def _ptrs(blocks):
-    return K._c_array(ctypes.c_uint64, [b.data_ptr() for b in blocks])
+    """The blocks' device addresses as a C array (0 for None)."""
+    return K._c_array(ctypes.c_uint64, [0 if b is None else b.data_ptr() for b in blocks])
 
 
 def _blocks(x: ShardedGrid):

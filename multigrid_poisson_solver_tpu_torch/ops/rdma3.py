@@ -8,10 +8,12 @@ PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_rdma3.py``:
     shard, plain, from zero, or with the clean or gpu error of the result;
   * ``rdma_descend3``: ``csrc/rdma_descend3.cu``, replaces
     ``_rdma_descend3_kernel``: the whole descend leg (sweeps, −r, its 2:1
-    restriction, the clean error) over every shard;
+    restriction, the clean error) over every shard: the halos posted once,
+    then kernel 11's shard-mode column passes on each shard;
   * ``rdma_ascend3``: ``csrc/rdma_ascend3.cu``, replaces
     ``_rdma_ascend3_kernel``: the whole ascend leg (prolongation, add,
-    post-sweeps, optionally the clean error) over every shard;
+    post-sweeps, optionally the clean error) over every shard, likewise on
+    kernel 12's shard-mode passes;
   * ``rdma_trigger3``: ``csrc/rdma_trigger3.cu``, replaces
     ``_rdma_trigger3_kernel``: the whole |err_k − err_{k−1}| > trigger loop
     over the ring, one column pass a sweep per shard (``csrc/col3.cuh``)
@@ -32,15 +34,17 @@ on 8 shards 8 planes of 513² floats are 8.4 MB a side and array, about
 440 MB for the ring.
 
 The owned planes are those of the exchange path (``parallel.kernel_shard3``)
-bit for bit. Each shard's error partials follow a tile plan: kernel 19
-takes the trigger loops' (``err_plan3``), so its raw float64 sums are the
-exchange path's bit for bit; kernels 20-22 take ``plan3`` of the shard's
-depth, while the shard modes of kernels 10-12 (column passes) sum over
-``err_plan3`` in their own order, so those raw sums agree up to the order
-of a float64 sum, and the error rounded once to fp32 is the same float but
-for a sum within 1e-16 of a rounding boundary. The wrappers return the raw
-sums per shard and the callers add them in shard order and scale them
-once.
+bit for bit. Each shard's error partials follow a tile plan: kernels 19, 21
+and 22 take the shard modes' (``err_plan3`` of the shard's depth), so their
+raw float64 sums are the exchange path's bit for bit; kernel 20 takes
+``plan3`` of the shard's depth, while kernel 10's shard mode (column
+passes) sums over ``err_plan3`` in its own order, so those raw sums agree
+up to the order of a float64 sum, and the error rounded once to fp32 is the
+same float but for a sum within 1e-16 of a rounding boundary. The wrappers
+return the raw sums per shard and the callers add them in shard order and
+scale them once. Kernels 21 and 22 also take per call two scratch windows
+per shard (its planes and the leg's halo a side) and the workspace of the
+column passes.
 
 Routing copies JAX's admission predicates (``rdma_*3_fits``) and the brick
 geometry they call (``pallas3d._brick_geometry``): TPU VMEM arithmetic on
@@ -308,6 +312,25 @@ def _partials(f: ShardedGrid, tile, czs, want: bool):
             torch.empty(len(rows), dtype=torch.float64, device=f.device))
 
 
+def _col3_partials(f: ShardedGrid, tile, czs, want: bool):
+    """(tile partials, raw sums, the column pass's workspace) for every shard
+    of a ring leg on column passes, or Nones."""
+    partials, raw = _partials(f, tile, czs, want)
+    if not want:
+        return None, None, None
+    work = torch.empty(K3.col3_work(partials.numel()), dtype=torch.float64, device=f.device)
+    return partials, raw, work
+
+
+def _ring_windows(f: ShardedGrid, depth: int, second: bool):
+    """A ring leg's two scratch windows per shard: its planes and ``depth``
+    more a side (None for the second where one sweep needs one window)."""
+    shape = [(z1 - z0 + 2 * depth, f.n, f.n) for z0, z1 in f.layout.rows]
+    wa = [torch.empty(sh, dtype=f.dtype, device=f.device) for sh in shape]
+    return wa, ([torch.empty(sh, dtype=f.dtype, device=f.device) for sh in shape] if second
+                else [None] * len(shape))
+
+
 def _raws(raw):
     return None if raw is None else list(raw)
 
@@ -404,18 +427,21 @@ def rdma_descend3(u, f: ShardedGrid, h: float, steps: int, omega: float = 6.0 / 
         return rdma_descend3_torch(u, f, h, steps, omega, from_zero, restriction, want_err)
     lib, stream, dev, z0s = _check_ring3(None if from_zero else u, f, even=True)
     shards, n, m = len(z0s) - 1, f.n, (f.n + 1) // 2
-    stages = steps - int(from_zero) + 1
-    tile, czs = _plans(f, stages, stages + int(fw))
-    partials, raw = _partials(f, tile, czs, want_err)
+    depth = steps - int(from_zero) + 1 + int(fw)
+    tile, czs = _plans(f, 0, 0, err_plan=True)
+    partials, raw, work = _col3_partials(f, tile, czs, want_err)
     clay = coarse_layout3(f)
     fc = [torch.empty((k1 - k0, m, m), dtype=f.dtype, device=dev) for k0, k1 in clay.rows]
+    zsteps = [torch.empty((k1 - k0, n, n), dtype=f.dtype, device=dev) for k0, k1 in clay.rows]
+    wa, wb = _ring_windows(f, depth, steps >= 2)
     ws = _workspace(dev, shards, n)
     out = [torch.empty_like(b) for b in _blocks(f)]
     rc = lib.mg3_rdma_descend(_ptrs(_blocks(f if from_zero else u)), _ptrs(_blocks(f)),
-                              _ptrs(out), _ptrs(fc), K._c_array(ctypes.c_int, z0s),
-                              K._c_array(ctypes.c_int, czs), shards, n, steps, int(from_zero),
-                              int(fw), int(want_err), *tile, K._ptr(partials), K._ptr(raw),
-                              ws.ptrs, ws.take(1), h * h, omega / 6.0, 1.0 / (h * h), stream)
+                              _ptrs(out), _ptrs(fc), _ptrs(wa), _ptrs(wb), _ptrs(zsteps),
+                              K._c_array(ctypes.c_int, z0s), K._c_array(ctypes.c_int, czs),
+                              shards, n, steps, int(from_zero), int(fw), int(want_err), *tile,
+                              K._ptr(partials), K._ptr(work), K._ptr(raw), ws.ptrs,
+                              ws.take(1), h * h, omega / 6.0, 1.0 / (h * h), stream)
     K._raise_on(lib, rc, "rdma_descend3")
     K.launches["rdma_descend3"] += 1
     return _grid_of(f, out), ShardedGrid(clay, [[c] for c in fc]), _raws(raw)
@@ -470,19 +496,23 @@ def rdma_ascend3(u: ShardedGrid, f: ShardedGrid, child, h: float, steps: int,
         return rdma_ascend3_torch(u, f, child, h, steps, omega, want_err)
     lib, stream, dev, z0s = _check_ring3(u, f, even=True)
     shards, n, m = len(z0s) - 1, f.n, (f.n + 1) // 2
-    stages = steps + int(want_err)
-    tile, czs = _plans(f, stages, stages)
+    depth = steps + int(want_err)
+    tile, czs = _plans(f, 0, 0, err_plan=True)
     cblocks = _coarse_blocks(child, f)
     for i, (c, (k0, k1)) in enumerate(zip(cblocks, coarse_layout3(f).rows)):
         K._check(f"child[{i}]", c, (k1 - k0, m, m), dev)
-    partials, raw = _partials(f, tile, czs, want_err)
+        if not c.is_contiguous():
+            raise ValueError(f"child[{i}] must be contiguous")
+    partials, raw, work = _col3_partials(f, tile, czs, want_err)
+    wa, wb = _ring_windows(f, depth, True)   # u plus the prolonged correction, the iterates
     ws = _workspace(dev, shards, n)
     out = [torch.empty_like(b) for b in _blocks(f)]
     rc = lib.mg3_rdma_ascend(_ptrs(_blocks(u)), _ptrs(_blocks(f)), _ptrs(cblocks), _ptrs(out),
-                             K._c_array(ctypes.c_int, z0s), K._c_array(ctypes.c_int, czs),
-                             shards, n, steps, K3._ERR_CODES3["clean" if want_err else None],
-                             *tile, K._ptr(partials), K._ptr(raw), ws.ptrs, ws.take(1), h * h,
-                             omega / 6.0, 1.0 / (h * h), stream)
+                             _ptrs(wa), _ptrs(wb), K._c_array(ctypes.c_int, z0s),
+                             K._c_array(ctypes.c_int, czs), shards, n, steps,
+                             K3._ERR_CODES3["clean" if want_err else None], *tile,
+                             K._ptr(partials), K._ptr(work), K._ptr(raw), ws.ptrs,
+                             ws.take(1), h * h, omega / 6.0, 1.0 / (h * h), stream)
     K._raise_on(lib, rc, "rdma_ascend3")
     K.launches["rdma_ascend3"] += 1
     return _grid_of(f, out), _raws(raw)

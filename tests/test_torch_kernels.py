@@ -451,12 +451,19 @@ def test_c_entry_points_match_ctypes_signatures():
     assert names["mg3_descend_shard"][3:9] == ["wa", "wb", "s", "fc", "partials", "work"]
     assert names["mg3_ascend"][4:7] == ["mid", "partials", "work"]
     assert names["mg3_ascend_shard"][4:8] == ["wa", "wb", "partials", "work"]
+    # the ring legs on column passes (kernels 21 and 22): each shard's two
+    # scratch windows (and the descend leg's restriction buffer), the
+    # workspace
+    assert names["mg3_rdma_descend"][4:7] == ["wa_ptrs", "wb_ptrs", "s_ptrs"]
+    assert names["mg3_rdma_descend"][17:20] == ["partials", "work", "raw"]
+    assert names["mg3_rdma_ascend"][4:6] == ["wa_ptrs", "wb_ptrs"]
+    assert names["mg3_rdma_ascend"][14:17] == ["partials", "work", "raw"]
     assert {s.name for s in build.sources()} == {
         "common.cuh", "legs.cuh", "jacobi.cu", "residual.cu", "descend.cu", "ascend.cu",
         "chain_descend.cu", "chain_ascend.cu", "trigger.cu", "residual_mw.cu",
         "trigger_stream.cu", "legs3.cuh", "jacobi3.cu", "descend3.cu", "ascend3.cu",
         "residual3.cu", "trigger3.cu", "trigger3_stream.cu", "residual_mw3.cu", "col3.cuh",
-        "ring.cuh",
+        "col3_legs.cuh", "ring.cuh",
         "rdma.cuh", "rdma_jacobi.cu", "rdma_trigger.cu", "rdma3.cuh", "rdma_jacobi3.cu",
         "rdma_descend3.cu", "rdma_ascend3.cu", "rdma_trigger3.cu"}
     assert build.library_path().parent == build.BUILD_DIR
