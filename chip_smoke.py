@@ -107,7 +107,8 @@ Phases (progress on stdout; the first failure exits non-zero):
      kernel 22 with and without the error and the coarse correction in
      three layouts; kernel 19 with both metrics and a trigger that stops it
      after 50 sweeps or more, against the loop of one-sweep sharded error
-     launches; bit for bit. I2: H2's three programs with halo="rdma", bit
+     launches; bit for bit, and for kernels 20-22 the raw float64 sums per
+     shard against the shard modes'. I2: H2's three programs with halo="rdma", bit
      for bit against phase D's unsharded runs (which H2's ppermute runs
      equal), the ring launches per cycle by kernel, ms/cycle, a profile.
      I3: H3's trigger V-cycle with halo="rdma" ("auto", batch 1, batch 7):
@@ -118,11 +119,16 @@ Phases (progress on stdout; the first failure exits non-zero):
      kernel 19 with the planned tiles at 257³ is held bit for bit against
      the loop of one-sweep sharded error steps, and timed a sweep at 257³,
      129³ and 65³. Kernel 10's one-sweep shard step (129³, 65³ on 8
-     z-shards; device time from the profiler) and its fixed modes at 513³
-     (3 sweeps + clean, + gpu, from zero; whole grid and 8 z-shards) are
-     timed too, and the legs (kernels 11 and 12 on their column passes)
-     at 129³ and 65³, whole grid and on 8 z-shards (device time from the
-     profiler), with kernel 11 from zero at 513³.
+     z-shards) and its fixed modes at 513³ (3 sweeps + clean, + gpu, from
+     zero; whole grid and 8 z-shards) are timed too, and the legs (kernels
+     11 and 12 on their column passes) at 129³ and 65³, whole grid and on 8
+     z-shards, with kernel 11 from zero at 513³; the ring kernels 20-22 and
+     kernel 20's exchange path at 129³ and 65³ on 8 z-shards, and kernel 13
+     at 257³ and 129³, whole grid and on 8 z-shards (device µs from CUDA
+     graph replays at these sizes), with a torch.add of the same two 513³
+     volumes beside kernel 13's row as its byte yardstick. G3 reads kernel
+     17's device ms in its rdma "auto" run from the profiler; H2 and I2
+     kernel 13's and the ring kernels' a cycle.
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -310,11 +316,41 @@ def profile(label, fn, per=1):
     return rows
 
 
-def device_ms(fn, per=1):
-    """Device time of one call of fn (the sum of its kernels', copies' and
-    fills' device times), per ``per`` units; unlike CUDA events it leaves
-    out the gaps in which the card waits for the host."""
-    return sum(r[1] for r in device_events(fn)[1]) / per
+def kernel_ms(rows, match, per=1):
+    """Device ms of the profile rows whose kernel name ``match`` accepts, per
+    ``per`` units, and their launches."""
+    hit = [(ms, count) for key, ms, count in rows if match(key)]
+    return sum(ms for ms, _ in hit) / per, sum(count for _, count in hit) / per
+
+
+def graph_us(fn, per=1, replays=20):
+    """Device µs of one call of fn, per ``per`` units: the call captured in a
+    CUDA graph and timed with CUDA events around ``replays`` replays, so its
+    kernels, copies and fills run back to back with no gap in which the card
+    waits for the host (whose launch rate sets CUDA events' time around eager
+    calls at 129³ and 65³). The profiler's sums dropped events late in this
+    script (0 µs for 10 residual3 calls at 257³ on an H100, PERF.md)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()   # warm: workspaces and buffers allocated outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    us = start.elapsed_time(end) * 1e3 / replays / per
+    del graph
+    return us
 
 
 def bound(nbytes, ops):
@@ -1506,8 +1542,12 @@ def phase_h2(tmg, K, K3, torch, run_counts, unsharded, n=513):
                 f"{ {k: v for k, v in counts.items() if v} }")
             if kind == "kernels":
                 run_counts[key] = counts
-                profile(f"{tag} on 8 z-shards per cycle",
-                        lambda: [step(kind, u, True) for _ in range(3)], per=3)
+                rows = profile(f"{tag} on 8 z-shards per cycle",
+                               lambda: [step(kind, u, True) for _ in range(3)], per=3)
+                ms13, k13 = kernel_ms(rows, lambda key: key.startswith("residual3_kernel"),
+                                      per=3)
+                say(f"[p]     kernel 13 (residual3): {ms13:.3f} ms device a cycle, {k13:.0f} "
+                    f"launches")
         ref = unsharded[tag]
         for i, what in ((0, "1 cycle"), (1, "4 cycles")):
             got, want = res["kernels"][i], ref["auto"]["u"][i]
@@ -1659,8 +1699,8 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
     each cut), on rings of 2, 3, 4, 8 and (65³) 16 z-shards of cuda:0
     (ragged last shards; on 16 shards of 4 planes a window of up to 8 planes
     spans two neighbours' blocks). Owned planes, coarse slabs and errors bit
-    for bit against the shard-mode path, and kernels 21 and 22's raw float64
-    sums per shard against the shard modes' (the same tile plans); against
+    for bit against the shard-mode path, and kernels 20, 21 and 22's raw
+    float64 sums per shard against the shard modes' (the same tile plans); against
     the twins the iterates bit for bit and the errors within ERR_RTOL;
     kernel 19's stop sweep against
     the loop of one-sweep sharded error launches, with a trigger that stops
@@ -1690,11 +1730,20 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
         cmp.scalar(name, what, got, halo3.sum_err3(twin_raws, compat, n, h, torch.float32))
 
     def raws(name, what, got_raws, shard_raws):
-        """The ring legs' raw float64 sums per shard against the shard
+        """A ring kernel's raw float64 sums per shard against the shard
         modes' (the same tile plans), bit for bit."""
         got, want = torch.stack(got_raws), torch.stack(shard_raws)
         require(bool(torch.equal(got, want)), f"{name} {what}: raw float64 sums {got.tolist()} "
                 f"differ from the shard modes' {want.tolist()}")
+
+    def shard_jacobi_raws(us, fs, h, steps, fz, mode):
+        """Kernel 10's shard mode on each shard's windows (the exchange
+        path's halo): its raw sums."""
+        ext = steps - int(fz) + int(mode == "clean")
+        return [K3.fused_jacobi3_shard(None if fz else S.extend(us, i, 0, ext),
+                                       S.extend(fs, i, 0, ext), halo3.geo3(fs, i, ext), h, steps,
+                                       omega, fz, mode)[1]
+                for i in range(len(fs.layout.rows))]
 
     def shard_descend_raws(us, fs, h, steps, fz, restriction):
         """Kernel 11's shard mode on each shard's window (the exchange
@@ -1743,6 +1792,8 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
                                 ref, rerr = KS3.sharded_fused_jacobi3_err(us, fs, h, steps, omega,
                                                                           mode, fz, nl)
                                 errs("rdma_jacobi3", w, graw, traw, rerr, mode, n, h)
+                                raws("rdma_jacobi3", w, graw,
+                                     shard_jacobi_raws(us, fs, h, steps, fz, mode))
                             same(f"rdma_jacobi3 {w}", G(gu), G(ref))
                             cmp.cases["rdma_jacobi3"] += 1
                 for restriction in ("full_weighting", "sampling"):
@@ -1850,9 +1901,12 @@ def phase_i2(tmg, K, torch, run_counts, unsharded, n=513):
             f"(and so to H2's ppermute run) after 1 and 4 cycles; launches per cycle {per}")
         rows = profile(f"{tag} on 8 z-shards, halo rdma, per cycle",
                        lambda: [step(u, True) for _ in range(3)], per=3)
-        # kernels 21 and 22's launches (csrc/rdma3.cuh's ring_*3 kernels)
-        legs = sum(ms for key, ms, _ in rows if "ring_" in key and "3_kernel" in key) / 3
-        say(f"[p]     kernels 21 + 22 (ring_*3 launches): {legs:.3f} ms device a cycle")
+        # kernels 20, 21 and 22's launches (csrc/rdma3.cuh's ring_*3 kernels
+        # and the two legs' own), and kernel 13's
+        ring, _ = kernel_ms(rows, lambda key: "ring_" in key and "3_kernel" in key, per=3)
+        ms13, _ = kernel_ms(rows, lambda key: key.startswith("residual3_kernel"), per=3)
+        say(f"[p]     ring kernels 20-22 (ring_*3 launches): {ring:.3f} ms device a cycle; "
+            f"kernel 13 (residual3): {ms13:.3f}")
         return counts
 
     c = run(H_V_CYCLE, lambda u, warm: tmg.v_cycle3_sharded(
@@ -2225,7 +2279,10 @@ def phase_g3(tmg, K, torch, run_counts, unsharded_levels):
         out[tag] = (g, cc.trigger_sweeps, ms, counts)
         if tag == "rdma, auto":
             cc.trigger_sweeps = None
-            profile(f"sharded trigger V-cycle {n}² {tag}", lambda: cc(u0, f))
+            rows = profile(f"sharded trigger V-cycle {n}² {tag}", lambda: cc(u0, f))
+            ms17, k17 = kernel_ms(rows, lambda key: "rdma_trigger_kernel" in key)
+            say(f"[t] rdma_trigger (kernel 17) in the G3 {tag} run: {ms17:.3f} ms device, "
+                f"{k17:.0f} launches, of {sum(r[1] for r in rows):.3f} ms busy (torch.profiler)")
         return tag
 
     rd = run("rdma, auto", "auto", "rdma")
@@ -2356,6 +2413,7 @@ def main():
     for k in SINGLE_DEVICE:
         say(f"[2] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
             f"bit-identical to the twin: {cmp.bitwise[k]}")
+    require(cmp.bitwise["residual3"], "[2] residual3: not bit-identical to its twin")
     say(f"[2] done in {time.perf_counter() - t0:.1f} s "
         f"(tolerances: grids {U_RTOL:g}·max|twin|, errors {ERR_RTOL:g} relative)")
 
@@ -2804,6 +2862,14 @@ def main():
         times[k] = (time_ms(kern, reps=10), time_ms(plain, reps=2, rounds=3), bound_ms, bound_by)
         say(f"[t] {k} at {shape}: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
+    # kernel 13's byte yardstick, the card's streaming rate at its 12 B a
+    # point: one elementwise PyTorch op that reads the same two 513³ volumes
+    # and writes a third
+    o3 = torch.empty_like(u3)
+    ms = time_ms(lambda: torch.add(u3, f3, out=o3), reps=10)
+    say(f"[t] residual3 at {calls['residual3'][0]}: kernel {times['residual3'][0]:.4f} ms; "
+        f"torch.add of the same two {n3}³ volumes {ms:.4f} ms ({3 * g3 / ms / 1e9:.3f} TB/s)")
+    del o3
     def outputs(x):
         """The tensors of a call's result, in order (sharded grids gathered)."""
         if isinstance(x, torch.Tensor):
@@ -2891,8 +2957,8 @@ def main():
     # kernel 10's one-sweep shard step, H3 "auto"'s exact loops at 129³ and
     # 65³ on 8 z-shards: the step (a sweep, a pass that reads its result and
     # the sum) and the lagged pass (one sweep that measures the iterate it
-    # reads), on windows exchanged beforehand; device time a shard step from
-    # the profiler (the host's launch rate sets the events' time here)
+    # reads), on windows exchanged beforehand; device time a shard step
+    # (graph_us)
     for m, um, fm in ((n16, u16, f16), (n65, u65, f65)):
         hm = 1.0 / (m - 1)
         for ext, label, fn in (
@@ -2902,8 +2968,7 @@ def main():
                 (1, "lagged pass (one sweep)",
                  lambda g, ue, fe: K3.trigger_pass3_shard(ue, fe, g, hm, w3, "clean"))):
             geos, wins = z_windows(m, ext, um, fm)
-            us_ = device_ms(lambda: [fn(g, *wi) for _ in range(10) for g, wi in zip(geos, wins)],
-                            per=10 * len(geos)) * 1e3
+            us_ = graph_us(lambda: [fn(g, *wi) for g, wi in zip(geos, wins)], per=len(geos))
             say(f"[t] jacobi3_shard at {m}³ on 8 z-shards, {label}, clean error: {us_:.2f} µs "
                 f"device a shard step; bound {bound(12 * m ** 3 / 8, 0)[0] * 1e3:.2f} µs")
     # kernel 10's fixed modes at 513³, whole grid and on 8 z-shards
@@ -2924,10 +2989,7 @@ def main():
             f"z-shards; bound {bound(3 * g3, 0)[0]:.4f} ms")
     # the legs (kernels 11 and 12) at v_cycle3's smaller kernel levels (129³
     # and 65³, where the descent starts from zero), whole grid and on 8
-    # z-shards, device µs a call from the profiler (the host's launch rate
-    # sets CUDA events' time there; late in this process the profiler can
-    # drop events, which only lowers a sum: the largest of three profiles);
-    # kernel 11 from zero at 513³
+    # z-shards, device µs a call (graph_us); kernel 11 from zero at 513³
     for m, um, fm in ((n16, u16, f16), (n65, u65, f65)):
         hm, mc = 1.0 / (m - 1), (m + 1) // 2
         cm = torch.randn(mc, mc, mc, generator=gen, device="cuda")
@@ -2947,34 +3009,51 @@ def main():
                 ("ascend3_shard on 8 z-shards, 3 sweeps",
                  lambda: [K3.fused_ascend3_shard(ue, fe, c, g.z0 // 2 - ext_c, g, hm, 3, w3)
                           for g, (ue, fe), c in zip(geos4, wins4, cwins)])):
-            us_ = max(device_ms(lambda: [fn() for _ in range(10)], per=10) for _ in range(3)) * 1e3
+            us_ = graph_us(fn)
             say(f"[t] {label} at {m}³: {us_:.2f} µs device a call; bound "
                 f"{bound(12.5 * m ** 3, 0)[0] * 1e3:.2f} µs")
-    # the ring legs (kernels 21 and 22) at 129³ and 65³ on 8 z-shards,
-    # device µs a call (the largest of three profiles, as above)
+    # the ring kernels 20-22 at 129³ and 65³ on 8 z-shards, and kernel 20's
+    # exchange path, device µs a call (graph_us: the same stream orders a
+    # ring call's post before its passes, so replayed tags stay correct)
     for m, um, fm in ((n16, u16, f16), (n65, u65, f65)):
         hm, mc = 1.0 / (m - 1), (m + 1) // 2
         zum, zfm = (S.shard(v, S.layout_of(zring, m)) for v in (um, fm))
         zcm = S.shard(torch.randn(mc, mc, mc, generator=gen, device="cuda"),
                       R3.coarse_layout3(zfm))
-        for label, fn in (
+        nlm = zring.planes_per_device(m)
+        for label, fn, nbytes in (
                 ("rdma_descend3, 3 sweeps, full weighting, clean error",
-                 lambda: R3.rdma_descend3(zum, zfm, hm, 3, w3, False, "full_weighting", True)),
-                ("rdma_ascend3, 3 sweeps", lambda: R3.rdma_ascend3(zum, zfm, zcm, hm, 3, w3))):
-            us_ = max(device_ms(lambda: [fn() for _ in range(10)], per=10) for _ in range(3)) * 1e3
+                 lambda: R3.rdma_descend3(zum, zfm, hm, 3, w3, False, "full_weighting", True),
+                 12.5 * m ** 3),
+                ("rdma_ascend3, 3 sweeps", lambda: R3.rdma_ascend3(zum, zfm, zcm, hm, 3, w3),
+                 12.5 * m ** 3),
+                ("rdma_jacobi3, 3 sweeps + gpu error",
+                 lambda: R3.rdma_jacobi3(zum, zfm, hm, 3, w3, False, "gpu"), 12 * m ** 3),
+                ("the exchange path it replaces (sharded_fused_jacobi3_err), 3 sweeps + gpu error",
+                 lambda: KS3.sharded_fused_jacobi3_err(zum, zfm, hm, 3, w3, "gpu", nl=nlm),
+                 12 * m ** 3)):
+            us_ = graph_us(fn)
             say(f"[t] {label} at {m}³ on 8 z-shards: {us_:.2f} µs device a call; bound "
-                f"{bound(12.5 * m ** 3, 0)[0] * 1e3:.2f} µs")
+                f"{bound(nbytes, 0)[0] * 1e3:.2f} µs")
+    # kernel 13 at its smaller main-path levels (the gpu metric's and the
+    # trigger V-cycles' 257³ and 129³), whole grid and on 8 z-shards (windows
+    # of one halo plane), device µs a call
+    for m, um, fm in ((n15, u15, f15), (n16, u16, f16)):
+        hm = 1.0 / (m - 1)
+        geos1, wins1 = z_windows(m, 1, um, fm)
+        for label, fn in (
+                ("residual3, negated", lambda: K3.residual3(um, fm, hm, True)),
+                ("residual3_shard on 8 z-shards, negated",
+                 lambda: [K3.residual3_shard(ue, fe, g, hm, True)
+                          for g, (ue, fe) in zip(geos1, wins1)])):
+            us_ = graph_us(fn)
+            say(f"[t] {label} at {m}³: {us_:.2f} µs device a call; bound "
+                f"{bound(12 * m ** 3, RES3_OPS * m ** 3)[0] * 1e3:.2f} µs")
+        del geos1, wins1
     ms = time_ms(lambda: K3.fused_descend3(u3, f3, h3, 3, w3, True), reps=5)
     say(f"[t] descend3 at {n3}³, 3 sweeps from zero, full weighting: {ms:.4f} ms; bound "
         f"{bound(8.5 * pts3, 0)[0]:.4f} ms (f read, u and the coarse grid written)")
     del u65, f65, geo3_4, win3_4
-    # the card's streaming rate at the pass's 12 B a point: one elementwise
-    # PyTorch op that reads two 513³ volumes and writes a third
-    o3 = torch.empty_like(u3)
-    ms = time_ms(lambda: torch.add(u3, f3, out=o3), reps=10)
-    say(f"[t] reference: torch.add of two {n3}³ volumes {ms:.4f} ms "
-        f"({3 * g3 / ms / 1e9:.3f} TB/s)")
-    del o3
 
     # -- phase 5: smoother throughput at 8193² -------------------------------------
     u, f = rnd(n8), rnd(n8)

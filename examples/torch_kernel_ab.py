@@ -10,12 +10,14 @@ main paths' shapes (2-D at 4097² and 8193², 3-D at 513³), with one V(3,3)
 cycle at 4097² (ω 0.8, coarsen=3) and one 3-D ``v_cycle3`` V(3,3) at 513³;
 then the ring kernels on rings of 8 shards of the card: the 2-D ones at
 4097², and, where the tree has them (``ops/rdma3.py``), the 3-D ones at 513³
-(the trigger loop at 257³, 129³ and 65³, ms per sweep; the descend and
-ascend legs also at 129³ and 65³, device µs a call). The 3-D trigger
+(the trigger loop at 257³, 129³ and 65³, ms per sweep; the smoother and the
+descend and ascend legs also at 129³ and 65³, device µs a call). The 3-D trigger
 kernels follow: the whole-loop one at 129³ and 65³ and the streamed one at
 257³ (98 sweeps, trigger 0, clean error; ms per sweep), the per-sweep pass
 at 513³ on 8 z-shards (7 sweeps, clean error; windows of 8 halo planes)
-and the residual's shard mode on the same windows;
+and the residual's shard mode on the same windows (at 129³ and 65³ on
+one-plane windows and on the whole grid, device µs a call), kernel 10's
+emit_residual mode at 513³ (whole grid and on those windows);
 kernel 10's fixed modes at 513³ (3 sweeps + gpu error, 3 from zero, 8
 sweeps; whole grid, and with the clean error on 8 z-shards) and at 129³ and
 65³ (1 and 8 sweeps, 3 with either error), the legs (kernels 11 and 12)
@@ -143,6 +145,9 @@ res.update({
     "descend3_513": timed(lambda: K3.fused_descend3(u3, f3, h3, 3, w3, want_err=True)),
     "ascend3_513": timed(lambda: K3.fused_ascend3(u3, f3, c3, h3, 3, w3)),
     "residual3_513": timed(lambda: K3.residual3(u3, f3, h3, True)),
+    # kernel 10's emit_residual mode (legs3.cuh's tile pipeline)
+    "jacobi3_residual_3fz_513": timed(lambda: K3.fused_jacobi3_residual(u3, f3, h3, 3, w3, True,
+                                                                        True)),
 })
 # kernel 10's fixed modes on the smaller kernel levels (65³ the smallest),
 # device µs a call (the host's launch rate would set CUDA events' time)
@@ -197,7 +202,9 @@ if os.path.exists(os.path.join(root, "multigrid_poisson_solver_tpu_torch", "ops"
         for key, fn in (("rdma_descend3_3err", lambda: rdma3.rdma_descend3(
                 zum, zfm, 1 / (m - 1), 3, w3, False, "full_weighting", True)),
                         ("rdma_ascend3_3", lambda: rdma3.rdma_ascend3(zum, zfm, zcm, 1 / (m - 1),
-                                                                      3, w3))):
+                                                                      3, w3)),
+                        ("rdma_jacobi3_3gpu", lambda: rdma3.rdma_jacobi3(
+                            zum, zfm, 1 / (m - 1), 3, w3, False, "gpu"))):
             res[f"{key}_{m}_us"] = 1e3 * device_ms(lambda: [fn() for _ in range(10)], 10)
         del um, fm, zum, zfm, zcm
 # the 3-D trigger loops' kernels at their main-path shapes, ms per sweep
@@ -213,9 +220,12 @@ zgeos = [K3.ShardGeo3(n3, z0, z1 - z0, 8) for z0, z1 in S.layout_of(zpol, n3).ro
 zwins = [[S.planes(v, gz.z0 - 8, gz.z0 + gz.nz + 8) for v in (u3, f3)] for gz in zgeos]
 res["jacobi3_errs7_shard_513"] = timed(lambda: [K3.fused_jacobi3_errs_shard(
     ue, fe, gz, h3, 7, w3, "clean") for gz, (ue, fe) in zip(zgeos, zwins)], reps=3)
-# kernel 13's shard mode on the same windows
+# kernel 13's shard mode on the same windows, and kernel 10's emit_residual
+# mode (3 sweeps from zero; v_cycle3_sharded's 257³ pass)
 res["residual3_shard_513"] = timed(lambda: [K3.residual3_shard(ue, fe, gz, h3, True)
                                             for gz, (ue, fe) in zip(zgeos, zwins)], reps=3)
+res["jacobi3_residual_shard_3fz_513"] = timed(lambda: [K3.fused_jacobi3_residual_shard(
+    None, fe, gz, h3, 3, w3, True, True) for gz, (_, fe) in zip(zgeos, zwins)], reps=3)
 # kernel 10's fixed modes on 8 z-shards (windows of 8 planes: every halo fits)
 for key, steps, fz, mode in (("3gpu", 3, False, "gpu"), ("3clean", 3, False, "clean"),
                              ("3fz", 3, True, None)):
@@ -248,6 +258,13 @@ for m in (129, 65):
             continue
         geos = [K3.ShardGeo3(m, z0, z1 - z0, ext) for z0, z1 in rows]
         wins = [[S.planes(v, gz.z0 - ext, gz.z0 + gz.nz + ext) for v in (um, fm)] for gz in geos]
+        if key == "pass1_lagged_shard":
+            # kernel 13 on the same one-plane windows, and on the whole grid
+            res[f"residual3_shard_{m}_us"] = 1e3 * device_ms(
+                lambda: [K3.residual3_shard(ue, fe, gz, 1 / (m - 1), True)
+                         for _ in range(10) for gz, (ue, fe) in zip(geos, wins)], 10)
+            res[f"residual3_{m}_us"] = 1e3 * device_ms(
+                lambda: [K3.residual3(um, fm, 1 / (m - 1), True) for _ in range(10)], 10)
         if key == "step1_clean_shard":
             def one(gz, ue, fe):
                 return K3.fused_jacobi3_shard(ue, fe, gz, 1 / (m - 1), 1, w3, False, "clean",

@@ -82,7 +82,7 @@ SIGNATURES = {
                         _I),
     # the 3-D ring kernels (ops.rdma3): shard pointer arrays, the shards'
     # origins and z chunks, then the workspace's pointer array and the tag
-    "mg3_rdma_jacobi": ([_P] * 5 + [_I] * 7 + [_P] * 3 + [_U, _F, _F, _F, _P], _I),
+    "mg3_rdma_jacobi": ([_P] * 7 + [_I] * 7 + [_P] * 4 + [_U, _F, _F, _F, _P], _I),
     "mg3_rdma_descend": ([_P] * 9 + [_I] * 8 + [_P] * 4 + [_U, _F, _F, _F, _P], _I),
     "mg3_rdma_ascend": ([_P] * 8 + [_I] * 6 + [_P] * 4 + [_U, _F, _F, _F, _P], _I),
     "mg3_rdma_trigger": ([_P] * 6 + [_I] * 5 + [_P] * 5 + [_U, _F, _F, _F, _D, _F, _I, _P],

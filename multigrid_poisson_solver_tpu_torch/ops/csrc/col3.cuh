@@ -7,9 +7,12 @@
 // the streamed one (trigger3_stream.cu: passes of B sweeps) and of the ring
 // trigger kernel (rdma_trigger3.cu: one pass a sweep per z-shard, its halo
 // planes read from and posted to receive buffers through a plane source of
-// its own in place of Col3Io below), and the sweeps of the 3-D legs
+// its own in place of Col3Io below), the sweeps of the 3-D legs
 // (descend3.cu, ascend3.cu, whose residual and prolongation passes are
-// their own; the residual pass streams its columns through col3_stream).
+// their own; the residual pass streams its columns through col3_stream) and
+// of the ring smoother and ring legs (rdma_jacobi3.cu, rdma_descend3.cu,
+// rdma_ascend3.cu, through rdma3.cuh); the residual (residual3.cu) streams
+// its columns through col3_stream too.
 //
 // Why not the tile pipeline of legs3.cuh: a fused k-sweep trapezoid there
 // runs one 512-thread block an SM with a barrier after every stage of every

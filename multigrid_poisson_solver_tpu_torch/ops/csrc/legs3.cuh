@@ -1,7 +1,7 @@
-// The tile pipeline of the port's 3-D stencil kernels (kernel 10's
-// emit_residual mode in jacobi3.cu, residual3.cu, and the ring smoother of
-// rdma_jacobi3.cu; the other 3-D kernels run the column pass of col3.cuh): 2.5-D
-// temporal blocking of the 7-point stencil.
+// The tile pipeline of kernel 10's emit_residual mode (jacobi3.cu; the other
+// 3-D kernels run the column pass of col3.cuh, which takes this file's
+// constants, block_sum3 and fixed_sum3): 2.5-D temporal blocking of the
+// 7-point stencil.
 //
 // Grids are contiguous n x n x n fp32 volumes indexed [z][y][x]. A block owns
 // a TY x TX column tile of (y, x) over CZ planes of z (one z chunk) and stages
@@ -62,14 +62,6 @@
 // compile-time constants, with the single-device kernels' arguments. EMIT_R
 // (kernel 10's emit_residual mode) stores both the final iterate and its
 // residual, the RESID stage after the sweeps.
-//
-// Ring mode (RING = true, with SHARD; the ring smoother of rdma_jacobi3.cu):
-// the launch owns the same planes, but a plane comes from one of three
-// places (RingSrc3): the shard's own block of u and f for its owned planes,
-// or a receive buffer that the neighbours posted the halo planes into (read
-// through L2). The arithmetic and every store are shard mode's, so owned
-// planes and error partials are those of a shard-mode launch on extended
-// windows.
 #pragma once
 
 #include "common.cuh"
@@ -119,19 +111,6 @@ struct Leg3 {
 // frame instead of 16 and ran 14-22% slower (PERF.md §6).
 struct Planes3 {
   int z0, nz, ext, cz0, cnz;
-};
-
-// The planes a receive buffer of the ring kernels holds a side (rdma3.cuh).
-constexpr int RING3_HALO = MAX_HALO3;
-
-// Where a ring launch reads shard planes: u and f (index 0 and 1; u nullptr
-// from zero) of the owned planes [z0, z0 + nz) from the shard's blocks, the
-// planes [z0 − RING3_HALO, z0) from `top` and [z0 + nz, z0 + nz + RING3_HALO)
-// from `bot`.
-struct RingSrc3 {
-  const float* own[2];
-  const float* top[2];
-  const float* bot[2];
 };
 
 static __host__ __device__ __forceinline__ int leg3_stages(const Leg3& L) {
@@ -389,38 +368,13 @@ sum_partials3_raw_kernel(const double* __restrict__ partials, int count,
 
 // Issue the device-memory loads of staged plane t (u and f; 0 outside the
 // grid) into registers. They are consumed by store_plane one pipeline step
-// later, so their latency overlaps the stages in between. RING: from the
-// ring source R (the own block, or a receive buffer through L2).
-template <bool COHERENT, bool SHARD, bool RING = false>
+// later, so their latency overlaps the stages in between.
+template <bool COHERENT, bool SHARD>
 static __device__ __forceinline__ void fetch_plane(const Leg3& L, const Planes3& P, int t,
                                                    int cols, int plane, int gr0, int gc0,
-                                                   float (&ru)[PREF3], float (&rf)[PREF3],
-                                                   const RingSrc3* R = nullptr) {
+                                                   float (&ru)[PREF3], float (&rf)[PREF3]) {
   const int n = L.n;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
-  if constexpr (RING) {
-    const bool zin = t >= 0 && t < n;
-    const bool mine = t >= P.z0 && t < P.z0 + P.nz;
-    const int side = t < P.z0 ? 0 : 1;
-    const float* bu = mine ? R->own[0] : (side == 0 ? R->top[0] : R->bot[0]);
-    const float* bf = mine ? R->own[1] : (side == 0 ? R->top[1] : R->bot[1]);
-    const int zl = mine ? t - P.z0 : (side == 0 ? t - P.z0 + RING3_HALO : t - P.z0 - P.nz);
-#pragma unroll
-    for (int q = 0; q < PREF3; ++q) {
-      const int idx = tid + q * THREADS3;
-      const int i = idx / cols, j = idx - i * cols;
-      const int gi = gr0 + i, gj = gc0 + j;
-      float fv = 0.0f, uv = 0.0f;
-      if (idx < plane && zin && gi >= 0 && gi < n && gj >= 0 && gj < n) {
-        const size_t g = gidx3(n, zl, gi, gj);
-        fv = mine ? load_grid<COHERENT>(bf + g) : __ldcg(bf + g);
-        if (L.u != nullptr) uv = mine ? load_grid<COHERENT>(bu + g) : __ldcg(bu + g);
-      }
-      ru[q] = uv;
-      rf[q] = fv;
-    }
-    return;
-  }
   const int in0 = SHARD ? P.z0 - P.ext : 0;  // global plane of the inputs' plane 0
   const bool zin =
       t >= 0 && t < n && (!SHARD || (t >= in0 && t < P.z0 + P.nz + P.ext));
@@ -441,11 +395,9 @@ static __device__ __forceinline__ void fetch_plane(const Leg3& L, const Planes3&
 }
 
 // The starting iterate and f of staged plane t into shared memory: u (plus
-// the prolonged coarse correction on the interior, for the ascend leg; not
-// compiled into the RING instance, which no leg takes: the ring smoother
-// with it took 128 registers and spilled, 16% slower on an H100), or from
-// u ≡ 0 the closed-form first sweep (ω/6)·(−h²f) on the interior.
-template <bool SHARD, bool RING = false>
+// the prolonged coarse correction on the interior, for the ascend leg), or
+// from u ≡ 0 the closed-form first sweep (ω/6)·(−h²f) on the interior.
+template <bool SHARD>
 static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3& P, int t,
                                                    int cols, int plane, int gr0, int gc0,
                                                    const float (&ru)[PREF3],
@@ -463,7 +415,7 @@ static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3&
     if (inner(t, n) && inner(gi, n) && inner(gj, n)) {
       if (L.u == nullptr)
         uv = __fmul_rn(L.w, -__fmul_rn(L.h2, rf[q]));
-      else if (!RING && L.c != nullptr)
+      else if (L.c != nullptr)
         uv = __fadd_rn(uv, prolong_at(L.c, m, SHARD ? P.cz0 : 0, t, gi, gj));
     }
     u0[idx] = uv;
@@ -476,11 +428,9 @@ static __device__ __forceinline__ void store_plane(const Leg3& L, const Planes3&
 // (the clean error from the EXTRA stage, the gpu one from the stored
 // level); COHERENT: a persistent kernel; SHARD: the launch owns P's planes, not
 // the whole grid (P is not read otherwise); EMIT_R: the final iterate to out
-// and the RESID stage's residual to r; RING (with SHARD): the planes come
-// from the ring source R, not from windows at L.u and L.f.
-template <bool COHERENT, bool SHARD = false, bool EMIT_R = false, bool RING = false>
-static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P, const Blk& b,
-                                   const RingSrc3* R = nullptr) {
+// and the RESID stage's residual to r.
+template <bool COHERENT, bool SHARD = false, bool EMIT_R = false>
+static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P, const Blk& b) {
   const int n = L.n, H = L.halo;
   const int rows = L.ty + 2 * H, cols = L.tx + 2 * H, plane = rows * cols;
   const int gr0 = b.y * L.ty - H, gc0 = b.x * L.tx - H;
@@ -499,16 +449,16 @@ static __device__ void run_leg3_at(float* smem, const Leg3& L, const Planes3& P,
   const bool gpu_stored = L.partials != nullptr && L.err_mode == ERR_GPU;
   float ru[PREF3], rf[PREF3];  // plane t's loads, in flight during step t − 1
   __syncthreads();             // the block's previous leg is done with smem
-  fetch_plane<COHERENT, SHARD, RING>(L, P, zs, cols, plane, gr0, gc0, ru, rf, R);
+  fetch_plane<COHERENT, SHARD>(L, P, zs, cols, plane, gr0, gc0, ru, rf);
 
   for (int t = zs; t < ze + S; ++t) {
     // stage plane t; its ring slots last held planes the previous step
     // finished with
     if (t < ze)
-      store_plane<SHARD, RING>(L, P, t, cols, plane, gr0, gc0, ru, rf, ring(0, t), fpl(t));
+      store_plane<SHARD>(L, P, t, cols, plane, gr0, gc0, ru, rf, ring(0, t), fpl(t));
     __syncthreads();
     if (t + 1 < ze)
-      fetch_plane<COHERENT, SHARD, RING>(L, P, t + 1, cols, plane, gr0, gc0, ru, rf, R);
+      fetch_plane<COHERENT, SHARD>(L, P, t + 1, cols, plane, gr0, gc0, ru, rf);
     for (int s = 1; s <= S; ++s) {
       const int p = t - s;
       if (p >= zs + s && p < ze - s) {

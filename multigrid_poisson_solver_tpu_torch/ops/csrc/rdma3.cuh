@@ -1,13 +1,11 @@
 // Shared pieces of the 3-D ring kernels (rdma_jacobi3.cu, rdma_descend3.cu,
 // rdma_ascend3.cu, rdma_trigger3.cu): one launch runs every z-shard of a
 // sharded n^3 level, with the tag, flag and launch protocol of ring.cuh.
-// Kernel 20 walks its shard's tiles with the pipeline of legs3.cuh in ring
-// mode (ring_leg3: run_leg3_at with RING, a plane from the shard's own
-// block or from a receive buffer); kernel 19 runs col3.cuh's column pass
-// over the same buffers (rdma_trigger3.cu); kernels 21 and 22 post their
-// halos once and then run their shard modes' column passes on each shard
-// (RingCol3 below). Owned planes and error partials are those of the
-// shard-mode launches on extended windows, bit for bit.
+// Kernel 19 runs col3.cuh's column pass over the receive buffers in one
+// persistent launch (rdma_trigger3.cu); kernels 20, 21 and 22 post their
+// halos once and then run their shard modes' column passes on each shard,
+// a launch a pass (RingCol3 below). Owned planes and error partials are
+// those of the shard-mode launches on extended windows, bit for bit.
 //
 // What a shard owns in the workspace (ops/rdma3.py allocates it once per
 // device, shard count and n, zeroed; Ring3 holds its base pointers):
@@ -36,6 +34,8 @@
 namespace mgk3 {
 
 constexpr int MAX_SHARDS3 = 16;
+// The planes a receive buffer holds a side.
+constexpr int RING3_HALO = MAX_HALO3;
 
 // A ring of z-shards and its workspace.
 struct Ring3 {
@@ -124,31 +124,28 @@ static __device__ void wait_senders(const Ring3& W, int s, int halo, bool coarse
 }
 
 // Copy `count` floats, the work split over the nb blocks of a shard (blocks
-// of THREADS threads).
-template <int THREADS = THREADS3>
+// of COL3_THREADS threads).
 static __device__ void copy_floats(float* __restrict__ dst, const float* src, size_t count, int lb,
                                    int nb) {
-  for (size_t i = (size_t)lb * THREADS + threadIdx.y * BLOCK_X + threadIdx.x; i < count;
-       i += (size_t)nb * THREADS)
+  for (size_t i = (size_t)lb * COL3_THREADS + threadIdx.x; i < count;
+       i += (size_t)nb * COL3_THREADS)
     dst[i] = __ldcg(src + i);
 }
 
 // Post the planes of src (planes [b0, b1) of a level whose planes are `pl`
 // floats) that shard r's window `win` takes into r's buffer, which holds the
 // planes from `origin` on.
-template <int THREADS = THREADS3>
 static __device__ void post_span(float* buf, int origin, const float* src, int b0, int b1,
                                  PlaneRange win, size_t pl, int lb, int nb) {
   const PlaneRange x = meet(win, b0, b1);
   if (x.lo < x.hi)
-    copy_floats<THREADS>(buf + (size_t)(x.lo - origin) * pl, src + (size_t)(x.lo - b0) * pl,
-                         (size_t)(x.hi - x.lo) * pl, lb, nb);
+    copy_floats(buf + (size_t)(x.lo - origin) * pl, src + (size_t)(x.lo - b0) * pl,
+                (size_t)(x.hi - x.lo) * pl, lb, nb);
 }
 
 // Shard s's blocks post their inputs to every other shard's windows: u (into
 // the parity `par` buffers; skipped when null), f, and the coarse correction
-// c (skipped when null). Split over the shard's nb blocks of THREADS threads.
-template <int THREADS = THREADS3>
+// c (skipped when null). Split over the shard's nb blocks.
 static __device__ void post_inputs(const Ring3& W, int s, const float* u, const float* f,
                                    const float* c, int halo, int par, int lb, int nb) {
   const int n = W.n, m = (n + 1) / 2;
@@ -158,119 +155,20 @@ static __device__ void post_inputs(const Ring3& W, int s, const float* u, const 
       const PlaneRange win = fine_window(W, r, side, halo);
       const int origin = side == 0 ? W.z0[r] - RING3_HALO : W.z0[r + 1];
       if (u != nullptr)
-        post_span<THREADS>(ubuf3(W, r, par, side), origin, u, W.z0[s], W.z0[s + 1], win,
-                           plane3(n), lb, nb);
-      post_span<THREADS>(fbuf3(W, r, side), origin, f, W.z0[s], W.z0[s + 1], win, plane3(n),
-                         lb, nb);
+        post_span(ubuf3(W, r, par, side), origin, u, W.z0[s], W.z0[s + 1], win, plane3(n), lb,
+                  nb);
+      post_span(fbuf3(W, r, side), origin, f, W.z0[s], W.z0[s + 1], win, plane3(n), lb, nb);
       if (c != nullptr) {
         const int corigin = side == 0 ? cz0_of(W, r) - RING3_HALO : cz1_of(W, r);
-        post_span<THREADS>(cbuf3(W, r, side), corigin, c, cz0_of(W, s), cz1_of(W, s),
-                           coarse_window(W, r, side, halo), plane3(m), lb, nb);
+        post_span(cbuf3(W, r, side), corigin, c, cz0_of(W, s), cz1_of(W, s),
+                  coarse_window(W, r, side, halo), plane3(m), lb, nb);
       }
     }
   }
 }
 
-// Shard s's ring source: its blocks, and its receive buffers (u of parity par).
-static __device__ RingSrc3 ring_src3(const Ring3& W, int s, int par, const float* u,
-                                     const float* f) {
-  RingSrc3 R;
-  R.own[0] = u;
-  R.own[1] = f;
-  R.top[0] = ubuf3(W, s, par, 0);
-  R.top[1] = fbuf3(W, s, 0);
-  R.bot[0] = ubuf3(W, s, par, 1);
-  R.bot[1] = fbuf3(W, s, 1);
-  return R;
-}
-
-// Whether tile b of shard s (z chunks of L.cz planes) stages a plane of
-// another shard.
-static __device__ __forceinline__ bool tile_reads_ring(const Ring3& W, int s, const Leg3& L,
-                                                       const Blk& b) {
-  const int z0 = W.z0[s], z1 = W.z0[s + 1];
-  const int c0 = z0 + b.z * L.cz, c1 = c0 + L.cz < z1 ? c0 + L.cz : z1;
-  return (c0 - L.halo < z0 && z0 > 0) || (c1 + L.halo > z1 && z1 < W.n);
-}
-
-// The leg of shard s as every ring kernel sets it up: its blocks, its tile
-// plan's z chunk, its partials.
-struct ShardLeg3 {
-  Leg3 L;
-  Planes3 P;
-  int count;  // tiles of the shard
-};
-
-static __device__ __forceinline__ ShardLeg3 shard_leg3(const Leg3& base, const Ring3& W, int s,
-                                                       int cz, double* partials) {
-  ShardLeg3 x;
-  x.L = base;
-  x.L.cz = cz;
-  x.L.partials = partials;
-  x.P = Planes3{W.z0[s], W.z0[s + 1] - W.z0[s], base.halo, 0, 0};
-  x.count = leg3_blocks(x.L, x.P.nz);
-  return x;
-}
-
-// One pass of the ring smoother (kernel 20): post the inputs, release this
-// shard's tag, run the tiles that stage no other shard's plane, wait for
-// the senders, run the others; then the last block of the shard sums its
-// tile partials in the one-launch reduction's order into raw[s].
-struct RingLeg3Args {
-  Leg3 L;                          // the leg; per-shard pointers below
-  Ring3 W;
-  const float* u[MAX_SHARDS3];     // shard blocks (unread when L.u is null: from zero)
-  const float* f[MAX_SHARDS3];
-  float* out[MAX_SHARDS3];
-  int cz[MAX_SHARDS3];             // z chunk of shard s's tile plan
-  int part0[MAX_SHARDS3 + 1];      // shard s's partials from part0[s]
-  double* partials;                // or null: no error
-  double* raw;                     // raw[s]: shard s's raw error sum
-  unsigned long long tag;
-  int blocks_per_shard;
-};
-
-static __device__ void ring_leg3(const RingLeg3Args& a, float* smem) {
-  const int s = blockIdx.x / a.blocks_per_shard, lb = blockIdx.x % a.blocks_per_shard;
-  const int nb = a.blocks_per_shard;
-  const Ring3& W = a.W;
-  const int P = W.shards, par = (int)(a.tag & 1);
-  ShardLeg3 x = shard_leg3(a.L, W, s, a.cz[s],
-                           a.partials != nullptr ? a.partials + a.part0[s] : nullptr);
-  Leg3& L = x.L;
-  if (a.L.u != nullptr) L.u = a.u[s];
-  L.f = a.f[s];
-  L.out = a.out[s];
-
-  post_inputs(W, s, L.u, L.f, nullptr, L.halo, par, lb, nb);
-  if (mgk::arrive_last(W.count + s, nb) && threadIdx.x == 0 && threadIdx.y == 0)
-    for (int r = 0; r < P; ++r)
-      if (r != s) mgk::release_tag(W.flags + (size_t)r * P + s, a.tag);
-
-  const RingSrc3 R = ring_src3(W, s, par, L.u, L.f);
-  bool ready = false;
-  for (int pass = 0; pass < 2; ++pass) {  // tiles within the shard, then the others
-    for (int t = lb; t < x.count; t += nb) {
-      const Blk b = leg3_blk(L, t);
-      const bool ring = tile_reads_ring(W, s, L, b);
-      if (ring != (pass == 1)) continue;
-      if (ring && !ready) {
-        wait_senders(W, s, L.halo, false, a.tag);
-        ready = true;
-      }
-      run_leg3_at<false, true, false, true>(smem, L, x.P, b, &R);
-    }
-  }
-  if (L.partials != nullptr && mgk::arrive_last(W.count + P + s, nb)) {
-    const double total = fixed_sum3(L.partials, x.count);
-    if (threadIdx.x == 0 && threadIdx.y == 0) a.raw[s] = total;
-  }
-}
-
-// Host side: fill the ring from the C interface's arrays and validate every
-// shard's leg (check_leg3 over its planes, its windows no deeper than the
-// buffers). z0s has shards + 1 entries; ws the workspace (ubuf, fbuf, cbuf,
-// err, flags, count).
+// Host side: fill the ring from the C interface's arrays. z0s has shards + 1
+// entries; ws the workspace (ubuf, fbuf, cbuf, err, flags, count).
 static inline cudaError_t ring3_setup(Ring3& W, const int* z0s, int shards, int n,
                                       const unsigned long long* ws) {
   if (shards < 1 || shards > MAX_SHARDS3 || n < 3 || z0s[0] != 0 || z0s[shards] != n)
@@ -290,56 +188,23 @@ static inline cudaError_t ring3_setup(Ring3& W, const int* z0s, int shards, int 
   return cudaSuccess;
 }
 
-// Validate shard s's leg (tile plan z chunk cz) as check_leg3 does a shard
-// launch with a window of L.halo planes.
-static inline cudaError_t check_ring_leg3(const Leg3& base, const Ring3& W, int s, int cz) {
-  Leg3 L = base;
-  L.cz = cz;
-  if (L.halo > RING3_HALO) return cudaErrorInvalidValue;
-  return check_leg3(L, Planes3{W.z0[s], W.z0[s + 1] - W.z0[s], L.halo, 0, 0});
+// A 2:1 leg's ring: every shard's origin even, so that a fine plane's
+// parity is its global one.
+static inline bool ring_even3(const Ring3& W) {
+  for (int s = 0; s < W.shards; ++s)
+    if (W.z0[s] % 2) return false;
+  return true;
 }
 
-// Validate every shard's leg (z chunk czs[s]) and lay out its tile plan:
-// cz[s], its partials from part0[s] (part0[shards]: the total). Returns the
-// largest shard's tile count, or -1 when a shard's leg is invalid.
-static inline int ring_plans3(const Leg3& base, const Ring3& W, const int* czs, int* cz,
-                              int* part0) {
-  int max_tiles = 0, total = 0;
-  for (int s = 0; s < W.shards; ++s) {
-    if (check_ring_leg3(base, W, s, czs[s]) != cudaSuccess) return -1;
-    Leg3 L = base;
-    L.cz = czs[s];
-    const int t = leg3_blocks(L, W.z0[s + 1] - W.z0[s]);
-    cz[s] = czs[s];
-    part0[s] = total;
-    total += t;
-    max_tiles = t > max_tiles ? t : max_tiles;
-  }
-  part0[W.shards] = total;
-  return max_tiles;
-}
-
-// Launch a pass of the ring smoother (RingLeg3Args with L, W, the shard
-// pointers, raw and tag set) with tile plans czs and the partials buffer.
-template <typename Kernel>
-static inline cudaError_t launch_ring_leg3(Kernel kernel, RingLeg3Args& a, const int* czs,
-                                           double* partials, cudaStream_t stream) {
-  const int max_tiles = ring_plans3(a.L, a.W, czs, a.cz, a.part0);
-  if (max_tiles < 0) return cudaErrorInvalidValue;
-  a.partials = partials;
-  return mgk::launch_ring(kernel, a, leg3_smem(leg3_stages(a.L), a.L.halo, a.L.ty, a.L.tx),
-                          a.W.shards, max_tiles, stream, dim3(BLOCK_X, BLOCK3_Y));
-}
-
-// --- The ring legs (kernels 21 and 22): one post, then column passes ---
+// --- Kernels 20, 21 and 22: one post, then column passes ---
 //
 // A call posts the planes of its inputs that the neighbours' windows take
-// (u and f; the ascend leg also the coarse correction; the descend leg from
-// zero no u) into their receive buffers and releases its tag (a launch of
-// its own, ring_post3_kernel); the first pass waits for the senders. From
-// then on every pass is shard-local: each shard runs its shard mode's column
-// passes (descend3.cu's, ascend3.cu's: the bodies of col3_legs.cuh and
-// col3_unit_io), reading a plane of the inputs from its block or from a
+// (u and f; the ascend leg also the coarse correction; from zero no u) into
+// their receive buffers and releases its tag (a launch of its own,
+// ring_post3_kernel); the first pass waits for the senders. From then on
+// every pass is shard-local: each shard runs its shard mode's column passes
+// (jacobi3.cu's, descend3.cu's, ascend3.cu's: col3_unit_io and the bodies
+// of col3_legs.cuh), reading a plane of the inputs from its block or from a
 // receive buffer (ring_vol3) and the iterates from two scratch windows of
 // its own (planes [z0 − depth, z1 + depth)), so its owned planes, coarse
 // planes and tile partials are those of the shard mode on windows of
@@ -412,8 +277,8 @@ static __device__ __forceinline__ void ring_wait(const RingCol3& a, int s, bool 
 static __global__ void __launch_bounds__(COL3_THREADS) ring_post3_kernel(RingCol3 a,
                                                                          int coarse) {
   const int s = blockIdx.y, lb = blockIdx.x, nb = gridDim.x, P = a.W.shards;
-  post_inputs<COL3_THREADS>(a.W, s, a.u[s], a.f[s], coarse ? a.c[s] : nullptr, a.depth,
-                            (int)(a.tag & 1), lb, nb);
+  post_inputs(a.W, s, a.u[s], a.f[s], coarse ? a.c[s] : nullptr, a.depth, (int)(a.tag & 1), lb,
+              nb);
   __threadfence();
   if (mgk::arrive_last(a.W.count + s, nb) && threadIdx.x == 0)
     for (int r = 0; r < P; ++r)
@@ -477,12 +342,11 @@ static inline cudaError_t ring_col3_setup(RingCol3& a, const unsigned long long*
                                           double* work, bool errors, float h2, float w,
                                           float inv_h2, int* units, cudaStream_t stream) {
   const Ring3& W = a.W;
-  if (depth < 1 || depth > RING3_HALO || (errors && work == nullptr))
+  if (depth < 0 || depth > RING3_HALO || (errors && work == nullptr))
     return cudaErrorInvalidValue;
   int total = 0;
   *units = 0;
   for (int s = 0; s < W.shards; ++s) {
-    if (W.z0[s] % 2) return cudaErrorInvalidValue;  // a 2:1 leg: even origins
     Col3& C = a.C[s];
     C = Col3{(const float*)f_ptrs[s], nullptr, nullptr, W.n, W.z0[s], W.z0[s + 1] - W.z0[s],
              depth, ty, tx, czs[s], h2, w, inv_h2};

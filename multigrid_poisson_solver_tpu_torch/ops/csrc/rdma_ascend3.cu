@@ -86,6 +86,7 @@ extern "C" int mg3_rdma_ascend(const unsigned long long* u_ptrs,
   RingCol3 a{};
   cudaError_t e = ring3_setup(a.W, z0s, shards, n, ws);
   if (e != cudaSuccess) return (int)e;
+  if (!ring_even3(a.W)) return (int)cudaErrorInvalidValue;
   const int depth = steps + clean;  // the planes a side the sweeps read
   int units = 0;
   if ((e = ring_col3_setup(a, f_ptrs, czs, depth, ty, tx, work, clean, h2, w, inv_h2, &units,

@@ -88,6 +88,7 @@ extern "C" int mg3_rdma_descend(const unsigned long long* u_ptrs,
   RingCol3 a{};
   cudaError_t e = ring3_setup(a.W, z0s, shards, n, ws);
   if (e != cudaSuccess) return (int)e;
+  if (!ring_even3(a.W)) return (int)cudaErrorInvalidValue;
   int units = 0;
   // the window: the stencil reads the owned planes depend on
   if ((e = ring_col3_setup(a, f_ptrs, czs, sweeps + 1 + fw, ty, tx, work, want_err, h2, w,

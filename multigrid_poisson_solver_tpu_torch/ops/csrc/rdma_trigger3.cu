@@ -110,9 +110,8 @@ rdma_trigger3_kernel(RingTrigger3Args a) {
   for (int r = 0; r < P; ++r)
     if (r != s)
       for (int side = 0; side < 2; ++side)
-        post_span<COL3_THREADS>(ubuf3(W, r, 0, side),
-                                side == 0 ? W.z0[r] - RING3_HALO : W.z0[r + 1], a.u[s], z0, z1,
-                                fine_window(W, r, side, 1), pl, lb, nb);
+        post_span(ubuf3(W, r, 0, side), side == 0 ? W.z0[r] - RING3_HALO : W.z0[r + 1],
+                  a.u[s], z0, z1, fine_window(W, r, side, 1), pl, lb, nb);
   __threadfence();
   if (mgk::arrive_last(W.count + s, nb) && lead)
     for (int r = 0; r < P; ++r)
@@ -177,7 +176,7 @@ rdma_trigger3_kernel(RingTrigger3Args a) {
     if (!(above && k < a.max_sweeps)) break;
   }
   if (buf(k) != a.out[s])  // the final iterate is in tmp
-    copy_floats<COL3_THREADS>(a.out[s], buf(k), (size_t)(z1 - z0) * pl, lb, nb);
+    copy_floats(a.out[s], buf(k), (size_t)(z1 - z0) * pl, lb, nb);
   if (blockIdx.x == 0 && lead) {
     a.err_out[0] = err;
     a.sweeps_out[0] = k;

@@ -5,54 +5,76 @@
 // reached through residual3_pallas.
 //
 // Bound: device-memory bandwidth, one pass that reads u and f and writes r
-// (12 B per point). Design: the 2.5-D pipeline of legs3.cuh with a single
-// residual stage and a halo of one cell: each block streams its column tile
-// down z through a ring of three u planes in shared memory, so each u value
-// is read from device memory about once (plus the one-cell halo).
+// (12 B per point, what a torch.add of two volumes moves). Design: one
+// column pass of col3.cuh: a thread streams one (y, x) column of its tile's
+// z chunk down z with planes z − 1, z, z + 1 of u in registers and the next
+// COL3_AHEAD planes' loads in flight, reads f once and writes r, so each u
+// value is read from device memory about once and the in-plane neighbours
+// come through L1. legs3.cuh's tile pipeline (one 512-thread block an SM, a
+// barrier a plane) took 2.12 ms at 513³ on an H100 (PERF.md). The
+// arithmetic is the twin's (residual3_torch): ((((z− + z+) + y−) + y+) + x−)
+// + x+, − 6u, × h⁻², − f, with the round-to-nearest intrinsics, so r is the
+// twin's bit for bit; face cells are +0.
 //
 // Shard mode (pallas3d.py, _residual3_shard_call, reached through
 // parallel/pallas_shard3.py's sharded_residual3_pallas): the residual of one
-// z-shard's planes from its planes extended by one neighbour plane per side
-// (legs3.cuh, SHARD).
-#include "legs3.cuh"
+// z-shard's owned planes from its planes extended by ext >= 1 neighbour
+// planes per side; the whole grid is the shard mode with z0 = 0, nz = n,
+// ext = 0.
+#include "col3.cuh"
 
 using namespace mgk3;
 
-static __global__ void __launch_bounds__(THREADS3) residual3_kernel(Leg3 L) {
-  extern __shared__ float smem[];
-  run_leg3(smem, L, Planes3{});
-}
-
-static __global__ void __launch_bounds__(THREADS3)
-residual3_shard_kernel(Leg3 L, Planes3 P) {
-  extern __shared__ float smem[];
-  run_leg3<true>(smem, L, P);
+// Unit blockIdx.x of the pass (col3_unit_io's numbering of C's tiles): the
+// tile's columns over its z chunk [e0, e1) of the owned planes, r into the
+// owned planes (plane z at (z − z0) · n²). u and C.f are the inputs, planes
+// [z0 − ext, z0 + nz + ext).
+static __global__ void __launch_bounds__(COL3_THREADS)
+    residual3_kernel(Col3 C, const float* __restrict__ u, float* __restrict__ r, int negate) {
+  const int n = C.n, gx = col3_gx(C), gy = col3_gy(C);
+  const int tile = blockIdx.x / COL3_QUARTERS, q = blockIdx.x - tile * COL3_QUARTERS;
+  const int bx = tile % gx, by = (tile / gx) % gy, bz = tile / (gx * gy);
+  const int e0 = C.z0 + bz * C.cz, e1 = min(e0 + C.cz, C.z0 + C.nz);
+  const int v = q * COL3_THREADS + threadIdx.x;
+  if (v >= C.ty * C.tx) return;
+  const int i = v / C.tx;
+  const int y = by * C.ty + i, x = bx * C.tx + (v - i * C.tx);
+  if (y >= n || x >= n) return;
+  const size_t pl = (size_t)n * n, col = (size_t)y * n + x;
+  float* const out = r + col - (ptrdiff_t)C.z0 * (ptrdiff_t)pl;  // plane z at z · pl
+  if (!(inner(y, n) && inner(x, n))) {
+    for (int z = e0; z < e1; ++z) out[z * pl] = 0.0f;
+    return;
+  }
+  const ptrdiff_t base = -(ptrdiff_t)(C.z0 - C.ext) * (ptrdiff_t)pl;  // the inputs' plane 0
+  const Col3Io io{u + base, C.f + base, nullptr, nullptr};
+  col3_stream<false>(io, n, pl, col, true, e0, e1,
+                     [&](int z, const Col3Plane& p, float cm, float cp) {
+                       float d = 0.0f;
+                       if (inner(z, n)) {
+                         d = __fsub_rn(__fmul_rn(C.inv_h2, col3_lap(p, cm, cp)), p.f);
+                         if (negate) d = -d;
+                       }
+                       out[z * pl] = d;
+                     });
 }
 
 // The residual of the owned planes [z0, z0 + nz) of an n^3 level into r (the
-// owned planes); u and f hold them extended by ext >= 1 planes per side (the
-// whole grid: z0 = 0, nz = n, ext = 0).
+// owned planes); u and f hold them extended by ext >= 1 planes per side
+// wherever a neighbour lies (the whole grid: z0 = 0, nz = n, ext = 0).
+// (ty, tx, cz): the column pass's tile plan (ops.kernels3.err_plan3; at most
+// THREADS3 cells a tile).
 extern "C" int mg3_residual_shard(const float* u, const float* f, float* r, int n, int z0, int nz,
                                   int ext, int negate, int ty, int tx, int cz, float inv_h2,
                                   void* stream) {
-  Leg3 L{};
-  L.n = n;
-  const Planes3 P{z0, nz, ext, 0, 0};
-  L.u = u;
-  L.f = f;
-  L.out = r;
-  L.sweeps = 0;
-  L.last = RESID;
-  L.err_mode = ERR_NONE;
-  L.restrict_mode = R_NONE;
-  L.negate = negate;
-  L.ty = ty;
-  L.tx = tx;
-  L.cz = cz;
-  L.halo = 1;
-  L.inv_h2 = inv_h2;
-  return (int)launch_leg3(residual3_kernel, residual3_shard_kernel, L, P,
-                          (cudaStream_t)stream);
+  Col3 C;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = col3_setup(C, 1, f, nullptr, n, z0, nz, ext, ty, tx, cz, 0.0f, 0.0f, inv_h2,
+                             st, false);
+  if (e != cudaSuccess || u == nullptr || r == nullptr)
+    return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
+  residual3_kernel<<<col3_units(C), COL3_THREADS, 0, st>>>(C, u, r, negate);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int mg3_residual(const float* u, const float* f, float* r, int n, int negate, int ty,

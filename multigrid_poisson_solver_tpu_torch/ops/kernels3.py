@@ -14,7 +14,8 @@ reaches:
   * ``fused_ascend3``: ``csrc/ascend3.cu``, replaces ``_fused_ascend3_kernel``
     and the lane pass ``prolong3_lanes_p`` (a prolongation pass, then the
     sweeps' column passes);
-  * ``residual3``: ``csrc/residual3.cu``, replaces ``_residual3_kernel``;
+  * ``residual3``: ``csrc/residual3.cu``, replaces ``_residual3_kernel`` (one
+    column pass that streams r down z);
   * ``fused_jacobi3_errs``: ``csrc/jacobi3.cu``, ``_fused_jacobi3_kernel``'s
     per_sweep mode (``fused_jacobi3_errs_padded``: the error of every
     iterate of a pass); ``trigger_step3``: the same kernel's one-sweep error
@@ -38,8 +39,9 @@ reaches:
 
 Kernel 10, the two legs and the trigger kernels run the column pass of
 ``csrc/col3.cuh`` (one unfused sweep a pass; the legs add a residual and
-restriction pass or a prolongation pass of their own); the residuals and
-kernel 10's emit_residual mode the tile pipeline of ``csrc/legs3.cuh``. The
+restriction pass or a prolongation pass of their own), and so does the
+residual (one pass); kernel 10's emit_residual mode runs the tile pipeline
+of ``csrc/legs3.cuh``. The
 TPU kernels' brick geometry (``_brick_geometry``: ×8-row and ×128-lane
 padding, VMEM budgets) has no counterpart: the port's levels are plain
 contiguous (n, n, n) tensors, and ``plan3`` picks a column tile and a z
@@ -702,7 +704,7 @@ def residual3(u, f, h: float, negate: bool = False):
     K._check("u", u, (n, n, n), dev)
     r = torch.empty_like(f)
     rc = lib.mg3_residual(u.data_ptr(), f.data_ptr(), r.data_ptr(), n, int(negate),
-                          *plan3(n, 1, 1), 1.0 / (h * h), stream)
+                          *err_plan3(n), 1.0 / (h * h), stream)
     K._raise_on(lib, rc, "residual3")
     K.launches["residual3"] += 1
     return r
@@ -1001,7 +1003,7 @@ def residual3_shard(u_ext, f_ext, geo: ShardGeo3, h: float, negate: bool = False
     lib, stream, dev = _shard3_args(u_ext, f_ext, geo, 1)
     r = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
     rc = lib.mg3_residual_shard(u_ext.data_ptr(), f_ext.data_ptr(), r.data_ptr(), *_planes3(geo),
-                                int(negate), *plan3(geo.nz, 1, 1), 1.0 / (h * h), stream)
+                                int(negate), *err_plan3(geo.nz), 1.0 / (h * h), stream)
     K._raise_on(lib, rc, "residual3 shard")
     K.launches["residual3_shard"] += 1
     return r

@@ -4,8 +4,9 @@ inside the kernel, for z-sharded levels.
 PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_rdma3.py``:
 
   * ``rdma_jacobi3``: ``csrc/rdma_jacobi3.cu``, replaces
-    ``_rdma_jacobi3_kernel``: one fused pass of k <= 8 sweeps over every
-    shard, plain, from zero, or with the clean or gpu error of the result;
+    ``_rdma_jacobi3_kernel``: k <= 8 sweeps over every shard, plain, from
+    zero, or with the clean or gpu error of the result: the halos posted
+    once, then kernel 10's shard-mode column passes on each shard;
   * ``rdma_descend3``: ``csrc/rdma_descend3.cu``, replaces
     ``_rdma_descend3_kernel``: the whole descend leg (sweeps, −r, its 2:1
     restriction, the clean error) over every shard: the halos posted once,
@@ -34,17 +35,12 @@ on 8 shards 8 planes of 513² floats are 8.4 MB a side and array, about
 440 MB for the ring.
 
 The owned planes are those of the exchange path (``parallel.kernel_shard3``)
-bit for bit. Each shard's error partials follow a tile plan: kernels 19, 21
-and 22 take the shard modes' (``err_plan3`` of the shard's depth), so their
-raw float64 sums are the exchange path's bit for bit; kernel 20 takes
-``plan3`` of the shard's depth, while kernel 10's shard mode (column
-passes) sums over ``err_plan3`` in its own order, so those raw sums agree
-up to the order of a float64 sum, and the error rounded once to fp32 is the
-same float but for a sum within 1e-16 of a rounding boundary. The wrappers
-return the raw sums per shard and the callers add them in shard order and
-scale them once. Kernels 21 and 22 also take per call two scratch windows
-per shard (its planes and the leg's halo a side) and the workspace of the
-column passes.
+bit for bit. Each shard's error partials follow the shard modes' tile plan
+(``err_plan3`` of the shard's depth), so the raw float64 sums are the
+exchange path's bit for bit. The wrappers return the raw sums per shard and
+the callers add them in shard order and scale them once. Kernels 20, 21
+and 22 also take per call two scratch windows per shard (its planes and
+the pass's halo a side) and the workspace of the column passes.
 
 Routing copies JAX's admission predicates (``rdma_*3_fits``) and the brick
 geometry they call (``pallas3d._brick_geometry``): TPU VMEM arithmetic on
@@ -72,7 +68,7 @@ from . import kernels as K
 from . import kernels3 as K3
 from .rdma import _blocks, _grid_of, _ptrs
 
-RING3_HALO = 8     # planes a receive buffer holds a side (RING3_HALO in csrc/legs3.cuh)
+RING3_HALO = 8     # planes a receive buffer holds a side (RING3_HALO in csrc/rdma3.cuh)
 MAX_SHARDS3 = 16   # MAX_SHARDS3 in csrc/rdma3.cuh
 
 # pallas_rdma3's VMEM budgets (routing only)
@@ -293,10 +289,10 @@ def _check_ring3(u, f: ShardedGrid, even: bool = False):
     return build.load(), torch.cuda.current_stream(dev).cuda_stream, dev, z0s
 
 
-def _plans(f: ShardedGrid, stages: int, halo: int, err_plan: bool = False):
-    """Each shard's tile plan, its shard-mode launch's: ((ty, tx), [cz])."""
-    plans = [K3.err_plan3(z1 - z0) if err_plan else K3.plan3(z1 - z0, stages, halo)
-             for z0, z1 in f.layout.rows]
+def _plans(f: ShardedGrid):
+    """Each shard's tile plan, its shard-mode launch's (``err_plan3`` of its
+    depth): ((ty, tx), [cz])."""
+    plans = [K3.err_plan3(z1 - z0) for z0, z1 in f.layout.rows]
     if len({p[:2] for p in plans}) != 1:
         raise ValueError(f"the shards' tile plans differ in (ty, tx): {plans}")
     return plans[0][:2], [p[2] for p in plans]
@@ -322,13 +318,12 @@ def _col3_partials(f: ShardedGrid, tile, czs, want: bool):
     return partials, raw, work
 
 
-def _ring_windows(f: ShardedGrid, depth: int, second: bool):
-    """A ring leg's two scratch windows per shard: its planes and ``depth``
-    more a side (None for the second where one sweep needs one window)."""
+def _ring_windows(f: ShardedGrid, depth: int, first: bool, second: bool):
+    """A ring call's two scratch windows per shard: its planes and ``depth``
+    more a side (Nones for a window its passes do not write)."""
     shape = [(z1 - z0 + 2 * depth, f.n, f.n) for z0, z1 in f.layout.rows]
-    wa = [torch.empty(sh, dtype=f.dtype, device=f.device) for sh in shape]
-    return wa, ([torch.empty(sh, dtype=f.dtype, device=f.device) for sh in shape] if second
-                else [None] * len(shape))
+    return tuple([torch.empty(sh, dtype=f.dtype, device=f.device) if want else None
+                  for sh in shape] for want in (first, second))
 
 
 def _raws(raw):
@@ -368,15 +363,18 @@ def rdma_jacobi3(u, f: ShardedGrid, h: float, steps: int, omega: float = 6.0 / 7
         return rdma_jacobi3_torch(u, f, h, steps, omega, from_zero, err_mode)
     lib, stream, dev, z0s = _check_ring3(None if from_zero else u, f)
     shards, n = len(z0s) - 1, f.n
-    tile, czs = _plans(f, stages, stages)
-    partials, raw = _partials(f, tile, czs, err_mode is not None)
+    tile, czs = _plans(f)
+    partials, raw, work = _col3_partials(f, tile, czs, err_mode is not None)
+    # the windows kernel 10's shard mode writes (K3._windows3)
+    wa, wb = _ring_windows(f, stages, steps >= 3 or err_mode == "clean", steps >= 2)
     ws = _workspace(dev, shards, n)
     out = [torch.empty_like(b) for b in _blocks(f)]
     rc = lib.mg3_rdma_jacobi(_ptrs(_blocks(f if from_zero else u)), _ptrs(_blocks(f)),
-                             _ptrs(out), K._c_array(ctypes.c_int, z0s),
+                             _ptrs(out), _ptrs(wa), _ptrs(wb), K._c_array(ctypes.c_int, z0s),
                              K._c_array(ctypes.c_int, czs), shards, n, steps, int(from_zero),
-                             K3._ERR_CODES3[err_mode], *tile, K._ptr(partials), K._ptr(raw),
-                             ws.ptrs, ws.take(1), h * h, omega / 6.0, 1.0 / (h * h), stream)
+                             K3._ERR_CODES3[err_mode], *tile, K._ptr(partials), K._ptr(work),
+                             K._ptr(raw), ws.ptrs, ws.take(1), h * h, omega / 6.0,
+                             1.0 / (h * h), stream)
     K._raise_on(lib, rc, "rdma_jacobi3")
     K.launches["rdma_jacobi3"] += 1
     return _grid_of(f, out), _raws(raw)
@@ -428,12 +426,12 @@ def rdma_descend3(u, f: ShardedGrid, h: float, steps: int, omega: float = 6.0 / 
     lib, stream, dev, z0s = _check_ring3(None if from_zero else u, f, even=True)
     shards, n, m = len(z0s) - 1, f.n, (f.n + 1) // 2
     depth = steps - int(from_zero) + 1 + int(fw)
-    tile, czs = _plans(f, 0, 0, err_plan=True)
+    tile, czs = _plans(f)
     partials, raw, work = _col3_partials(f, tile, czs, want_err)
     clay = coarse_layout3(f)
     fc = [torch.empty((k1 - k0, m, m), dtype=f.dtype, device=dev) for k0, k1 in clay.rows]
     zsteps = [torch.empty((k1 - k0, n, n), dtype=f.dtype, device=dev) for k0, k1 in clay.rows]
-    wa, wb = _ring_windows(f, depth, steps >= 2)
+    wa, wb = _ring_windows(f, depth, True, steps >= 2)
     ws = _workspace(dev, shards, n)
     out = [torch.empty_like(b) for b in _blocks(f)]
     rc = lib.mg3_rdma_descend(_ptrs(_blocks(f if from_zero else u)), _ptrs(_blocks(f)),
@@ -497,14 +495,14 @@ def rdma_ascend3(u: ShardedGrid, f: ShardedGrid, child, h: float, steps: int,
     lib, stream, dev, z0s = _check_ring3(u, f, even=True)
     shards, n, m = len(z0s) - 1, f.n, (f.n + 1) // 2
     depth = steps + int(want_err)
-    tile, czs = _plans(f, 0, 0, err_plan=True)
+    tile, czs = _plans(f)
     cblocks = _coarse_blocks(child, f)
     for i, (c, (k0, k1)) in enumerate(zip(cblocks, coarse_layout3(f).rows)):
         K._check(f"child[{i}]", c, (k1 - k0, m, m), dev)
         if not c.is_contiguous():
             raise ValueError(f"child[{i}] must be contiguous")
     partials, raw, work = _col3_partials(f, tile, czs, want_err)
-    wa, wb = _ring_windows(f, depth, True)   # u plus the prolonged correction, the iterates
+    wa, wb = _ring_windows(f, depth, True, True)   # u plus the prolonged correction, the iterates
     ws = _workspace(dev, shards, n)
     out = [torch.empty_like(b) for b in _blocks(f)]
     rc = lib.mg3_rdma_ascend(_ptrs(_blocks(u)), _ptrs(_blocks(f)), _ptrs(cblocks), _ptrs(out),
@@ -558,7 +556,7 @@ def rdma_trigger3(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 6.0 /
         raise ValueError(f"max_sweeps must lie in 1..2**31 − 1, got {max_sweeps}")
     lib, stream, dev, z0s = _check_ring3(u, f)
     shards, n = len(z0s) - 1, f.n
-    tile, czs = _plans(f, 0, 0, err_plan=True)
+    tile, czs = _plans(f)
     partials, _ = _partials(f, tile, czs, True)
     work = torch.empty(K3.col3_work(partials.numel()), dtype=torch.float64, device=dev)
     ws = _workspace(dev, shards, n)

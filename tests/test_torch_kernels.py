@@ -451,9 +451,11 @@ def test_c_entry_points_match_ctypes_signatures():
     assert names["mg3_descend_shard"][3:9] == ["wa", "wb", "s", "fc", "partials", "work"]
     assert names["mg3_ascend"][4:7] == ["mid", "partials", "work"]
     assert names["mg3_ascend_shard"][4:8] == ["wa", "wb", "partials", "work"]
-    # the ring legs on column passes (kernels 21 and 22): each shard's two
-    # scratch windows (and the descend leg's restriction buffer), the
-    # workspace
+    # the ring smoother and legs on column passes (kernels 20, 21 and 22):
+    # each shard's two scratch windows (and the descend leg's restriction
+    # buffer), the workspace
+    assert names["mg3_rdma_jacobi"][3:5] == ["wa_ptrs", "wb_ptrs"]
+    assert names["mg3_rdma_jacobi"][14:17] == ["partials", "work", "raw"]
     assert names["mg3_rdma_descend"][4:7] == ["wa_ptrs", "wb_ptrs", "s_ptrs"]
     assert names["mg3_rdma_descend"][17:20] == ["partials", "work", "raw"]
     assert names["mg3_rdma_ascend"][4:6] == ["wa_ptrs", "wb_ptrs"]
