@@ -82,7 +82,9 @@ Phases (progress on stdout; the first failure exits non-zero):
      (one card: no scaling). H1: the shard modes of kernels 10-13 (kernel
      10 in every mode: plain, from_zero, clean and gpu errors with 1-8
      sweeps, per_sweep, the lagged one-sweep pass) and kernel 10's
-     emit_residual mode against their twins, bit for bit, and their owned
+     emit_residual mode (with its clean error too, per shard bit for bit
+     the clean raw of kernel 10's shard mode for the same sweeps) against
+     their twins, bit for bit, and their owned
      planes against the unsharded kernels, at 65³ and 129³ with tiles forced
      small on rings of 2, 3, 4 and 8 z-shards (ragged last shards); each
      per-sweep error against the one-sweep sharded steps, and each lagged
@@ -126,9 +128,11 @@ Phases (progress on stdout; the first failure exits non-zero):
      kernel 20's exchange path at 129³ and 65³ on 8 z-shards, and kernel 13
      at 257³ and 129³, whole grid and on 8 z-shards (device µs from CUDA
      graph replays at these sizes), with a torch.add of the same two 513³
-     volumes beside kernel 13's row as its byte yardstick. G3 reads kernel
-     17's device ms in its rdma "auto" run from the profiler; H2 and I2
-     kernel 13's and the ring kernels' a cycle.
+     volumes beside kernel 13's row as its byte yardstick; kernel 10's
+     emit_residual mode at 513³, whole grid and on 8 z-shards, and at 129³
+     and 65³ (µs). G3 reads kernel 17's device ms in its rdma "auto" run
+     from the profiler; H2 and I2 kernel 13's, emit_residual's and the ring
+     kernels' a cycle.
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -158,9 +162,13 @@ RES_RTOL = 1e-2    # main path: kernel vs plain float64 residuals, relative
 # data the port prints JAX's 6 digits (tests/test_torch_refine.py).
 CLI_TOL_ERR, CLI_TOL_RTOL = 2.221316e-07, 2e-4
 
-# H100 SXM data sheet: device memory rate and fp32 rate outside the tensor
-# cores; a bound is the larger of bytes / HBM and operations / FP32.
-HBM, FP32 = 3.35e12, 67e12
+# H100 SXM: the data sheet's device memory rate, and the fp32 instruction
+# rate outside the tensor cores: 132 SMs × 128 lanes × 1.98 GHz. The data
+# sheet's 67 TFLOP/s counts an FMA as two operations, but the kernels'
+# __f*_rn arithmetic is never contracted into FMAs, so each counted
+# operation is one instruction. A bound is the larger of bytes / HBM and
+# operations / FP32.
+HBM, FP32 = 3.35e12, 33.5e12
 # fp32 operations per point, counted from the kernels' source
 SWEEP_OPS = 10     # Jacobi point: 3 adds, 4u, −, h²f, −, ×¼, ×ω, +
 RES_OPS = 7        # residual point: 3 adds, 4u, −, ×h⁻², −
@@ -168,7 +176,7 @@ ERR_OPS = 9        # residual point + |·| + accumulate
 RBGS_OPS = 6       # half-update of a cell: 3 adds, h²f, −, ×¼
 RBGS_ERR_OPS = 10  # the Jacobi Δ of a cell: 3 adds, 4u, −, h²f, −, ×¼, |·|, +
 RES_MW_OPS = {2: 227, 3: 232}   # two dd chains, the exact product, the combination
-# the 3-D kernels (legs3.cuh), per fine point unless noted
+# the 3-D kernels (col3.cuh's passes), per fine point unless noted
 SWEEP3_OPS = 11    # 7-point sweep: 5 adds, 6u, −, h²f, −, ×ω/6, +
 EXTRA3_OPS = 11    # the clean error of an iterate: 5 adds, 6u, −, ×h⁻², −, |·|, accumulate
 RES3_OPS = 9       # residual: 5 adds, 6u, −, ×h⁻², −
@@ -1306,7 +1314,10 @@ def phase_h1(K3, torch, cmp, sizes=((65, (6, 10, 6)), (129, (8, 16, 10))), rings
     small (several tiles per dimension, several z blocks per shard), on
     rings of 2, 3, 4 and 8 z-shards (ragged last shards), from_zero at the
     cut planes; each per-sweep error against the error of the one-sweep
-    sharded steps, bit for bit."""
+    sharded steps, bit for bit; emit_residual's clean error per shard
+    against kernel 10's shard-mode clean error of the same sweeps, bit for
+    bit, and on the whole grid against its twin."""
+    from multigrid_poisson_solver_tpu_torch.parallel import halo3
     from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard3 as KS3
     from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
 
@@ -1428,6 +1439,36 @@ def phase_h1(K3, torch, cmp, sizes=((65, (6, 10, 6)), (129, (8, 16, 10))), rings
                     same(f"jacobi3_residual {w} r", G(gr), kr)
                     same(f"jacobi3_residual {w}: the whole-grid mode against the pair", kr,
                          K3.residual3(sweeps(u, f, h, steps, fz), f, h, negate))
+                    # the clean error: per shard the raw Σ|r| of kernel 10's
+                    # shard mode with the clean error for the same sweeps, bit
+                    # for bit (one tile plan, the same |r| in the same order)
+                    ext = steps - fz + 1
+                    for i in range(len(lay.rows)):
+                        ue, fe = S.extend(us, i, 0, ext), S.extend(fs, i, 0, ext)
+                        args = (fe, halo3.geo3(fs, i, ext), h, steps, omega, fz)
+                        su, sr, sraw = K3.fused_jacobi3_residual_shard(
+                            None if fz else ue, *args, negate, "clean")
+                        tu, tr, traw = K3.fused_jacobi3_residual_shard_torch(ue, *args, negate,
+                                                                             "clean")
+                        cu, craw = K3.fused_jacobi3_shard(None if fz else ue, *args, "clean")
+                        wc = f"{w} shard {i} clean error"
+                        cmp.grid("jacobi3_residual", wc + " u", su, tu)
+                        cmp.grid("jacobi3_residual", wc + " r", sr, tr)
+                        cmp.scalar("jacobi3_residual", wc, sraw, traw)
+                        cmp.cases["jacobi3_residual"] += 1
+                        same(f"jacobi3_residual {wc} u", su, cu)
+                        require(bool(torch.equal(sraw, craw)), f"jacobi3_residual {wc}: raw "
+                                f"{float(sraw)!r} differs from kernel 10's shard-mode clean raw "
+                                f"{float(craw)!r}")
+                    # the whole grid with the clean error: the same u and r
+                    ku, kr, kraw = K3.fused_jacobi3_residual(u, f, h, steps, omega, fz, negate,
+                                                             "clean")
+                    wraw = K3.fused_jacobi3_residual_torch(u, f, h, steps, omega, fz, negate,
+                                                           "clean")[2]
+                    cmp.scalar("jacobi3_residual", f"{w} whole grid clean error", kraw, wraw)
+                    cmp.cases["jacobi3_residual"] += 1
+                    same(f"jacobi3_residual {w} whole grid with the clean error u", G(gu), ku)
+                    same(f"jacobi3_residual {w} whole grid with the clean error r", G(gr), kr)
                 for negate in (False, True):
                     w = f"{what} negate={negate}"
                     got = G(KS3.sharded_residual3(us, fs, h, negate))
@@ -1548,6 +1589,11 @@ def phase_h2(tmg, K, K3, torch, run_counts, unsharded, n=513):
                                       per=3)
                 say(f"[p]     kernel 13 (residual3): {ms13:.3f} ms device a cycle, {k13:.0f} "
                     f"launches")
+                # kernel 10's emit_residual mode: its sweeps and its residual
+                # pass launch kernels of their own names (csrc/jacobi3.cu)
+                ms10r, k10r = kernel_ms(rows, lambda key: "jacobi3_residual_" in key, per=3)
+                say(f"[p]     kernel 10 emit_residual (jacobi3_residual_* passes): "
+                    f"{ms10r:.3f} ms device a cycle, {k10r:.0f} launches")
         ref = unsharded[tag]
         for i, what in ((0, "1 cycle"), (1, "4 cycles")):
             got, want = res["kernels"][i], ref["auto"]["u"][i]
@@ -1905,8 +1951,10 @@ def phase_i2(tmg, K, torch, run_counts, unsharded, n=513):
         # and the two legs' own), and kernel 13's
         ring, _ = kernel_ms(rows, lambda key: "ring_" in key and "3_kernel" in key, per=3)
         ms13, _ = kernel_ms(rows, lambda key: key.startswith("residual3_kernel"), per=3)
+        ms10r, k10r = kernel_ms(rows, lambda key: "jacobi3_residual_" in key, per=3)
         say(f"[p]     ring kernels 20-22 (ring_*3 launches): {ring:.3f} ms device a cycle; "
-            f"kernel 13 (residual3): {ms13:.3f}")
+            f"kernel 13 (residual3): {ms13:.3f}; kernel 10 emit_residual (jacobi3_residual_* "
+            f"passes): {ms10r:.3f}, {k10r:.0f} launches")
         return counts
 
     c = run(H_V_CYCLE, lambda u, warm: tmg.v_cycle3_sharded(
@@ -2987,6 +3035,35 @@ def main():
         ms_s = time_ms(on_shards(shard_fn, geos, wins), reps=5)
         say(f"[t] jacobi3 at {n3}³, {label}: {ms_w:.4f} ms whole grid, {ms_s:.4f} ms on 8 "
             f"z-shards; bound {bound(3 * g3, 0)[0]:.4f} ms")
+    # kernel 10's emit_residual mode, 3 sweeps from zero and the negated
+    # residual (v_cycle3_sharded's pass at its odd-depth levels): at 513³,
+    # whole grid and on 8 z-shards (windows of 3 planes), in ms; at 129³ and
+    # 65³ in device µs a call (graph_us). Bound: f read, u and r written
+    # once (12 B a point, what the TPU's fused pass moves); the column
+    # passes move 32 B a point on the whole grid (8 for the sweep that forms
+    # the closed form from f at its loads, 12 for the last sweep, 12 for the
+    # residual pass) and 36 on a shard (the last sweep writes the window the
+    # residual pass reads and the owned planes)
+    er_ops = 2 * SWEEP3_OPS + 3 + RES3_OPS
+    ms_w = time_ms(lambda: K3.fused_jacobi3_residual(None, f3, h3, 3, w3, True, True), reps=5)
+    ms_s = time_ms(on_shards(lambda g, ue, fe: K3.fused_jacobi3_residual_shard(
+        None, fe, g, h3, 3, w3, True, True), geo3_3, win3_3), reps=5)
+    say(f"[t] jacobi3_residual at {n3}³, 3 sweeps from zero, negated residual: {ms_w:.4f} ms "
+        f"whole grid, {ms_s:.4f} ms on 8 z-shards; bound {bound(3 * g3, er_ops * pts3)[0]:.4f} "
+        f"ms; the column passes' 32 and 36 B a point {32 * pts3 / HBM * 1e3:.4f} and "
+        f"{36 * pts3 / HBM * 1e3:.4f} ms")
+    for m, fm in ((n16, f16), (n65, f65)):
+        hm = 1.0 / (m - 1)
+        geos3, wins3 = z_windows(m, 3, fm)
+        for label, fn in (
+                ("whole grid", lambda: K3.fused_jacobi3_residual(None, fm, hm, 3, w3, True, True)),
+                ("on 8 z-shards", lambda: [K3.fused_jacobi3_residual_shard(
+                    None, fe, g, hm, 3, w3, True, True) for g, (fe,) in zip(geos3, wins3)])):
+            us_ = graph_us(fn)
+            b_us = bound(12 * m ** 3, er_ops * m ** 3)[0] * 1e3
+            say(f"[t] jacobi3_residual at {m}³, 3 sweeps from zero, negated residual, {label}: "
+                f"{us_:.2f} µs device a call; bound {b_us:.2f} µs")
+        del geos3, wins3
     # the legs (kernels 11 and 12) at v_cycle3's smaller kernel levels (129³
     # and 65³, where the descent starts from zero), whole grid and on 8
     # z-shards, device µs a call (graph_us); kernel 11 from zero at 513³

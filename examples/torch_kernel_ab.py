@@ -17,7 +17,8 @@ kernels follow: the whole-loop one at 129³ and 65³ and the streamed one at
 at 513³ on 8 z-shards (7 sweeps, clean error; windows of 8 halo planes)
 and the residual's shard mode on the same windows (at 129³ and 65³ on
 one-plane windows and on the whole grid, device µs a call), kernel 10's
-emit_residual mode at 513³ (whole grid and on those windows);
+emit_residual mode at 513³ (whole grid and on those windows), at 257³ on 8
+z-shards and at 129³ and 65³ (whole grid and 8 z-shards, device µs a call);
 kernel 10's fixed modes at 513³ (3 sweeps + gpu error, 3 from zero, 8
 sweeps; whole grid, and with the clean error on 8 z-shards) and at 129³ and
 65³ (1 and 8 sweeps, 3 with either error), the legs (kernels 11 and 12)
@@ -145,7 +146,7 @@ res.update({
     "descend3_513": timed(lambda: K3.fused_descend3(u3, f3, h3, 3, w3, want_err=True)),
     "ascend3_513": timed(lambda: K3.fused_ascend3(u3, f3, c3, h3, 3, w3)),
     "residual3_513": timed(lambda: K3.residual3(u3, f3, h3, True)),
-    # kernel 10's emit_residual mode (legs3.cuh's tile pipeline)
+    # kernel 10's emit_residual mode (3 sweeps from zero, negated residual)
     "jacobi3_residual_3fz_513": timed(lambda: K3.fused_jacobi3_residual(u3, f3, h3, 3, w3, True,
                                                                         True)),
 })
@@ -226,6 +227,27 @@ res["residual3_shard_513"] = timed(lambda: [K3.residual3_shard(ue, fe, gz, h3, T
                                             for gz, (ue, fe) in zip(zgeos, zwins)], reps=3)
 res["jacobi3_residual_shard_3fz_513"] = timed(lambda: [K3.fused_jacobi3_residual_shard(
     None, fe, gz, h3, 3, w3, True, True) for gz, (_, fe) in zip(zgeos, zwins)], reps=3)
+# the same at v_cycle3_sharded's odd-depth levels: 257³ on 8 z-shards (ms),
+# and 129³ and 65³ on 8 z-shards and whole (device µs a call); windows of
+# the 3 planes the pass reads
+for m in (257, 129, 65):
+    fm, hm = torch.randn(m, m, m, generator=g, device="cuda"), 1 / (m - 1)
+    egeos = [K3.ShardGeo3(m, z0, z1 - z0, 3) for z0, z1 in S.layout_of(zpol, m).rows]
+    ewins = [S.planes(fm, gz.z0 - 3, gz.z0 + gz.nz + 3) for gz in egeos]
+
+    def emit_shards():
+        return [K3.fused_jacobi3_residual_shard(None, fe, gz, hm, 3, w3, True, True)
+                for gz, fe in zip(egeos, ewins)]
+
+    if m == 257:
+        res["jacobi3_residual_shard_3fz_257"] = timed(emit_shards, reps=3)
+    else:
+        res[f"jacobi3_residual_shard_3fz_{m}_us"] = 1e3 * device_ms(
+            lambda: [emit_shards() for _ in range(10)], 10)
+        res[f"jacobi3_residual_3fz_{m}_us"] = 1e3 * device_ms(
+            lambda: [K3.fused_jacobi3_residual(None, fm, hm, 3, w3, True, True)
+                     for _ in range(10)], 10)
+    del fm, egeos, ewins
 # kernel 10's fixed modes on 8 z-shards (windows of 8 planes: every halo fits)
 for key, steps, fz, mode in (("3gpu", 3, False, "gpu"), ("3clean", 3, False, "clean"),
                              ("3fz", 3, True, None)):

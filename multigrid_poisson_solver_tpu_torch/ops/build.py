@@ -56,6 +56,7 @@ SIGNATURES = {
     "mg3_ascend": ([_P] * 8 + [_I] * 6 + [_F] * 3 + [_D, _P], _I),
     "mg3_jacobi": ([_P] * 7 + [_I] * 7 + [_F] * 3 + [_D, _P], _I),
     "mg3_jacobi_errs": ([_P] * 7 + [_I] * 6 + [_F] * 3 + [_D, _P], _I),
+    "mg3_jacobi_residual": ([_P] * 8 + [_I] * 5 + [_I] * 3 + [_F] * 3 + [_P], _I),
     "mg3_trigger": ([_P] * 8 + [_I] * 5 + [_F] * 3 + [_D, _F, _I, _P], _I),
     "mg3_trigger_stream": ([_P] * 9 + [_I] * 6 + [_F] * 3 + [_D, _F, _I, _P], _I),
     "mg3_residual_mw": ([_P, _P, _P, _P, _P, _I, _I, _F, _P], _I),
@@ -70,7 +71,7 @@ SIGNATURES = {
     # 3-D shard modes: the shard's planes (n, z0, nz, ext)
     "mg3_jacobi_shard": ([_P] * 8 + [_I] * 4 + [_I] * 4 + [_I] * 3 + [_F] * 3 + [_P], _I),
     "mg3_jacobi_errs_shard": ([_P] * 8 + [_I] * 4 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P], _I),
-    "mg3_jacobi_residual_shard": ([_P] * 4 + [_I] * 4 + [_I] * 3 + [_I] * 3 + [_F] * 3 + [_P],
+    "mg3_jacobi_residual_shard": ([_P] * 9 + [_I] * 4 + [_I] * 4 + [_I] * 3 + [_F] * 3 + [_P],
                                   _I),
     "mg3_descend_shard": ([_P] * 10 + [_I] * 4 + [_I] * 4 + [_I] * 3 + [_F] * 3 + [_P], _I),
     "mg3_ascend_shard": ([_P] * 9 + [_I] * 4 + [_I] * 2 + [_I] * 2 + [_I] * 3 + [_F] * 3 + [_P],

@@ -8,14 +8,14 @@
 //
 // Bound: device-memory bandwidth. Fused, the leg reads u, f and the coarse
 // grid (an eighth of the points) once and writes u once: 12.5 B per fine
-// point. Design: not fused (PERF.md: legs3.cuh's fused trapezoid ran one
+// point. Design: not fused (PERF.md: the port's first, fused trapezoid ran one
 // 512-thread block an SM with a barrier after every stage and plane, and
 // lost to column passes on the same sweeps at every size measured). A call
 // is one prolongation pass and the k (+1) column passes of col3.cuh:
 //   1. u0 = u plus the prolonged correction on the interior (even points
 //      copy, odd ones average two, four or eight coarse values, along z,
-//      then y, then x: legs3.cuh's prolong_at, the coarse values held in
-//      registers), u elsewhere, a thread per (y, x) column over PRO3_CHUNK
+//      then y, then x, as models.poisson3d.prolong3, the coarse values held
+//      in registers), u elsewhere, a thread per (y, x) column over PRO3_CHUNK
 //      planes: 4.5 B read and 4 B written a point, into the scratch volume
 //      the first sweep does not write;
 //   2. col3_schedule's k sweeps from u0, as kernel 10's fixed modes run

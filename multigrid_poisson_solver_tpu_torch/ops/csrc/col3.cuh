@@ -1,8 +1,8 @@
-// The column pass of the port's 3-D smoothers and trigger loops: one
-// damped-Jacobi sweep of the 7-point stencil over a level (or a z-shard's
-// planes) and the smoothing error of an iterate, with each thread streaming
-// one (y, x) column down z. It is the pass of kernel 10 (jacobi3.cu: its
-// fixed-sweep and per_sweep modes, one launch a sweep), of the whole-loop
+// The column pass of the port's 3-D kernels: one damped-Jacobi sweep of the
+// 7-point stencil over a level (or a z-shard's planes), the smoothing error
+// of an iterate and the residual, with each thread streaming one (y, x)
+// column down z. It is the pass of kernel 10 (jacobi3.cu: every mode, one
+// launch a sweep; emit_residual adds a residual pass), of the whole-loop
 // trigger kernel (trigger3.cu: one pass a sweep between grid barriers), of
 // the streamed one (trigger3_stream.cu: passes of B sweeps) and of the ring
 // trigger kernel (rdma_trigger3.cu: one pass a sweep per z-shard, its halo
@@ -11,44 +11,116 @@
 // (descend3.cu, ascend3.cu, whose residual and prolongation passes are
 // their own; the residual pass streams its columns through col3_stream) and
 // of the ring smoother and ring legs (rdma_jacobi3.cu, rdma_descend3.cu,
-// rdma_ascend3.cu, through rdma3.cuh); the residual (residual3.cu) streams
-// its columns through col3_stream too.
+// rdma_ascend3.cu, through rdma3.cuh); the residual (residual3.cu) and
+// kernel 10's emit_residual mode run col3_residual_unit below. No 3-D
+// kernel runs a tile pipeline any more.
 //
-// Why not the tile pipeline of legs3.cuh: a fused k-sweep trapezoid there
-// runs one 512-thread block an SM with a barrier after every stage of every
-// plane and its index arithmetic at runtime, and at 513³ its 7-sweep pass
-// took 5× as long as 7 of these passes (PERF.md). Here a sweep is one pass
-// over memory with no barrier inside: a thread keeps planes z − 1, z, z + 1
-// of its column in registers, loads the in-plane neighbours and f directly
-// (through the L1 in a one-launch kernel, where neighbouring threads' loads
-// hit the same lines; through L2 in a persistent one, after a grid barrier),
-// and keeps the loads of the next COL3_AHEAD planes in flight.
+// Why not a fused tile pipeline: the port's first 3-D kernels fused k sweeps
+// into one 2.5-D trapezoid (a tile staged in shared memory with a halo of k,
+// one 512-thread block an SM, a barrier after every stage of every plane);
+// at 513³ its 7-sweep pass took 5× as long as 7 of these passes, and every
+// kernel moved off it (PERF.md). Here a sweep is one pass over memory with
+// no barrier inside: a thread keeps planes z − 1, z, z + 1 of its column in
+// registers, loads the in-plane neighbours and f directly (through the L1
+// in a one-launch kernel, where neighbouring threads' loads hit the same
+// lines; through L2 in a persistent one, after a grid barrier), and keeps
+// the loads of the next COL3_AHEAD planes in flight.
 //
 // The error rides on the sweep's own stencil read: the neighbour sum that
 // makes u_{s+1} from u_s is also the one of r(u_s) = (1/h²)(Σnb − 6u) − f, so
 // a pass gives the clean error of the iterate it reads (ERR_CLEAN) or the gpu
 // error Σ|u_{s+1} − u_s| of the one it writes (ERR_GPU), and the clean error
-// of a loop's last iterate takes one more pass that writes nothing.
+// of a loop's last iterate takes one more pass that writes nothing (or the
+// residual pass, which reads the same stencil).
 //
-// The contract with every other launch of a trigger loop (legs3.cuh): the
-// error of an iterate is summed in float64, per block of the error plan
-// (ops.kernels3.err_plan3: a ty x tx column tile over a z chunk of cz planes),
-// thread v of its 512 taking tile cell v (v < ty·tx) down the chunk in z
-// order, then block_sum3's fixed tree over the 512 sums; the block partials
-// in fixed_sum3's order. Here a tile is split over COL3_QUARTERS blocks of
+// Arithmetic uses the round-to-nearest intrinsics in the plain twins'
+// operation order (ops/kernels3.py), so a kernel reproduces its twin bit for
+// bit. The error is summed in float64 and rounded to fp32 once, after the
+// scale (the twins: torch.sum(·, dtype=float64)), so its value hardly
+// depends on the summation order: a trigger loop's stop sweep is the same on
+// the kernels, on the twins and on the plain path, where fp32 sums in two
+// orders can flip a near-threshold slope after a thousand sweeps.
+//
+// The contract between the launches of a trigger loop: the error of an
+// iterate is summed in float64, per tile of the error plan
+// (ops.kernels3.err_plan3: a ty x tx column tile over a z chunk of cz
+// planes), thread v of the tile's 512 (THREADS3) taking tile cell v
+// (v < ty·tx) down the chunk in z order, then block_sum3's fixed tree over
+// the 512 sums; the tile partials in fixed_sum3's order, by a second kernel
+// (no atomics in the sum). A tile is split over COL3_QUARTERS blocks of
 // COL3_THREADS threads (so that a 65³ level fills the SMs): block q of a
 // tile runs the tile's threads q·COL3_THREADS + tid, so each of its warps
 // is one of block_sum3's warps and takes that warp's shuffle tree; the
 // warps' sums go to the workspace, and the last of the tile's blocks to
 // arrive (a counter per tile, never reset within a call) adds them in
-// block_sum3's second tree. A partial is thus the one-sweep launch's bit for
-// bit, and the trigger loops stop on the same sweep whichever launch
-// measured an error. Arithmetic is legs3.cuh's, in the twins' order.
+// block_sum3's second tree. A partial thus depends on the plan alone, and
+// the trigger loops stop on the same sweep whichever launch measured an
+// error.
 #pragma once
 
-#include "legs3.cuh"
+#include "common.cuh"
 
 namespace mgk3 {
+
+using namespace mgk;
+
+constexpr int MAX_STEPS3 = 8;   // sweeps a call (and stencil reads a window holds)
+constexpr int MAX_HALO3 = 8;    // halo planes a ring window holds (rdma3.cuh)
+// block_sum3's block: 16 warps, one thread per cell of a 512-cell error tile
+constexpr int BLOCK3_Y = 16;
+constexpr int THREADS3 = BLOCK_X * BLOCK3_Y;
+
+static __device__ __forceinline__ bool inner(int v, int n) { return v >= 1 && v <= n - 2; }
+
+// Fixed-order float64 sum over a (BLOCK_X, BLOCK3_Y) block (xor-shuffle tree
+// per warp, then one warp over the per-warp sums); the result is valid in
+// thread (0, 0).
+static __device__ double block_sum3(double v) {
+  __shared__ double warp_sums[BLOCK3_Y];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if (threadIdx.x == 0) warp_sums[threadIdx.y] = v;
+  __syncthreads();
+  double total = 0.0;
+  if (threadIdx.y == 0) {
+    total = threadIdx.x < BLOCK3_Y ? warp_sums[threadIdx.x] : 0.0;
+    for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(0xffffffffu, total, o);
+  }
+  return total;
+}
+
+// Σ partials[0..count) in a fixed order (thread-strided, then block_sum3),
+// valid in thread (0, 0): the second pass of a one-launch error and every
+// block of a persistent trigger loop sum alike.
+static __device__ double fixed_sum3(const double* partials, int count) {
+  double v = 0.0;
+  for (int i = threadIdx.y * BLOCK_X + threadIdx.x; i < count; i += THREADS3)
+    v += __ldcg(partials + i);
+  return block_sum3(v);
+}
+
+// The metric from the sum of a row of partials: Σ·scale rounded to fp32 once.
+static __device__ __forceinline__ float scaled_error3(double total, double scale) {
+  return __double2float_rn(__dmul_rn(total, scale));
+}
+
+// Second pass of a one-launch error reduction: block b sums row b of the
+// partials (`count` per row) into out[b].
+static __global__ void __launch_bounds__(THREADS3)
+sum_partials3_kernel(const double* __restrict__ partials, int count, double scale,
+                     float* __restrict__ out) {
+  const double total = fixed_sum3(partials + (size_t)blockIdx.x * count, count);
+  if (threadIdx.x == 0 && threadIdx.y == 0) out[blockIdx.x] = scaled_error3(total, scale);
+}
+
+// The same pass for a shard: the raw float64 sums, unscaled, for the caller
+// to add over the shards in shard order and scale once.
+static __global__ void __launch_bounds__(THREADS3)
+sum_partials3_raw_kernel(const double* __restrict__ partials, int count,
+                         double* __restrict__ out) {
+  const double total = fixed_sum3(partials + (size_t)blockIdx.x * count, count);
+  if (threadIdx.x == 0 && threadIdx.y == 0) out[blockIdx.x] = total;
+}
 
 constexpr int COL3_THREADS = 128;
 constexpr int COL3_WARPS = COL3_THREADS / 32;
@@ -119,6 +191,37 @@ static __device__ __forceinline__ void col3_load(Col3Plane& p, const float* __re
   }
 }
 
+// FOLD: the closed-form first sweep from u ≡ 0, u_1 = (ω/6)·(−h²f) on the
+// interior and 0 on the faces, formed from f at the loads of the sweep that
+// reads it (pointwise, so the same float as the closed-form pass writes):
+// the constants and which in-plane neighbours of an interior column lie on
+// the interior.
+struct Col3Fold {
+  float w, h2;
+  bool ym, yp, xm, xp;
+};
+
+static __device__ __forceinline__ float col3_u1(const Col3Fold& fd, float f) {
+  return __fmul_rn(fd.w, -__fmul_rn(fd.h2, f));
+}
+
+// col3_load of u_1 from f (pointing at the column's cell of the plane; zin:
+// the plane is on the interior).
+template <bool COHERENT>
+static __device__ __forceinline__ void col3_load_fold(Col3Plane& p, const float* __restrict__ f,
+                                                      int n, bool cin, bool zin,
+                                                      const Col3Fold& fd) {
+  p.c = 0.0f;
+  if (cin) {
+    p.f = col3_ld<COHERENT>(f);
+    p.c = zin ? col3_u1(fd, p.f) : 0.0f;
+    p.ym = zin && fd.ym ? col3_u1(fd, col3_ld<COHERENT>(f - n)) : 0.0f;
+    p.yp = zin && fd.yp ? col3_u1(fd, col3_ld<COHERENT>(f + n)) : 0.0f;
+    p.xm = zin && fd.xm ? col3_u1(fd, col3_ld<COHERENT>(f - 1)) : 0.0f;
+    p.xp = zin && fd.xp ? col3_u1(fd, col3_ld<COHERENT>(f + 1)) : 0.0f;
+  }
+}
+
 // Where a walk reads the planes of u and f and writes the iterate it makes:
 // volumes laid out as the inputs (plane z at z · n² from global plane 0 of
 // the inputs' layout), the written iterate into dst (or nullptr) and its
@@ -163,26 +266,44 @@ static __device__ __forceinline__ float col3_lap(const Col3Plane& p, float cm, f
 // neighbours and f only in an interior column, cin), cm and cp the column's
 // u at z − 1 and z + 1 (cm 0 before plane 0; cp is read for interior planes
 // only, and plane ze is loaded for it where ze < n).
-template <bool COHERENT, class Io, class At>
+template <bool COHERENT, bool FOLD = false, class Io, class At>
 static __device__ __forceinline__ void col3_stream(const Io& io, int n, size_t pl, size_t col,
-                                                   bool cin, int zs, int ze, At&& at) {
+                                                   bool cin, int zs, int ze, At&& at,
+                                                   const Col3Fold& fd = Col3Fold{}) {
   // slot r holds plane zs + t for t ≡ r (mod COL3_RING); plane p is loaded
-  // while p <= ze (plane ze is the last one's z + 1) and p < n
+  // while p <= ze (plane ze is the last one's z + 1) and p < n; FOLD: the
+  // planes of u_1 from f's
   Col3Plane ring[COL3_RING];
-  float cm = cin && zs >= 1 ? col3_ld<COHERENT>(io.up(zs - 1, pl) + col) : 0.0f;
+  float cm;
+  if constexpr (FOLD)
+    cm = cin && zs >= 1 && inner(zs - 1, n)
+             ? col3_u1(fd, col3_ld<COHERENT>(io.fp(zs - 1, pl) + col))
+             : 0.0f;
+  else
+    cm = cin && zs >= 1 ? col3_ld<COHERENT>(io.up(zs - 1, pl) + col) : 0.0f;
 #pragma unroll
   for (int r = 0; r < COL3_AHEAD; ++r)
-    if (zs + r <= ze && zs + r < n)
-      col3_load<COHERENT>(ring[r], io.up(zs + r, pl) + col, io.fp(zs + r, pl) + col, n, cin);
+    if (zs + r <= ze && zs + r < n) {
+      if constexpr (FOLD)
+        col3_load_fold<COHERENT>(ring[r], io.fp(zs + r, pl) + col, n, cin, inner(zs + r, n),
+                                 fd);
+      else
+        col3_load<COHERENT>(ring[r], io.up(zs + r, pl) + col, io.fp(zs + r, pl) + col, n, cin);
+    }
   for (int t0 = 0; t0 < ze - zs; t0 += COL3_RING) {
 #pragma unroll
     for (int r = 0; r < COL3_RING; ++r) {
       const int z = zs + t0 + r;
       if (z >= ze) break;
       const int za = z + COL3_AHEAD;  // into the slot plane z − 1 has left
-      if (za <= ze && za < n)
-        col3_load<COHERENT>(ring[(r + COL3_AHEAD) % COL3_RING], io.up(za, pl) + col,
-                            io.fp(za, pl) + col, n, cin);
+      if (za <= ze && za < n) {
+        if constexpr (FOLD)
+          col3_load_fold<COHERENT>(ring[(r + COL3_AHEAD) % COL3_RING], io.fp(za, pl) + col, n,
+                                   cin, inner(za, n), fd);
+        else
+          col3_load<COHERENT>(ring[(r + COL3_AHEAD) % COL3_RING], io.up(za, pl) + col,
+                              io.fp(za, pl) + col, n, cin);
+      }
       at(z, ring[r], cm, ring[(r + 1) % COL3_RING].c);
       cm = ring[r].c;
     }
@@ -192,12 +313,13 @@ static __device__ __forceinline__ void col3_stream(const Io& io, int n, size_t p
 // Column (y, x) over the planes [zs, ze): the sweep into the source's
 // written iterate and this thread's error sum over the chunk's planes
 // [e0, e1). Face columns and planes are frozen and carry no error. The
-// arithmetic is legs3.cuh's: (Σnb − 6u) as ((((z− + z+) + y−) + y+) + x−) +
+// arithmetic is the twins': (Σnb − 6u) as ((((z− + z+) + y−) + y+) + x−) +
 // x+, then − 6u; the sweep u + (ω/6)·((Σnb − 6u) − h²f); the residual
 // (1/h²)(Σnb − 6u) − f. ZERO: u ≡ 0 is not read, and the sweep is the closed
-// form (ω/6)·(−h²f) (legs3.cuh's store_plane), pointwise, so it is exact on
-// every plane it writes, halo planes included; its gpu error is |u_1 − 0|.
-template <bool COHERENT, bool ZERO = false, class Io = Col3Io>
+// form (ω/6)·(−h²f), pointwise, so it is exact on every plane it writes,
+// halo planes included; its gpu error is |u_1 − 0|. FOLD: the sweep from
+// u_1 (that closed form) without its pass, u_1 formed at the loads from f.
+template <bool COHERENT, bool ZERO = false, bool FOLD = false, class Io = Col3Io>
 static __device__ __forceinline__ double col3_walk(const Col3& C, int err, const Io& io, int y,
                                                    int x, int zs, int ze, int e0, int e1) {
   const int n = C.n;
@@ -230,7 +352,12 @@ static __device__ __forceinline__ double col3_walk(const Col3& C, int err, const
     }
     if (io.writes()) io.put(C, z, pl, col, v);
   };
-  col3_stream<COHERENT>(io, n, pl, col, cin, zs, ze, at);
+  if constexpr (FOLD)
+    col3_stream<COHERENT, true>(io, n, pl, col, cin, zs, ze, at,
+                                Col3Fold{C.w, C.h2, inner(y - 1, n), inner(y + 1, n),
+                                         inner(x - 1, n), inner(x + 1, n)});
+  else
+    col3_stream<COHERENT>(io, n, pl, col, cin, zs, ze, at);
   return acc;
 }
 
@@ -258,7 +385,7 @@ static __device__ __forceinline__ void col3_finish(const Col3& C, double* partia
 // COL3_QUARTERS): its columns over its chunk, and for a shard the first and
 // the last chunk's blocks also over the halo planes the pass writes; the
 // planes come from and go to the source io.
-template <bool COHERENT, bool SHARD, bool ZERO = false, class Io = Col3Io>
+template <bool COHERENT, bool SHARD, bool ZERO = false, bool FOLD = false, class Io = Col3Io>
 static __device__ __forceinline__ void col3_unit_io(const Col3& C, const Col3Pass& P, int unit,
                                                     const Io& io) {
   const int n = C.n, gx = col3_gx(C), gy = col3_gy(C);
@@ -272,21 +399,68 @@ static __device__ __forceinline__ void col3_unit_io(const Col3& C, const Col3Pas
   if (v < C.ty * C.tx) {
     const int i = v / C.tx;
     const int y = by * C.ty + i, x = bx * C.tx + (v - i * C.tx);
-    if (y < n && x < n) acc = col3_walk<COHERENT, ZERO>(C, P.err, io, y, x, zs, ze, e0, e1);
+    if (y < n && x < n)
+      acc = col3_walk<COHERENT, ZERO, FOLD>(C, P.err, io, y, x, zs, ze, e0, e1);
   }
   if (P.partials != nullptr) col3_finish(C, P.partials, tile, q, acc);
 }
 
 // The same on the call's volumes (Col3Io from the pass's pointers; ZERO:
-// the closed-form first sweep, P.src unread).
-template <bool COHERENT, bool SHARD, bool ZERO = false>
+// the closed-form first sweep, FOLD: the sweep from it, P.src unread).
+template <bool COHERENT, bool SHARD, bool ZERO = false, bool FOLD = false>
 static __device__ __forceinline__ void col3_unit(const Col3& C, const Col3Pass& P, int unit) {
   const int n = C.n;
   // the inputs' global plane 0 (a shard's windows start at z0 − ext)
   const ptrdiff_t base = SHARD ? -(ptrdiff_t)(C.z0 - C.ext) * n * n : 0;
-  const Col3Io io{ZERO ? nullptr : P.src + base, C.f + base,
+  const Col3Io io{ZERO || FOLD ? nullptr : P.src + base, C.f + base,
                   P.dst != nullptr ? P.dst + base : nullptr, P.own};
-  col3_unit_io<COHERENT, SHARD, ZERO>(C, P, unit, io);
+  col3_unit_io<COHERENT, SHARD, ZERO, FOLD>(C, P, unit, io);
+}
+
+// Unit `unit` of a residual pass (col3_unit_io's numbering of C's tiles):
+// the tile's columns over its z chunk [e0, e1) of the owned planes, r =
+// (1/h²)(Σnb − 6u) − f of the iterate u (laid out as the inputs, read on the
+// chunk's planes and one a side) into r's owned planes (plane z at
+// (z − z0) · n²), negated when negate; +0 on the faces. ERR: the clean error
+// of u as well, each column's |r| added in z order into the tile's partial
+// (col3_finish), the partial of col3_walk's read-only clean pass bit for
+// bit; every thread of the block then reaches col3_finish's barriers.
+template <bool ERR>
+static __device__ __forceinline__ void col3_residual_unit(const Col3& C,
+                                                          const float* __restrict__ u,
+                                                          float* __restrict__ r, int negate,
+                                                          double* partials, int unit) {
+  const int n = C.n, gx = col3_gx(C), gy = col3_gy(C);
+  const int tile = unit / COL3_QUARTERS, q = unit - tile * COL3_QUARTERS;
+  const int bx = tile % gx, by = (tile / gx) % gy, bz = tile / (gx * gy);
+  const int e0 = C.z0 + bz * C.cz, e1 = min(e0 + C.cz, C.z0 + C.nz);
+  const int v = q * COL3_THREADS + threadIdx.x;  // the tile's thread (block_sum3's numbering)
+  double acc = 0.0;
+  if (v < C.ty * C.tx) {
+    const int i = v / C.tx;
+    const int y = by * C.ty + i, x = bx * C.tx + (v - i * C.tx);
+    if (y < n && x < n) {
+      const size_t pl = (size_t)n * n, col = (size_t)y * n + x;
+      float* const out = r + col - (ptrdiff_t)C.z0 * (ptrdiff_t)pl;  // plane z at z · pl
+      if (!(inner(y, n) && inner(x, n))) {
+        for (int z = e0; z < e1; ++z) out[z * pl] = 0.0f;
+      } else {
+        const ptrdiff_t base = -(ptrdiff_t)(C.z0 - C.ext) * (ptrdiff_t)pl;  // the inputs' plane 0
+        const Col3Io io{u + base, C.f + base, nullptr, nullptr};
+        col3_stream<false>(io, n, pl, col, true, e0, e1,
+                           [&](int z, const Col3Plane& p, float cm, float cp) {
+                             float d = 0.0f;
+                             if (inner(z, n)) {
+                               d = __fsub_rn(__fmul_rn(C.inv_h2, col3_lap(p, cm, cp)), p.f);
+                               if (ERR) acc += (double)fabsf(d);
+                               if (negate) d = -d;
+                             }
+                             out[z * pl] = d;
+                           });
+      }
+    }
+  }
+  if constexpr (ERR) col3_finish(C, partials, tile, q, acc);
 }
 
 // fixed_sum3 (thread-strided over THREADS3 threads, then block_sum3's tree)
@@ -408,15 +582,30 @@ static __global__ void __launch_bounds__(COL3_THREADS) col3_pass_kernel(Col3 C, 
   col3_unit<false, SHARD, ZERO>(C, P, blockIdx.x);
 }
 
+// How col3_passes launches a pass: col3_pass_kernel. A caller whose passes
+// should show in a profile under a name of their own (kernel 10's
+// emit_residual mode) gives a launcher of the same shape for a kernel with
+// the same body; with FOLD it also has launch_fold<SHARD>, the sweep from
+// the closed form formed at its loads (col3_unit<..., FOLD>).
+struct Col3Launch {
+  template <bool SHARD, bool ZERO>
+  static void launch(const Col3& C, const Col3Pass& P, cudaStream_t stream) {
+    col3_pass_kernel<SHARD, ZERO><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+  }
+};
+
 // steps sweeps of u (nullptr: from zero) on the owned planes [z0, z0 + nz)
 // of a level (inputs extended by ext planes per side) into it[0] (or, given
 // `own`, into its owned planes there; it[0] then holds earlier iterates or
 // nothing), it[1] a scratch volume shaped as u (col3_scratch says which the
 // call needs), with the errors (ERR_NONE, ERR_CLEAN or ERR_GPU) that `kind`
 // names (Col3Rows; rows of one double per tile of the plan): col3_schedule's
-// passes, one launch each (kernel 10's fixed and per-sweep modes, and the
-// sweeps of the legs, whose own passes read iterate k on `tail` more planes
-// a side). Returns the tile count in *tiles.
+// passes, one launch each through L (kernel 10's fixed, per-sweep and
+// emit_residual modes, and the sweeps of the legs, whose own passes read
+// iterate k on `tail` more planes a side). FOLD, from zero with two sweeps
+// or more: no closed-form pass; the next sweep forms it at its loads (so
+// iterate 1 is never stored). Returns the tile count in *tiles.
+template <class L = Col3Launch, bool FOLD = false>
 static inline cudaError_t col3_passes(bool shard, const float* u, const float* f,
                                       float* const it[2], float* own, double* partials,
                                       double* work, int n, int z0, int nz, int ext, int steps,
@@ -437,19 +626,30 @@ static inline cudaError_t col3_passes(bool shard, const float* u, const float* f
                              stream, errors);
   if (e != cudaSuccess) return e;
   *tiles = col3_tiles(C);
+  const bool fold = FOLD && u == nullptr && steps >= 2;
   Col3Pass P;
-  for (int j = 0; col3_schedule(C, P, j, steps, err_mode, u, it[0], it[1], own,
-                                errors ? partials : nullptr, *tiles, kind, tail);
+  for (int j = fold ? 1 : 0; col3_schedule(C, P, j, steps, err_mode, u, it[0], it[1], own,
+                                           errors ? partials : nullptr, *tiles, kind, tail);
        ++j) {
+    if constexpr (FOLD) {
+      if (fold && j == 1) {  // P.src (iterate 1) is not read
+        if (shard)
+          L::template launch_fold<true>(C, P, stream);
+        else
+          L::template launch_fold<false>(C, P, stream);
+        if ((e = cudaGetLastError()) != cudaSuccess) return e;
+        continue;
+      }
+    }
     const bool zero = P.src == nullptr;
     if (shard && zero)
-      col3_pass_kernel<true, true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+      L::template launch<true, true>(C, P, stream);
     else if (shard)
-      col3_pass_kernel<true, false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+      L::template launch<true, false>(C, P, stream);
     else if (zero)
-      col3_pass_kernel<false, true><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+      L::template launch<false, true>(C, P, stream);
     else
-      col3_pass_kernel<false, false><<<col3_units(C), COL3_THREADS, 0, stream>>>(C, P);
+      L::template launch<false, false>(C, P, stream);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   return cudaSuccess;

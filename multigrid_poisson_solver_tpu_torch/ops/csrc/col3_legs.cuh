@@ -139,12 +139,12 @@ constexpr int PRO3_CHUNK = 8;
 // u0 = u + prolong(c) on the interior, u elsewhere, for column (y, x) over
 // the planes [zs, ze): u's planes from the volume u, the coarse planes from
 // the volume c (planes of m² floats; Flat3 or Vol3 each), u0 offset as a
-// Flat3. prolong_at's arithmetic
-// (legs3.cuh) with the column's coarse values in registers: the (up to)
-// four coarse columns (I, J), (I, J + 1), (I + 1, J), (I + 1, J + 1) of
-// coarse planes Z and Z + 1, so a coarse plane is loaded once for the two
-// fine planes that read it (on an H100 the pass took 0.64 ms a 513³ v_cycle3
-// cycle, against 0.72 for prolong_at per point, PERF.md).
+// Flat3. models.poisson3d.prolong3's arithmetic with the column's coarse
+// values in registers: the (up to) four coarse columns (I, J), (I, J + 1),
+// (I + 1, J), (I + 1, J + 1) of coarse planes Z and Z + 1, so a coarse plane
+// is loaded once for the two fine planes that read it (on an H100 the pass
+// took 0.64 ms a 513³ v_cycle3 cycle, against 0.72 for the earlier
+// prolongation that loaded per point, PERF.md).
 template <class U, class C>
 static __device__ __forceinline__ void ascend3_prolong_col(const U& u, const C& c,
                                                            float* u0, int n, int y, int x,

@@ -9,8 +9,8 @@
 //
 // Bound: device-memory bandwidth. Fused, the leg reads u and f once, writes
 // u once and writes the coarse grid (an eighth of the points): 12.5 B per
-// fine point. Design: not fused (PERF.md: legs3.cuh's fused trapezoid ran
-// one 512-thread block an SM with a barrier after every stage and plane, and
+// fine point. Design: not fused (PERF.md: the port's first, fused trapezoid
+// ran one 512-thread block an SM with a barrier after every stage and plane, and
 // lost to column passes on the same sweeps at every size measured). A call
 // is k + 2 launches of column passes (col3.cuh), each thread streaming one
 // (y, x) column down z:
@@ -29,7 +29,7 @@
 //      s_K at fine (2I + dy, 2J + dx), 0 on the coarse faces.
 // Each z chunk of the plan walks one plane beyond it a side (full
 // weighting), so its coarse planes need nothing from another block. The
-// arithmetic is legs3.cuh's run_stage and restrict_plane, in the twins'
+// arithmetic is the twins' (ops/kernels3.py), in their operation
 // order; r is the direct stencil (the TPU kernel takes it from the step Δ
 // of a further sweep as 6Δ/(ωh²)), which keeps a cycle on the kernels on the
 // plain cycle's iterates. Coarse boundary points are 0.

@@ -10,11 +10,13 @@
 // z chunk down z with planes z − 1, z, z + 1 of u in registers and the next
 // COL3_AHEAD planes' loads in flight, reads f once and writes r, so each u
 // value is read from device memory about once and the in-plane neighbours
-// come through L1. legs3.cuh's tile pipeline (one 512-thread block an SM, a
-// barrier a plane) took 2.12 ms at 513³ on an H100 (PERF.md). The
-// arithmetic is the twin's (residual3_torch): ((((z− + z+) + y−) + y+) + x−)
-// + x+, − 6u, × h⁻², − f, with the round-to-nearest intrinsics, so r is the
-// twin's bit for bit; face cells are +0.
+// come through L1. The port's first version, a 2.5-D tile pipeline (one
+// 512-thread block an SM, a barrier a plane), took 2.12 ms at 513³ on an
+// H100 (PERF.md). The arithmetic is the twin's (residual3_torch):
+// ((((z− + z+) + y−) + y+) + x−) + x+, − 6u, × h⁻², − f, with the
+// round-to-nearest intrinsics, so r is the twin's bit for bit; face cells
+// are +0. The body (col3_residual_unit) is also kernel 10's emit_residual
+// pass (jacobi3.cu), which adds the clean error.
 //
 // Shard mode (pallas3d.py, _residual3_shard_call, reached through
 // parallel/pallas_shard3.py's sharded_residual3_pallas): the residual of one
@@ -25,38 +27,12 @@
 
 using namespace mgk3;
 
-// Unit blockIdx.x of the pass (col3_unit_io's numbering of C's tiles): the
-// tile's columns over its z chunk [e0, e1) of the owned planes, r into the
-// owned planes (plane z at (z − z0) · n²). u and C.f are the inputs, planes
-// [z0 − ext, z0 + nz + ext).
+// Unit blockIdx.x of the pass (col3_residual_unit, col3.cuh): the tile's
+// columns over its z chunk of the owned planes, r into the owned planes. u
+// and C.f are the inputs, planes [z0 − ext, z0 + nz + ext).
 static __global__ void __launch_bounds__(COL3_THREADS)
     residual3_kernel(Col3 C, const float* __restrict__ u, float* __restrict__ r, int negate) {
-  const int n = C.n, gx = col3_gx(C), gy = col3_gy(C);
-  const int tile = blockIdx.x / COL3_QUARTERS, q = blockIdx.x - tile * COL3_QUARTERS;
-  const int bx = tile % gx, by = (tile / gx) % gy, bz = tile / (gx * gy);
-  const int e0 = C.z0 + bz * C.cz, e1 = min(e0 + C.cz, C.z0 + C.nz);
-  const int v = q * COL3_THREADS + threadIdx.x;
-  if (v >= C.ty * C.tx) return;
-  const int i = v / C.tx;
-  const int y = by * C.ty + i, x = bx * C.tx + (v - i * C.tx);
-  if (y >= n || x >= n) return;
-  const size_t pl = (size_t)n * n, col = (size_t)y * n + x;
-  float* const out = r + col - (ptrdiff_t)C.z0 * (ptrdiff_t)pl;  // plane z at z · pl
-  if (!(inner(y, n) && inner(x, n))) {
-    for (int z = e0; z < e1; ++z) out[z * pl] = 0.0f;
-    return;
-  }
-  const ptrdiff_t base = -(ptrdiff_t)(C.z0 - C.ext) * (ptrdiff_t)pl;  // the inputs' plane 0
-  const Col3Io io{u + base, C.f + base, nullptr, nullptr};
-  col3_stream<false>(io, n, pl, col, true, e0, e1,
-                     [&](int z, const Col3Plane& p, float cm, float cp) {
-                       float d = 0.0f;
-                       if (inner(z, n)) {
-                         d = __fsub_rn(__fmul_rn(C.inv_h2, col3_lap(p, cm, cp)), p.f);
-                         if (negate) d = -d;
-                       }
-                       out[z * pl] = d;
-                     });
+  col3_residual_unit<false>(C, u, r, negate, nullptr, blockIdx.x);
 }
 
 // The residual of the owned planes [z0, z0 + nz) of an n^3 level into r (the

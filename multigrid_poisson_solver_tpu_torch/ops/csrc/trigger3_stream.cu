@@ -27,8 +27,8 @@
 // reported error are therefore those of the sweep-at-a-time loop of
 // one-sweep launches, bit for bit. The partials of consecutive passes
 // alternate between two halves of their buffer. Each sweep moves its 12 B
-// a point: legs3.cuh's fused trapezoid moves them once a pass, but its
-// pipeline ran 5× longer a sweep (PERF.md).
+// a point: the port's first, fused trapezoid moved them once a pass, but
+// its pipeline ran 5× longer a sweep (PERF.md).
 #include "col3.cuh"
 
 using namespace mgk3;

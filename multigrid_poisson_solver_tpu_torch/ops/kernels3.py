@@ -29,7 +29,8 @@ reaches:
     state);
   * ``fused_jacobi3_residual``: ``csrc/jacobi3.cu``, the same kernel's
     emit_residual mode (``fused_jacobi3_residual_padded``: sweeps and the
-    residual of the last iterate from one pass);
+    residual of the last iterate, with its clean error on request; on the
+    card the sweeps' column passes, then one residual pass);
   * the shard modes (``*_shard``, ``ShardGeo3``): kernels 10 (every mode and
     emit_residual), 11, 12 and 13 on one z-shard's planes of a sharded
     level, replacing ``_fused_jacobi3_shard_call``,
@@ -37,18 +38,16 @@ reaches:
     ``_residual3_shard_call``; ``parallel.kernel_shard3`` runs them per
     shard.
 
-Kernel 10, the two legs and the trigger kernels run the column pass of
-``csrc/col3.cuh`` (one unfused sweep a pass; the legs add a residual and
-restriction pass or a prolongation pass of their own), and so does the
-residual (one pass); kernel 10's emit_residual mode runs the tile pipeline
-of ``csrc/legs3.cuh``. The
-TPU kernels' brick geometry (``_brick_geometry``: ×8-row and ×128-lane
-padding, VMEM budgets) has no counterpart: the port's levels are plain
-contiguous (n, n, n) tensors, and ``plan3`` picks a column tile and a z
-chunk that fit a block's shared memory. Kernel 10's launches take
-``err_plan3`` (the deepest fused pass's plan, 512 cells a tile, which the
-column pass needs) unless the caller gives a plan, the legs always, and so
-does every launch of a trigger loop: the kernels sum a tile's error cells
+Every 3-D kernel runs the column pass of ``csrc/col3.cuh`` (one unfused
+sweep a pass; the legs add a residual and restriction pass or a
+prolongation pass of their own, kernel 10's emit_residual mode a residual
+pass, kernel 13 is one residual pass). The TPU kernels' brick geometry
+(``_brick_geometry``: ×8-row and ×128-lane padding, VMEM budgets) has no
+counterpart: the port's levels are plain contiguous (n, n, n) tensors, and
+a launch walks them in the column tiles and z chunks of ``err_plan3``
+(512 cells a tile at most, which the column pass needs), unless the caller
+of kernel 10 gives a plan; every launch of a trigger loop takes it: the
+kernels sum a tile's error cells
 in an order fixed by the plan alone, so the error of an iterate is the
 same float whether a one-sweep step, a per-sweep pass or a whole-loop
 trigger kernel measured it, and the trigger routes stop at the same sweep
@@ -88,8 +87,12 @@ MAX_FUSED_SWEEPS_3D = 8
 MAX_DESCEND3_SWEEPS_FW = 6
 MAX_DESCEND3_SWEEPS_SAMPLING = 7
 
-SMEM_MAX3 = 232448 - 1024   # SMEM_MAX3 in legs3.cuh
-PLANE_MAX3 = 6 * 512        # PREF3 * THREADS3 in legs3.cuh: staged cells of a plane
+# The limits of the port's first 3-D kernels, a tile pipeline that staged a
+# tile with a halo in shared memory (removed): they fix plan3's choice, and
+# so the tiles err_plan3 gives every trigger loop's error sums, which must
+# not change (a trigger loop's stop sweeps would move with them).
+SMEM_MAX3 = 232448 - 1024   # dynamic shared memory the pipeline took at most
+PLANE_MAX3 = 6 * 512        # staged cells of a plane the pipeline's registers carried
 TILES3 = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8))  # (y, x), largest first
 CHUNK3 = 64                 # about this many owned z planes per block
 # (ty, tx, cz) for every 3-D launch instead of plan3's choice (tests force
@@ -137,15 +140,17 @@ def trigger3_stream_fits(n: int, itemsize: int = 4) -> bool:
 
 
 def smem3(stages: int, halo: int, ty: int, tx: int) -> int:
-    """Shared memory of a tile (leg3_smem): a ring of three planes for the
-    starting iterate and for each stage, and f's ring of S + 1 planes."""
+    """Shared memory the removed tile pipeline took for a tile of ``stages``
+    stages staged with ``halo``: a ring of three planes for the starting
+    iterate and for each stage, and f's ring of S + 1 planes."""
     return 4 * 4 * (stages + 1) * (ty + 2 * halo) * (tx + 2 * halo)
 
 
 def plan3(n: int, stages: int, halo: int):
     """(ty, tx, cz): the largest column tile whose pipeline of ``stages``
-    stages and ``halo`` fits a block's shared memory and the registers that
-    carry a plane's loads, and an even z chunk of about CHUNK3 planes."""
+    stages and ``halo`` fitted the removed tile pipeline's shared memory and
+    the registers that carried a plane's loads, and an even z chunk of about
+    CHUNK3 planes. Only ``err_plan3`` calls it now."""
     if FORCE_TILE3 is not None:
         return tuple(FORCE_TILE3)
     for ty, tx in TILES3:
@@ -160,8 +165,10 @@ def plan3(n: int, stages: int, halo: int):
 
 
 def err_plan3(n: int):
-    """The tile plan of every launch of a trigger loop: the deepest per-sweep
-    pass's (8 stages, halo 8), which every shallower pipeline fits."""
+    """The tile plan of the column-pass launches (at most 512 cells a tile,
+    the column pass's error tile) and of every launch of a trigger loop: the
+    removed pipeline's deepest per-sweep pass's (8 stages, halo 8), whose
+    values the error sums keep."""
     return plan3(n, MAX_FUSED_SWEEPS_3D, MAX_FUSED_SWEEPS_3D)
 
 
@@ -346,11 +353,18 @@ def residual_tw3_torch(u0, u1, u2, f, h: float):
 
 
 def fused_jacobi3_residual_torch(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
-                                 from_zero: bool = False, negate: bool = False):
+                                 from_zero: bool = False, negate: bool = False, err_mode=None):
     """``steps`` sweeps and the residual of the result (negated when
-    ``negate``): (u, r)."""
+    ``negate``): (u, r), or with ``err_mode="clean"`` (u, r, raw), raw the
+    float64 Σ|r| over the interior (0-d, not divided by n³)."""
+    _check_residual_err3(err_mode)
     u = fused_jacobi3_torch(u, f, h, steps, omega, from_zero)
-    return u, residual3_torch(u, f, h, negate)
+    r = residual3_torch(u, f, h, negate)
+    if err_mode is None:
+        return u, r
+    n = f.shape[0]
+    geo = ShardGeo3(n, 0, n)
+    return u, r, _raw_error3(u, u, f, geo, geo.inner(f.device), h, "clean")
 
 
 # --- plain twins of the shard modes, on a shard's windows ---------------------------
@@ -449,12 +463,18 @@ def fused_jacobi3_errs_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, steps
 
 def fused_jacobi3_residual_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
                                        omega: float = 6.0 / 7.0, from_zero: bool = False,
-                                       negate: bool = False):
+                                       negate: bool = False, err_mode=None):
     """Twin of ``fused_jacobi3_residual_shard``: (owned planes of the
-    iterate, of its residual)."""
+    iterate, of its residual), and with ``err_mode="clean"`` the shard's raw
+    Σ|r| over its owned planes."""
+    _check_residual_err3(err_mode)
+    zin = geo.inner(f_ext.device)
     u, _ = _sweeps3_ext(u_ext, f_ext, geo, h, steps, omega, from_zero)
-    r = geo.owned(_residual3_ext(u, f_ext, geo.inner(f_ext.device), h)).contiguous()
-    return geo.owned(u).contiguous(), (-r if negate else r)
+    r = geo.owned(_residual3_ext(u, f_ext, zin, h)).contiguous()
+    out = geo.owned(u).contiguous(), (-r if negate else r)
+    if err_mode is None:
+        return out
+    return (*out, _raw_error3(u, u, f_ext, geo, zin, h, "clean"))
 
 
 def residual3_shard_torch(u_ext, f_ext, geo: ShardGeo3, h: float, negate: bool = False):
@@ -567,6 +587,11 @@ def _err_buffers3(want: bool, n: int, plan, device):
 
 def _scalar(err):
     return None if err is None else err.reshape(())
+
+
+def _check_residual_err3(err_mode) -> None:
+    if err_mode not in (None, "clean"):
+        raise ValueError(f"emit_residual takes err_mode None or 'clean', got {err_mode!r}")
 
 
 def _check_steps3(steps: int, cap: int, what: str) -> None:
@@ -957,42 +982,78 @@ def fused_jacobi3_errs_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
     return out, raws
 
 
-def fused_jacobi3_residual_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
-                                 omega: float = 6.0 / 7.0, from_zero: bool = False,
-                                 negate: bool = False):
-    """Kernel 10's emit_residual mode on one z-shard's planes: ``steps``
-    sweeps (at most 7 after from_zero's closed-form one) and the residual of
-    the result, negated when ``negate``, from one pass. Returns (owned planes
-    of the iterate, of the residual)."""
+def _check_emit_residual3(steps: int, from_zero: bool, err_mode) -> None:
+    _check_residual_err3(err_mode)
     if steps < 1 or steps - int(from_zero) > MAX_FUSED_SWEEPS_3D - 1:
         raise ValueError(f"emit_residual runs 1..7 neighbor-reading sweeps, got steps={steps}, "
                          f"from_zero={from_zero}")
+
+
+def _emit_residual_result(out, r, raw):
+    return (out, r) if raw is None else (out, r, raw.reshape(()))
+
+
+def fused_jacobi3_residual_shard(u_ext, f_ext, geo: ShardGeo3, h: float, steps: int,
+                                 omega: float = 6.0 / 7.0, from_zero: bool = False,
+                                 negate: bool = False, err_mode=None):
+    """Kernel 10's emit_residual mode on one z-shard's planes: ``steps``
+    sweeps (at most 7 after from_zero's closed-form one) and the residual of
+    the result, negated when ``negate`` (on the card the sweeps' column
+    passes, the last writing one plane more a side, then one residual pass;
+    the trigger loops' tile plan, ``err_plan3`` of the shard's depth).
+    Returns (owned planes of the iterate, of the residual), and with
+    ``err_mode="clean"`` the shard's raw Σ|r| over its owned planes as a
+    0-d float64 tensor, the float ``fused_jacobi3_shard(..., "clean")``
+    reports for the same iterate."""
+    _check_emit_residual3(steps, from_zero, err_mode)
     if not f_ext.is_cuda:
         return fused_jacobi3_residual_shard_torch(u_ext, f_ext, geo, h, steps, omega, from_zero,
-                                                  negate)
+                                                  negate, err_mode)
     stages = steps - int(from_zero) + 1
     lib, stream, dev = _shard3_args(u_ext, f_ext, geo, stages, not from_zero)
+    plan = err_plan3(geo.nz)
     out = torch.empty((geo.nz, geo.n, geo.n), dtype=f_ext.dtype, device=dev)
     r = torch.empty_like(out)
+    wins = _windows3(f_ext, steps, True)   # the residual pass reads the last iterate
+    partials, raw, work = (_col3_buffers3(geo, plan, dev) if err_mode is not None
+                           else (None, None, None))
     rc = lib.mg3_jacobi_residual_shard(K._ptr(None if from_zero else u_ext), f_ext.data_ptr(),
-                                       out.data_ptr(), r.data_ptr(), *_planes3(geo), steps,
-                                       int(from_zero), int(negate), *plan3(geo.nz, stages, stages),
-                                       h * h, omega / 6.0, 1.0 / (h * h), stream)
+                                       out.data_ptr(), K._ptr(wins[0]), K._ptr(wins[1]),
+                                       r.data_ptr(), K._ptr(partials), K._ptr(work), K._ptr(raw),
+                                       *_planes3(geo), steps, int(from_zero), int(negate),
+                                       int(err_mode is not None), *plan, h * h, omega / 6.0,
+                                       1.0 / (h * h), stream)
     K._raise_on(lib, rc, "jacobi3 emit_residual")
     K.launches["jacobi3_residual"] += 1
-    return out, r
+    return _emit_residual_result(out, r, raw)
 
 
 def fused_jacobi3_residual(u, f, h: float, steps: int, omega: float = 6.0 / 7.0,
-                           from_zero: bool = False, negate: bool = False):
+                           from_zero: bool = False, negate: bool = False, err_mode=None):
     """``steps`` sweeps (at most 7 after from_zero's closed-form one) and the
-    residual of the result from one pass over memory (counterpart of
-    ``fused_jacobi3_residual_padded``): (u, r)."""
+    residual of the result (counterpart of ``fused_jacobi3_residual_padded``;
+    on the card the sweeps' column passes, then one residual pass): (u, r),
+    or with ``err_mode="clean"`` (u, r, raw), raw Σ|r| over the interior as
+    a 0-d float64 tensor, not divided by n³ (JAX's third output)."""
+    _check_emit_residual3(steps, from_zero, err_mode)
     if not f.is_cuda:
-        return fused_jacobi3_residual_torch(u, f, h, steps, omega, from_zero, negate)
-    n = _grid3_args(f)[0]
-    return fused_jacobi3_residual_shard(u, f, ShardGeo3(n, 0, n), h, steps, omega, from_zero,
-                                        negate)
+        return fused_jacobi3_residual_torch(u, f, h, steps, omega, from_zero, negate, err_mode)
+    n, dev, lib, stream = _grid3_args(f)
+    if not from_zero:
+        K._check("u", u, (n, n, n), dev)
+    plan = err_plan3(n)
+    out, r = torch.empty_like(f), torch.empty_like(f)
+    mid = torch.empty_like(f) if steps > 1 else None   # the other iterates
+    partials, raw, work = (_col3_buffers3(ShardGeo3(n, 0, n), plan, dev)
+                           if err_mode is not None else (None, None, None))
+    rc = lib.mg3_jacobi_residual(K._ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
+                                 K._ptr(mid), r.data_ptr(), K._ptr(partials), K._ptr(work),
+                                 K._ptr(raw), n, steps, int(from_zero), int(negate),
+                                 int(err_mode is not None), *plan, h * h, omega / 6.0,
+                                 1.0 / (h * h), stream)
+    K._raise_on(lib, rc, "jacobi3 emit_residual")
+    K.launches["jacobi3_residual"] += 1
+    return _emit_residual_result(out, r, raw)
 
 
 def residual3_shard(u_ext, f_ext, geo: ShardGeo3, h: float, negate: bool = False):

@@ -460,10 +460,18 @@ def test_c_entry_points_match_ctypes_signatures():
     assert names["mg3_rdma_descend"][17:20] == ["partials", "work", "raw"]
     assert names["mg3_rdma_ascend"][4:6] == ["wa_ptrs", "wb_ptrs"]
     assert names["mg3_rdma_ascend"][14:17] == ["partials", "work", "raw"]
+    # kernel 10's emit_residual mode on column passes: scratch iterates (the
+    # whole grid's mid, a shard's two windows), r, then the clean error's
+    # partials, workspace and raw sum, and whether to take it
+    assert names["mg3_jacobi_residual"][3:8] == ["mid", "r", "partials", "work", "raw_out"]
+    assert names["mg3_jacobi_residual"][12] == "want_err"
+    assert names["mg3_jacobi_residual_shard"][3:9] == ["wa", "wb", "r", "partials", "work",
+                                                       "raw_out"]
+    assert names["mg3_jacobi_residual_shard"][16] == "want_err"
     assert {s.name for s in build.sources()} == {
         "common.cuh", "legs.cuh", "jacobi.cu", "residual.cu", "descend.cu", "ascend.cu",
         "chain_descend.cu", "chain_ascend.cu", "trigger.cu", "residual_mw.cu",
-        "trigger_stream.cu", "legs3.cuh", "jacobi3.cu", "descend3.cu", "ascend3.cu",
+        "trigger_stream.cu", "jacobi3.cu", "descend3.cu", "ascend3.cu",
         "residual3.cu", "trigger3.cu", "trigger3_stream.cu", "residual_mw3.cu", "col3.cuh",
         "col3_legs.cuh", "ring.cuh",
         "rdma.cuh", "rdma_jacobi.cu", "rdma_trigger.cu", "rdma3.cuh", "rdma_jacobi3.cu",

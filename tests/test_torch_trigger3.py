@@ -222,7 +222,7 @@ def test_col3_constants_match_the_headers():
     """The column pass (csrc/col3.cuh) splits block_sum3's 512 threads, 16
     warps, over whole warps of its blocks; kernels3.WARPS3 sizes its
     workspace by the same count."""
-    threads3 = _header_int("BLOCK_X", "common.cuh") * _header_int("BLOCK3_Y", "legs3.cuh")
+    threads3 = _header_int("BLOCK_X", "common.cuh") * _header_int("BLOCK3_Y", "col3.cuh")
     col_threads = _header_int("COL3_THREADS", "col3.cuh")
     assert threads3 == 512 and K3.WARPS3 == threads3 // 32
     assert col_threads % 32 == 0 and threads3 % col_threads == 0
