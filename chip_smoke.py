@@ -12,7 +12,9 @@ Phases (progress on stdout; the first failure exits non-zero):
      mode, and the four 3-D ring kernels;
   2. hold each kernel against its plain PyTorch twin on the card: at
      n = 1025 and 1031 (several tiles per dimension, ragged last tiles),
-     every sweep count, error mode and from_zero; and at the shapes the main
+     every sweep count, error mode and from_zero (kernel 1's Jacobi modes
+     also with chunks forced to 64 and 256 rows, and on views at a 4-byte
+     offset, which its wrappers copy); and at the shapes the main
      paths give them (legs at 4097² and 2049², chains from 1025², smoother,
      residual and trigger loop at 256² down to 8², the multi-word residual
      and the per-sweep errors at 8193², the streamed trigger loop at 2305²
@@ -33,7 +35,8 @@ Phases (progress on stdout; the first failure exits non-zero):
      the float64 relative residuals, ms/cycle;
   4. the CLI path: schedules/Vcycle.txt and schedules/VcycleTrigger.txt
      (compiled engine), each in a subprocess and in process;
-  5. smoother throughput at 8193², 8 sweeps per launch;
+  5. smoother throughput at 8193², 8 sweeps per launch (the launch's
+     iterate bit for bit the twin's);
   A. refinement to a tolerance: tw32 to 1e-10 at 8193² and df32 at 4097²
      (IterativeRefinementSolver), with the kernels and with kernels="torch";
      then the CLI --tol 1e-10 --state tw32 on schedules/Vcycle.txt;
@@ -63,7 +66,8 @@ Phases (progress on stdout; the first failure exits non-zero):
      kernels 17 and 18 against their twins at 1025² and 1031² on rings of
      2, 3, 4 and 8 shards and a 2 x 4 block mesh (several tiles a shard,
      ragged last shards and tiles), steps 1-8 and 11, from_zero, every
-     error mode, per_sweep, rb-GS, both restrictions; every shard mode's
+     error mode, per_sweep, rb-GS, both restrictions (kernel 1's shard
+     modes also with chunks forced to 64 and 256 rows); every shard mode's
      owned cells bit for bit against the unsharded kernel; kernel 17 with
      caps of 1-60 sweeps and a mid-loop trigger bit for bit against the loop
      of one-sweep sharded error launches. G2: at 4097² on 8 shards
@@ -489,12 +493,19 @@ def phase2(K, torch, cmp, problem, GridSpec):
             cmp.scalar("chain_ascend", what, ge, we)
         cmp.cases["chain_ascend"] += 1
 
-    def trigger(n, u, f, compat, trig, max_sweeps):
+    def trigger(n, u, f, compat, trig, max_sweeps, loop=False):
         h = 1.0 / (n - 1)
         gu, ge, gk = K.trigger_smooth(u, f, h, omega, compat, trig, max_sweeps)
         wu, we, wk = K.trigger_smooth_torch(u, f, h, omega, compat, trig, max_sweeps)
         what = f"n={n} err={compat} trigger={trig} max={max_sweeps}"
         require(int(gk) == int(wk), f"trigger {what}: {int(gk)} sweeps vs twin {int(wk)}")
+        if loop:
+            # kernel 8 keeps legs.cuh's tile pipeline, kernel 1 the wavefront:
+            # the same sweep count, iterate and error, bit for bit
+            ru, re_, rk = trigger_loop(lambda v: K.fused_jacobi_err(v, f, h, 1, omega, compat),
+                                       u, trig, max_sweeps)
+            require(int(gk) == rk and bool(torch.equal(gu, ru)) and bool(torch.equal(ge, re_)),
+                    f"trigger {what}: differs from the loop of one-sweep kernel 1 launches")
         cmp.grid("trigger", f"{what} ({int(wk)} sweeps)", gu, wu)
         cmp.scalar("trigger", what, ge, we)
         cmp.cases["trigger"] += 1
@@ -571,10 +582,44 @@ def phase2(K, torch, cmp, problem, GridSpec):
              ("sampling", "full_weighting"))
         for compat in (True, False, "gpu"):
             for max_sweeps in (50, 51):   # the final iterate in either buffer
-                trigger(n, rand(n, n), rand(n, n), compat, 0.0, max_sweeps)
+                trigger(n, rand(n, n), rand(n, n), compat, 0.0, max_sweeps, loop=True)
         residual_mw(n)
         jacobi_errs(n)
         rbgs(n)
+    # kernel 1's wavefront with chunks of several tile rows, which its
+    # occupancy rule gives only large grids: every sweep count, error kind
+    # and from_zero, and the per-sweep mode (iterates bit for bit, main)
+    for rows in (64, 256):
+        with K.forced_chunk_rows(rows):
+            for n in (1025, 1031):
+                smoother(n, range(1, 9), (None, True, False, "gpu"), (False, True), negate=())
+                jacobi_errs(n)
+    # u and f 4 bytes into a buffer (contiguous views): kernel 1's entry
+    # points refuse them (its 16-byte copies), its wrappers pass aligned
+    # copies, and the results are the aligned inputs', bit for bit
+    from multigrid_poisson_solver_tpu_torch.ops import build
+
+    lib = build.load()
+    for n in (1025, 1031):
+        h = 1.0 / (n - 1)
+        u, f = rand(n, n), rand(n, n)
+        uv, fv = (torch.empty(n * n + 1, device="cuda")[1:].view(n, n).copy_(x) for x in (u, f))
+        for steps, compat in ((1, True), (2, "gpu"), (8, None)):
+            got = K.fused_jacobi_err(uv, fv, h, steps, omega, compat) if compat else \
+                (K.fused_jacobi(uv, fv, h, steps, omega), None)
+            want = K.fused_jacobi_err(u, f, h, steps, omega, compat) if compat else \
+                (K.fused_jacobi(u, f, h, steps, omega), None)
+            require(all(a is b or bool(torch.equal(a, b)) for a, b in zip(got, want)),
+                    f"jacobi n={n} steps={steps} err={compat}: a view at an offset differs")
+        gu, ge = K.fused_jacobi_errs(uv, fv, h, 7, omega, True)
+        wu, we = K.fused_jacobi_errs(u, f, h, 7, omega, True)
+        require(bool(torch.equal(gu, wu)) and bool(torch.equal(ge, we)),
+                f"jacobi_errs n={n}: a view at an offset differs")
+        rc = lib.mg_jacobi(uv.data_ptr(), fv.data_ptr(), torch.empty_like(u).data_ptr(), None,
+                           None, n, 1, 0, 0, h * h, omega, 1.0 / (h * h), 0.0, 0.0,
+                           torch.cuda.current_stream().cuda_stream)
+        require(rc == 716, f"mg_jacobi took a misaligned u and f (rc {rc}, not "
+                "cudaErrorMisalignedAddress)")
     # the library path's legs: 3 sweeps, sampling, the finest level's cpu error
     for n in (4097, 2049):
         legs(n, (3,), (None, True), (False, True), ("sampling",))
@@ -755,7 +800,11 @@ def phase_trigger(tmg, K, torch, run_counts):
         if batch == 7 and not profiled:
             profiled.append(tag)
             cc.trigger_sweeps = None
-            profile(f"trigger V-cycle {n}² {tag}", lambda: cc(u0, f))
+            rows = profile(f"trigger V-cycle {n}² {tag}", lambda: cc(u0, f))
+            ms1, k1 = kernel_ms(rows, lambda key: "jacobi_errs_kernel<" in key)
+            say(f"[t] jacobi_errs (kernel 1's per-sweep mode) in the {tag} run: {ms1:.3f} ms "
+                f"device, {k1:.0f} launches, of {sum(r[1] for r in rows):.3f} ms busy "
+                f"(torch.profiler)")
         return tag, counts
 
     main, run_counts["trigger8193"] = run("kernels, batch 7", 7)
@@ -2047,8 +2096,9 @@ def phase_g1(K, torch, cmp):
     twins at 1025² and 1031² (several 32 x 128 tiles per shard; ragged last
     shards and tiles), on rings of 2, 3, 4 and 8 shards and a 2 x 4 block
     mesh; every shard mode's owned cells against the unsharded kernel, bit
-    for bit; the ring trigger against the loop of one-sweep sharded error
-    launches, bit for bit."""
+    for bit (kernel 1's also with chunks of several tile rows); the ring
+    trigger against the loop of one-sweep sharded error launches, bit for
+    bit."""
     from multigrid_poisson_solver_tpu_torch.ops import rdma
     from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard as KS
     from multigrid_poisson_solver_tpu_torch.parallel import sharded as S
@@ -2203,6 +2253,56 @@ def phase_g1(K, torch, cmp):
                     if max_sweeps == 60:
                         stops[f"{n} {tag} {compat}"] = int(gk)
         torch.cuda.synchronize()
+    # the shard modes with chunks of several tile rows (the occupancy rule
+    # gives these blocks one tile row a chunk): every sweep count, error
+    # kind, from_zero and the per-sweep mode on 2 and 8 row shards and 2 x 4
+    # blocks, bit for bit against the twins and the unsharded kernel
+    pols = ring_policies()
+    for rows in (64, 256):
+        with K.forced_chunk_rows(rows):
+            for n in (1025, 1031):
+                h = 1.0 / (n - 1)
+                u, f = rand(n, n), rand(n, n)
+                for tag in ("rows-2", "rows-8", "block-2x4"):
+                    lay = S.layout_of(pols[tag], n)
+                    us, fs = S.shard(u, lay), S.shard(f, lay)
+                    what = f"n={n} {tag} chunks of {rows} rows"
+                    for steps in range(1, 9):
+                        for compat in (None, True, False, "gpu"):
+                            for fz in (False, True):
+                                w = f"{what} steps={steps} err={compat} fz={fz}"
+                                if compat is None:
+                                    gu = KS.sharded_fused_jacobi(us, fs, h, steps, omega, fz)
+                                    wu = twin(KS.sharded_fused_jacobi, us, fs, h, steps, omega,
+                                              fz)
+                                    ku = K.fused_jacobi(u, f, h, steps, omega, fz)
+                                else:
+                                    gu, ge = KS.sharded_fused_jacobi_err(us, fs, h, steps, omega,
+                                                                         compat, fz)
+                                    wu, we = twin(KS.sharded_fused_jacobi_err, us, fs, h, steps,
+                                                  omega, compat, fz)
+                                    ku, ke = K.fused_jacobi_err(u, f, h, steps, omega, compat,
+                                                                fz)
+                                    cmp.scalar("jacobi_shard", w, ge, we)
+                                    cmp.scalar("jacobi_shard", f"{w} against the unsharded "
+                                               f"kernel", ge, ke)
+                                cmp.grid("jacobi_shard", w, G(gu), G(wu))
+                                cmp.cases["jacobi_shard"] += 1
+                                same(f"jacobi_shard {w}", G(gu), ku)
+                    for compat in (True, False, "gpu"):
+                        cap = K.errs_sweep_cap(compat)
+                        gu, ge = KS.sharded_fused_jacobi_errs(us, fs, h, cap, omega, compat)
+                        wu, we = twin(KS.sharded_fused_jacobi_errs, us, fs, h, cap, omega, compat)
+                        w = f"{what} per-sweep err={compat}"
+                        cmp.grid("jacobi_errs_shard", w, G(gu), G(wu))
+                        cmp.cases["jacobi_errs_shard"] += 1
+                        same(f"jacobi_errs_shard {w}", G(gu), K.fused_jacobi(u, f, h, cap, omega))
+                        for s in range(1, cap + 1):
+                            require(torch.equal(ge[s - 1], KS.sharded_fused_jacobi_err(
+                                us, fs, h, s, omega, compat)[1]),
+                                f"jacobi_errs_shard {w}: errs[{s - 1}] differs from the error "
+                                f"of {s} sweeps")
+        torch.cuda.synchronize()
     say(f"[G1] ring trigger stop sweeps at a mid-loop trigger: {stops}")
     require(all(k < 60 for k in stops.values()), "a mid-loop ring trigger ran to its cap")
 
@@ -2331,6 +2431,9 @@ def phase_g3(tmg, K, torch, run_counts, unsharded_levels):
             ms17, k17 = kernel_ms(rows, lambda key: "rdma_trigger_kernel" in key)
             say(f"[t] rdma_trigger (kernel 17) in the G3 {tag} run: {ms17:.3f} ms device, "
                 f"{k17:.0f} launches, of {sum(r[1] for r in rows):.3f} ms busy (torch.profiler)")
+            ms1, k1 = kernel_ms(rows, lambda key: key.startswith("void jacobi_kernel<true"))
+            say(f"[t] jacobi_shard (kernel 1's shard mode) in the G3 {tag} run: {ms1:.3f} ms "
+                f"device, {k1:.0f} launches (torch.profiler)")
         return tag
 
     rd = run("rdma, auto", "auto", "rdma")
@@ -2461,7 +2564,8 @@ def main():
     for k in SINGLE_DEVICE:
         say(f"[2] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
             f"bit-identical to the twin: {cmp.bitwise[k]}")
-    require(cmp.bitwise["residual3"], "[2] residual3: not bit-identical to its twin")
+    for k in ("residual3", "jacobi", "jacobi_errs"):
+        require(cmp.bitwise[k], f"[2] {k}: not bit-identical to its twin")
     say(f"[2] done in {time.perf_counter() - t0:.1f} s "
         f"(tolerances: grids {U_RTOL:g}·max|twin|, errors {ERR_RTOL:g} relative)")
 
@@ -2555,6 +2659,8 @@ def main():
     for k in PHASE_G:
         say(f"[G1] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
             f"bit-identical to the twin: {cmp.bitwise[k]}")
+    for k in ("jacobi_shard", "jacobi_errs_shard"):
+        require(cmp.bitwise[k], f"[G1] {k}: not bit-identical to its twin")
     say(f"[G1] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ms_g2 = phase_g2(tmg, K, torch, run_counts)
@@ -2963,6 +3069,26 @@ def main():
     say(f"[t] rdma_trigger3 at {calls['rdma_trigger3'][0]}: bit for bit the loop of one-sweep "
         f"sharded error steps; {times['rdma_trigger3'][0] / t_sweeps:.4f} ms a sweep")
     del gu, ru
+    # kernel 1 at the other main-path shapes: 8 sweeps at 8193² (phase 5's
+    # launch), G3's pass (one sweep + cpu error on 8 row shards of 8193²) and
+    # the small levels in device µs a call (graph_us); a torch.add of two
+    # 8193² grids as the byte yardstick (12 B a point, as one fused pass)
+    ms = time_ms(lambda: K.fused_jacobi(f8, w0, h8, 8, 0.8), reps=10)
+    say(f"[t] jacobi at {n8}², 8 sweeps: {ms:.4f} ms; bound "
+        f"{bound(3 * g8, 8 * SWEEP_OPS * pts8)[0]:.4f} ms")
+    ms = time_ms(shards(lambda ue, fe, g: K.fused_jacobi_shard(ue, fe, g, h8, 1, 0.8, False,
+                                                               "cpu"), ext8, geo8), reps=10)
+    say(f"[t] jacobi_shard at {n8}² on 8 shards, 1 sweep + cpu error: {ms:.4f} ms; bound "
+        f"{bound(3 * g8, (SWEEP_OPS + ERR_OPS) * pts8)[0]:.4f} ms")
+    for m in (1025, 257, 65):
+        um, fm = rnd(m), rnd(m)
+        us_ = graph_us(lambda: K.fused_jacobi_err(um, fm, 1.0 / (m - 1), 3, 0.8, True))
+        say(f"[t] jacobi at {m}², 3 sweeps + cpu error: {us_:.2f} µs device a call; bound "
+            f"{bound(12 * m * m, (3 * SWEEP_OPS + ERR_OPS) * m * m)[0] * 1e3:.2f} µs")
+    o8 = torch.empty_like(f8)
+    ms = time_ms(lambda: torch.add(f8, w0, out=o8), reps=10)
+    say(f"[t] torch.add of two {n8}² grids: {ms:.4f} ms ({3 * g8 / ms / 1e9:.3f} TB/s)")
+    del o8
     ms_ex = time_ms(lambda: KS.sharded_fused_jacobi(us2, fs2, h, 8, 0.8), reps=5)
     ms_un = time_ms(lambda: K.fused_jacobi(u, f, h, 8, 0.8), reps=5)
     say(f"[t] 8 sweeps at {n}²: unsharded kernel {ms_un:.4f} ms; 8 shards through the exchange "
@@ -3135,6 +3261,10 @@ def main():
     # -- phase 5: smoother throughput at 8193² -------------------------------------
     u, f = rnd(n8), rnd(n8)
     dofs = (n8 - 2) ** 2 * 8
+    # the timed launch's output, bit for bit the twin's
+    require(bool(torch.equal(K.fused_jacobi(u, f, h8, 8, 0.8),
+                             K.fused_jacobi_torch(u, f, h8, 8, 0.8))),
+            f"[5] 8 sweeps at {n8}²: the kernel's iterate differs from the twin's")
     ms_k = time_ms(lambda: K.fused_jacobi(u, f, h8, 8, 0.8), reps=10)
     ms_p = time_ms(lambda: K.fused_jacobi_torch(u, f, h8, 8, 0.8), reps=2, rounds=3)
     say(f"[5] smoothing {n8}², 8 sweeps per launch: kernel {dofs / ms_k / 1e6:.2f} GDoF/s "

@@ -8,8 +8,16 @@ ROOT is a checkout (or an unpacked ``git archive``) holding
 sources and timed with CUDA events (median of 5 rounds of 10 calls) at the
 main paths' shapes (2-D at 4097² and 8193², 3-D at 513³), with one V(3,3)
 cycle at 4097² (ω 0.8, coarsen=3) and one 3-D ``v_cycle3`` V(3,3) at 513³;
-then the ring kernels on rings of 8 shards of the card: the 2-D ones at
-4097², and, where the tree has them (``ops/rdma3.py``), the 3-D ones at 513³
+kernel 1's Jacobi modes (8193² with 8 sweeps and the per-sweep mode, 4097²
+with one sweep and each error, 1025², 257² and 65² in device µs a call) and
+the 2-D trigger kernels 8 and 9 and kernel 5; the 2-D shard modes on 8 row
+shards of the card (kernel 1 at 4097² and 8193², also in device µs at 4097²,
+rb-GS, the descend leg), chip_smoke.py's G2 bench_scaling cycle (4097²,
+coarsen=1, on 8 row shards with halo ppermute: device ms a cycle from
+torch.profiler and the host wall clock) and the 8193² trigger V-cycle's wall
+clock (batch 7, and "auto" on 8 row shards with rdma); then the ring
+kernels on rings of 8 shards of the card: the 2-D ones at 4097², and, where
+the tree has them (``ops/rdma3.py``), the 3-D ones at 513³
 (the trigger loop at 257³, 129³ and 65³, ms per sweep; the smoother and the
 descend and ascend legs also at 129³ and 65³, device µs a call). The 3-D trigger
 kernels follow: the whole-loop one at 129³ and 65³ and the streamed one at
@@ -124,6 +132,96 @@ cfg = tmg.SolverConfig(omega=0.8, collect_node_stats=False)
 warm = tmg.compile_program(prog, tmg.REFERENCE_PROBLEM, cfg, device="cuda", warm=True)
 u0, f0 = warm.init()
 res["vcycle_4097"] = timed(lambda: warm(u0, f0), reps=5, rounds=3)
+# kernel 1's Jacobi modes: the per-sweep mode at 8193², one sweep with each
+# error and 8 from zero at 4097², 3 sweeps + cpu error at the small levels
+# (device µs a call); the trigger kernels 8 and 9, which keep legs.cuh's
+# tile pipeline; kernel 5
+res.update({
+    "jacobi_errs7cpu_8193": timed(lambda: K.fused_jacobi_errs(u8, f8, h8, 7, 0.8, True), reps=5),
+    "jacobi_errs8gpu_8193": timed(lambda: K.fused_jacobi_errs(u8, f8, h8, 8, 0.8, "gpu"), reps=5),
+    "jacobi8fz_4097": timed(lambda: K.fused_jacobi(u, f, h, 8, 0.8, True)),
+    "jacobi1_4097": timed(lambda: K.fused_jacobi(u, f, h, 1, 0.8)),
+})
+for key, mode in (("cpu", True), ("clean", False), ("gpu", "gpu")):
+    res[f"jacobi1{key}_4097"] = timed(lambda: K.fused_jacobi_err(u, f, h, 1, 0.8, mode))
+for m in (1025, 257, 65):
+    um, fm = rand(m), rand(m)
+    res[f"jacobi3err_{m}_us"] = 1e3 * device_ms(
+        lambda: [K.fused_jacobi_err(um, fm, 1 / (m - 1), 3, 0.8, True) for _ in range(10)], 10)
+ut, ft = rand(256), rand(256)
+w1, w2 = f8 * 1e-8, f8 * 1e-16
+res.update({
+    "trigger100_256": timed(lambda: K.trigger_smooth(ut, ft, 1 / 255, 0.8, True, 0.0, 100),
+                            reps=3),
+    "trigger_stream98_4097": timed(lambda: K.trigger_smooth_stream(u, f, h, 0.8, True, 0.0, 98),
+                                   reps=3),
+    "residual_tw_8193": timed(lambda: K.residual_tw(u8, w1, w2, f8, h8)),
+})
+del w1, w2
+# the 2-D shard modes on 8 row shards of the card, on windows of KS.HALO rows
+# exchanged beforehand: kernel 1 (G2's 3 sweeps + cpu error at 4097², G3's
+# one sweep + cpu error and its per-sweep pass at 8193²), rb-GS and the legs
+from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard as KS  # noqa: E402
+
+pol8 = M.ShardingPolicy(M.make_mesh(["cuda:0"] * 8), threshold_rows=16)
+
+
+def windows(level, a, b):
+    lay = S.layout_of(pol8, level)
+    xs, ys = S.shard(a, lay), S.shard(b, lay)
+    return ([(S.extend(xs, i, 0, KS.HALO, 0), S.extend(ys, i, 0, KS.HALO, 0))
+             for i in range(len(lay.rows))],
+            [K.ShardGeo(level, r0, 0, r1 - r0, level, KS.HALO, 0) for r0, r1 in lay.rows])
+
+
+w4, g4 = windows(n, u, f)
+w8, g8 = windows(n8, u8, f8)
+
+
+def on(wins, geos, fn):
+    return lambda: [fn(ue, fe, g) for (ue, fe), g in zip(wins, geos)]
+
+
+res.update({
+    "jacobi_shard3cpu_4097": timed(on(w4, g4, lambda ue, fe, g: K.fused_jacobi_shard(
+        ue, fe, g, h, 3, 0.8, False, "cpu"))),
+    "jacobi_shard8_4097": timed(on(w4, g4, lambda ue, fe, g: K.fused_jacobi_shard(
+        ue, fe, g, h, 8, 0.8))),
+    "jacobi_shard1cpu_8193": timed(on(w8, g8, lambda ue, fe, g: K.fused_jacobi_shard(
+        ue, fe, g, h8, 1, 0.8, False, "cpu"))),
+    "jacobi_errs_shard7cpu_8193": timed(on(w8, g8, lambda ue, fe, g: K.fused_jacobi_errs_shard(
+        ue, fe, g, h8, 7, 0.8, "cpu")), reps=3),
+    "rbgs_shard2cpu_4097": timed(on(w4, g4, lambda ue, fe, g: K.fused_jacobi_shard(
+        ue, fe, g, h, 2, 1.0, False, "cpu", "rbgs"))),
+    "descend_shard_4097": timed(on(w4, g4, lambda ue, fe, g: K.fused_descend_shard(
+        ue, fe, g, h, 3, 0.8, "sampling", "cpu"))),
+    "jacobi_shard3cpu_4097_us": 1e3 * device_ms(on(w4, g4, lambda ue, fe, g:
+                                                   K.fused_jacobi_shard(ue, fe, g, h, 3, 0.8,
+                                                                        False, "cpu")), 1),
+})
+del w4, w8
+# G2's bench_scaling program (separate 3-sweep passes, coarsen=1) on 8 row
+# shards with halo ppermute
+g2 = tmg.compile_program(tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=1),
+                         tmg.REFERENCE_PROBLEM, tmg.SolverConfig(collect_node_stats=False),
+                         device="cuda", warm=True, policy=pol8)
+gu, gf = g2.init()
+res["g2_coarsen1_ppermute_4097_device"] = device_ms(lambda: [g2(gu, gf) for _ in range(3)], 3)
+res["g2_coarsen1_ppermute_4097_wall"] = walls(lambda: g2(gu, gf))
+del g2, gu, gf
+# the 8193² trigger V-cycle (chip_smoke.py's path B, batch 7) and on 8 row
+# shards (G3, rdma "auto"), host wall clock
+tprog2 = tmg.v_cycle(n8, n_min=8, steps=-1, coarse_option=0, coarsen=3)
+for tag, batch, pol, halo in (("b7", 7, None, "ppermute"),
+                              ("8rows_rdma_auto", "auto",
+                               M.ShardingPolicy(M.make_mesh(["cuda:0"] * 8), threshold_rows=32),
+                               "rdma")):
+    tc = tmg.compile_program(tprog2, tmg.REFERENCE_PROBLEM, tmg.SolverConfig(
+        omega=0.8, collect_node_stats=False, trigger_batch=batch, max_trigger_sweeps=2000,
+        halo=halo), device="cuda", policy=pol)
+    tu, tf = tc.init()
+    res[f"trigger_vcycle_{tag}_8193_wall"] = walls(lambda: tc(tu, tf))
+    del tc, tu, tf
 ring = S.layout_of(M.ShardingPolicy(M.make_mesh(["cuda:0"] * 8), threshold_rows=16), n)
 us, fs = S.shard(u, ring), S.shard(f, ring)
 res.update({

@@ -37,6 +37,7 @@ _U = ctypes.c_uint64
 SIGNATURES = {
     "mg_num_tiles": ([_I], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
+    "mg_wave2_force_rows": ([_I], _I),
     "mg_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
     "mg_jacobi_errs": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P], _I),
     "mg_rbgs": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I),

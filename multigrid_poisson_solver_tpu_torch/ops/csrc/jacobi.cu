@@ -1,43 +1,44 @@
-// Fused multi-sweep damped-Jacobi smoother with an optional fused
-// smoothing-error reduction.
+// Kernel 1, the fused damped-Jacobi smoother: k <= 8 sweeps a pass over
+// device memory with an optional fused smoothing error, and its rb-GS mode.
 //
 // Replaces: multigrid_poisson_solver_tpu/ops/pallas_kernels.py,
-// _fused_jacobi_kernel (Jacobi modes: plain sweeps, the cpu / clean / gpu
-// fused error, from_zero), reached through fused_jacobi_padded and
-// fused_jacobi_err_padded.
+// _fused_jacobi_kernel (:161): the Jacobi modes (plain sweeps, the cpu /
+// clean / gpu fused error, from_zero), reached through fused_jacobi_padded
+// and fused_jacobi_err_padded; the per_sweep mode (fused_jacobi_errs_padded,
+// the batched trigger loop: the error of every iterate); rb-GS
+// (fused_rbgs_padded, fused_rbgs_err_padded); and the shard mode of each
+// (_fused_jacobi_shard_call, :500, reached through parallel/pallas_shard.py).
 //
-// Bound: device-memory bandwidth. One unfused fp32 sweep reads u and f and
-// writes u, 12 B per point: 3.35 TB/s / 12 B = 279 GDoF/s on the H100 SXM
-// data sheet. Design: temporal blocking. A block stages its 32 x 128 tile of
-// u and f with a halo of k (+1 for a residual-based error) in shared memory,
-// runs all k <= 8 sweeps there on two ping-pong buffers, each sweep on a
-// region one cell smaller per side, and writes only its owned cells: one
-// pass over device memory per k sweeps instead of k. The cost is redundant
-// halo work, (32 + 2H)(128 + 2H) staged cells per 4096 owned ones.
-// from_zero (the iterate is known to be 0): sweep 1 is the closed form
-// -(ω/4)h²f on the interior and u is never read. The error partials go to a
-// per-block buffer that a second one-block kernel sums in a fixed order,
-// so the metric is deterministic and needs no atomics. The tile's work is
-// jacobi_tile in legs.cuh.
+// Bound: device-memory bandwidth for few sweeps, fp32 instructions for
+// many. One unfused sweep reads u and f and writes u, 12 B a point: 3.35
+// TB/s / 12 B = 279 GDoF/s on the H100 SXM data sheet. Fused, a pass of k
+// sweeps moves those 12 B once, and at k = 8 the ~10 instructions of a
+// point update make it operation-bound.
 //
-// Two more modes of the same TPU kernel live here:
-//  * per_sweep (fused_jacobi_errs_padded, the batched trigger loop): k <= 8
-//    sweeps in one pass with the error of every iterate. The tile keeps one
-//    partial per sweep (jacobi_errs_tile); a second pass sums each row of
-//    partials in the fixed order, so errs[s − 1] is bit for bit the error a
-//    launch of s sweeps reports. Bound as above: 12 B per point per pass.
-//  * rb-GS (fused_rbgs_padded, fused_rbgs_err_padded): k <= 4 red-black
-//    Gauss-Seidel sweeps per pass, each two parity-masked half-updates done in
-//    place in shared memory, so a sweep consumes two halo cells; the cpu or
-//    clean error is Σ|Δ| of one ω = 1 Jacobi step from the final iterate (the
-//    TPU kernel's identity Δ = (h²/4)·r). Bound: 12 B per point per pass, the
-//    same memory traffic as the Jacobi mode for half the sweeps per pass.
+// The Jacobi modes run wave2.cuh's row-streaming wavefront: a warp streams
+// the rows of one 128-column tile strip (plus 16 halo columns a side) down a
+// chunk of tile rows, holds the last two rows of every level in registers
+// and advances all k levels one row a step, so u and f are read once a pass
+// and no tile is staged in shared memory. The per_sweep mode is the same
+// pass with the error of every level; a second one-block-a-row kernel sums
+// each row of per-tile partials in the fixed order (sum_partials_kernel),
+// so errs[s − 1] is bit for bit the error a launch of s sweeps reports, and
+// the partials are formed in legs.cuh's tile order, so the trigger kernels
+// that keep the tile pipeline (trigger.cu, trigger_stream.cu) report the
+// same errors as loops of these launches. No atomics: every metric is
+// deterministic.
 //
-// Shard mode (pallas_kernels.py, _fused_jacobi_shard_call, reached through
-// parallel/pallas_shard.py): every mode above on one shard's block of a
-// sharded level. The inputs are the block extended by ext_r halo rows and
-// ext_c halo columns per side, which the caller gathered from the ring
-// neighbours; (row0, col0) is the block's global origin. Tiles are laid over
+// rb-GS (rbgs_tile in legs.cuh) keeps the tile pipeline: k <= 4 red-black
+// Gauss-Seidel sweeps a pass, each two parity-masked half-updates done in
+// place in shared memory, so a sweep consumes two halo cells; the cpu or
+// clean error is Σ|Δ| of one ω = 1 Jacobi step from the final iterate (the
+// TPU kernel's identity Δ = (h²/4)·r). Bound: 12 B per point per pass, the
+// same memory traffic as the Jacobi mode for half the sweeps per pass.
+//
+// Shard mode: every mode above on one shard's block of a sharded level.
+// The inputs are the block extended by ext_r halo rows and ext_c halo
+// columns per side, which the caller gathered from the ring neighbours;
+// (row0, col0) is the block's global origin. Tiles and strips are laid over
 // the block, masks use global indices, only owned cells are written, and
 // the error partials count owned cells only: a shard's output is the
 // unsharded kernel's on its cells, bit for bit. The error comes back as the
@@ -47,21 +48,106 @@
 // that case launches the SHARD = false instantiation (common.cuh, region),
 // in which the shard geometry folds away.
 #include "legs.cuh"
+#include "wave2.cuh"
 
 using namespace mgk;
 
-template <bool SHARD>
-static __global__ void __launch_bounds__(THREADS)
+// K sweeps after level 0 (the input, or from_zero the closed form) with
+// error kind E of the last iterate.
+template <bool SHARD, int K, int E>
+static __global__ void __launch_bounds__(WaveShape<K, E, false>::THREADS)
 jacobi_kernel(const float* __restrict__ u, const float* __restrict__ f, float* __restrict__ out,
-              float* __restrict__ partials, Geo g_, int ext_r, int ext_c, int n_sweeps, int halo,
-              int from_zero, int err_mode, float h2, float omega, float inv_h2,
+              float* __restrict__ partials, Geo g, int ext_r, int ext_c, int chunk_rows,
+              int from_zero, int even_only, float h2, float omega, float inv_h2,
               float zero_coef) {
-  extern __shared__ float smem[];
-  const int t = blockIdx.y * gridDim.x + blockIdx.x;
-  const Geo g = region<SHARD>(g_);
-  jacobi_tile(smem, region<SHARD>(u, g, ext_r, ext_c), region<SHARD>(f, g, ext_r, ext_c), out,
-              partials ? partials + t : nullptr, blockIdx.x, blockIdx.y, g, n_sweeps, halo,
-              from_zero, err_mode, h2, omega, inv_h2, zero_coef);
+  wave2_pass<SHARD, K, E, false>(u, f, out, partials, g, ext_r, ext_c, chunk_rows, 0,
+                                 from_zero, even_only, h2, omega, inv_h2, zero_coef);
+}
+
+// K sweeps with error kind E of every iterate: `stride` partials a level.
+template <bool SHARD, int K, int E>
+static __global__ void __launch_bounds__(WaveShape<K, E, true>::THREADS)
+jacobi_errs_kernel(const float* __restrict__ u, const float* __restrict__ f,
+                   float* __restrict__ out, float* __restrict__ partials, Geo g, int ext_r,
+                   int ext_c, int chunk_rows, int stride, int even_only, float h2, float omega,
+                   float inv_h2) {
+  wave2_pass<SHARD, K, E, true>(u, f, out, partials, g, ext_r, ext_c, chunk_rows, stride, 0,
+                                even_only, h2, omega, inv_h2, 0.0f);
+}
+
+// One Jacobi-mode launch as the host sees it.
+struct JacobiCall {
+  const float* u;
+  const float* f;
+  float* out;
+  float* partials;
+  Geo g;
+  int ext_r, ext_c, from_zero, even_only;
+  float h2, omega, inv_h2, zero_coef;
+  cudaStream_t stream;
+};
+
+static dim3 wave_grid(const Geo& g, int rows, int warps_per_block) {
+  const long warps = (long)tiles_x(g) * ((g.rows + rows - 1) / rows);
+  return dim3((unsigned)((warps + warps_per_block - 1) / warps_per_block));
+}
+
+// Owned rows a chunk for every launch, a multiple of TILE_H; 0: the
+// occupancy rule's (wave2_chunk_rows). Set by mg_wave2_force_rows.
+static int forced_chunk_rows = 0;
+
+template <bool SHARD, int K, int E, bool ALL>
+static cudaError_t launch_wave(const JacobiCall& c) {
+  using S = WaveShape<K, E, ALL>;
+  static_assert(S::SMEM <= 48 * 1024, "a block's rings fit the default shared memory");
+  if constexpr (ALL) {
+    const auto kernel = jacobi_errs_kernel<SHARD, K, E>;
+    static const int resident = wave2_resident_warps(kernel, S::THREADS, S::SMEM);
+    const int rows =
+        forced_chunk_rows ? forced_chunk_rows : wave2_chunk_rows(c.g, resident, S::H);
+    kernel<<<wave_grid(c.g, rows, S::WARPS), S::THREADS, S::SMEM, c.stream>>>(
+        c.u, c.f, c.out, c.partials, c.g, c.ext_r, c.ext_c, rows, num_tiles(c.g), c.even_only,
+        c.h2, c.omega, c.inv_h2);
+  } else {
+    const auto kernel = jacobi_kernel<SHARD, K, E>;
+    static const int resident = wave2_resident_warps(kernel, S::THREADS, S::SMEM);
+    const int rows =
+        forced_chunk_rows ? forced_chunk_rows : wave2_chunk_rows(c.g, resident, S::H);
+    kernel<<<wave_grid(c.g, rows, S::WARPS), S::THREADS, S::SMEM, c.stream>>>(
+        c.u, c.f, c.out, c.partials, c.g, c.ext_r, c.ext_c, rows, c.from_zero, c.even_only,
+        c.h2, c.omega, c.inv_h2, c.zero_coef);
+  }
+  return cudaGetLastError();
+}
+
+// The instance of k sweeps (k a runtime count, 0..MAX_STEPS; the per-sweep
+// mode 1..MAX_STEPS, and 1..MAX_STEPS − 1 with a residual error, whose
+// halo is a row more).
+template <bool SHARD, int E, bool ALL, int K = (ALL ? 1 : 0)>
+static cudaError_t launch_wave_k(int k, const JacobiCall& c) {
+  if constexpr (K > MAX_STEPS - (ALL && E == WV_RES ? 1 : 0)) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (k == K) return launch_wave<SHARD, K, E, ALL>(c);
+    return launch_wave_k<SHARD, E, ALL, K + 1>(k, c);
+  }
+}
+
+template <bool ALL>
+static cudaError_t launch_jacobi(int k, int err_mode, const JacobiCall& c) {
+  const bool whole = whole_grid(c.g, c.ext_r, c.ext_c);
+  switch (err_mode) {
+    case ERR_NONE:
+      if constexpr (ALL) return cudaErrorInvalidValue;
+      else return whole ? launch_wave_k<false, WV_NONE, ALL>(k, c)
+                        : launch_wave_k<true, WV_NONE, ALL>(k, c);
+    case ERR_GPU:
+      return whole ? launch_wave_k<false, WV_GPU, ALL>(k, c)
+                   : launch_wave_k<true, WV_GPU, ALL>(k, c);
+    default:
+      return whole ? launch_wave_k<false, WV_RES, ALL>(k, c)
+                   : launch_wave_k<true, WV_RES, ALL>(k, c);
+  }
 }
 
 extern "C" int mg_num_tiles(int n) {
@@ -73,6 +159,16 @@ extern "C" int mg_num_tiles_block(int rows, int cols) {
   return num_tiles(Geo(0, 0, 0, rows, cols));
 }
 
+// Chunks of `rows` owned rows (a multiple of 32) for every later launch of
+// the Jacobi modes, or the occupancy rule's again with 0: the card's checks
+// take small grids through chunks of several tile rows, which the rule
+// gives only large ones.
+extern "C" int mg_wave2_force_rows(int rows) {
+  if (rows < 0 || rows % TILE_H != 0) return (int)cudaErrorInvalidValue;
+  forced_chunk_rows = rows;
+  return 0;
+}
+
 extern "C" const char* mg_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -82,10 +178,17 @@ static bool bad_geo(int n, int row0, int col0, int rows, int cols, int ext_r, in
          col0 + cols > n || ext_r < 0 || ext_c < 0;
 }
 
+// The wavefront's 16-byte copies (wave2.cuh) read from u's and f's 16-byte
+// chunks: both must start on one (u may be null from zero).
+static bool misaligned(const float* u, const float* f) {
+  return ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(f)) & 15) != 0;
+}
+
 // steps <= MAX_STEPS sweeps of the block u (ignored when from_zero) into
 // out, the owned rows x cols block at global (row0, col0); u and f are the
 // block extended by ext_r rows and ext_c columns per side (the halo must
-// cover the sweeps: ext >= steps, + 1 with a cpu / clean error). With
+// cover the sweeps: ext >= steps, + 1 with a cpu / clean error), each
+// starting 16-byte aligned (else cudaErrorMisalignedAddress). With
 // err_mode != ERR_NONE, partials holds mg_num_tiles_block(rows, cols)
 // floats and err_out[0] receives their sum times err_scale.
 extern "C" int mg_jacobi_shard(const float* u, const float* f, float* out, float* partials,
@@ -93,20 +196,15 @@ extern "C" int mg_jacobi_shard(const float* u, const float* f, float* out, float
                                int ext_r, int ext_c, int steps, int from_zero, int err_mode,
                                float h2, float omega, float inv_h2, float zero_coef,
                                float err_scale, void* stream) {
-  if (steps < 1 || steps > MAX_STEPS || bad_geo(n, row0, col0, rows, cols, ext_r, ext_c))
+  if (steps < 1 || steps > MAX_STEPS || err_mode < ERR_NONE || err_mode > ERR_GPU ||
+      bad_geo(n, row0, col0, rows, cols, ext_r, ext_c))
     return (int)cudaErrorInvalidValue;
+  if (misaligned(from_zero ? nullptr : u, f)) return (int)cudaErrorMisalignedAddress;
   const Geo g(n, row0, col0, rows, cols);
-  const int n_sweeps = steps - (from_zero ? 1 : 0);
-  const int halo = jacobi_halo(n_sweeps, err_mode);
-  const auto kernel = whole_grid(g, ext_r, ext_c) ? jacobi_kernel<false> : jacobi_kernel<true>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)tile_smem_bytes(MAX_HALO));
-  if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<tile_grid(g), dim3(BLOCK_X, BLOCK_Y), tile_smem_bytes(halo), s>>>(
-      u, f, out, partials, g, ext_r, ext_c, n_sweeps, halo, from_zero, err_mode, h2, omega,
-      inv_h2, zero_coef);
-  e = cudaGetLastError();
+  const JacobiCall c = {u, f, out, partials, g, ext_r, ext_c, from_zero ? 1 : 0,
+                        err_mode == ERR_CPU ? 1 : 0, h2, omega, inv_h2, zero_coef, s};
+  const cudaError_t e = launch_jacobi<false>(steps - (from_zero ? 1 : 0), err_mode, c);
   if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
   return (int)launch_error_sum(partials, num_tiles(g), err_scale, err_out, s);
 }
@@ -122,44 +220,25 @@ extern "C" int mg_jacobi(const float* u, const float* f, float* out, float* part
                          err_mode, h2, omega, inv_h2, zero_coef, err_scale, stream);
 }
 
-template <bool SHARD>
-static __global__ void __launch_bounds__(THREADS)
-jacobi_errs_kernel(const float* __restrict__ u, const float* __restrict__ f,
-                   float* __restrict__ out, float* __restrict__ partials, Geo g_, int ext_r,
-                   int ext_c, int n_sweeps, int halo, int err_mode, float h2, float omega,
-                   float inv_h2) {
-  extern __shared__ float smem[];
-  const int t = blockIdx.y * gridDim.x + blockIdx.x;
-  const Geo g = region<SHARD>(g_);
-  jacobi_errs_tile(smem, region<SHARD>(u, g, ext_r, ext_c), region<SHARD>(f, g, ext_r, ext_c),
-                   out, partials + t,
-                   gridDim.x * gridDim.y, blockIdx.x, blockIdx.y, g, n_sweeps, halo, err_mode,
-                   h2, omega, inv_h2);
-}
-
 // steps sweeps of the block u into out with the error of every iterate in
 // errs_out[0..steps) (each row of partials summed times err_scale); partials
-// holds steps * mg_num_tiles_block(rows, cols) floats. Geometry as
-// mg_jacobi_shard.
+// holds steps * mg_num_tiles_block(rows, cols) floats; steps <= MAX_STEPS
+// with the gpu error, MAX_STEPS − 1 with cpu or clean (errs_sweep_cap in
+// ops/kernels.py). Geometry and alignment as mg_jacobi_shard.
 extern "C" int mg_jacobi_errs_shard(const float* u, const float* f, float* out, float* partials,
                                     float* errs_out, int n, int row0, int col0, int rows,
                                     int cols, int ext_r, int ext_c, int steps, int err_mode,
                                     float h2, float omega, float inv_h2, float err_scale,
                                     void* stream) {
-  const int halo = jacobi_halo(steps, err_mode);
-  if (steps < 1 || steps > MAX_STEPS || halo > MAX_HALO || err_mode == ERR_NONE ||
-      bad_geo(n, row0, col0, rows, cols, ext_r, ext_c))
+  if (steps < 1 || steps > MAX_STEPS - (err_mode == ERR_GPU ? 0 : 1) || err_mode < ERR_CPU ||
+      err_mode > ERR_GPU || bad_geo(n, row0, col0, rows, cols, ext_r, ext_c))
     return (int)cudaErrorInvalidValue;
+  if (misaligned(u, f)) return (int)cudaErrorMisalignedAddress;
   const Geo g(n, row0, col0, rows, cols);
-  const auto kernel =
-      whole_grid(g, ext_r, ext_c) ? jacobi_errs_kernel<false> : jacobi_errs_kernel<true>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)tile_smem_bytes(MAX_HALO));
-  if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<tile_grid(g), dim3(BLOCK_X, BLOCK_Y), tile_smem_bytes(halo), s>>>(
-      u, f, out, partials, g, ext_r, ext_c, steps, halo, err_mode, h2, omega, inv_h2);
-  e = cudaGetLastError();
+  const JacobiCall c = {u, f, out, partials, g, ext_r, ext_c, 0, err_mode == ERR_CPU ? 1 : 0,
+                        h2, omega, inv_h2, 0.0f, s};
+  const cudaError_t e = launch_jacobi<true>(steps, err_mode, c);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_error_sum(partials, num_tiles(g), err_scale, errs_out, s, steps);
 }

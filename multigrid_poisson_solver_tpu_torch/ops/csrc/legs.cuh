@@ -1,10 +1,14 @@
-// The work of one tile for each fused operation: the smoother in its Jacobi,
-// per-sweep-error and rb-GS modes (jacobi.cu, trigger.cu, trigger_stream.cu),
-// the descend leg (descend.cu, chain_descend.cu) and the ascend leg
-// (ascend.cu, chain_ascend.cu). A one-launch kernel runs one tile per
-// block; a persistent kernel walks many tiles per block and levels or sweeps
-// between grid barriers. Both run this same code, so the chain and trigger
-// kernels reproduce the per-level launches bit for bit.
+// The work of one tile for each fused operation that keeps the tile
+// pipeline: the smoother's tile (jacobi_tile, jacobi_errs_tile) in the
+// trigger loops (trigger.cu, trigger_stream.cu) and the ring kernels
+// (rdma_jacobi.cu, rdma_trigger.cu); rb-GS (jacobi.cu); the descend leg
+// (descend.cu, chain_descend.cu) and the ascend leg (ascend.cu,
+// chain_ascend.cu). Kernel 1's Jacobi modes run wave2.cuh's wavefront
+// instead, whose iterates and error partials equal these tiles' bit for
+// bit. A one-launch kernel runs one tile per block; a persistent kernel
+// walks many tiles per block and levels or sweeps between grid barriers.
+// Both run this same code, so the chain and trigger kernels reproduce the
+// per-level launches bit for bit.
 //
 // `smem` holds tile_smem_bytes(halo): f, then two ping-pong buffers. Every
 // function starts with a barrier, so a block may call them back to back.

@@ -1,0 +1,408 @@
+// The row-streaming wavefront pass of the 2-D damped-Jacobi smoother
+// (kernel 1's Jacobi modes, jacobi.cu): k <= 8 sweeps in one pass over
+// device memory, with the cpu / clean / gpu error of the last iterate or of
+// every iterate (the per-sweep mode), whole grid or one shard's block.
+//
+// Work unit: a warp owns one column of the TILE_H x TILE_W error tiles (tile
+// column tx: TILE_W owned columns) and a chunk of whole tile rows, and
+// stages WV_COLS = TILE_W + 2·WV_PAD columns. Warps are independent: no
+// block barrier. Three layouts of a row:
+//  * loads: cp.async into per-warp rings in shared memory, WaveShape::D rows
+//    ahead. At k <= 2 sweeps, where the pass moves bytes more than it
+//    computes, in the 16-byte chunks that hold the row's staged columns (a
+//    row of 8193 floats is not 16-byte aligned: a ring row keeps the row at
+//    its address's offset within a chunk, and reads add it), lane x copying
+//    chunks x and x + 32; else 4 bytes a copy, lane x copying staged
+//    columns x + 32c (fewer registers and no offset to add, which the
+//    many-level passes need more). Rows outside the grid or the input
+//    window read 0; columns outside read 0, or with chunks whatever the
+//    window holds before its first column (the previous row's last
+//    floats), which reaches no owned cell: an interior cell reads only
+//    cells of the grid, and the window covers the halo wherever the block
+//    has a neighbour. u and f start 16-byte aligned (the entry points
+//    refuse others), so the chunk that holds the first window row's first
+//    column starts there and no copy reads outside the window (a chunk
+//    past its last column copies only the floats up to it). 4-byte copies
+//    for that one chunk instead raised the k <= 2 instances' registers by
+//    up to half and cost them 12-40% (A/B on the H100);
+//  * sweeps: lane x holds the five adjacent staged columns 5x + c, so a
+//    point's side neighbours are the lane's own but for one column from
+//    each adjacent lane (one shuffle each way a row);
+//  * stores and error terms: a row goes through a per-warp row in shared
+//    memory to the tile layout, lane x holding tile columns x + 32q, so
+//    stores are coalesced and every error term reaches the thread that
+//    legs.cuh's error_partial gives it.
+//
+// Wavefront ("2.5-D" blocking): at row step r the warp takes row r of u
+// and f from the rings, and for s = 1..k in order computes level s (the
+// iterate after s sweeps) at row r − s from level s − 1's rows r − s − 1,
+// r − s (kept in registers from earlier steps) and r − s + 1 (just
+// computed). Level s is exact on staged columns [s, WV_COLS − s), and a
+// chunk starts H = k (+1 for a residual error) rows above its first owned
+// row and ends H rows past its last, so every owned cell of level k (and
+// its ring, for the residual) is exact. u and f are read once and the output
+// written once a pass, times WV_COLS / TILE_W for the halo columns and 1 +
+// 2H / chunk_rows for the halo rows. from_zero: level 0 is the closed form
+// zero_coef·f on the interior (0 elsewhere) and u is not read.
+//
+// Arithmetic: jacobi_point, residual_point and nb_sum's order (common.cuh);
+// frozen cells copy their value. So every iterate is bit for bit the plain
+// twin's and the tile pipeline's.
+//
+// Error partials: bit for bit error_partial + block_sum (common.cuh) of the
+// tile pipeline, which the trigger kernels 8, 9, 17 and 18 keep: there,
+// thread (x, y) of a block adds, from +0 and in this order, the cells of
+// tile rows y, y + 8, y + 16, y + 24, in each row columns x, x + 32, x + 64,
+// x + 96; then a butterfly (xor 16..1) over each warp, then the same over
+// the eight warp sums, of which lanes 8..31 hold +0. Here lane x is thread
+// x of every warp y: it keeps one accumulator per tile row mod 8 (in shared
+// memory) and adds its four tile columns of a row in order. After a tile's
+// last row the warp runs the eight butterflies, which pair the same lanes
+// as before, and forms the final butterfly's sum, ((w0 + w4) + (w2 + w6)) +
+// ((w1 + w5) + (w3 + w7)), its +0 terms dropped (an exact identity on sums
+// from +0). The partial of tile t = ty·tiles_x + tx of level s goes to
+// partials[(s − 1)·stride + t] (the fixed mode: partials[t]), for
+// sum_partials_kernel.
+#pragma once
+
+#include "common.cuh"
+
+namespace mgk {
+
+constexpr int WV_SLOTS = 5;              // staged columns a lane holds
+constexpr int WV_PAD = 16;               // halo columns a side (>= MAX_HALO)
+constexpr int WV_COLS = 32 * WV_SLOTS;   // staged columns of a warp
+constexpr int WV_CHUNKS = WV_COLS / 4 + 1;   // 16-byte chunks holding them at any offset
+constexpr int WV_ROW = 4 * WV_CHUNKS;        // floats of a ring row
+constexpr int WV_START_ROWS = 16;       // a warp's start-up, in row steps
+constexpr unsigned WV_FULL = 0xffffffffu;
+static_assert(WV_COLS == TILE_W + 2 * WV_PAD, "a warp stages its tile column and the halo");
+
+enum WaveErr { WV_NONE = 0, WV_GPU = 1, WV_RES = 2 };   // no error, Σ|Δu|, Σ|r| (cpu, clean)
+
+// The pass's compile-time shape: K sweeps after level 0, error kind E, and
+// ALL: the error of every level (the per-sweep mode) or of level K alone.
+template <int K, int E, bool ALL>
+struct WaveShape {
+  static constexpr int H = K + (E == WV_RES ? 1 : 0);   // halo rows (and columns) read
+  static constexpr int D = K <= 2 ? 4 : 2;              // rows loaded ahead
+  static constexpr bool CHUNKS = K <= 2;                // 16-byte copies
+  static constexpr int NF = H + 1 + D;                  // f ring: rows r − H .. r + D
+  static constexpr int NU = D + 1;                      // u ring: rows r .. r + D
+  static constexpr int NL = E == WV_NONE ? 0 : (ALL ? K : 1);   // accumulated levels
+  static constexpr int WIN = H > 0 ? H : 1;             // level windows: levels 0 .. H − 1
+  // the rings, the row exchange and the accumulators of one warp
+  static constexpr int WARP_FLOATS = (NF + NU) * WV_ROW + WV_COLS + NL * 8 * 32;
+  static constexpr int WARPS = WARP_FLOATS * 4 * 4 <= 48 * 1024 ? 4 : 2;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr size_t SMEM = (size_t)WARPS * WARP_FLOATS * sizeof(float);
+};
+
+// BYTES (4 or 16) global -> shared, asynchronously: the first src_size
+// bytes from src, the rest 0.
+template <int BYTES>
+static __device__ __forceinline__ void wave_copy(float* dst, const float* src, int src_size) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+               "n"(BYTES), "r"(src_size));
+}
+
+// m ? a : b for a mask m of all ones or all zeros, as bit operations: a
+// select that never becomes a branch (a per-lane ternary did, and took a
+// third of the pass), its mask computed once.
+static __device__ __forceinline__ float wave_pick(unsigned m, float a, float b) {
+  return __uint_as_float((__float_as_uint(a) & m) | (__float_as_uint(b) & ~m));
+}
+
+static __device__ __forceinline__ unsigned wave_mask(bool p) {
+  return p ? 0xffffffffu : 0u;
+}
+
+static __device__ __forceinline__ void wave_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+static __device__ __forceinline__ void wave_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The pass of one warp (see the header). g_ is the owned region, u and f its
+// windows extended by ext_r rows and ext_c columns a side; chunk_rows is a
+// multiple of TILE_H. Launched with WaveShape::THREADS threads a block and
+// WaveShape::SMEM bytes of dynamic shared memory.
+template <bool SHARD, int K, int E, bool ALL>
+static __device__ __forceinline__ void wave2_pass(
+    const float* __restrict__ u, const float* __restrict__ f, float* __restrict__ out,
+    float* __restrict__ partials, const Geo& g_, int ext_r, int ext_c, int chunk_rows,
+    int stride, int from_zero, int even_only, float h2, float omega, float inv_h2,
+    float zero_coef) {
+  using S = WaveShape<K, E, ALL>;
+  extern __shared__ float wv_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const Geo g = region<SHARD>(g_);
+  const int n = g.n;
+  const int tx_n = tiles_x(g);
+  const int chunks = (g.rows + chunk_rows - 1) / chunk_rows;
+  const int w_id = blockIdx.x * S::WARPS + warp;
+  if (w_id >= tx_n * chunks) return;
+  const int tx = w_id % tx_n, ch = w_id / tx_n;
+  const int a = ch * chunk_rows, b = min(a + chunk_rows, g.rows);
+
+  float* const ring_f = wv_smem + warp * S::WARP_FLOATS;   // [NF][WV_ROW]
+  float* const ring_u = ring_f + S::NF * WV_ROW;            // [NU][WV_ROW]
+  float* const xrow = ring_u + S::NU * WV_ROW;              // a row between layouts
+  float* const acc = xrow + WV_COLS;                        // [NL][8][32]
+  const int lc = WV_SLOTS * lane;                           // the lane's first column
+
+  // the input windows (u's and f's share their geometry), cut to the grid
+  const Win wf = region<SHARD>(f, g, ext_r, ext_c);
+  const int r_lo = max(0, wf.r0), r_hi = min(n, wf.r0 + wf.rows);
+  const int c_lo = max(0, wf.c0), c_hi = min(n, wf.c0 + wf.cols);
+  const int gc0 = g.col0 + tx * TILE_W - WV_PAD;   // global column of staged column 0
+  const int gt0 = gc0 + WV_PAD + lane;             // thread lane's tile column 0, global
+  const Span sp = owned_interior(g);
+  unsigned own_m = 0;
+  unsigned int_m[WV_SLOTS], err_m[TILE_W / 32];   // select masks
+#pragma unroll
+  for (int c = 0; c < WV_SLOTS; ++c) {
+    const int gj = gc0 + lc + c;          // computed column
+    int_m[c] = wave_mask(gj >= 1 && gj <= n - 2);
+  }
+#pragma unroll
+  for (int q = 0; q < TILE_W / 32; ++q) {
+    const int gj = gt0 + 32 * q;          // tile column lane + 32q
+    const bool own = gj < g.col0 + g.cols;
+    own_m |= (own ? 1u : 0u) << q;
+    err_m[q] = wave_mask(own && gj >= sp.j_lo && gj <= sp.j_hi);
+  }
+  // staged column 0 of window row gi lies at float offset (q + gi·cols) & 3
+  // of a 16-byte chunk, q for u's and f's base addresses
+  const unsigned cols = (unsigned)wf.cols;
+  const unsigned q0 = (unsigned)(gc0 - wf.c0) - (unsigned)wf.r0 * cols;
+  const unsigned qf = (unsigned)(reinterpret_cast<uintptr_t>(f) >> 2) + q0;
+  const unsigned qu = (unsigned)(reinterpret_cast<uintptr_t>(u) >> 2) + q0;
+  const int par = gt0 & 1;                         // parity of the lane's tile columns
+#pragma unroll
+  for (int i = 0; i < S::NL * 8; ++i) acc[i * 32 + lane] = 0.0f;
+
+  // window row gi of src into ring row dst. Chunks: from the one that holds
+  // staged column 0, lane copying chunks lane and lane + 32, a chunk reading
+  // up to the window's last column of the row (none outside its rows).
+  // Else: lane copying staged columns lane + 32c of the window.
+  auto fetch_row = [&](const float* __restrict__ src, unsigned q, int gi, float* dst) {
+    const bool rin = gi >= r_lo && gi < r_hi;
+    if constexpr (S::CHUNKS) {
+      const int m = (int)((q + (unsigned)gi * cols) & 3);
+      const float* const row0 = src + (ptrdiff_t)(gi - wf.r0) * wf.cols + (gc0 - wf.c0) - m;
+      auto chunk = [&](int k) {
+        const int cs = gc0 - m + 4 * k;   // global column of the chunk's first float
+        const int bytes = rin && cs + 4 > c_lo && cs < c_hi ? 4 * min(4, c_hi - cs) : 0;
+        wave_copy<16>(dst + 4 * k, bytes ? row0 + 4 * k : src, bytes);
+      };
+      chunk(lane);
+      if (lane < WV_CHUNKS - 32) chunk(lane + 32);
+    } else {
+      const float* const row = src + (ptrdiff_t)(gi - wf.r0) * wf.cols + (gc0 - wf.c0) + lane;
+#pragma unroll
+      for (int c = 0; c < WV_SLOTS; ++c) {
+        const int gl = gc0 + lane + 32 * c;
+        const bool ok = rin && gl >= c_lo && gl < c_hi;
+        wave_copy<4>(dst + lane + 32 * c, ok ? row + 32 * c : src, ok ? 4 : 0);
+      }
+    }
+  };
+  // row gi of f (and u) into ring slots fs (us)
+  auto fetch = [&](int gi, int fs, int us) {
+    fetch_row(f, qf, gi, ring_f + fs * WV_ROW);
+    if (!from_zero) fetch_row(u, qu, gi, ring_u + us * WV_ROW);
+    wave_commit();
+  };
+  // the float offset within its chunk at which window row gi starts in a
+  // ring row (0 without chunks), and this lane's columns of f's ring row
+  // `slot` holding row gi
+  auto shift = [&](unsigned q, int gi) {
+    return S::CHUNKS ? (int)((q + (unsigned)gi * cols) & 3) : 0;
+  };
+  auto at_f = [&](int slot, int gi) { return ring_f + slot * WV_ROW + shift(qf, gi) + lc; };
+
+  // row v (this lane's columns lc + c) into the tile layout: thread lane's
+  // tile columns lane + 32q
+  auto exchange = [&](const float (&v)[WV_SLOTS], float (&t)[TILE_W / 32]) {
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < WV_SLOTS; ++c) xrow[lc + c] = v[c];
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < TILE_W / 32; ++q) t[q] = xrow[WV_PAD + lane + 32 * q];
+  };
+
+  const int ga = g.row0 + a, gb = g.row0 + b;
+
+  // the owned cells of global row gi of the last level
+  auto store = [&](int gi, const float (&v)[WV_SLOTS]) {
+    if (gi < ga || gi >= gb) return;
+    float t[TILE_W / 32];
+    exchange(v, t);
+    float* const row = out + (ptrdiff_t)(gi - g.row0) * g.cols + (gt0 - g.col0);
+#pragma unroll
+    for (int q = 0; q < TILE_W / 32; ++q)
+      if ((own_m >> q) & 1) row[32 * q] = t[q];
+  };
+
+  // error_partial's terms of global row gi (|v| on the owned interior cells,
+  // the even color for cpu) into accumulated level lv's accumulator of tile
+  // row gi mod 8; after the tile's last row, block_sum's order over the
+  // accumulators into row lv of the partials
+  auto add = [&](int lv, int gi, const float (&v)[WV_SLOTS]) {
+    const int le = gi - g.row0;
+    if (le < a || le >= b) return;
+    float t[TILE_W / 32];
+    exchange(v, t);
+    const unsigned row_m =
+        wave_mask(gi >= sp.i_lo && gi <= sp.i_hi && !(even_only && ((gi + par) & 1)));
+    float* const p = acc + (lv * 8 + (le & 7)) * 32 + lane;
+    float sum = *p;
+#pragma unroll
+    for (int q = 0; q < TILE_W / 32; ++q)   // a masked cell adds +0
+      sum = __fadd_rn(sum, wave_pick(row_m & err_m[q], fabsf(t[q]), 0.0f));
+    *p = sum;
+    if ((le & (TILE_H - 1)) != TILE_H - 1 && le != b - 1) return;
+    float w[8];
+#pragma unroll
+    for (int y = 0; y < 8; ++y) {
+      float* const q = acc + (lv * 8 + y) * 32 + lane;
+      float x = *q;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(WV_FULL, x, o));
+      w[y] = x;
+      *q = 0.0f;
+    }
+    const float total = __fadd_rn(__fadd_rn(__fadd_rn(w[0], w[4]), __fadd_rn(w[2], w[6])),
+                                  __fadd_rn(__fadd_rn(w[1], w[5]), __fadd_rn(w[3], w[7])));
+    if (lane == 0) partials[(size_t)lv * stride + (le >> 5) * tx_n + tx] = total;
+  };
+
+  const int r_first = ga - S::H, r_end = gb + S::H;
+#pragma unroll
+  for (int d = 0; d < S::D; ++d) fetch(r_first + d, d, d);
+
+  // level j's rows r − j − 2 (nw) and r − j − 1 (cw) at the start of step r
+  float nw[S::WIN][WV_SLOTS], cw[S::WIN][WV_SLOTS];
+#pragma unroll
+  for (int j = 0; j < S::WIN; ++j)
+#pragma unroll
+    for (int c = 0; c < WV_SLOTS; ++c) nw[j][c] = cw[j][c] = 0.0f;
+
+  int fs = 0, us = 0;   // ring slots of row r
+  for (int r = r_first; r < r_end; ++r) {
+    wave_wait<S::D - 1>();   // this lane's copies of row r have landed
+    __syncwarp();            // and every lane's; every lane is done with step r − 1
+    {
+      int fd = fs + S::D, ud = us + S::D;
+      if (fd >= S::NF) fd -= S::NF;
+      if (ud >= S::NU) ud -= S::NU;
+      fetch(r + S::D, fd, ud);
+    }
+
+    // level 0 at row r
+    float cur[WV_SLOTS];
+    const float* const fr = at_f(fs, r);
+    if (from_zero) {
+      const unsigned ri = wave_mask(r >= 1 && r <= n - 2);
+#pragma unroll
+      for (int c = 0; c < WV_SLOTS; ++c)
+        cur[c] = wave_pick(ri & int_m[c], __fmul_rn(zero_coef, fr[c]), 0.0f);
+    } else {
+#pragma unroll
+      for (int c = 0; c < WV_SLOTS; ++c)
+        cur[c] = ring_u[us * WV_ROW + shift(qu, r) + lc + c];
+    }
+    if (K == 0) {
+      store(r, cur);
+      if (E == WV_GPU) add(0, r, cur);   // Δ from the zero iterate
+    }
+
+    // iteration s reads level s − 1's rows r − s − 1, r − s, r − s + 1 (cur):
+    // level s at row r − s for s <= K, level s − 1's residual at row r − s
+#pragma unroll
+    for (int s = 1; s <= S::H; ++s) {
+      const int gi = r - s;
+      const bool ri = gi >= 1 && gi <= n - 2;
+      int sl = fs - s;
+      if (sl < 0) sl += S::NF;
+      const float* const fl = at_f(sl, gi);
+      const float (&uc)[WV_SLOTS] = cw[s - 1];
+      // the side neighbours: the lane's own columns, and one column of each
+      // adjacent lane (staged columns −1 and WV_COLS read a lane's own)
+      const float left = __shfl_up_sync(WV_FULL, uc[WV_SLOTS - 1], 1);
+      const float right = __shfl_down_sync(WV_FULL, uc[0], 1);
+      const bool res_here = E == WV_RES && (ALL ? s >= 2 : s - 1 == K);
+      float nxt[WV_SLOTS], res[WV_SLOTS];
+#pragma unroll
+      for (int c = 0; c < WV_SLOTS; ++c) {
+        const float we = c > 0 ? uc[c - 1] : left;
+        const float ea = c < WV_SLOTS - 1 ? uc[c + 1] : right;
+        const float nb = __fadd_rn(__fadd_rn(__fadd_rn(nw[s - 1][c], cur[c]), we), ea);
+        const float fc = fl[c];
+        if (s <= K) nxt[c] = wave_pick(int_m[c], jacobi_point(nb, uc[c], fc, h2, omega), uc[c]);
+        if (res_here) res[c] = residual_point(nb, uc[c], fc, inv_h2);
+      }
+      if (s <= K && !ri) {   // a frozen row (uniform across the warp)
+#pragma unroll
+        for (int c = 0; c < WV_SLOTS; ++c) nxt[c] = uc[c];
+      }
+      if (res_here) add(ALL ? s - 2 : 0, gi, res);
+      if (E == WV_GPU && s <= K && (ALL || s == K)) {
+        float d[WV_SLOTS];
+#pragma unroll
+        for (int c = 0; c < WV_SLOTS; ++c) d[c] = __fsub_rn(nxt[c], uc[c]);
+        add(ALL ? s - 1 : 0, gi, d);
+      }
+#pragma unroll
+      for (int c = 0; c < WV_SLOTS; ++c) {
+        nw[s - 1][c] = cw[s - 1][c];
+        cw[s - 1][c] = cur[c];
+        if (s <= K) cur[c] = nxt[c];
+      }
+      if (s == K) store(gi, cur);
+    }
+    if (++fs == S::NF) fs = 0;
+    if (++us == S::NU) us = 0;
+  }
+  wave_wait<0>();
+}
+
+// Warps of `kernel` the card keeps resident at `threads` a block and `smem`
+// bytes of dynamic shared memory.
+template <class F>
+static int wave2_resident_warps(F kernel, int threads, size_t smem) {
+  int dev = 0, sms = 0, blocks = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  return max(1, blocks) * (threads / 32) * max(1, sms);
+}
+
+// Owned rows of a chunk for g: the multiple of TILE_H that finishes first
+// when `resident` warps run at once and a warp's time grows with the rows it
+// sweeps, its own and the 2·halo it shares, after a start-up worth
+// WV_START_ROWS (its first rows' load latency): waves × (rows + 2·halo +
+// WV_START_ROWS). Of equal times the most rows (the fewest halo reads).
+static inline int wave2_chunk_rows(const Geo& g, int resident, int halo) {
+  const long strips = tiles_x(g);
+  int best = TILE_H;
+  long best_cost = -1;
+  for (int rows = TILE_H; rows < g.rows + TILE_H; rows += TILE_H) {
+    const long warps = strips * ((g.rows + rows - 1) / rows);
+    const long cost = (warps + resident - 1) / resident * (rows + 2 * halo + WV_START_ROWS);
+    if (best_cost < 0 || cost <= best_cost) {
+      best = rows;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+}  // namespace mgk

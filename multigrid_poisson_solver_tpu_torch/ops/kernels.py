@@ -49,6 +49,7 @@ the shards in shard order before scaling. They count under their own names
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 
@@ -437,6 +438,29 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(t):
+    """t, or a copy of it where it does not start 16-byte aligned (a view at
+    an offset): kernel 1's Jacobi modes copy rows in 16-byte chunks."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+@contextlib.contextmanager
+def forced_chunk_rows(rows: int):
+    """Kernel 1's Jacobi-mode launches (whole grid and shard mode) with
+    chunks of ``rows`` owned rows, a multiple of 32, instead of the ones
+    ``csrc/wave2.cuh``'s occupancy rule picks, which are one tile row at
+    small sizes: lets a check reach chunks of several tile rows on small
+    grids. The iterate and the errors do not depend on the chunks."""
+    from . import build
+
+    lib = build.load()
+    _raise_on(lib, lib.mg_wave2_force_rows(rows), "wave2 chunk rows")
+    try:
+        yield
+    finally:
+        lib.mg_wave2_force_rows(0)
+
+
 def _err_buffers(lib, mode, n: int, device):
     """(per-tile partials, the 1-element metric), or Nones without an error."""
     if mode is None:
@@ -452,7 +476,8 @@ def _jacobi_cuda(u, f, h: float, steps: int, omega: float, from_zero: bool, mode
         _check("u", u, (n, n), dev)
     out = torch.empty_like(f)
     partials, err = _err_buffers(lib, mode, n, dev)
-    rc = lib.mg_jacobi(_ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
+    u, f = _aligned(None if from_zero else u), _aligned(f)
+    rc = lib.mg_jacobi(_ptr(u), f.data_ptr(), out.data_ptr(),
                        _ptr(partials), _ptr(err), n, steps, int(from_zero),
                        _ERR_CODES[mode], h * h, omega, 1.0 / (h * h), _zero_coef(h, omega),
                        _err_scale(mode, n, h) if mode else 0.0, stream)
@@ -733,6 +758,7 @@ def fused_jacobi_errs(u, f, h: float, steps: int, omega: float = 1.0, compat=Tru
     out = torch.empty_like(f)
     partials = torch.empty(steps * lib.mg_num_tiles(n), dtype=torch.float32, device=dev)
     errs = torch.empty(steps, dtype=torch.float32, device=dev)
+    u, f = _aligned(u), _aligned(f)
     rc = lib.mg_jacobi_errs(u.data_ptr(), f.data_ptr(), out.data_ptr(), partials.data_ptr(),
                             errs.data_ptr(), n, steps, _ERR_CODES[mode], h * h, omega,
                             1.0 / (h * h), _err_scale(mode, n, h), stream)
@@ -1108,7 +1134,8 @@ def fused_jacobi_shard(u_ext, f_ext, geo: ShardGeo, h: float, steps: int, omega:
         _raise_on(lib, rc, "rbgs shard")
         launches["rbgs_shard"] += 1
     else:
-        rc = lib.mg_jacobi_shard(_ptr(None if from_zero else u_ext), f_ext.data_ptr(),
+        u_ext, f_ext = _aligned(None if from_zero else u_ext), _aligned(f_ext)
+        rc = lib.mg_jacobi_shard(_ptr(u_ext), f_ext.data_ptr(),
                                  out.data_ptr(), _ptr(partials), _ptr(err), *_geo_args(geo),
                                  steps, int(from_zero), mode_code, h * h, omega, 1.0 / (h * h),
                                  _zero_coef(h, omega), 1.0, stream)
@@ -1131,6 +1158,7 @@ def fused_jacobi_errs_shard(u_ext, f_ext, geo: ShardGeo, h: float, steps: int,
     lib, stream, dev = _shard_launch_args(u_ext, f_ext, geo, steps + (err_mode != "gpu"))
     out = torch.empty((geo.rows, geo.cols), dtype=f_ext.dtype, device=dev)
     partials, raws = _shard_err_buffers(lib, err_mode, geo, dev, steps)
+    u_ext, f_ext = _aligned(u_ext), _aligned(f_ext)
     rc = lib.mg_jacobi_errs_shard(u_ext.data_ptr(), f_ext.data_ptr(), out.data_ptr(),
                                   partials.data_ptr(), raws.data_ptr(), *_geo_args(geo), steps,
                                   _ERR_CODES[err_mode], h * h, omega, 1.0 / (h * h), 1.0, stream)

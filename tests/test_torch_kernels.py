@@ -473,7 +473,7 @@ def test_c_entry_points_match_ctypes_signatures():
         "chain_descend.cu", "chain_ascend.cu", "trigger.cu", "residual_mw.cu",
         "trigger_stream.cu", "jacobi3.cu", "descend3.cu", "ascend3.cu",
         "residual3.cu", "trigger3.cu", "trigger3_stream.cu", "residual_mw3.cu", "col3.cuh",
-        "col3_legs.cuh", "ring.cuh",
+        "col3_legs.cuh", "ring.cuh", "wave2.cuh",
         "rdma.cuh", "rdma_jacobi.cu", "rdma_trigger.cu", "rdma3.cuh", "rdma_jacobi3.cu",
         "rdma_descend3.cu", "rdma_ascend3.cu", "rdma_trigger3.cu"}
     assert build.library_path().parent == build.BUILD_DIR
