@@ -14,7 +14,10 @@ Phases (progress on stdout; the first failure exits non-zero):
      n = 1025 and 1031 (several tiles per dimension, ragged last tiles),
      every sweep count, error mode and from_zero (kernel 1's Jacobi modes
      also with chunks forced to 64 and 256 rows, and on views at a 4-byte
-     offset, which its wrappers copy); and at the shapes the main
+     offset, which its wrappers copy; the legs, kernels 3 and 4, on both
+     routes, the tile kernel and the wavefront, every output of one bit for
+     bit the other's, and on the wavefront with chunks forced to 64 and 256
+     rows); and at the shapes the main
      paths give them (legs at 4097² and 2049², chains from 1025², smoother,
      residual and trigger loop at 256² down to 8², the multi-word residual
      and the per-sweep errors at 8193², the streamed trigger loop at 2305²
@@ -32,7 +35,8 @@ Phases (progress on stdout; the first failure exits non-zero):
   3. the library path: 4097² V(3,3) (ω = 0.8, coarsen=3, dense coarse solve)
      through compile_program, one cold and five warm cycles, with the CUDA
      kernels and with plain PyTorch: the iterates after 1 and 6 cycles,
-     the float64 relative residuals, ms/cycle;
+     the float64 relative residuals, ms/cycle, a profile of the kernels'
+     cycle;
   4. the CLI path: schedules/Vcycle.txt and schedules/VcycleTrigger.txt
      (compiled engine), each in a subprocess and in process;
   5. smoother throughput at 8193², 8 sweeps per launch (the launch's
@@ -67,8 +71,11 @@ Phases (progress on stdout; the first failure exits non-zero):
      2, 3, 4 and 8 shards and a 2 x 4 block mesh (several tiles a shard,
      ragged last shards and tiles), steps 1-8 and 11, from_zero, every
      error mode, per_sweep, rb-GS, both restrictions (kernel 1's shard
-     modes also with chunks forced to 64 and 256 rows); every shard mode's
-     owned cells bit for bit against the unsharded kernel; kernel 17 with
+     modes also with chunks forced to 64 and 256 rows; the legs' shard
+     modes also on the wavefront, with the rule's chunks and chunks of 64
+     and 256 rows, bit for bit against the tile kernel, errors too); every
+     shard mode's owned cells bit for bit against the unsharded kernel;
+     kernel 17 with
      caps of 1-60 sweeps and a mid-loop trigger bit for bit against the loop
      of one-sweep sharded error launches. G2: at 4097² on 8 shards
      (threshold 16) through compile_program(policy=...) with halo ppermute
@@ -126,7 +133,10 @@ Phases (progress on stdout; the first failure exits non-zero):
      the loop of one-sweep sharded error steps, and timed a sweep at 257³,
      129³ and 65³. Kernel 10's one-sweep shard step (129³, 65³ on 8
      z-shards) and its fixed modes at 513³ (3 sweeps + clean, + gpu, from
-     zero; whole grid and 8 z-shards) are timed too, and the legs (kernels
+     zero; whole grid and 8 z-shards) are timed too, the 2-D legs (kernels
+     3 and 4) at 8193², 2049², 1025² and 257² (device µs from CUDA graph
+     replays below 8193²) and their shard modes at 4097² on 8 row shards
+     (device µs a pass), and the 3-D legs (kernels
      11 and 12 on their column passes) at 129³ and 65³, whole grid and on 8
      z-shards, with kernel 11 from zero at 513³; the ring kernels 20-22 and
      kernel 20's exchange path at 129³ and 65³ on 8 z-shards, and kernel 13
@@ -421,11 +431,25 @@ def phase2(K, torch, cmp, problem, GridSpec):
 
     omega = 0.8
 
-    def legs(n, steps_list, modes, fzs, restrictions, ascend=True):
+    def legs(n, steps_list, modes, fzs, restrictions, ascend=True, routes=(None,)):
+        """The legs against their twins; with several ``routes`` (None: the
+        size rule's; "tile", "wave": K.forced_leg_route) each route, and
+        every output of each bit for bit the first route's."""
         h = 1.0 / (n - 1)
         u, f = rand(n, n), rand(n, n)
         m = (n + 1) // 2
         uc = rand(m, m)
+
+        def on_routes(name, what, fn):
+            outs = []
+            for route in routes:
+                with K.forced_leg_route(route) if route else contextlib.nullcontext():
+                    outs.append(fn())
+            for route, out in zip(routes[1:], outs[1:]):
+                require(all(a is b or bool(torch.equal(a, b)) for a, b in zip(out, outs[0])),
+                        f"{name} {what}: the {route} route differs from the {routes[0]} route")
+            return outs[0]
+
         for steps in steps_list:
             for compat in modes:
                 tag = f"n={n} steps={steps} err={compat}"
@@ -434,9 +458,10 @@ def phase2(K, torch, cmp, problem, GridSpec):
                     # from_zero: the kernel must not read u, so u stays random
                     for restriction in restrictions:
                         args = (h, steps, omega, restriction, mode, compat is not None, fz)
-                        gu, gfc, ge = K.fused_descend(u, f, *args)
-                        wu, wfc, we = K.fused_descend_torch(u, f, *args)
                         what = f"{tag} fz={fz} {restriction}"
+                        gu, gfc, ge = on_routes("descend", what,
+                                                lambda: K.fused_descend(u, f, *args))
+                        wu, wfc, we = K.fused_descend_torch(u, f, *args)
                         cmp.grid("descend", what + " u", gu, wu)
                         cmp.grid("descend", what + " f_coarse", gfc, wfc)
                         if compat is not None:
@@ -444,7 +469,7 @@ def phase2(K, torch, cmp, problem, GridSpec):
                         cmp.cases["descend"] += 1
                 if ascend:
                     args = (h, steps, omega, mode, compat is not None)
-                    gu, ge = K.fused_ascend(u, f, uc, *args)
+                    gu, ge = on_routes("ascend", tag, lambda: K.fused_ascend(u, f, uc, *args))
                     wu, we = K.fused_ascend_torch(u, f, uc, *args)
                     cmp.grid("ascend", tag, gu, wu)
                     if compat is not None:
@@ -578,8 +603,9 @@ def phase2(K, torch, cmp, problem, GridSpec):
     # several tiles per dimension, ragged last tiles; every mode
     for n in (1025, 1031):
         smoother(n, (1, 3, 7, 8), (None, True, False, "gpu"), (False, True))
+        # the legs on both routes (the size rule takes the tile kernel here)
         legs(n, (1, 3, 7, 8), (None, True, False, "gpu"), (False, True),
-             ("sampling", "full_weighting"))
+             ("sampling", "full_weighting"), routes=("tile", "wave"))
         for compat in (True, False, "gpu"):
             for max_sweeps in (50, 51):   # the final iterate in either buffer
                 trigger(n, rand(n, n), rand(n, n), compat, 0.0, max_sweeps, loop=True)
@@ -594,6 +620,11 @@ def phase2(K, torch, cmp, problem, GridSpec):
             for n in (1025, 1031):
                 smoother(n, range(1, 9), (None, True, False, "gpu"), (False, True), negate=())
                 jacobi_errs(n)
+                # the legs' wavefront the same way: every sweep count, error
+                # kind, from_zero and restriction, its outputs bit for bit the
+                # tile kernel's
+                legs(n, range(1, 9), (None, True, False, "gpu"), (False, True),
+                     ("sampling", "full_weighting"), routes=("wave", "tile"))
     # u and f 4 bytes into a buffer (contiguous views): kernel 1's entry
     # points refuse them (its 16-byte copies), its wrappers pass aligned
     # copies, and the results are the aligned inputs', bit for bit
@@ -621,8 +652,9 @@ def phase2(K, torch, cmp, problem, GridSpec):
         require(rc == 716, f"mg_jacobi took a misaligned u and f (rc {rc}, not "
                 "cudaErrorMisalignedAddress)")
     # the library path's legs: 3 sweeps, sampling, the finest level's cpu error
+    # (the size rule's wavefront, its outputs bit for bit the tile kernel's)
     for n in (4097, 2049):
-        legs(n, (3,), (None, True), (False, True), ("sampling",))
+        legs(n, (3,), (None, True), (False, True), ("sampling",), routes=(None, "tile"))
     # the library path's chains (1025 → 9, from zero) and other ladders
     chains(ladder(1025), (3,) * 7, (3,) * 7, "sampling", True, True, False)
     chains(ladder(1025), (3,) * 7, (3,) * 7, "sampling", False, True, True)
@@ -2303,6 +2335,72 @@ def phase_g1(K, torch, cmp):
                                 f"jacobi_errs_shard {w}: errs[{s - 1}] differs from the error "
                                 f"of {s} sweeps")
         torch.cuda.synchronize()
+    # the legs' shard modes on the wavefront (the size rule sends these
+    # blocks to the tile kernel, which the loops above hold) with the
+    # occupancy rule's chunks and chunks of 64 and 256 rows: per shard bit for
+    # bit against the twins, the tile kernel (errors too) and the unsharded
+    # kernel, on rings of 2, 3, 4 and 8 shards and 2 x 4 blocks
+    def legs_on(route, fn):
+        with K.forced_leg_route(route):
+            return fn()
+
+    for rows in (None, 64, 256):
+        with K.forced_chunk_rows(rows) if rows else contextlib.nullcontext():
+            for n in (1025, 1031):
+                h = 1.0 / (n - 1)
+                u, f = rand(n, n), rand(n, n)
+                m = (n + 1) // 2
+                uc = rand(m, m)
+                for tag, pol in pols.items():
+                    lay = S.layout_of(pol, n)
+                    us, fs = S.shard(u, lay), S.shard(f, lay)
+                    what = f"n={n} {tag} wavefront, chunks of {rows or 'the rule'} rows"
+                    for i, (restriction, fz) in enumerate(
+                            ((r, z) for r in ("sampling", "full_weighting") for z in (False, True))):
+                        for steps in (1, 3, 5, 6):   # the shard halo (8) caps k + 1 + FW
+                            mode = (None, "cpu", "clean", "gpu")[(steps + i) % 4]
+                            w = f"{what} steps={steps} fz={fz} {restriction} err={mode}"
+                            args = (h, steps, omega, restriction, mode, fz)
+                            gu, gfc, ge = legs_on("wave", lambda: KS.sharded_fused_descend(
+                                us, fs, *args))
+                            wu, wfc, we = twin(KS.sharded_fused_descend, us, fs, *args)
+                            tu, tfc, te = legs_on("tile", lambda: KS.sharded_fused_descend(
+                                us, fs, *args))
+                            cmp.grid("descend_shard", w + " u", G(gu), G(wu))
+                            cmp.grid("descend_shard", w + " f_coarse", G(gfc), G(wfc))
+                            cmp.cases["descend_shard"] += 1
+                            same(f"descend_shard {w} (the tile kernel)", G(gu), G(tu))
+                            same(f"descend_shard {w} f_coarse (the tile kernel)", G(gfc), G(tfc))
+                            if mode is not None:
+                                cmp.scalar("descend_shard", w, ge, we)
+                                require(bool(torch.equal(ge, te)), f"descend_shard {w}: the "
+                                        f"error differs from the tile kernel's")
+                            compat = {None: True, "cpu": True, "clean": False, "gpu": "gpu"}[mode]
+                            ku, kfc, _ = K.fused_descend(u, f, h, steps, omega, restriction,
+                                                         compat, True, fz)
+                            same(f"descend_shard {w}", G(gu), ku)
+                            same(f"descend_shard {w} f_coarse", G(gfc), kfc)
+                    child = S.as_level(uc, pol, m)
+                    for steps, mode in ((1, "gpu"), (2, "cpu"), (3, None), (5, "clean"),
+                                        (7, "cpu"), (8, "gpu")):
+                        w = f"{what} steps={steps} err={mode}"
+                        gu, ge = legs_on("wave", lambda: KS.sharded_fused_ascend(
+                            us, fs, child, h, steps, omega, mode))
+                        wu, we = twin(KS.sharded_fused_ascend, us, fs, child, h, steps, omega,
+                                      mode)
+                        tu, te = legs_on("tile", lambda: KS.sharded_fused_ascend(
+                            us, fs, child, h, steps, omega, mode))
+                        cmp.grid("ascend_shard", w, G(gu), G(wu))
+                        cmp.cases["ascend_shard"] += 1
+                        same(f"ascend_shard {w} (the tile kernel)", G(gu), G(tu))
+                        if mode is not None:
+                            cmp.scalar("ascend_shard", w, ge, we)
+                            require(bool(torch.equal(ge, te)), f"ascend_shard {w}: the error "
+                                    f"differs from the tile kernel's")
+                        compat = {None: True, "cpu": True, "clean": False, "gpu": "gpu"}[mode]
+                        same(f"ascend_shard {w}", G(gu),
+                             K.fused_ascend(u, f, uc, h, steps, omega, compat, mode is not None)[0])
+        torch.cuda.synchronize()
     say(f"[G1] ring trigger stop sweeps at a mid-loop trigger: {stops}")
     require(all(k < 60 for k in stops.values()), "a mid-loop ring trigger ran to its cap")
 
@@ -2553,7 +2651,8 @@ def main():
     log = lib_path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "Function properties" in line or "Used" in line or "spill" in line:
+            if ("Function properties" in line or "Used" in line or "spill" in line
+                    or line.startswith("compiled ")):
                 say("    " + line.strip())
 
     # -- phase 2: kernels against their twins ----------------------------------
@@ -2564,7 +2663,7 @@ def main():
     for k in SINGLE_DEVICE:
         say(f"[2] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
             f"bit-identical to the twin: {cmp.bitwise[k]}")
-    for k in ("residual3", "jacobi", "jacobi_errs"):
+    for k in ("residual3", "jacobi", "jacobi_errs", "descend", "ascend"):
         require(cmp.bitwise[k], f"[2] {k}: not bit-identical to its twin")
     say(f"[2] done in {time.perf_counter() - t0:.1f} s "
         f"(tolerances: grids {U_RTOL:g}·max|twin|, errors {ERR_RTOL:g} relative)")
@@ -2595,6 +2694,8 @@ def main():
         results[kernels] = (ms, r1, r6, float(err), u1, u)
         say(f"[3] V(3,3) {n}² kernels={kernels}: {ms:.3f} ms/cycle, float64 rel. "
             f"residual {r1:.6e} after 1 cycle, {r6:.6e} after 6, last error {float(err):.6e}")
+        if kernels == "auto":   # where the cycle's device time goes
+            profile(f"V(3,3) {n}² per cycle", lambda: [warm(u, f) for _ in range(5)], per=5)
     (_, r1k, r6k, ek, u1k, u6k), (_, r1t, r6t, et, u1t, u6t) = (results["auto"],
                                                               results["torch"])
     for what, got, want in (("1 cycle", u1k, u1t), ("6 cycles", u6k, u6t)):
@@ -2659,7 +2760,7 @@ def main():
     for k in PHASE_G:
         say(f"[G1] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
             f"bit-identical to the twin: {cmp.bitwise[k]}")
-    for k in ("jacobi_shard", "jacobi_errs_shard"):
+    for k in ("jacobi_shard", "jacobi_errs_shard", "descend_shard", "ascend_shard"):
         require(cmp.bitwise[k], f"[G1] {k}: not bit-identical to its twin")
     say(f"[G1] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3085,6 +3186,31 @@ def main():
         us_ = graph_us(lambda: K.fused_jacobi_err(um, fm, 1.0 / (m - 1), 3, 0.8, True))
         say(f"[t] jacobi at {m}², 3 sweeps + cpu error: {us_:.2f} µs device a call; bound "
             f"{bound(12 * m * m, (3 * SWEEP_OPS + ERR_OPS) * m * m)[0] * 1e3:.2f} µs")
+    # the legs (kernels 3 and 4: 3 sweeps, sampling, cpu error) at the other
+    # levels the main paths give them (V(3,3): 4097², 2049²; tw32: 8193² to
+    # 2049²; G2 per shard: 512 x 4097 down), on the size rule's route: ms at
+    # 8193², device µs a call at 2049², 1025² and 257² (graph_us); the
+    # shard modes at 4097² on 8 row shards in device µs a pass of 8 launches
+    # (graph_us: at 2049² and below the host's issue rate would set CUDA
+    # events' time around eager calls)
+    for m in (8193, 2049, 1025, 257):
+        um, fm, cm, hm = rnd(m), rnd(m), rnd((m + 1) // 2), 1.0 / (m - 1)
+        for name, fn, ops in (
+                ("descend", lambda: K.fused_descend(um, fm, hm, 3, 0.8, "sampling", True, True),
+                 3 * SWEEP_OPS + ERR_OPS + RES_OPS),
+                ("ascend", lambda: K.fused_ascend(um, fm, cm, hm, 3, 0.8, True, True),
+                 3 * SWEEP_OPS + ERR_OPS + 3)):
+            b_ms = bound(3.25 * 4 * m * m, ops * m * m)[0]
+            if m > 2049:
+                say(f"[t] {name} at {m}², 3 sweeps, cpu error: {time_ms(fn, reps=10):.4f} ms; "
+                    f"bound {b_ms:.4f} ms")
+            else:
+                say(f"[t] {name} at {m}², 3 sweeps, cpu error: {graph_us(fn):.2f} µs device a "
+                    f"call; bound {b_ms * 1e3:.2f} µs")
+        del um, fm, cm
+    for k in ("descend_shard", "ascend_shard"):
+        say(f"[t] {k} at {calls[k][0]}: {graph_us(calls[k][1]):.2f} µs device a pass of 8 "
+            f"launches; bound {times[k][2] * 1e3:.2f} µs")
     o8 = torch.empty_like(f8)
     ms = time_ms(lambda: torch.add(f8, w0, out=o8), reps=10)
     say(f"[t] torch.add of two {n8}² grids: {ms:.4f} ms ({3 * g8 / ms / 1e9:.3f} TB/s)")

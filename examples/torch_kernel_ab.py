@@ -12,9 +12,14 @@ kernel 1's Jacobi modes (8193² with 8 sweeps and the per-sweep mode, 4097²
 with one sweep and each error, 1025², 257² and 65² in device µs a call) and
 the 2-D trigger kernels 8 and 9 and kernel 5; the 2-D shard modes on 8 row
 shards of the card (kernel 1 at 4097² and 8193², also in device µs at 4097²,
-rb-GS, the descend leg), chip_smoke.py's G2 bench_scaling cycle (4097²,
-coarsen=1, on 8 row shards with halo ppermute: device ms a cycle from
-torch.profiler and the host wall clock) and the 8193² trigger V-cycle's wall
+and rb-GS); the legs (kernels 3 and 4) at 8193² to 257², whole
+grid (ms; device µs from 2049²) and on 8 row shards (device µs), on the
+tree's route and, where the tree has both, on each; the chains 6 and 7 from
+1025² (ms, and device µs); the V(3,3) cycle at 4097² and the tw32 refinement's cycle at 8193² in
+device ms (torch.profiler); chip_smoke.py's G2 V(3,3) coarsen=3 and
+bench_scaling (coarsen=1) cycles (4097², on 8 row shards with halo
+ppermute: device ms a cycle from torch.profiler and the host wall clock)
+and the 8193² trigger V-cycle's wall
 clock (batch 7, and "auto" on 8 row shards with rdma); then the ring
 kernels on rings of 8 shards of the card: the 2-D ones at 4097², and, where
 the tree has them (``ops/rdma3.py``), the 3-D ones at 513³
@@ -45,6 +50,7 @@ in one process run each, alternating (A, B, B, A), on one card: a card set
 below its power limit, or another card, moves every number.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -117,13 +123,11 @@ def rand(m):
 
 
 n, n8 = 4097, 8193
-u, f, uc, h = rand(n), rand(n), rand((n + 1) // 2), 1 / (n - 1)
+u, f, h = rand(n), rand(n), 1 / (n - 1)
 u8, f8, h8 = rand(n8), rand(n8), 1 / (n8 - 1)
 res = {
     "jacobi8_8193": timed(lambda: K.fused_jacobi(u8, f8, h8, 8, 0.8)),
     "jacobi3err_4097": timed(lambda: K.fused_jacobi_err(u, f, h, 3, 0.8, True)),
-    "descend_4097": timed(lambda: K.fused_descend(u, f, h, 3, 0.8, "sampling", True, True)),
-    "ascend_4097": timed(lambda: K.fused_ascend(u, f, uc, h, 3, 0.8, True, True)),
     "residual_4097": timed(lambda: K.residual(u, f, h)),
     "rbgs2err_4097": timed(lambda: K.fused_rbgs_err(u, f, h, 2, True)),
 }
@@ -160,7 +164,7 @@ res.update({
 del w1, w2
 # the 2-D shard modes on 8 row shards of the card, on windows of KS.HALO rows
 # exchanged beforehand: kernel 1 (G2's 3 sweeps + cpu error at 4097², G3's
-# one sweep + cpu error and its per-sweep pass at 8193²), rb-GS and the legs
+# one sweep + cpu error and its per-sweep pass at 8193²) and rb-GS
 from multigrid_poisson_solver_tpu_torch.parallel import kernel_shard as KS  # noqa: E402
 
 pol8 = M.ShardingPolicy(M.make_mesh(["cuda:0"] * 8), threshold_rows=16)
@@ -193,13 +197,74 @@ res.update({
         ue, fe, g, h8, 7, 0.8, "cpu")), reps=3),
     "rbgs_shard2cpu_4097": timed(on(w4, g4, lambda ue, fe, g: K.fused_jacobi_shard(
         ue, fe, g, h, 2, 1.0, False, "cpu", "rbgs"))),
-    "descend_shard_4097": timed(on(w4, g4, lambda ue, fe, g: K.fused_descend_shard(
-        ue, fe, g, h, 3, 0.8, "sampling", "cpu"))),
     "jacobi_shard3cpu_4097_us": 1e3 * device_ms(on(w4, g4, lambda ue, fe, g:
                                                    K.fused_jacobi_shard(ue, fe, g, h, 3, 0.8,
                                                                         False, "cpu")), 1),
 })
 del w4, w8
+# the legs (kernels 3 and 4: 3 sweeps, sampling, cpu error) at every size the
+# main paths give them, whole grid (ms from 4097², device µs below) and on 8
+# row shards of the card (device µs a pass of 8 launches), on the route the
+# tree's size rule picks and, where the tree has both (forced_leg_route), on
+# each; and the chains 6 and 7 (1025² → 9², 3 sweeps)
+routes = [None] + (["tile", "wave"] if hasattr(K, "forced_leg_route") else [])
+for m in (8193, 4097, 2049, 1025, 257):
+    um, fm, cm, hm = rand(m), rand(m), rand((m + 1) // 2), 1 / (m - 1)
+    wm, gm = windows(m, um, fm)
+    ch = KS.COARSE_HALO
+    cwm = [S.window(cm, g.row0 // 2 - ch, (g.row0 + g.rows + 1) // 2 + ch, -ch, (m + 1) // 2 + ch)
+           for g in gm]
+    calls = {
+        "descend": lambda: K.fused_descend(um, fm, hm, 3, 0.8, "sampling", True, True),
+        "ascend": lambda: K.fused_ascend(um, fm, cm, hm, 3, 0.8, True, True),
+        "descend_shard": on(wm, gm, lambda ue, fe, g: K.fused_descend_shard(
+            ue, fe, g, hm, 3, 0.8, "sampling", "cpu")),
+        "ascend_shard": lambda: [K.fused_ascend_shard(ue, fe, c, g.row0 // 2 - ch, -ch, g, hm, 3,
+                                                      0.8, "cpu")
+                                 for (ue, fe), g, c in zip(wm, gm, cwm)],
+    }
+    for route in routes:
+        tag = "" if route is None else f"_{route}"
+        with (K.forced_leg_route(route) if route else contextlib.nullcontext()):
+            for name, fn in calls.items():
+                if name in ("descend", "ascend") and m >= 4097:
+                    res[f"{name}_{m}{tag}"] = timed(fn, reps=10 if m < 8193 else 5)
+                else:
+                    res[f"{name}_{m}{tag}_us"] = 1e3 * device_ms(
+                        lambda: [fn() for _ in range(10)], 10)
+    del um, fm, cm, wm, gm, cwm, calls
+sizes = [1025]
+while sizes[-1] > 9:
+    sizes.append((sizes[-1] + 1) // 2)
+uq, fq = rand(1025), rand(1025)
+c_args = (tuple(sizes), 1 / 1024, (3,) * 7, 0.8, "sampling", True)
+u_list, f_list = K.chain_descend(uq, fq, *c_args)
+a_args = (u_list, [fq] + f_list[:-1], rand(9), tuple(sizes), 1 / 1024, (3,) * 7, 0.8, True, False)
+res["chain_descend_1025"] = timed(lambda: K.chain_descend(uq, fq, *c_args))
+res["chain_ascend_1025"] = timed(lambda: K.chain_ascend(*a_args))
+res["chain_descend_1025_us"] = 1e3 * device_ms(
+    lambda: [K.chain_descend(uq, fq, *c_args) for _ in range(10)], 10)
+res["chain_ascend_1025_us"] = 1e3 * device_ms(lambda: [K.chain_ascend(*a_args)
+                                                       for _ in range(10)], 10)
+del uq, fq, u_list, f_list, a_args
+# phase 3's V(3,3) cycle at 4097² in device ms a cycle (torch.profiler), the
+# tw32 refinement's cycle at 8193² (path A) in device ms, and the bench's
+# V(3,3) (coarsen=3) on 8 row shards with halo ppermute (G2): device ms a
+# cycle and the host wall
+res["vcycle_4097_device"] = device_ms(lambda: [warm(u0, f0) for _ in range(5)], 5)
+tw = tmg.IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, n8, config=tmg.SolverConfig(omega=0.8),
+                                   max_cycles=30, state="tw32", device="cuda")
+tw_cycles = tw.solve(1e-10).cycles
+res["tw32_8193_cycle_device"] = device_ms(lambda: tw.solve(1e-10), tw_cycles)
+del tw
+g2v = tmg.compile_program(tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=3),
+                          tmg.REFERENCE_PROBLEM, tmg.SolverConfig(omega=0.8,
+                                                                  collect_node_stats=False),
+                          device="cuda", warm=True, policy=pol8)
+gu, gf = g2v.init()
+res["g2_vcycle3_ppermute_4097_device"] = device_ms(lambda: [g2v(gu, gf) for _ in range(3)], 3)
+res["g2_vcycle3_ppermute_4097_wall"] = walls(lambda: g2v(gu, gf))
+del g2v, gu, gf
 # G2's bench_scaling program (separate 3-sweep passes, coarsen=1) on 8 row
 # shards with halo ppermute
 g2 = tmg.compile_program(tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=1),
@@ -229,7 +294,7 @@ res.update({
     "rdma_trigger98_4097": timed(lambda: rdma.rdma_trigger(us, fs, h, 0.8, True, 0.0, 98),
                                  reps=3),
 })
-del u, f, uc, u8, f8, u0, f0, us, fs
+del u, f, u8, f8, u0, f0, us, fs
 
 n3, w3 = 513, 6.0 / 7.0
 h3 = 1 / (n3 - 1)

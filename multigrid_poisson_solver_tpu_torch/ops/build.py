@@ -21,6 +21,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -38,6 +40,7 @@ SIGNATURES = {
     "mg_num_tiles": ([_I], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
     "mg_wave2_force_rows": ([_I], _I),
+    "mg_legs_force_route": ([_I], _I),
     "mg_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
     "mg_jacobi_errs": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P], _I),
     "mg_rbgs": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I),
@@ -118,7 +121,8 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the sources unless the current library exists; return its path.
-    nvcc's report (registers, shared memory, spills) goes to ``<lib>.log``."""
+    nvcc's report (registers, shared memory, spills) and each source's
+    compile seconds go to ``<lib>.log``."""
     out = library_path()
     if out.exists():
         return out
@@ -126,6 +130,7 @@ def build() -> Path:
     nvcc = _nvcc()
     log = out.with_suffix(".log")
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        t0 = time.monotonic()
         jobs = []
         for src in (s for s in sources() if s.suffix == ".cu"):
             obj = Path(tmp) / (src.stem + ".o")
@@ -133,10 +138,22 @@ def build() -> Path:
             jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.PIPE, text=True)))
         tmp_lib = Path(tmp) / out.name
-        steps = []
-        for cmd, _, proc in jobs:
+        # each source's nvcc seconds (its pipes drained by a thread of its own,
+        # so every finish is seen when it happens)
+        results = [None] * len(jobs)
+
+        def drain(i, proc):
             stdout, stderr = proc.communicate()
-            steps.append((cmd, proc.returncode, stdout + stderr))
+            results[i] = (proc.returncode, stdout + stderr, time.monotonic() - t0)
+
+        threads = [threading.Thread(target=drain, args=(i, proc))
+                   for i, (_, _, proc) in enumerate(jobs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        steps = [(cmd, rc, f"compiled {Path(cmd[-1]).name} in {secs:.1f} s\n" + text)
+                 for (cmd, _, _), (rc, text, secs) in zip(jobs, results)]
         if all(rc == 0 for _, rc, _ in steps):
             cmd = [nvcc, "-shared", "-o", str(tmp_lib), *[str(obj) for _, obj, _ in jobs]]
             proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -87,14 +87,12 @@ struct JacobiCall {
   cudaStream_t stream;
 };
 
-static dim3 wave_grid(const Geo& g, int rows, int warps_per_block) {
-  const long warps = (long)tiles_x(g) * ((g.rows + rows - 1) / rows);
-  return dim3((unsigned)((warps + warps_per_block - 1) / warps_per_block));
-}
-
-// Owned rows a chunk for every launch, a multiple of TILE_H; 0: the
-// occupancy rule's (wave2_chunk_rows). Set by mg_wave2_force_rows.
-static int forced_chunk_rows = 0;
+// The wavefront's forced chunk rows and the legs' forced route (declared in
+// wave2.cuh, read by kernels 1, 3 and 4; set by the entry points below).
+namespace mgk {
+int wave2_forced_rows = 0;
+int legs_forced_route = 0;
+}  // namespace mgk
 
 template <bool SHARD, int K, int E, bool ALL>
 static cudaError_t launch_wave(const JacobiCall& c) {
@@ -103,16 +101,14 @@ static cudaError_t launch_wave(const JacobiCall& c) {
   if constexpr (ALL) {
     const auto kernel = jacobi_errs_kernel<SHARD, K, E>;
     static const int resident = wave2_resident_warps(kernel, S::THREADS, S::SMEM);
-    const int rows =
-        forced_chunk_rows ? forced_chunk_rows : wave2_chunk_rows(c.g, resident, S::H);
+    const int rows = wave2_rows(c.g, resident, S::H);
     kernel<<<wave_grid(c.g, rows, S::WARPS), S::THREADS, S::SMEM, c.stream>>>(
         c.u, c.f, c.out, c.partials, c.g, c.ext_r, c.ext_c, rows, num_tiles(c.g), c.even_only,
         c.h2, c.omega, c.inv_h2);
   } else {
     const auto kernel = jacobi_kernel<SHARD, K, E>;
     static const int resident = wave2_resident_warps(kernel, S::THREADS, S::SMEM);
-    const int rows =
-        forced_chunk_rows ? forced_chunk_rows : wave2_chunk_rows(c.g, resident, S::H);
+    const int rows = wave2_rows(c.g, resident, S::H);
     kernel<<<wave_grid(c.g, rows, S::WARPS), S::THREADS, S::SMEM, c.stream>>>(
         c.u, c.f, c.out, c.partials, c.g, c.ext_r, c.ext_c, rows, c.from_zero, c.even_only,
         c.h2, c.omega, c.inv_h2, c.zero_coef);
@@ -160,12 +156,21 @@ extern "C" int mg_num_tiles_block(int rows, int cols) {
 }
 
 // Chunks of `rows` owned rows (a multiple of 32) for every later launch of
-// the Jacobi modes, or the occupancy rule's again with 0: the card's checks
-// take small grids through chunks of several tile rows, which the rule
-// gives only large ones.
+// the wavefront (kernel 1's Jacobi modes, the legs of kernels 3 and 4), or
+// the occupancy rule's again with 0: the card's checks take small grids
+// through chunks of several tile rows, which the rule gives only large ones.
 extern "C" int mg_wave2_force_rows(int rows) {
   if (rows < 0 || rows % TILE_H != 0) return (int)cudaErrorInvalidValue;
-  forced_chunk_rows = rows;
+  wave2_forced_rows = rows;
+  return 0;
+}
+
+// The route of every later launch of the legs (kernels 3 and 4): 1 the tile
+// kernel, 2 the wavefront, 0 each leg's size rule again. Both routes are
+// bit for bit the plain twins': the card's checks and timings take both.
+extern "C" int mg_legs_force_route(int route) {
+  if (route < 0 || route > 2) return (int)cudaErrorInvalidValue;
+  legs_forced_route = route;
   return 0;
 }
 
@@ -176,12 +181,6 @@ extern "C" const char* mg_error_string(int code) {
 static bool bad_geo(int n, int row0, int col0, int rows, int cols, int ext_r, int ext_c) {
   return n < 3 || rows < 1 || cols < 1 || row0 < 0 || col0 < 0 || row0 + rows > n ||
          col0 + cols > n || ext_r < 0 || ext_c < 0;
-}
-
-// The wavefront's 16-byte copies (wave2.cuh) read from u's and f's 16-byte
-// chunks: both must start on one (u may be null from zero).
-static bool misaligned(const float* u, const float* f) {
-  return ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(f)) & 15) != 0;
 }
 
 // steps <= MAX_STEPS sweeps of the block u (ignored when from_zero) into

@@ -2,10 +2,11 @@
 // pipeline: the smoother's tile (jacobi_tile, jacobi_errs_tile) in the
 // trigger loops (trigger.cu, trigger_stream.cu) and the ring kernels
 // (rdma_jacobi.cu, rdma_trigger.cu); rb-GS (jacobi.cu); the descend leg
-// (descend.cu, chain_descend.cu) and the ascend leg (ascend.cu,
-// chain_ascend.cu). Kernel 1's Jacobi modes run wave2.cuh's wavefront
-// instead, whose iterates and error partials equal these tiles' bit for
-// bit. A one-launch kernel runs one tile per block; a persistent kernel
+// (chain_descend.cu, and descend.cu's small levels) and the ascend leg
+// (chain_ascend.cu, and ascend.cu's small levels). Kernel 1's Jacobi modes
+// and the legs' larger levels run wave2.cuh's wavefront instead, whose
+// iterates, coarse right-hand sides and error partials equal these tiles'
+// bit for bit. A one-launch kernel runs one tile per block; a persistent kernel
 // walks many tiles per block and levels or sweeps between grid barriers.
 // Both run this same code, so the chain and trigger kernels reproduce the
 // per-level launches bit for bit.

@@ -63,6 +63,29 @@
 // from +0). The partial of tile t = ty·tiles_x + tx of level s goes to
 // partials[(s − 1)·stride + t] (the fixed mode: partials[t]), for
 // sum_partials_kernel.
+//
+// The multigrid legs (kernels 3 and 4, descend.cu and ascend.cu) are the
+// same pass with a stage of their own, compiled in only for their instances
+// (LEG; kernel 1's instances compile to the pass above):
+//  * descend (WV_DESCEND): after level K the pass forms r of level K one row
+//    behind (the s = K + 1 iteration, which the cpu / clean error shares)
+//    and d = −r on the interior, 0 elsewhere, keeping d's last two rows in
+//    registers; on each row 2I + 1 (full weighting) the row combination
+//    (¼·d[2I − 1] + ½·d[2I]) + ¼·d[2I + 1] on the staged columns, or on row
+//    2I (sampling) d[2I] as is, goes through the per-warp row to a layout
+//    where lane x forms coarse columns x and x + 32 of the strip's 64 (the
+//    column combination in the same order, the twin's), stored coalesced
+//    into fc, 0 on coarse boundary points. H = K + 1 (+ 1 row a side for
+//    full weighting, a runtime flag: descend_halo's rows); a chunk starts
+//    at an even global row, so coarse row I belongs to the chunk that owns
+//    fine row 2I, and the strip's 64 coarse columns are its own;
+//  * ascend (WV_ASCEND): level 0 at row r is u + prolong(c) on the interior
+//    (frozen cells keep u): columns first, then rows, as ascend_tile and the
+//    twin compute it. Coarse row I feeds fine rows 2I − 1 .. 2I + 1: it is
+//    copied (4-byte cp.async, zero outside c's window, which need not be
+//    16-byte aligned) into a per-warp ring of WV_CRING rows with fine row
+//    2I − 1, and its column interpolation at the lane's five columns is
+//    formed once, kept in registers for the next fine row.
 #pragma once
 
 #include "common.cuh"
@@ -79,20 +102,38 @@ constexpr unsigned WV_FULL = 0xffffffffu;
 static_assert(WV_COLS == TILE_W + 2 * WV_PAD, "a warp stages its tile column and the halo");
 
 enum WaveErr { WV_NONE = 0, WV_GPU = 1, WV_RES = 2 };   // no error, Σ|Δu|, Σ|r| (cpu, clean)
+enum WaveLegKind { WV_SMOOTH = 0, WV_DESCEND = 1, WV_ASCEND = 2 };   // kernels 1, 3, 4
+
+constexpr int WV_CRING = 4;    // coarse rows of the ascend leg's ring (a power of 2)
+constexpr int WV_CROW = 96;    // floats of a coarse ring row (3 a lane)
+static_assert(WV_COLS / 2 + 1 <= WV_CROW, "a ring row holds the coarse columns a strip reads");
+
+// The legs' extra arguments: the descend leg's coarse right-hand side fc
+// (laid out as the coarse points of the owned region) and restriction, the
+// ascend leg's window of the coarse correction.
+struct WaveLeg {
+  float* fc;
+  int full_weighting;
+  Win c;
+};
 
 // The pass's compile-time shape: K sweeps after level 0, error kind E, and
-// ALL: the error of every level (the per-sweep mode) or of level K alone.
-template <int K, int E, bool ALL>
+// ALL: the error of every level (the per-sweep mode) or of level K alone;
+// LEG: the smoother or a leg.
+template <int K, int E, bool ALL, int LEG = WV_SMOOTH>
 struct WaveShape {
-  static constexpr int H = K + (E == WV_RES ? 1 : 0);   // halo rows (and columns) read
+  // halo rows (and columns) read; the descend leg forms r of level K
+  static constexpr int H = K + (E == WV_RES || LEG == WV_DESCEND ? 1 : 0);
   static constexpr int D = K <= 2 ? 4 : 2;              // rows loaded ahead
   static constexpr bool CHUNKS = K <= 2;                // 16-byte copies
   static constexpr int NF = H + 1 + D;                  // f ring: rows r − H .. r + D
   static constexpr int NU = D + 1;                      // u ring: rows r .. r + D
   static constexpr int NL = E == WV_NONE ? 0 : (ALL ? K : 1);   // accumulated levels
   static constexpr int WIN = H > 0 ? H : 1;             // level windows: levels 0 .. H − 1
+  static constexpr int NC = LEG == WV_ASCEND ? WV_CRING : 0;   // coarse ring rows
   // the rings, the row exchange and the accumulators of one warp
-  static constexpr int WARP_FLOATS = (NF + NU) * WV_ROW + WV_COLS + NL * 8 * 32;
+  static constexpr int WARP_FLOATS =
+      (NF + NU) * WV_ROW + WV_COLS + NL * 8 * 32 + NC * WV_CROW;
   static constexpr int WARPS = WARP_FLOATS * 4 * 4 <= 48 * 1024 ? 4 : 2;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr size_t SMEM = (size_t)WARPS * WARP_FLOATS * sizeof(float);
@@ -130,14 +171,15 @@ static __device__ __forceinline__ void wave_wait() {
 // The pass of one warp (see the header). g_ is the owned region, u and f its
 // windows extended by ext_r rows and ext_c columns a side; chunk_rows is a
 // multiple of TILE_H. Launched with WaveShape::THREADS threads a block and
-// WaveShape::SMEM bytes of dynamic shared memory.
-template <bool SHARD, int K, int E, bool ALL>
+// WaveShape::SMEM bytes of dynamic shared memory. `leg`: the legs'
+// arguments (unused by kernel 1).
+template <bool SHARD, int K, int E, bool ALL, int LEG = WV_SMOOTH>
 static __device__ __forceinline__ void wave2_pass(
     const float* __restrict__ u, const float* __restrict__ f, float* __restrict__ out,
     float* __restrict__ partials, const Geo& g_, int ext_r, int ext_c, int chunk_rows,
     int stride, int from_zero, int even_only, float h2, float omega, float inv_h2,
-    float zero_coef) {
-  using S = WaveShape<K, E, ALL>;
+    float zero_coef, const WaveLeg& leg = WaveLeg{}) {
+  using S = WaveShape<K, E, ALL, LEG>;
   extern __shared__ float wv_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -154,6 +196,7 @@ static __device__ __forceinline__ void wave2_pass(
   float* const ring_u = ring_f + S::NF * WV_ROW;            // [NU][WV_ROW]
   float* const xrow = ring_u + S::NU * WV_ROW;              // a row between layouts
   float* const acc = xrow + WV_COLS;                        // [NL][8][32]
+  float* const ring_c = acc + S::NL * 8 * 32;               // ascend: [NC][WV_CROW]
   const int lc = WV_SLOTS * lane;                           // the lane's first column
 
   // the input windows (u's and f's share their geometry), cut to the grid
@@ -213,11 +256,51 @@ static __device__ __forceinline__ void wave2_pass(
       }
     }
   };
-  // row gi of f (and u) into ring slots fs (us)
+  // ascend: coarse row I of c's window (its columns from gc0 / 2, the first
+  // the staged columns read; 0 outside the window and the m x m grid) into
+  // its ring slot, lane copying columns lane + 32t
+  auto fetch_coarse = [&](int I) {
+    const Win& c = leg.c;
+    const int m = (n + 1) / 2, j0 = gc0 >> 1;
+    const bool rin = I >= max(0, c.r0) && I < min(m, c.r0 + c.rows);
+    const int j_lo = max(0, c.c0), j_hi = min(m, c.c0 + c.cols);
+    const float* const row = c.p + (ptrdiff_t)(I - c.r0) * c.cols + (j0 - c.c0) + lane;
+    float* const dst = ring_c + (I & (WV_CRING - 1)) * WV_CROW + lane;
+#pragma unroll
+    for (int t = 0; t < WV_CROW / 32; ++t) {
+      const int gj = j0 + lane + 32 * t;
+      const bool ok = rin && gj >= j_lo && gj < j_hi;
+      wave_copy<4>(dst + 32 * t, ok ? row + 32 * t : c.p, ok ? 4 : 0);
+    }
+  };
+  // row gi of f (and u) into ring slots fs (us); ascend: with coarse row
+  // (gi + 1) / 2 for odd gi, the first fine row that reads it
   auto fetch = [&](int gi, int fs, int us) {
     fetch_row(f, qf, gi, ring_f + fs * WV_ROW);
     if (!from_zero) fetch_row(u, qu, gi, ring_u + us * WV_ROW);
+    if constexpr (LEG == WV_ASCEND) {
+      if (gi & 1) fetch_coarse((gi + 1) >> 1);
+    }
     wave_commit();
+  };
+  // ascend: coarse row I interpolated to this lane's fine columns gc0 + lc
+  // + c (the prolongation's column pass, wide() of legs.cuh): column gj
+  // reads coarse column gj >> 1 at ring column (lc + c) >> 1, and an odd gj
+  // the next one too; gc0 is even, so gj is odd where lane + c is
+  auto wide_row = [&](int I, float (&w)[WV_SLOTS]) {
+    const float* const cr = ring_c + (I & (WV_CRING - 1)) * WV_CROW + (lc >> 1);
+    float cc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cc[k] = cr[k];
+    const unsigned odd = wave_mask(lane & 1);
+    auto half = [](float a, float b) { return __fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, b)); };
+#pragma unroll
+    for (int c = 0; c < WV_SLOTS; ++c) {
+      if (c % 2 == 0)   // even lanes: gj even; odd lanes: gj odd
+        w[c] = wave_pick(odd, half(cc[c / 2], cc[c / 2 + 1]), cc[c / 2]);
+      else              // even lanes: gj odd; odd lanes: gj even
+        w[c] = wave_pick(odd, cc[(c + 1) / 2], half(cc[(c - 1) / 2], cc[(c + 1) / 2]));
+    }
   };
   // the float offset within its chunk at which window row gi starts in a
   // ring row (0 without chunks), and this lane's columns of f's ring row
@@ -239,6 +322,8 @@ static __device__ __forceinline__ void wave2_pass(
   };
 
   const int ga = g.row0 + a, gb = g.row0 + b;
+  // the descend leg's extra halo row a side (full weighting); 0 otherwise
+  const int xh = LEG == WV_DESCEND ? leg.full_weighting : 0;
 
   // the owned cells of global row gi of the last level
   auto store = [&](int gi, const float (&v)[WV_SLOTS]) {
@@ -284,7 +369,45 @@ static __device__ __forceinline__ void wave2_pass(
     if (lane == 0) partials[(size_t)lv * stride + (le >> 5) * tx_n + tx] = total;
   };
 
-  const int r_first = ga - S::H, r_end = gb + S::H;
+  // descend: d's rows gi − 2 (dm2) and gi − 1 (dm1) before residual row gi
+  float dm2[WV_SLOTS], dm1[WV_SLOTS];
+  // descend: d = −r of level K at row gi (r at the interior cells, frozen
+  // rows 0); the coarse row whose restriction it completes into fc
+  auto restrict_row = [&](int gi, bool ri, const float (&res)[WV_SLOTS]) {
+    const int fw = leg.full_weighting;
+    const unsigned rim = wave_mask(ri);
+    float d[WV_SLOTS];
+#pragma unroll
+    for (int c = 0; c < WV_SLOTS; ++c) d[c] = wave_pick(rim & int_m[c], -res[c], 0.0f);
+    const int I = gi >> 1;   // full weighting: row 2I + 1; sampling: row 2I
+    if ((gi & 1) == fw && 2 * I >= ga && 2 * I < gb) {
+      auto comb = [](float x, float y, float z) {
+        return __fadd_rn(__fadd_rn(__fmul_rn(0.25f, x), __fmul_rn(0.5f, y)), __fmul_rn(0.25f, z));
+      };
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < WV_SLOTS; ++c) xrow[lc + c] = fw ? comb(dm2[c], dm1[c], d[c]) : d[c];
+      __syncwarp();
+      const int m = (n + 1) / 2, ccols = (g.cols + 1) / 2;
+      const unsigned row_in = wave_mask(I >= 1 && I <= m - 2);
+      float* const row = leg.fc + (ptrdiff_t)(I - (g.row0 >> 1)) * ccols;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {   // coarse columns lane + 32q of the strip's 64
+        const int j = WV_PAD + 2 * lane + 64 * q;   // the staged column of fine 2J
+        const float v = fw ? comb(xrow[j - 1], xrow[j], xrow[j + 1]) : xrow[j];
+        const int lJ = tx * (TILE_W / 2) + lane + 32 * q, J = (g.col0 >> 1) + lJ;
+        if (lJ < ccols) row[lJ] = wave_pick(row_in & wave_mask(J >= 1 && J <= m - 2), v, 0.0f);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < WV_SLOTS; ++c) {
+      dm2[c] = dm1[c];
+      dm1[c] = d[c];
+    }
+  };
+
+  const int r_first = ga - S::H - xh, r_end = gb + S::H + xh;
+  if constexpr (LEG == WV_ASCEND) fetch_coarse(r_first >> 1);   // the first row's
 #pragma unroll
   for (int d = 0; d < S::D; ++d) fetch(r_first + d, d, d);
 
@@ -294,6 +417,10 @@ static __device__ __forceinline__ void wave2_pass(
   for (int j = 0; j < S::WIN; ++j)
 #pragma unroll
     for (int c = 0; c < WV_SLOTS; ++c) nw[j][c] = cw[j][c] = 0.0f;
+  // ascend: coarse row r >> 1 interpolated to the lane's columns at step r
+  float wc[WV_SLOTS];
+#pragma unroll
+  for (int c = 0; c < WV_SLOTS; ++c) wc[c] = dm2[c] = dm1[c] = 0.0f;
 
   int fs = 0, us = 0;   // ring slots of row r
   for (int r = r_first; r < r_end; ++r) {
@@ -318,6 +445,29 @@ static __device__ __forceinline__ void wave2_pass(
 #pragma unroll
       for (int c = 0; c < WV_SLOTS; ++c)
         cur[c] = ring_u[us * WV_ROW + shift(qu, r) + lc + c];
+      if constexpr (LEG == WV_ASCEND) {
+        // + prolong(c) on the interior: coarse row r >> 1 (interpolated at
+        // step r − 1, or now at the chunk's first row), and for odd r the
+        // halves of it and of row (r >> 1) + 1
+        if (r == r_first) wide_row(r >> 1, wc);
+        float p[WV_SLOTS];
+        if (r & 1) {
+          float wn[WV_SLOTS];
+          wide_row((r >> 1) + 1, wn);
+#pragma unroll
+          for (int c = 0; c < WV_SLOTS; ++c) {
+            p[c] = __fadd_rn(__fmul_rn(0.5f, wc[c]), __fmul_rn(0.5f, wn[c]));
+            wc[c] = wn[c];
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < WV_SLOTS; ++c) p[c] = wc[c];
+        }
+        const unsigned ri = wave_mask(r >= 1 && r <= n - 2);
+#pragma unroll
+        for (int c = 0; c < WV_SLOTS; ++c)
+          cur[c] = wave_pick(ri & int_m[c], __fadd_rn(cur[c], p[c]), cur[c]);
+      }
     }
     if (K == 0) {
       store(r, cur);
@@ -338,7 +488,8 @@ static __device__ __forceinline__ void wave2_pass(
       // adjacent lane (staged columns −1 and WV_COLS read a lane's own)
       const float left = __shfl_up_sync(WV_FULL, uc[WV_SLOTS - 1], 1);
       const float right = __shfl_down_sync(WV_FULL, uc[0], 1);
-      const bool res_here = E == WV_RES && (ALL ? s >= 2 : s - 1 == K);
+      const bool res_here =
+          (E == WV_RES || LEG == WV_DESCEND) && (ALL ? s >= 2 : s - 1 == K);
       float nxt[WV_SLOTS], res[WV_SLOTS];
 #pragma unroll
       for (int c = 0; c < WV_SLOTS; ++c) {
@@ -353,7 +504,10 @@ static __device__ __forceinline__ void wave2_pass(
 #pragma unroll
         for (int c = 0; c < WV_SLOTS; ++c) nxt[c] = uc[c];
       }
-      if (res_here) add(ALL ? s - 2 : 0, gi, res);
+      if (E == WV_RES && res_here) add(ALL ? s - 2 : 0, gi, res);
+      if constexpr (LEG == WV_DESCEND) {
+        if (res_here) restrict_row(gi, ri, res);
+      }
       if (E == WV_GPU && s <= K && (ALL || s == K)) {
         float d[WV_SLOTS];
 #pragma unroll
@@ -403,6 +557,30 @@ static inline int wave2_chunk_rows(const Geo& g, int resident, int halo) {
     }
   }
   return best;
+}
+
+// Owned rows a chunk for every launch of the wavefront (kernels 1, 3 and
+// 4), a multiple of TILE_H; 0: the occupancy rule's. Set by
+// mg_wave2_force_rows (jacobi.cu, which defines it).
+extern int wave2_forced_rows;
+// The legs' route for every launch: 0 the size rule of each leg, 1 the tile
+// kernel, 2 the wavefront. Set by mg_legs_force_route (jacobi.cu).
+extern int legs_forced_route;
+
+static inline int wave2_rows(const Geo& g, int resident, int halo) {
+  return wave2_forced_rows ? wave2_forced_rows : wave2_chunk_rows(g, resident, halo);
+}
+
+// Blocks of `warps_per_block` warps for a warp per strip and chunk.
+static inline dim3 wave_grid(const Geo& g, int rows, int warps_per_block) {
+  const long warps = (long)tiles_x(g) * ((g.rows + rows - 1) / rows);
+  return dim3((unsigned)((warps + warps_per_block - 1) / warps_per_block));
+}
+
+// The wavefront's 16-byte copies read from u's and f's 16-byte chunks: both
+// must start on one (u may be null from zero).
+static inline bool misaligned(const float* u, const float* f) {
+  return ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(f)) & 15) != 0;
 }
 
 }  // namespace mgk

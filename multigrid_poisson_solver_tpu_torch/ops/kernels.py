@@ -440,17 +440,19 @@ def _ptr(t):
 
 def _aligned(t):
     """t, or a copy of it where it does not start 16-byte aligned (a view at
-    an offset): kernel 1's Jacobi modes copy rows in 16-byte chunks."""
+    an offset): the wavefront (kernel 1's Jacobi modes, the legs of kernels
+    3 and 4) copies rows of u and f in 16-byte chunks."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 @contextlib.contextmanager
 def forced_chunk_rows(rows: int):
-    """Kernel 1's Jacobi-mode launches (whole grid and shard mode) with
-    chunks of ``rows`` owned rows, a multiple of 32, instead of the ones
-    ``csrc/wave2.cuh``'s occupancy rule picks, which are one tile row at
-    small sizes: lets a check reach chunks of several tile rows on small
-    grids. The iterate and the errors do not depend on the chunks."""
+    """The wavefront's launches (kernel 1's Jacobi modes and the legs of
+    kernels 3 and 4, whole grid and shard mode) with chunks of ``rows``
+    owned rows, a multiple of 32, instead of the ones ``csrc/wave2.cuh``'s
+    occupancy rule picks, which are one tile row at small sizes: lets a
+    check reach chunks of several tile rows on small grids. The iterate,
+    the coarse right-hand side and the errors do not depend on the chunks."""
     from . import build
 
     lib = build.load()
@@ -459,6 +461,26 @@ def forced_chunk_rows(rows: int):
         yield
     finally:
         lib.mg_wave2_force_rows(0)
+
+
+_LEG_ROUTES = {"tile": 1, "wave": 2}
+
+
+@contextlib.contextmanager
+def forced_leg_route(route: str):
+    """The legs' launches (kernels 3 and 4, whole grid and shard mode) on
+    one route, ``"tile"`` (legs.cuh's tile kernel) or ``"wave"`` (the
+    wavefront), instead of the one each leg's size rule picks
+    (``csrc/descend.cu``, ``csrc/ascend.cu``): lets a check or a timing
+    reach both at any size. Both are bit for bit the plain twins'."""
+    from . import build
+
+    lib = build.load()
+    _raise_on(lib, lib.mg_legs_force_route(_LEG_ROUTES[route]), "legs route")
+    try:
+        yield
+    finally:
+        lib.mg_legs_force_route(0)
 
 
 def _err_buffers(lib, mode, n: int, device):
@@ -559,7 +581,8 @@ def fused_descend(u, f, h: float, steps: int, omega: float = 1.0,
     fc = torch.empty((m, m), dtype=f.dtype, device=dev)
     mode = err_mode_of(compat) if want_err else None
     partials, err = _err_buffers(lib, mode, n, dev)
-    rc = lib.mg_descend(_ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
+    u, f = _aligned(None if from_zero else u), _aligned(f)
+    rc = lib.mg_descend(_ptr(u), f.data_ptr(), out.data_ptr(),
                         fc.data_ptr(), _ptr(partials), _ptr(err), n, steps, int(from_zero),
                         int(restriction == "full_weighting"), _ERR_CODES[mode], h * h, omega,
                         1.0 / (h * h), _zero_coef(h, omega),
@@ -585,6 +608,7 @@ def fused_ascend(u, f, uc, h: float, steps: int, omega: float = 1.0, compat=True
     out = torch.empty_like(f)
     mode = err_mode_of(compat) if want_err else None
     partials, err = _err_buffers(lib, mode, n, dev)
+    u, f = _aligned(u), _aligned(f)
     rc = lib.mg_ascend(u.data_ptr(), f.data_ptr(), uc.data_ptr(), out.data_ptr(),
                        _ptr(partials), _ptr(err), n, steps, _ERR_CODES[mode], h * h, omega,
                        1.0 / (h * h), _err_scale(mode, n, h) if mode else 0.0, stream)
@@ -1205,7 +1229,8 @@ def fused_descend_shard(u_ext, f_ext, geo: ShardGeo, h: float, steps: int, omega
     _, _, crows, ccols = _coarse_block(geo)
     fc = torch.empty((crows, ccols), dtype=f_ext.dtype, device=dev)
     partials, err = _shard_err_buffers(lib, err_mode, geo, dev)
-    rc = lib.mg_descend_shard(_ptr(None if from_zero else u_ext), f_ext.data_ptr(),
+    u_ext, f_ext = _aligned(None if from_zero else u_ext), _aligned(f_ext)
+    rc = lib.mg_descend_shard(_ptr(u_ext), f_ext.data_ptr(),
                               out.data_ptr(), fc.data_ptr(), _ptr(partials), _ptr(err),
                               *_geo_args(geo), steps, int(from_zero),
                               int(restriction == "full_weighting"), _ERR_CODES[err_mode], h * h,
@@ -1231,6 +1256,7 @@ def fused_ascend_shard(u_ext, f_ext, c_win, cr0: int, cc0: int, geo: ShardGeo, h
     _check("c", c_win, tuple(c_win.shape), dev)
     out = torch.empty((geo.rows, geo.cols), dtype=f_ext.dtype, device=dev)
     partials, err = _shard_err_buffers(lib, err_mode, geo, dev)
+    u_ext, f_ext = _aligned(u_ext), _aligned(f_ext)
     rc = lib.mg_ascend_shard(u_ext.data_ptr(), f_ext.data_ptr(), c_win.data_ptr(),
                              out.data_ptr(), _ptr(partials), _ptr(err), *_geo_args(geo), cr0, cc0,
                              c_win.shape[0], c_win.shape[1], steps, _ERR_CODES[err_mode], h * h,
