@@ -18,7 +18,9 @@ Phases (progress on stdout; the first failure exits non-zero):
      routes, the tile kernel and the wavefront, every output of one bit for
      bit the other's, and on the wavefront with chunks forced to 64 and 256
      rows); and at the shapes the main
-     paths give them (legs at 4097² and 2049², chains from 1025², smoother,
+     paths give them (legs at 4097² and 2049², chains from 1025², 513² and
+     257² on every split of their levels between the wide launch and the
+     cluster tail, each output and level 0's error bit for bit, smoother,
      residual and trigger loop at 256² down to 8², the multi-word residual
      and the per-sweep errors at 8193², the streamed trigger loop at 2305²
      and 4097², the rb-GS modes at 4097²); the 3-D kernels at n = 65, 129
@@ -498,25 +500,46 @@ def phase2(K, torch, cmp, problem, GridSpec):
                     cmp.cases["jacobi"] += 1
 
     def chains(sizes, pre, post, restriction, fz, compat, want_err):
+        """Both chains against their twins on every split of the ladder
+        (K.forced_chain_split: the levels n <= S in the cluster tail, 0 all
+        wide), every output bit for bit; level 0's error bit for bit the
+        error of a per-level fused_ascend launch on the tile route."""
         h0 = 1.0 / (sizes[0] - 1)
         n0, nc = sizes[0], sizes[-1]
-        u0, f0 = rand(n0, n0), rand(n0, n0)
-        args = (sizes, h0, pre, omega, restriction, fz)
-        gu, gf = K.chain_descend(u0, f0, *args)
-        wu, wf = K.chain_descend_torch(u0, f0, *args)
-        what = f"{sizes[0]}..{nc} pre={pre} {restriction} fz={fz}"
-        cmp.grids("chain_descend", what + " u", gu, wu)
-        cmp.grids("chain_descend", what + " f", gf, wf)
-        cmp.cases["chain_descend"] += 1
-        uc = rand(nc, nc)
-        args = (wu, [f0] + wf[:-1], uc, sizes, h0, post, omega, compat, want_err)
-        gu, ge = K.chain_ascend(*args)
-        wu, we = K.chain_ascend_torch(*args)
-        what = f"{sizes[0]}..{nc} post={post} err={compat if want_err else None}"
-        cmp.grid("chain_ascend", what, gu, wu)
+        u0, f0, uc = rand(n0, n0), rand(n0, n0), rand(nc, nc)
+        d_args = (sizes, h0, pre, omega, restriction, fz)
+        wu, wf = K.chain_descend_torch(u0, f0, *d_args)
+        a_args = (wu, [f0] + wf[:-1], uc, sizes, h0, post, omega, compat, want_err)
+        au, ae = K.chain_ascend_torch(*a_args)
         if want_err:
-            cmp.scalar("chain_ascend", what, ge, we)
-        cmp.cases["chain_ascend"] += 1
+            # level 0 alone: the level below from the twin (bit for bit the
+            # chain's), then one ascend launch on the tile route
+            below = K.chain_ascend_torch(wu[1:], wf[:-1], uc, sizes[1:], 2 * h0, post[1:],
+                                         omega)[0] if len(sizes) > 2 else uc
+            with K.forced_leg_route("tile"):
+                lu, le = K.fused_ascend(wu[0], f0, below, h0, post[0], omega, compat, True)
+            require(bool(torch.equal(lu, au)), f"chain_ascend {sizes}: the tile route's "
+                    "level 0 differs from the twin's")
+        for split in (257, 129, 65, 0):
+            with K.forced_chain_split(split):
+                gu, gf = K.chain_descend(u0, f0, *d_args)
+                what = f"{n0}..{nc} pre={pre} {restriction} fz={fz} split={split}"
+                cmp.grids("chain_descend", what + " u", gu, wu)
+                cmp.grids("chain_descend", what + " f", gf, wf)
+                require(all(bool(torch.equal(a, b)) for a, b in zip(gu + gf, wu + wf)),
+                        f"chain_descend {what}: not bit for bit the twin's")
+                cmp.cases["chain_descend"] += 1
+                gu, ge = K.chain_ascend(*a_args)
+                what = (f"{n0}..{nc} post={post} err={compat if want_err else None} "
+                        f"split={split}")
+                cmp.grid("chain_ascend", what, gu, au)
+                require(bool(torch.equal(gu, au)),
+                        f"chain_ascend {what}: not bit for bit the twin's")
+                if want_err:
+                    cmp.scalar("chain_ascend", what, ge, ae)
+                    require(bool(torch.equal(ge, le)), f"chain_ascend {what}: error "
+                            f"{float(ge):.9e}, a fused_ascend launch's {float(le):.9e}")
+                cmp.cases["chain_ascend"] += 1
 
     def trigger(n, u, f, compat, trig, max_sweeps, loop=False):
         h = 1.0 / (n - 1)
@@ -655,13 +678,30 @@ def phase2(K, torch, cmp, problem, GridSpec):
     # (the size rule's wavefront, its outputs bit for bit the tile kernel's)
     for n in (4097, 2049):
         legs(n, (3,), (None, True), (False, True), ("sampling",), routes=(None, "tile"))
-    # the library path's chains (1025 → 9, from zero) and other ladders
+    # the library path's chains (1025 → 9, from zero) and other ladders,
+    # entering at 1025², 513² and 257², on every split
     chains(ladder(1025), (3,) * 7, (3,) * 7, "sampling", True, True, False)
     chains(ladder(1025), (3,) * 7, (3,) * 7, "sampling", False, True, True)
     chains(ladder(1025, 3), (8, 1, 2, 3, 4, 5, 6, 7, 8), (8, 0, 1, 2, 3, 4, 5, 6, 7),
            "full_weighting", False, False, True)
+    chains(ladder(513), (3,) * 6, (3,) * 6, "full_weighting", True, "gpu", True)
+    chains(ladder(513, 3), (1, 8, 2, 7, 3, 6, 4, 5), (5, 4, 6, 3, 7, 2, 8, 1), "sampling",
+           False, False, True)
     chains(ladder(257), (2,) * 5, (1,) * 5, "full_weighting", True, "gpu", True)
+    chains(ladder(257, 3), (3, 1, 4, 1, 5, 2, 6), (1, 6, 2, 5, 0, 8, 4), "sampling", False,
+           True, True)
     chains((33, 17), (3,), (3,), "sampling", False, True, True)
+    chains((5, 3), (2,), (2,), "full_weighting", False, False, True)
+    # a split whose tail does not fit the cluster raises; nothing falls back
+    f0 = rand(1025, 1025)
+    with K.forced_chain_split(513):
+        try:
+            K.chain_descend(None, f0, ladder(1025), 1.0 / 1024, (3,) * 7, omega, "sampling", True)
+            torch.cuda.synchronize()
+            refused = False
+        except RuntimeError:
+            refused = True
+    require(refused, "chain_descend ran a 513² level in the cluster tail")
     # the CLI path's even levels: trigger smoothing on the problem's own data,
     # single sweeps with and without the finest error, residuals
     sweeps = {}
@@ -3117,6 +3157,15 @@ def main():
         times[k] = (time_ms(kern, reps=10), time_ms(plain, reps=2, rounds=3), bound_ms, bound_by)
         say(f"[t] {k} at {shape}: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
+    # the chains (kernels 6 and 7) at the library path's ladder in device µs a
+    # call (graph_us), on the rule's split and on every forced one
+    for split in (None, 257, 129, 65, 0):
+        with K.forced_chain_split(split) if split is not None else contextlib.nullcontext():
+            us_d = graph_us(calls["chain_descend"][1])
+            us_a = graph_us(calls["chain_ascend"][1])
+        say(f"[t] chains at 1025² → 9², 3 sweeps, split "
+            f"{'the rule' if split is None else split}: chain_descend {us_d:.2f} µs device a "
+            f"call, chain_ascend {us_a:.2f}")
     # kernel 13's byte yardstick, the card's streaming rate at its 12 B a
     # point: one elementwise PyTorch op that reads the same two 513³ volumes
     # and writes a third

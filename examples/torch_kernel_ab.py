@@ -15,8 +15,12 @@ shards of the card (kernel 1 at 4097² and 8193², also in device µs at 4097²,
 and rb-GS); the legs (kernels 3 and 4) at 8193² to 257², whole
 grid (ms; device µs from 2049²) and on 8 row shards (device µs), on the
 tree's route and, where the tree has both, on each; the chains 6 and 7 from
-1025² (ms, and device µs); the V(3,3) cycle at 4097² and the tw32 refinement's cycle at 8193² in
-device ms (torch.profiler); chip_smoke.py's G2 V(3,3) coarsen=3 and
+1025² (ms, and device µs from the profiler and from CUDA graph replays), on
+the tree's split and, where the tree has ``forced_chain_split``, on each
+split; the V(3,3) cycle at 4097² and the tw32 refinement's cycle at 8193² in
+device ms (torch.profiler), and the V(3,3) cycle with per-level legs instead
+of the chains (``CHAIN_MAX_ROOT = 0``; ms and device ms); chip_smoke.py's
+G2 V(3,3) coarsen=3 and
 bench_scaling (coarsen=1) cycles (4097², on 8 row shards with halo
 ppermute: device ms a cycle from torch.profiler and the host wall clock)
 and the 8193² trigger V-cycle's wall
@@ -97,6 +101,28 @@ def walls(fn, runs=3):
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(out[1:])
+
+
+def graph_us(fn, replays=20):
+    """Device µs of one call of fn: the call captured in a CUDA graph and
+    timed with CUDA events around ``replays`` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / replays
 
 
 def timed(fn, reps=10, rounds=5):
@@ -246,12 +272,22 @@ res["chain_descend_1025_us"] = 1e3 * device_ms(
     lambda: [K.chain_descend(uq, fq, *c_args) for _ in range(10)], 10)
 res["chain_ascend_1025_us"] = 1e3 * device_ms(lambda: [K.chain_ascend(*a_args)
                                                        for _ in range(10)], 10)
+for split in [None] + ([257, 129, 65, 0] if hasattr(K, "forced_chain_split") else []):
+    tag = "" if split is None else f"_split{split}"
+    with (K.forced_chain_split(split) if split is not None else contextlib.nullcontext()):
+        res[f"chain_descend_1025{tag}_graph_us"] = graph_us(
+            lambda: K.chain_descend(uq, fq, *c_args))
+        res[f"chain_ascend_1025{tag}_graph_us"] = graph_us(lambda: K.chain_ascend(*a_args))
 del uq, fq, u_list, f_list, a_args
 # phase 3's V(3,3) cycle at 4097² in device ms a cycle (torch.profiler), the
 # tw32 refinement's cycle at 8193² (path A) in device ms, and the bench's
 # V(3,3) (coarsen=3) on 8 row shards with halo ppermute (G2): device ms a
 # cycle and the host wall
 res["vcycle_4097_device"] = device_ms(lambda: [warm(u0, f0) for _ in range(5)], 5)
+chain_root, K.CHAIN_MAX_ROOT = K.CHAIN_MAX_ROOT, 0
+res["vcycle_4097_legs"] = timed(lambda: warm(u0, f0), reps=5, rounds=3)
+res["vcycle_4097_legs_device"] = device_ms(lambda: [warm(u0, f0) for _ in range(5)], 5)
+K.CHAIN_MAX_ROOT = chain_root
 tw = tmg.IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, n8, config=tmg.SolverConfig(omega=0.8),
                                    max_cycles=30, state="tw32", device="cuda")
 tw_cycles = tw.solve(1e-10).cycles

@@ -98,10 +98,6 @@ static __device__ __forceinline__ Win region(const float* p, const Geo& g, int e
   return SHARD ? window(p, g, er, ec) : window(p, g);
 }
 
-static __device__ __forceinline__ float at(const Win& w, int gi, int gj) {
-  return __ldcg(w.p + (ptrdiff_t)(gi - w.r0) * w.cols + (gj - w.c0));
-}
-
 static __host__ __device__ __forceinline__ int tiles_x(const Geo& g) {
   return (g.cols + TILE_W - 1) / TILE_W;
 }

@@ -24,6 +24,40 @@
 
 namespace mgk {
 
+// load_tile with every load of a batch in flight before the first store:
+// warp y stages rows y, y + BLOCK_Y, ... as load_tile does, TILE_BATCH_ROWS
+// of them at a time, each row's TILE_BATCH_COLS column slots (lane x:
+// x + 32c; a staged row is at most 148 wide) loaded into registers before
+// any is stored. load_tile's loop waits on each load before the next. The
+// descend and ascend tiles stage this way.
+constexpr int TILE_BATCH_ROWS = 4;
+constexpr int TILE_BATCH_COLS = (TILE_W + 2 * MAX_HALO + BLOCK_X - 1) / BLOCK_X;
+
+static __device__ void load_tile_batched(float* s, const Win& src, int n, const Tile& t) {
+  for (int i0 = threadIdx.y; i0 < t.rows; i0 += TILE_BATCH_ROWS * BLOCK_Y) {
+    float v[TILE_BATCH_ROWS][TILE_BATCH_COLS];
+#pragma unroll
+    for (int r = 0; r < TILE_BATCH_ROWS; ++r) {
+      const int i = i0 + r * BLOCK_Y;
+      const RowRef row = i < t.rows ? row_of(src, t.gr0 + i, n) : RowRef{src.p, 0, 0};
+#pragma unroll
+      for (int c = 0; c < TILE_BATCH_COLS; ++c) {
+        const int j = threadIdx.x + c * BLOCK_X, gj = t.gc0 + j;
+        v[r][c] = j < t.cols && gj >= row.c_lo && gj < row.c_hi ? __ldcg(row.p + gj) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < TILE_BATCH_ROWS; ++r) {
+      const int i = i0 + r * BLOCK_Y;
+#pragma unroll
+      for (int c = 0; c < TILE_BATCH_COLS; ++c) {
+        const int j = threadIdx.x + c * BLOCK_X;
+        if (i < t.rows && j < t.cols) s[i * t.cols + j] = v[r][c];
+      }
+    }
+  }
+}
+
 // Stage the starting iterate into buf: u's window, or with from_zero the
 // closed-form first sweep from u ≡ 0, zero_coef·f on the interior (u unread).
 template <class S>
@@ -188,8 +222,11 @@ static __device__ void descend_tile(float* smem, const Win& u, const Win& f,
   float* sf = smem;
   float* bufs[2] = {smem + cells, smem + 2 * cells};
 
-  load_tile(sf, f, n, t);
-  stage_iterate(bufs[0], sf, u, n, t, from_zero, zero_coef);
+  load_tile_batched(sf, f, n, t);
+  if (from_zero)
+    stage_iterate(bufs[0], sf, u, n, t, 1, zero_coef);
+  else
+    load_tile_batched(bufs[0], u, n, t);
   __syncthreads();
 
   const int fin_i = run_sweeps(bufs, sf, t, n_sweeps, n, h2, omega);
@@ -245,18 +282,12 @@ static __device__ void descend_tile(float* smem, const Win& u, const Win& f,
   }
 }
 
-// Coarse row I interpolated to fine column gj (the prolongation's column pass).
-static __device__ __forceinline__ float wide(const Win& c, int I, int gj) {
-  const int J = gj >> 1;
-  const float a = at(c, I, J);
-  if (!(gj & 1)) return a;
-  return __fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, at(c, I, J + 1)));
-}
-
 // The ascend leg of tile (tx, ty) on the level n = 2m − 1: u plus the
 // prolonged correction on the interior, then `steps` sweeps into out. c is a
 // window of the m x m coarse correction holding every coarse cell the
 // interior cells of u's window interpolate from (mg_ascend_shard checks it).
+// u, f and the tile's coarse cells are staged by load_tile_batched (the
+// coarse ones into the spare buffer) and the prolongation reads them there.
 static __device__ void ascend_tile(float* smem, const Win& u, const Win& f, const Win& c,
                                    float* __restrict__ out, float* partial, int tx, int ty,
                                    const Geo& g, int steps, int halo, int err_mode, float h2,
@@ -268,30 +299,42 @@ static __device__ void ascend_tile(float* smem, const Win& u, const Win& f, cons
   float* sf = smem;
   float* bufs[2] = {smem + cells, smem + 2 * cells};
 
-  load_tile(sf, f, n, t);
-  // the cells of u's window in the grid
   const Geo held(n, max(0, u.r0), max(0, u.c0), min(n, u.r0 + u.rows) - max(0, u.r0),
                  min(n, u.c0 + u.cols) - max(0, u.c0));
+  // coarse rows (gi >> 1) .. (gi >> 1) + 1 of the tile's interior rows gi,
+  // and the same for columns
+  const int i_lo = max(1, t.gr0), i_hi = min(n - 2, t.gr0 + t.rows - 1);
+  const int j_lo = max(1, t.gc0), j_hi = min(n - 2, t.gc0 + t.cols - 1);
+  Tile ct;
+  ct.gr0 = i_lo >> 1;
+  ct.gc0 = j_lo >> 1;
+  ct.rows = (i_hi >> 1) + 2 - ct.gr0;
+  ct.cols = (j_hi >> 1) + 2 - ct.gc0;
+  float* cw = bufs[1];
+  load_tile_batched(sf, f, n, t);
+  load_tile_batched(bufs[0], u, n, t);  // 0 outside u's window: not held
+  load_tile_batched(cw, c, (n + 1) / 2, ct);
+  __syncthreads();
   for (int i = threadIdx.y; i < t.rows; i += BLOCK_Y) {
     const int gi = t.gr0 + i;
     for (int j = threadIdx.x; j < t.cols; j += BLOCK_X) {
       const int gj = t.gc0 + j;
-      float v = 0.0f;
-      if (owned(held, gi, gj)) {
-        v = at(u, gi, gj);
-        if (interior(gi, gj, n)) {
-          const int I = gi >> 1;
-          const float p = (gi & 1) ? __fadd_rn(__fmul_rn(0.5f, wide(c, I, gj)),
-                                               __fmul_rn(0.5f, wide(c, I + 1, gj)))
-                                   : wide(c, I, gj);
-          v = __fadd_rn(v, p);
-        }
+      if (!owned(held, gi, gj) || !interior(gi, gj, n)) continue;
+      const float* r0 = cw + ((gi >> 1) - ct.gr0) * ct.cols + ((gj >> 1) - ct.gc0);
+      const float* r1 = r0 + ct.cols;
+      // the column pass on coarse rows I = gi >> 1 and I + 1, then the row pass
+      const float w0 = (gj & 1) ? __fadd_rn(__fmul_rn(0.5f, r0[0]), __fmul_rn(0.5f, r0[1]))
+                                : r0[0];
+      float p = w0;
+      if (gi & 1) {
+        const float w1 = (gj & 1) ? __fadd_rn(__fmul_rn(0.5f, r1[0]), __fmul_rn(0.5f, r1[1]))
+                                  : r1[0];
+        p = __fadd_rn(__fmul_rn(0.5f, w0), __fmul_rn(0.5f, w1));
       }
-      bufs[0][i * t.cols + j] = v;
+      bufs[0][i * t.cols + j] = __fadd_rn(bufs[0][i * t.cols + j], p);
     }
   }
   __syncthreads();
-
   const int fin = run_sweeps(bufs, sf, t, steps, n, h2, omega);
   store_owned(out, bufs[fin], g, t, halo);
   if (err_mode != ERR_NONE)

@@ -284,7 +284,7 @@ static __device__ __forceinline__ void wave2_pass(
     wave_commit();
   };
   // ascend: coarse row I interpolated to this lane's fine columns gc0 + lc
-  // + c (the prolongation's column pass, wide() of legs.cuh): column gj
+  // + c (the prolongation's column pass of legs.cuh's ascend_tile): column gj
   // reads coarse column gj >> 1 at ring column (lc + c) >> 1, and an odd gj
   // the next one too; gc0 is even, so gj is odd where lane + c is
   auto wide_row = [&](int I, float (&w)[WV_SLOTS]) {

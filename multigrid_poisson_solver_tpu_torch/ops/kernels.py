@@ -17,7 +17,9 @@ PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_kernels.py`` and
   * ``chain_descend``: ``csrc/chain_descend.cu``, replaces
     ``_descend_chain_kernel``;
   * ``chain_ascend``: ``csrc/chain_ascend.cu``, replaces
-    ``_ascend_chain_kernel``;
+    ``_ascend_chain_kernel`` (both chains: the levels above the split size
+    ``CHAIN_SPLIT`` of ``csrc/chain_tail.cuh`` as a grid-wide tile launch,
+    those at or below it in one thread block cluster);
   * ``trigger_smooth``: ``csrc/trigger.cu``, replaces ``_trigger_vmem_kernel``;
   * ``trigger_smooth_stream``: ``csrc/trigger_stream.cu``, replaces
     ``_trigger_stream_kernel``.
@@ -30,7 +32,8 @@ not contiguous, wrong shape), raises. There is no fallback.
 
 ``launches`` counts kernel launches per kernel (the ``sum_partials`` second
 pass of an error reduction belongs to the launch it finishes); it lets a run
-show that the main path went through the kernels. The 3-D kernels
+show that the main path went through the kernels. A chain call counts the
+kernels it launched: the wide launch, the cluster tail, or both. The 3-D kernels
 (``ops.kernels3``) count in the same dictionary.
 
 Grids are plain contiguous (n, n) tensors. Every function returns new
@@ -483,6 +486,23 @@ def forced_leg_route(route: str):
         lib.mg_legs_force_route(0)
 
 
+@contextlib.contextmanager
+def forced_chain_split(split: int):
+    """The chains' launches (kernels 6 and 7) with the levels n <= ``split``
+    in the cluster tail (0: every level on the wide tile launch) instead of
+    the rule's (``CHAIN_SPLIT`` in csrc/chain_tail.cuh): lets a check or a
+    timing reach every split. A split whose tail does not fit the cluster
+    makes the chains raise."""
+    from . import build
+
+    lib = build.load()
+    _raise_on(lib, lib.mg_chain_force_split(split), "chain split")
+    try:
+        yield
+    finally:
+        lib.mg_chain_force_split(-1)
+
+
 def _err_buffers(lib, mode, n: int, device):
     """(per-tile partials, the 1-element metric), or Nones without an error."""
     if mode is None:
@@ -644,8 +664,9 @@ def _level_scalars(h0: float, omega: float, levels: int):
 
 def chain_descend(u0, f0, sizes, h0: float, pre_steps, omega: float = 1.0,
                   restriction: str = "sampling", entry_from_zero: bool = False):
-    """The whole descend half of a V below ``sizes[0]`` in one launch
-    (counterpart of ``fused_chain_descend``): per level k < c the pre-sweeps,
+    """The whole descend half of a V below ``sizes[0]`` in one call, the wide
+    launch then the cluster tail (``csrc/chain_tail.cuh``; counterpart of
+    ``fused_chain_descend``): per level k < c the pre-sweeps,
     the residual and its restriction. Returns (u_list, f_list) as the twin.
     ``entry_from_zero``: the caller guarantees u0 ≡ 0 (u0 may be None)."""
     sizes, pre_steps = tuple(sizes), tuple(pre_steps)
@@ -671,14 +692,15 @@ def chain_descend(u0, f0, sizes, h0: float, pre_steps, omega: float = 1.0,
         _level_scalars(h0, omega, c), c, int(entry_from_zero),
         int(restriction == "full_weighting"), omega, stream)
     _raise_on(lib, rc, "chain_descend")
-    launches["chain_descend"] += 1
+    launches["chain_descend"] += lib.mg_chain_launched()
     return u_list, f_list
 
 
 def chain_ascend(u_list, f_list, uc, sizes, h0: float, post_steps, omega: float = 1.0,
                  compat=True, want_err: bool = False):
-    """The whole ascend half of a V up to ``sizes[0]`` in one launch
-    (counterpart of ``fused_chain_ascend``): from the coarse solution uc, per
+    """The whole ascend half of a V up to ``sizes[0]`` in one call, the
+    cluster tail then the wide launch (``csrc/chain_tail.cuh``; counterpart of
+    ``fused_chain_ascend``): from the coarse solution uc, per
     level k = c−1..0 the prolongation, the interior add and the post-sweeps.
     ``u_list`` is chain_descend's, ``f_list[k]`` level k's right-hand side.
     Returns (u_0, level 0's error or None)."""
@@ -708,7 +730,7 @@ def chain_ascend(u_list, f_list, uc, sizes, h0: float, post_steps, omega: float 
         _level_scalars(h0, omega, c), c, _ERR_CODES[mode], omega, _ptr(partials), _ptr(err),
         _err_scale(mode, n, h0) if mode else 0.0, stream)
     _raise_on(lib, rc, "chain_ascend")
-    launches["chain_ascend"] += 1
+    launches["chain_ascend"] += lib.mg_chain_launched()
     return outs[0], (None if err is None else err.reshape(()))
 
 
