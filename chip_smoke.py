@@ -23,7 +23,8 @@ Phases (progress on stdout; the first failure exits non-zero):
      cluster tail, each output and level 0's error bit for bit, smoother,
      residual and trigger loop at 256² down to 8², the multi-word residual
      and the per-sweep errors at 8193², the streamed trigger loop at 2305²
-     and 4097², the rb-GS modes at 4097²); the 3-D kernels at n = 65, 129
+     and 4097², the rb-GS modes at 4097², and at 1025² and 1031² also with
+     chunks forced to 64 and 256 rows); the 3-D kernels at n = 65, 129
      and 131 with tiles forced small (several tiles per dimension and z
      chunks, ragged last ones), every sweep count within each cap, from_zero,
      the clean and gpu errors and both restrictions, the per-sweep errors
@@ -73,13 +74,15 @@ Phases (progress on stdout; the first failure exits non-zero):
      2, 3, 4 and 8 shards and a 2 x 4 block mesh (several tiles a shard,
      ragged last shards and tiles), steps 1-8 and 11, from_zero, every
      error mode, per_sweep, rb-GS, both restrictions (kernel 1's shard
-     modes also with chunks forced to 64 and 256 rows; the legs' shard
+     modes, rb-GS too, also with chunks forced to 64 and 256 rows; the legs' shard
      modes also on the wavefront, with the rule's chunks and chunks of 64
      and 256 rows, bit for bit against the tile kernel, errors too); every
      shard mode's owned cells bit for bit against the unsharded kernel;
      kernel 17 with
      caps of 1-60 sweeps and a mid-loop trigger bit for bit against the loop
-     of one-sweep sharded error launches. G2: at 4097² on 8 shards
+     of one-sweep sharded error launches, and with passes forced to every
+     length 1-8 (a trigger that stops inside a pass, the redo) on rings of
+     2, 3 and 8 shards and one with an 8-row shard. G2: at 4097² on 8 shards
      (threshold 16) through compile_program(policy=...) with halo ppermute
      and rdma, and the plain path: bench_scaling.py's program (coarsen=1)
      and the bench's V(3,3), one cold and five warm cycles each, against the
@@ -148,7 +151,9 @@ Phases (progress on stdout; the first failure exits non-zero):
      emit_residual mode at 513³, whole grid and on 8 z-shards, and at 129³
      and 65³ (µs). G3 reads kernel 17's device ms in its rdma "auto" run
      from the profiler; H2 and I2 kernel 13's, emit_residual's and the ring
-     kernels' a cycle.
+     kernels' a cycle. Kernel 1's rb-GS mode at 4097², 1025² and 257² and
+     its shard pass on 8 row shards (device µs, graph replays) and kernel 17
+     a sweep at 4097² on 8 shards print beside the tile-era parent's.
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -191,6 +196,12 @@ RES_OPS = 7        # residual point: 3 adds, 4u, −, ×h⁻², −
 ERR_OPS = 9        # residual point + |·| + accumulate
 RBGS_OPS = 6       # half-update of a cell: 3 adds, h²f, −, ×¼
 RBGS_ERR_OPS = 10  # the Jacobi Δ of a cell: 3 adds, 4u, −, h²f, −, ×¼, |·|, +
+# The tile-era rb-GS mode's and ring trigger kernel's device times (7ca9eae,
+# before both moved to the wavefront), beside which the [t] rows print this
+# tree's: examples/torch_ring_clock.py on an NVIDIA H100 80GB HBM3 at 700 W
+# (µs a call from CUDA graph replays; kernel 17 ms a sweep from CUDA events)
+PARENT_RBGS_US = {4097: 255.3168, 1025: 29.488, 257: 22.776, "shard": 326.432}
+PARENT_RING_MS_A_SWEEP = 0.2156
 RES_MW_OPS = {2: 227, 3: 232}   # two dd chains, the exact product, the combination
 # the 3-D kernels (col3.cuh's passes), per fine point unless noted
 SWEEP3_OPS = 11    # 7-point sweep: 5 adds, 6u, −, h²f, −, ×ω/6, +
@@ -225,7 +236,7 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, main-path run)
     "residual_mw": (PKG + "residual_mw.cu", TPU + "pallas_kernels.py:1474", "refine"),
     "jacobi_errs": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:161", "trigger8193"),
     "trigger_stream": (PKG + "trigger_stream.cu", TPU + "pallas_chain.py:636", "trigger8193"),
-    "rbgs": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:161", "rbgs"),
+    "rbgs": (PKG + "rbgs.cu", TPU + "pallas_kernels.py:161", "rbgs"),
     "jacobi3": (PKG + "jacobi3.cu", TPU + "pallas3d.py:237", "compiled3_gpu"),
     "descend3": (PKG + "descend3.cu", TPU + "pallas3d.py:746", "v_cycle3"),
     "ascend3": (PKG + "ascend3.cu", TPU + "pallas3d.py:1103", "v_cycle3"),
@@ -237,7 +248,7 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, main-path run)
     # the shard modes of kernels 1-4 and the two ring kernels (phase G)
     "jacobi_shard": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:500", "sharded"),
     "jacobi_errs_shard": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:500", "sharded_trigger_b7"),
-    "rbgs_shard": (PKG + "jacobi.cu", TPU + "pallas_kernels.py:500", "sharded_rbgs"),
+    "rbgs_shard": (PKG + "rbgs.cu", TPU + "pallas_kernels.py:500", "sharded_rbgs"),
     "residual_shard": (PKG + "residual.cu", TPU + "pallas_kernels.py:1166", "sharded"),
     "descend_shard": (PKG + "descend.cu", TPU + "pallas_kernels.py:1233", "sharded_legs"),
     "ascend_shard": (PKG + "ascend.cu", TPU + "pallas_kernels.py:1388", "sharded_legs"),
@@ -637,12 +648,14 @@ def phase2(K, torch, cmp, problem, GridSpec):
         rbgs(n)
     # kernel 1's wavefront with chunks of several tile rows, which its
     # occupancy rule gives only large grids: every sweep count, error kind
-    # and from_zero, and the per-sweep mode (iterates bit for bit, main)
+    # and from_zero, the per-sweep mode and the rb-GS modes (iterates bit for
+    # bit, main)
     for rows in (64, 256):
         with K.forced_chunk_rows(rows):
             for n in (1025, 1031):
                 smoother(n, range(1, 9), (None, True, False, "gpu"), (False, True), negate=())
                 jacobi_errs(n)
+                rbgs(n)
                 # the legs' wavefront the same way: every sweep count, error
                 # kind, from_zero and restriction, its outputs bit for bit the
                 # tile kernel's
@@ -669,10 +682,19 @@ def phase2(K, torch, cmp, problem, GridSpec):
         wu, we = K.fused_jacobi_errs(u, f, h, 7, omega, True)
         require(bool(torch.equal(gu, wu)) and bool(torch.equal(ge, we)),
                 f"jacobi_errs n={n}: a view at an offset differs")
+        for steps in (1, 3):
+            gu, ge = K.fused_rbgs_err(uv, fv, h, steps, True)
+            wu, we = K.fused_rbgs_err(u, f, h, steps, True)
+            require(bool(torch.equal(gu, wu)) and bool(torch.equal(ge, we)),
+                    f"rbgs n={n} steps={steps}: a view at an offset differs")
         rc = lib.mg_jacobi(uv.data_ptr(), fv.data_ptr(), torch.empty_like(u).data_ptr(), None,
                            None, n, 1, 0, 0, h * h, omega, 1.0 / (h * h), 0.0, 0.0,
                            torch.cuda.current_stream().cuda_stream)
         require(rc == 716, f"mg_jacobi took a misaligned u and f (rc {rc}, not "
+                "cudaErrorMisalignedAddress)")
+        rc = lib.mg_rbgs(uv.data_ptr(), fv.data_ptr(), torch.empty_like(u).data_ptr(), None,
+                         None, n, 1, 0, 0, h * h, 0.0, torch.cuda.current_stream().cuda_stream)
+        require(rc == 716, f"mg_rbgs took a misaligned u and f (rc {rc}, not "
                 "cudaErrorMisalignedAddress)")
     # the library path's legs: 3 sweeps, sampling, the finest level's cpu error
     # (the size rule's wavefront, its outputs bit for bit the tile kernel's)
@@ -2374,7 +2396,72 @@ def phase_g1(K, torch, cmp):
                                 us, fs, h, s, omega, compat)[1]),
                                 f"jacobi_errs_shard {w}: errs[{s - 1}] differs from the error "
                                 f"of {s} sweeps")
+                    for steps in (1, 2, 3, 4):
+                        for compat in (None, True, False) if steps <= 3 else (None,):
+                            w = f"{what} rb-GS steps={steps} err={compat}"
+                            if compat is None:
+                                gu = KS.sharded_fused_jacobi(us, fs, h, steps, 1.0,
+                                                             smoother="rbgs")
+                                wu = twin(KS.sharded_fused_jacobi, us, fs, h, steps, 1.0,
+                                          smoother="rbgs")
+                                ku = K.fused_rbgs(u, f, h, steps)
+                            else:
+                                gu, ge = KS.sharded_fused_jacobi_err(us, fs, h, steps, 1.0,
+                                                                     compat, smoother="rbgs")
+                                wu, we = twin(KS.sharded_fused_jacobi_err, us, fs, h, steps,
+                                              1.0, compat, smoother="rbgs")
+                                ku, ke = K.fused_rbgs_err(u, f, h, steps, compat)
+                                cmp.scalar("rbgs_shard", w, ge, we)
+                                cmp.scalar("rbgs_shard", f"{w} against the unsharded kernel",
+                                           ge, ke)
+                            cmp.grid("rbgs_shard", w, G(gu), G(wu))
+                            cmp.cases["rbgs_shard"] += 1
+                            same(f"rbgs_shard {w}", G(gu), ku)
         torch.cuda.synchronize()
+    # kernel 17 at every pass length (rdma.forced_trigger_batch 1..8, held at
+    # 7 for the cpu and clean metrics) on rings of 2, 3 and 8 shards and one
+    # whose first shard has 8 rows (a pass's whole halo): a trigger that
+    # stops the loop at sweep 19 where the slopes fall (inside a pass for
+    # every B > 1: the redo) and a max_sweeps inside the second pass, stop
+    # sweep, iterate and error bit for bit the loop of one-sweep sharded
+    # error launches
+    inside = 0
+    for n in (1025, 1031):
+        h = 1.0 / (n - 1)
+        u, f = rand(n, n), rand(n, n)
+        lays = {tag: S.layout_of(pols[tag], n) for tag in ("rows-2", "rows-3", "rows-8")}
+        lays["rows-3, 8 + 2 shards"] = S.Layout(n, ((0, 8), (8, n // 2), (n // 2, n)),
+                                                ((0, n),), ((torch.device("cuda:0"),),) * 3)
+        for tag, lay in lays.items():
+            fs, v0 = S.shard(f, lay), S.shard(u * 0.01, lay)
+            for compat in (True, False, "gpu"):
+                def one(v):
+                    return KS.sharded_fused_jacobi_err(v, fs, h, 1, omega, compat)
+
+                v, errs = v0, []
+                for _ in range(19):
+                    v, e = one(v)
+                    errs.append(float(e))
+                trig = 0.5 * (abs(errs[17] - errs[16]) + abs(errs[18] - errs[17]))
+                mid = trigger_loop(one, v0, trig, 200)
+                for batch in range(1, 9):
+                    with rdma.forced_trigger_batch(batch):
+                        for t, max_sweeps in ((trig, 200), (0.0, batch + 3)):
+                            ru, re_, rk = mid if t else trigger_loop(one, v0, t, max_sweeps)
+                            gu, ge, gk = KS.rdma_fused_trigger(v0, fs, h, t, omega, compat,
+                                                               max_sweeps)
+                            w = (f"n={n} {tag} err={compat} B={batch} trigger={t:.6g} "
+                                 f"max={max_sweeps}")
+                            require(int(gk) == rk and bool(torch.equal(G(gu), G(ru)))
+                                    and bool(torch.equal(ge, re_)),
+                                    f"rdma_trigger {w}: {int(gk)} sweeps vs {rk} of the "
+                                    f"one-sweep sharded launches, or another iterate or error")
+                            cmp.cases["rdma_trigger"] += 1
+                            b = min(batch, 8 - (compat != "gpu"))
+                            inside += t > 0 and rk % b != 0
+        torch.cuda.synchronize()
+    say(f"[G1] ring trigger loops at every pass length that stopped inside a pass: {inside}")
+    require(inside > 0, "no ring trigger loop stopped inside a pass: the redo went unchecked")
     # the legs' shard modes on the wavefront (the size rule sends these
     # blocks to the tile kernel, which the loops above hold) with the
     # occupancy rule's chunks and chunks of 64 and 256 rows: per shard bit for
@@ -3219,6 +3306,27 @@ def main():
     say(f"[t] rdma_trigger3 at {calls['rdma_trigger3'][0]}: bit for bit the loop of one-sweep "
         f"sharded error steps; {times['rdma_trigger3'][0] / t_sweeps:.4f} ms a sweep")
     del gu, ru
+    # kernel 1's rb-GS mode (2 sweeps + cpu error, path C's pass) at 4097²,
+    # 1025² and 257² and its shard pass on the 8 row shards of 4097² in
+    # device µs a call (graph_us), and kernel 17 a sweep at 4097² on 8 shards
+    # (CUDA events around 98-sweep calls of ~5 ms: a graph replay would reuse
+    # its captured tags, which the flags have passed); the parent's beside
+    for m in (4097, 1025, 257):
+        um, fm, hm = rnd(m), rnd(m), 1.0 / (m - 1)
+        us_ = graph_us(lambda: K.fused_rbgs_err(um, fm, hm, 2, True))
+        say(f"[t] rbgs at {m}², 2 sweeps + cpu error: {us_:.2f} µs device a call "
+            f"(tile-era parent {PARENT_RBGS_US[m]:.2f}); bound "
+            f"{bound(12 * m * m, (2 * RBGS_OPS + RBGS_ERR_OPS) * m * m)[0] * 1e3:.2f} µs")
+    del um, fm
+    us_ = graph_us(calls["rbgs_shard"][1])
+    say(f"[t] rbgs_shard at {calls['rbgs_shard'][0]}: {us_:.2f} µs device a pass of 8 launches "
+        f"(tile-era parent {PARENT_RBGS_US['shard']:.2f}); bound "
+        f"{times['rbgs_shard'][2] * 1e3:.2f} µs")
+    say(f"[t] rdma_trigger (kernel 17) at {calls['rdma_trigger'][0]}: "
+        f"{times['rdma_trigger'][0] / s_sweeps:.4f} ms a sweep (tile-era parent "
+        f"{PARENT_RING_MS_A_SWEEP:.4f}); bound by operations a sweep "
+        f"{(SWEEP_OPS + ERR_OPS) * pts / FP32 * 1e3:.4f} ms, 12 B a point unblocked "
+        f"{12 * pts / HBM * 1e3:.4f} ms")
     # kernel 1 at the other main-path shapes: 8 sweeps at 8193² (phase 5's
     # launch), G3's pass (one sweep + cpu error on 8 row shards of 8193²) and
     # the small levels in device µs a call (graph_us); a torch.add of two

@@ -12,7 +12,8 @@ kernel 1's Jacobi modes (8193² with 8 sweeps and the per-sweep mode, 4097²
 with one sweep and each error, 1025², 257² and 65² in device µs a call) and
 the 2-D trigger kernels 8 and 9 and kernel 5; the 2-D shard modes on 8 row
 shards of the card (kernel 1 at 4097² and 8193², also in device µs at 4097²,
-and rb-GS); the legs (kernels 3 and 4) at 8193² to 257², whole
+and rb-GS, also in device µs from CUDA graph replays); rb-GS at 4097², 1025²
+and 257² (device µs, graph replays); the legs (kernels 3 and 4) at 8193² to 257², whole
 grid (ms; device µs from 2049²) and on 8 row shards (device µs), on the
 tree's route and, where the tree has both, on each; the chains 6 and 7 from
 1025² (ms, and device µs from the profiler and from CUDA graph replays), on
@@ -24,7 +25,8 @@ G2 V(3,3) coarsen=3 and
 bench_scaling (coarsen=1) cycles (4097², on 8 row shards with halo
 ppermute: device ms a cycle from torch.profiler and the host wall clock)
 and the 8193² trigger V-cycle's wall
-clock (batch 7, and "auto" on 8 row shards with rdma); then the ring
+clock (batch 7, and "auto" on 8 row shards with rdma, with kernel 17's
+device ms in it from torch.profiler); then the ring
 kernels on rings of 8 shards of the card: the 2-D ones at 4097², and, where
 the tree has them (``ops/rdma3.py``), the 3-D ones at 513³
 (the trigger loop at 257³, 129³ and 65³, ms per sweep; the smoother and the
@@ -89,6 +91,21 @@ def device_ms(fn, per):
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3 / per
+
+
+def kernel_device_ms(fn, match):
+    """Device ms of the kernels whose name ``match`` accepts in one call of
+    fn (torch.profiler), after a warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and match(e.key)) / 1e3
 
 
 def walls(fn, runs=3):
@@ -226,8 +243,17 @@ res.update({
     "jacobi_shard3cpu_4097_us": 1e3 * device_ms(on(w4, g4, lambda ue, fe, g:
                                                    K.fused_jacobi_shard(ue, fe, g, h, 3, 0.8,
                                                                         False, "cpu")), 1),
+    "rbgs_shard2cpu_4097_graph_us": graph_us(on(w4, g4, lambda ue, fe, g: K.fused_jacobi_shard(
+        ue, fe, g, h, 2, 1.0, False, "cpu", "rbgs"))),
 })
 del w4, w8
+# kernel 1's rb-GS mode, 2 sweeps + cpu error (path C's pass), device µs a
+# call from CUDA graph replays
+for m in (4097, 1025, 257):
+    um, fm = rand(m), rand(m)
+    res[f"rbgs2err_{m}_graph_us"] = graph_us(lambda: K.fused_rbgs_err(um, fm, 1 / (m - 1), 2,
+                                                                         True))
+del um, fm
 # the legs (kernels 3 and 4: 3 sweeps, sampling, cpu error) at every size the
 # main paths give them, whole grid (ms from 4097², device µs below) and on 8
 # row shards of the card (device µs a pass of 8 launches), on the route the
@@ -322,6 +348,9 @@ for tag, batch, pol, halo in (("b7", 7, None, "ppermute"),
         halo=halo), device="cuda", policy=pol)
     tu, tf = tc.init()
     res[f"trigger_vcycle_{tag}_8193_wall"] = walls(lambda: tc(tu, tf))
+    if halo == "rdma":   # kernel 17's device ms in the cycle
+        res[f"trigger_vcycle_{tag}_8193_rdma_trigger_device"] = kernel_device_ms(
+            lambda: tc(tu, tf), lambda key: "rdma_trigger" in key)
     del tc, tu, tf
 ring = S.layout_of(M.ShardingPolicy(M.make_mesh(["cuda:0"] * 8), threshold_rows=16), n)
 us, fs = S.shard(u, ring), S.shard(f, ring)

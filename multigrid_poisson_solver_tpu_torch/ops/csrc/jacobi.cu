@@ -1,13 +1,14 @@
 // Kernel 1, the fused damped-Jacobi smoother: k <= 8 sweeps a pass over
-// device memory with an optional fused smoothing error, and its rb-GS mode.
+// device memory with an optional fused smoothing error (its rb-GS mode is
+// rbgs.cu).
 //
 // Replaces: multigrid_poisson_solver_tpu/ops/pallas_kernels.py,
 // _fused_jacobi_kernel (:161): the Jacobi modes (plain sweeps, the cpu /
 // clean / gpu fused error, from_zero), reached through fused_jacobi_padded
 // and fused_jacobi_err_padded; the per_sweep mode (fused_jacobi_errs_padded,
-// the batched trigger loop: the error of every iterate); rb-GS
-// (fused_rbgs_padded, fused_rbgs_err_padded); and the shard mode of each
-// (_fused_jacobi_shard_call, :500, reached through parallel/pallas_shard.py).
+// the batched trigger loop: the error of every iterate); and the shard mode
+// of each (_fused_jacobi_shard_call, :500, reached through
+// parallel/pallas_shard.py).
 //
 // Bound: device-memory bandwidth for few sweeps, fp32 instructions for
 // many. One unfused sweep reads u and f and writes u, 12 B a point: 3.35
@@ -28,13 +29,6 @@
 // same errors as loops of these launches. No atomics: every metric is
 // deterministic.
 //
-// rb-GS (rbgs_tile in legs.cuh) keeps the tile pipeline: k <= 4 red-black
-// Gauss-Seidel sweeps a pass, each two parity-masked half-updates done in
-// place in shared memory, so a sweep consumes two halo cells; the cpu or
-// clean error is Σ|Δ| of one ω = 1 Jacobi step from the final iterate (the
-// TPU kernel's identity Δ = (h²/4)·r). Bound: 12 B per point per pass, the
-// same memory traffic as the Jacobi mode for half the sweeps per pass.
-//
 // Shard mode: every mode above on one shard's block of a sharded level.
 // The inputs are the block extended by ext_r halo rows and ext_c halo
 // columns per side, which the caller gathered from the ring neighbours;
@@ -47,7 +41,6 @@
 // single-device kernel: mg_jacobi is mg_jacobi_shard on the whole grid, and
 // that case launches the SHARD = false instantiation (common.cuh, region),
 // in which the shard geometry folds away.
-#include "legs.cuh"
 #include "wave2.cuh"
 
 using namespace mgk;
@@ -178,11 +171,6 @@ extern "C" const char* mg_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-static bool bad_geo(int n, int row0, int col0, int rows, int cols, int ext_r, int ext_c) {
-  return n < 3 || rows < 1 || cols < 1 || row0 < 0 || col0 < 0 || row0 + rows > n ||
-         col0 + cols > n || ext_r < 0 || ext_c < 0;
-}
-
 // steps <= MAX_STEPS sweeps of the block u (ignored when from_zero) into
 // out, the owned rows x cols block at global (row0, col0); u and f are the
 // block extended by ext_r rows and ext_c columns per side (the halo must
@@ -249,52 +237,4 @@ extern "C" int mg_jacobi_errs(const float* u, const float* f, float* out, float*
                               float omega, float inv_h2, float err_scale, void* stream) {
   return mg_jacobi_errs_shard(u, f, out, partials, errs_out, n, 0, 0, n, n, 0, 0, steps,
                               err_mode, h2, omega, inv_h2, err_scale, stream);
-}
-
-template <bool SHARD>
-static __global__ void __launch_bounds__(THREADS)
-rbgs_kernel(const float* __restrict__ u, const float* __restrict__ f, float* __restrict__ out,
-            float* __restrict__ partials, Geo g_, int ext_r, int ext_c, int n_sweeps, int halo,
-            int from_zero, int err_mode, float h2) {
-  extern __shared__ float smem[];
-  const int t = blockIdx.y * gridDim.x + blockIdx.x;
-  const Geo g = region<SHARD>(g_);
-  rbgs_tile(smem, region<SHARD>(u, g, ext_r, ext_c), region<SHARD>(f, g, ext_r, ext_c), out,
-            partials ? partials + t : nullptr, blockIdx.x, blockIdx.y, g, n_sweeps, halo,
-            from_zero, err_mode, h2);
-}
-
-// steps <= 4 rb-GS sweeps of the block u (not read when from_zero) into out;
-// err_mode ERR_NONE, ERR_CPU or ERR_CLEAN (then steps <= 3, partials holds
-// mg_num_tiles_block(rows, cols) floats and err_out[0] receives their sum
-// times err_scale). Geometry as mg_jacobi_shard; parity is global.
-extern "C" int mg_rbgs_shard(const float* u, const float* f, float* out, float* partials,
-                             float* err_out, int n, int row0, int col0, int rows, int cols,
-                             int ext_r, int ext_c, int steps, int from_zero, int err_mode,
-                             float h2, float err_scale, void* stream) {
-  const int halo = rbgs_halo(steps, err_mode);
-  if (steps < 1 || halo > MAX_STEPS || err_mode == ERR_GPU ||
-      bad_geo(n, row0, col0, rows, cols, ext_r, ext_c))
-    return (int)cudaErrorInvalidValue;
-  const Geo g(n, row0, col0, rows, cols);
-  const auto kernel = whole_grid(g, ext_r, ext_c) ? rbgs_kernel<false> : rbgs_kernel<true>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)rbgs_smem_bytes(MAX_STEPS));
-  if (e != cudaSuccess) return (int)e;
-  const cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<tile_grid(g), dim3(BLOCK_X, BLOCK_Y), rbgs_smem_bytes(halo), s>>>(
-      u, f, out, partials, g, ext_r, ext_c, steps, halo, from_zero, err_mode, h2);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || err_mode == ERR_NONE) return (int)e;
-  return (int)launch_error_sum(partials, num_tiles(g), err_scale, err_out, s);
-}
-
-// steps <= 4 rb-GS sweeps of u (not read when from_zero) into out; err_mode
-// ERR_NONE, ERR_CPU or ERR_CLEAN (then steps <= 3, partials holds
-// mg_num_tiles(n) floats and err_out[0] receives the scaled metric).
-extern "C" int mg_rbgs(const float* u, const float* f, float* out, float* partials,
-                       float* err_out, int n, int steps, int from_zero, int err_mode, float h2,
-                       float err_scale, void* stream) {
-  return mg_rbgs_shard(u, f, out, partials, err_out, n, 0, 0, n, n, 0, 0, steps, from_zero,
-                       err_mode, h2, err_scale, stream);
 }

@@ -1,13 +1,14 @@
 // The work of one tile for each fused operation that keeps the tile
 // pipeline: the smoother's tile (jacobi_tile, jacobi_errs_tile) in the
-// trigger loops (trigger.cu, trigger_stream.cu) and the ring kernels
-// (rdma_jacobi.cu, rdma_trigger.cu); rb-GS (jacobi.cu); the descend leg
-// (chain_descend.cu, and descend.cu's small levels) and the ascend leg
-// (chain_ascend.cu, and ascend.cu's small levels). Kernel 1's Jacobi modes
-// and the legs' larger levels run wave2.cuh's wavefront instead, whose
-// iterates, coarse right-hand sides and error partials equal these tiles'
-// bit for bit. A one-launch kernel runs one tile per block; a persistent kernel
-// walks many tiles per block and levels or sweeps between grid barriers.
+// trigger loops (trigger.cu, trigger_stream.cu) and the ring kernel
+// rdma_jacobi.cu; the descend leg (chain_descend.cu, and descend.cu's small
+// levels) and the ascend leg (chain_ascend.cu, and ascend.cu's small
+// levels). Kernel 1 (its Jacobi and rb-GS modes), the ring trigger kernel
+// rdma_trigger.cu and the legs' larger levels run wave2.cuh's wavefront
+// instead, whose iterates, coarse right-hand sides and error partials equal
+// these tiles' bit for bit. A one-launch kernel runs one tile per block; a
+// persistent kernel walks many tiles per block and levels or sweeps between
+// grid barriers.
 // Both run this same code, so the chain and trigger kernels reproduce the
 // per-level launches bit for bit.
 //
@@ -130,78 +131,6 @@ static __device__ void jacobi_errs_tile(float* smem, const Win& u, const Win& f,
                   inv_h2);
   }
   store_owned(out, bufs[n_sweeps & 1], g, t, halo);
-}
-
-// One red-black Gauss-Seidel half-update of `color` (0: even, (i + j) even;
-// 1: odd) in place over the staged region shrunk by lo: u = ¼·(nb − h²f) on
-// the interior cells of that color (stencils.redblack_gs_sweep). A cell of
-// one color reads only neighbors of the other, so updating in place is the
-// twin's read-all-then-write half.
-static __device__ void rbgs_half(float* buf, const float* sf, const Tile& t, int lo, int n,
-                                 int color, float h2) {
-  for (int i = lo + threadIdx.y; i < t.rows - lo; i += BLOCK_Y) {
-    const int gi = t.gr0 + i;
-    for (int j = lo + threadIdx.x; j < t.cols - lo; j += BLOCK_X) {
-      const int gj = t.gc0 + j;
-      if (!interior(gi, gj, n) || ((gi + gj) & 1) != color) continue;
-      const int k = i * t.cols + j;
-      buf[k] = __fmul_rn(0.25f, __fsub_rn(nb_sum(buf, t.cols, i, j), __fmul_rn(h2, sf[k])));
-    }
-  }
-}
-
-// The rb-GS error partial of one tile: Σ|Δ| over its owned interior cells
-// (ERR_CPU: even color only), Δ = ¼·((nb − 4u) − h²f) the step an ω = 1
-// Jacobi sweep would take from the final iterate, i.e. (h²/4)·r.
-static __device__ void rbgs_error_partial(float* __restrict__ partial, const float* fin,
-                                          const float* sf, const Tile& t, int halo, const Geo& g,
-                                          int err_mode, float h2) {
-  const Span sp = owned_interior(g);
-  float acc = 0.0f;
-  for (int i = halo + threadIdx.y; i < halo + TILE_H; i += BLOCK_Y) {
-    const int gi = t.gr0 + i;
-    for (int j = halo + threadIdx.x; j < halo + TILE_W; j += BLOCK_X) {
-      const int gj = t.gc0 + j;
-      if (gi < sp.i_lo || gi > sp.i_hi || gj < sp.j_lo || gj > sp.j_hi) continue;
-      if (err_mode == ERR_CPU && ((gi + gj) & 1)) continue;
-      const int k = i * t.cols + j;
-      const float d = __fsub_rn(__fsub_rn(nb_sum(fin, t.cols, i, j), __fmul_rn(4.0f, fin[k])),
-                                __fmul_rn(h2, sf[k]));
-      acc += fabsf(__fmul_rn(0.25f, d));
-    }
-  }
-  const float total = block_sum(acc);
-  if (threadIdx.x == 0 && threadIdx.y == 0) *partial = total;
-}
-
-// n_sweeps rb-GS sweeps (2·n_sweeps half-updates, even color first) of tile
-// (tx, ty) into out, in one staged buffer after f; from_zero: the iterate is
-// 0 and u is not read. With err_mode (cpu or clean), the tile's error
-// partial into *partial.
-static __device__ void rbgs_tile(float* smem, const Win& u, const Win& f,
-                                 float* __restrict__ out, float* partial, int tx, int ty,
-                                 const Geo& g, int n_sweeps, int halo, int from_zero, int err_mode,
-                                 float h2) {
-  __syncthreads();
-  const int n = g.n;
-  const Tile t = make_tile(g, halo, tx, ty);
-  float* sf = smem;
-  float* buf = smem + t.rows * t.cols;
-
-  load_tile(sf, f, n, t);
-  if (from_zero) {
-    for (int i = threadIdx.y; i < t.rows; i += BLOCK_Y)
-      for (int j = threadIdx.x; j < t.cols; j += BLOCK_X) buf[i * t.cols + j] = 0.0f;
-  } else {
-    load_tile(buf, u, n, t);
-  }
-  __syncthreads();
-  for (int s = 1; s <= 2 * n_sweeps; ++s) {
-    rbgs_half(buf, sf, t, s, n, (s - 1) & 1, h2);
-    __syncthreads();
-  }
-  store_owned(out, buf, g, t, halo);
-  if (err_mode != ERR_NONE) rbgs_error_partial(partial, buf, sf, t, halo, g, err_mode, h2);
 }
 
 // The descend leg of tile (tx, ty) on the level n = 2m − 1: sweeps into out,
@@ -348,16 +277,6 @@ static inline int jacobi_halo(int n_sweeps, int err_mode) {
 
 static inline int descend_halo(int n_sweeps, int full_weighting) {
   return n_sweeps + 1 + (full_weighting ? 1 : 0);
-}
-
-// rb-GS: each half-update consumes one halo cell, the error's Δ one more.
-static inline int rbgs_halo(int n_sweeps, int err_mode) {
-  return 2 * n_sweeps + (err_mode != ERR_NONE ? 1 : 0);
-}
-
-// Shared memory of an rb-GS tile: f and one in-place buffer.
-static inline size_t rbgs_smem_bytes(int halo) {
-  return 2 * tile_floats(halo) * sizeof(float);
 }
 
 }  // namespace mgk

@@ -1,15 +1,18 @@
 // Shared pieces of the 2-D ring kernels (rdma_jacobi.cu, rdma_trigger.cu):
 // one launch runs every shard of a row-sharded level, with the tag, flag and
-// launch protocol of ring.cuh.
+// launch protocol of ring.cuh. The ring source (Ring) and the tile-row tests
+// are rdma_jacobi.cu's, whose tiles are legs.cuh's; rdma_trigger.cu's
+// wavefront passes read the receive buffers through wave2.cuh's WaveRing.
 //
 // What a shard owns in the workspace (ops/rdma.py allocates it once per
 // device, shard count and width, zeroed):
 //   * receive buffers: per parity, per side (0: from the shard above, 1: from
 //     the shard below) and per array (0: u, 1: f), RING_HALO rows of width n;
-//   * error slots: per parity and per sender, one raw error partial;
+//   * error slots: per parity and per sender, the raw error partials of up
+//     to MAX_STEPS sweeps (rdma_trigger.cu's pass);
 //   * flags: one 64-bit tag per sender, the last post that sender made here;
 //   * arrival counts of its own blocks (two: rdma_trigger.cu's first post
-//     and its sweeps).
+//     and its passes).
 // Receive buffers and error slots alternate by parity, so a sender one post
 // ahead writes the other half; it cannot be two ahead, since its next sweep
 // needs this shard's own post, which comes after this shard's reads.
@@ -56,24 +59,27 @@ static __device__ __forceinline__ Ring ring_source(const float* own, float* halo
   return r;
 }
 
-// Copy cnt x n floats from src to dst, the work split over nb blocks.
+// Copy cnt x n floats from src to dst, the work split over nb blocks of T
+// threads.
+template <int T = THREADS>
 static __device__ void copy_rows(float* __restrict__ dst, const float* src, int cnt, int n, int lb,
                                  int nb) {
   const size_t total = (size_t)cnt * n;
-  for (size_t i = (size_t)lb * THREADS + threadIdx.y * BLOCK_X + threadIdx.x; i < total;
-       i += (size_t)nb * THREADS)
+  for (size_t i = (size_t)lb * T + threadIdx.y * BLOCK_X + threadIdx.x; i < total;
+       i += (size_t)nb * T)
     dst[i] = __ldcg(src + i);
 }
 
 // Post shard s's edge rows of `src` (rows x n) to its neighbours' receive
 // buffers of parity par: its first hr rows to the shard above (side 1), its
 // last hr rows to the shard below (side 0). Split over the nb blocks.
+template <int T = THREADS>
 static __device__ void post_edges(float* halo, const float* src, int s, int shards, int par,
                                   int arr, int rows, int hr, int n, int lb, int nb) {
-  if (s > 0) copy_rows(recv_buf(halo, s - 1, par, 1, arr, n), src, hr, n, lb, nb);
+  if (s > 0) copy_rows<T>(recv_buf(halo, s - 1, par, 1, arr, n), src, hr, n, lb, nb);
   if (s + 1 < shards)
-    copy_rows(recv_buf(halo, s + 1, par, 0, arr, n) + (size_t)(RING_HALO - hr) * n,
-              src + (size_t)(rows - hr) * n, hr, n, lb, nb);
+    copy_rows<T>(recv_buf(halo, s + 1, par, 0, arr, n) + (size_t)(RING_HALO - hr) * n,
+                 src + (size_t)(rows - hr) * n, hr, n, lb, nb);
 }
 
 // Whether tile row ty of a shard (rows rows, tiles staged with `halo`) reads

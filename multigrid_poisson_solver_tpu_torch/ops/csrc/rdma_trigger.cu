@@ -7,26 +7,48 @@
 // _rdma_trigger_kernel, reached through parallel/pallas_shard.py's
 // rdma_fused_trigger (the engine's sharded trigger levels with halo="rdma").
 //
-// Bound: per sweep, the exchange and the stop test. Driven from the host, a
+// Bound: device-memory bandwidth and the exchange. Driven from the host, a
 // sweep is an exchange of halo rows, one launch per shard and a read of the
 // error back to the host, tens of microseconds, while a sweep of one shard
-// of a 2049² level takes the card a few. Design: one persistent cooperative
-// launch runs the loop for the whole ring, each shard on its own slice of
-// blocks (rdma.cuh); shards meet only through their own buffers and flags.
-// Per sweep a shard's blocks walk its tiles with the smoother's tile code
-// (jacobi_tile, legs.cuh: one sweep and the tile's error partial, exactly as
-// the one-sweep shard-mode launch of jacobi.cu), interior tile rows first.
-// The last of its blocks to finish the sweep sums the shard's tile partials
-// in the one-launch reduction's fixed order, posts the fresh edge rows to the
-// neighbours' receive buffers and the raw partial to every shard's error
-// slot, and releases the sweep's tag on each shard's flag for it. Every block
-// then waits for the tags of all shards, adds the partials in shard order and
-// scales the sum, so every block of every shard reaches the same error and
-// the same stop decision; that all-to-all is also the barrier between
-// sweeps. The iterates, the stop sweep and the error are those of the loop
-// of one-sweep shard-mode launches whose partials are added in shard order
-// (parallel/kernel_shard.py), bit for bit.
+// of a 2049² level takes the card a few; swept one at a time, each sweep
+// reads u and f and writes u (12 B a point).
+//
+// Design: one persistent cooperative launch runs the loop for the whole
+// ring, each shard on its own slice of blocks (rdma.cuh, ring.cuh); shards
+// meet only through their own buffers and flags. The loop runs passes of
+// <= B sweeps, temporal blocking with an exact replay as trigger_stream.cu
+// does on the whole grid: a pass is kernel 1's per-sweep shard pass
+// (wave2.cuh, wave2_pass<true, B, E, true>, mg_jacobi_errs_shard's body,
+// its levels above the pass's sweeps copies) over the shard's block, its
+// warps walking the (strip, chunk) units, so a pass reads and writes the
+// grids once for its sweeps and leaves each sweep's tile partials in
+// legs.cuh's tile order. A pass runs about as far as the stop is likely to
+// be (next_sweeps: 2 sweeps, 1, then what the slopes' decay predicts): the
+// engine's trigger nodes stop after a few sweeps, and a pass that runs
+// past the stop costs a redo. Rows beyond the block come from the
+// receive buffers (WaveRing): the pass's input's H = B (+1 for cpu / clean)
+// edge rows, which the neighbours' warps wrote there when they stored them
+// in the pass before (f's once, before the loop, with u_0's). The slots
+// alternate by pass parity, so a redo still reads them. The last block of a
+// shard to finish a pass sums each sweep's row of tile partials in
+// sum_partials_kernel's order, posts the pass's raw partials to every
+// shard's error slots and releases one tag on each shard's flag for it. Every block
+// waits for all shards, adds each sweep's partials in shard order, scales,
+// and replays the stop rule sweep by sweep (the slope test from sweep 2,
+// then max_sweeps), so every block of every shard takes the same decisions;
+// the all-to-all is also the barrier between passes. If the loop stops at
+// sweep s of a pass before its last, the blocks redo the pass from its
+// input (intact in the ping-pong partner) with s sweeps and no errors, and
+// meet once more before the copy of the final iterate to out. k fused
+// sweeps equal k one-sweep launches and errs[s − 1] is the error an s-sweep
+// launch reports, so the iterates, the stop sweep and the error are those of
+// the loop of one-sweep shard-mode launches whose partials are added in
+// shard order (parallel/kernel_shard.py), bit for bit, whatever the passes'
+// lengths.
+#include <algorithm>
+
 #include "rdma.cuh"
+#include "wave2.cuh"
 
 using namespace mgk;
 
@@ -35,111 +57,294 @@ struct RingTriggerArgs {
   const float* f[MAX_SHARDS];
   float* out[MAX_SHARDS];      // final iterate
   float* tmp[MAX_SHARDS];      // ping-pong partner of out
-  float* partials;             // tile partials, shard s's from part0[s]
+  float* partials;             // B rows of tile partials a shard, shard s's from B · part0[s]
   float* halo;                 // receive buffers (rdma.cuh)
-  float* err;                  // [receiver][parity][sender] raw partials
+  float* err;                  // [receiver][parity][sender][MAX_STEPS] raw partials
   unsigned long long* flags;   // [receiver][sender]
-  unsigned int* count;         // [2][shard]: arrivals at the first post, then at each sweep
+  unsigned int* count;         // [2][shard]: arrivals at the first post, then at each pass
   float* err_out;              // the final iterate's error
   int* sweeps_out;             // sweeps run
   int row0[MAX_SHARDS + 1];    // shard s owns rows [row0[s], row0[s + 1])
   int part0[MAX_SHARDS + 1];
-  int shards, n, hr, err_mode, max_sweeps, blocks_per_shard;
-  unsigned long long tag0;     // tag of the first post; sweep k posts tag0 + k
+  int chunk_rows[MAX_SHARDS];  // the wavefront's chunk of each shard
+  int shards, n, even_only, max_sweeps, blocks_per_shard;
+  int fixed;                   // passes of B sweeps (else next_sweeps' lengths)
+  unsigned long long tag0;     // tag of the first post; pass p posts tag0 + p + 1
   float h2, omega, inv_h2, err_scale, trigger;
 };
 
-static __global__ void __launch_bounds__(THREADS) rdma_trigger_kernel(RingTriggerArgs a) {
-  extern __shared__ float smem[];
-  __shared__ float total_now;
-  const int s = blockIdx.x / a.blocks_per_shard, lb = blockIdx.x % a.blocks_per_shard;
-  const int nb = a.blocks_per_shard, P = a.shards, n = a.n;
-  const int row0 = a.row0[s], rows = a.row0[s + 1] - row0;
-  const Geo g(n, row0, 0, rows, n);
-  const int tx = tiles_x(g), count = num_tiles(g);
-  float* part = a.partials + a.part0[s];
+// Σ p[0..count) in sum_partials_kernel's order on a block of T threads
+// (T divides THREADS): fixed_sum's 256 thread sums (thread t adds t, t +
+// 256, ... from +0), each played by thread t mod T, then block_sum's
+// butterflies over each warp's 32 and over the 8 warp sums in lanes 0..7
+// (the others +0). Valid in thread 0; `sh` holds THREADS floats.
+template <int T>
+static __device__ float ring_fixed_sum(const float* p, int count, float* sh) {
+  for (int v = threadIdx.x; v < THREADS; v += T) {
+    float x = 0.0f;
+    for (int i = v; i < count; i += THREADS) x += __ldcg(p + i);
+    sh[v] = x;
+  }
+  __syncthreads();
+  float total = 0.0f;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    for (int y = 0; y < BLOCK_Y; ++y) {
+      float x = sh[y * BLOCK_X + lane];
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+      if (lane == y) total = x;
+    }
+    for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(0xffffffffu, total, o);
+  }
+  __syncthreads();  // sh is read before it is rewritten
+  return total;
+}
 
-  // the source's edge rows (parity 1, kept for the whole loop) and u_0's
-  // (parity 0, the slot of iterate 0) to the neighbours
-  post_edges(a.halo, a.f[s], s, P, 1, 1, rows, a.hr, n, lb, nb);
-  post_edges(a.halo, a.u[s], s, P, 0, 0, rows, a.hr, n, lb, nb);
-  // the first post has a count of its own: a block that arrives here and
-  // runs on to the end of sweep 1 must not be counted in this round
-  if (arrive_last(a.count + s, nb) && threadIdx.x == 0 && threadIdx.y == 0) {
+// The sweeps of the pass after k sweeps, at most B: a loop stops where the
+// slope d_k = |err_k − err_{k−1}| first falls to the trigger, and a pass that
+// runs past the stop is redone, so a pass runs about as far as the stop is
+// likely to be: the 2 sweeps the slope test needs, then 1, then as many as
+// the decay of the last two slopes d1 (sweep k) and d0 (sweep k − 1), taken
+// as geometric, needs to reach the trigger. The engine's trigger nodes stop
+// after 2-5 sweeps; a loop whose slopes do not fall (trigger 0) runs passes
+// of B. Every block computes it from the same errors: the same lengths.
+static __device__ int next_sweeps(int k, float d1, float d0, float trigger, int B) {
+  if (k == 0) return min(2, B);
+  if (k < 3) return 1;
+  const float rho = d1 / d0;
+  if (!(trigger > 0.0f && d1 > trigger && rho > 0.0f && rho < 1.0f)) return B;
+  const float m = ceilf(logf(trigger / d1) / logf(rho));
+  return m < 1.0f ? 1 : (m > (float)B ? B : (int)m);
+}
+
+template <int B, int E>
+using RingShape = WaveShape<B, E, true, WV_SMOOTH, true>;
+
+// One pass of ring.sweeps <= K sweeps over shard s's units that this block's
+// `warps` warps own, src into dst, on K levels of the wavefront: its window
+// is the block with `halo` rows a side (the receive buffers' rows, posted
+// for the kernel's longest pass), its tile partials `stride` a sweep.
+template <int K, int E>
+static __device__ __forceinline__ void ring_pass(const RingTriggerArgs& a, WaveRing& ring,
+                                                 int s, const Geo& g, int halo, int warps,
+                                                 int units, int chunk_rows, int stride,
+                                                 float* part, const float* src, float* dst) {
+  const int lb = blockIdx.x % a.blocks_per_shard;
+  for (int w = lb * warps + (threadIdx.x >> 5); w < units; w += a.blocks_per_shard * warps) {
+    ring.unit = w;
+    __syncwarp();   // every lane is done with the previous unit's rings
+    wave2_pass<true, K, E, true, WV_SMOOTH, true>(src, a.f[s], dst, part, g, halo, 0, chunk_rows,
+                                                  stride, 0, a.even_only, a.h2, a.omega,
+                                                  a.inv_h2, 0.0f, WaveLeg{}, ring);
+  }
+}
+
+// B, the most sweeps a pass runs: 7 for every metric (at 8, the gpu
+// metric's cap, its pass spills at RING_WARPS_PER_SM: 0.0688 against 0.0598
+// ms a sweep at 4097² on 8 shards, on an H100), its passes' lengths from
+// next_sweeps; or for every later launch passes of 1..MAX_STEPS (capped by
+// the metric's and the shards' limits) as mg_rdma_force_batch set it.
+constexpr int RING_BATCH = 7;
+
+// Warps an SM keeps resident: the passes are latency-bound (a warp's row
+// steps wait on its copies), and left to itself the compiler gives the
+// 7- and 8-sweep passes 209-224 registers, 8 warps an SM.
+constexpr int RING_WARPS_PER_SM = 12;
+
+template <int B, int E>
+static __global__ void __launch_bounds__(RingShape<B, E>::THREADS,
+                                         RING_WARPS_PER_SM / RingShape<B, E>::WARPS)
+rdma_trigger_kernel(RingTriggerArgs a) {
+  using S = RingShape<B, E>;
+  __shared__ float sh[THREADS];
+  __shared__ float err_now;
+  __shared__ int stop_now, len_now;
+  const int nb = a.blocks_per_shard, s = blockIdx.x / nb, lb = blockIdx.x % nb;
+  const int P = a.shards, n = a.n;
+  const int row0 = a.row0[s], rows = a.row0[s + 1] - row0, chunk_rows = a.chunk_rows[s];
+  const Geo g(n, row0, 0, rows, n);
+  const int count = num_tiles(g);
+  const int units = tiles_x(g) * ((rows + chunk_rows - 1) / chunk_rows);
+  float* const part = a.partials + (size_t)B * a.part0[s];
+  const bool lead = threadIdx.x == 0;
+
+  // f's and u_0's edge rows to the neighbours (u_0's in the parity 0 slots,
+  // pass 0's); the first post has a count of its own: a block that arrives
+  // here and runs on to the end of pass 0 must not be counted in this round
+  post_edges<S::THREADS>(a.halo, a.f[s], s, P, 0, 1, rows, S::H, n, lb, nb);
+  post_edges<S::THREADS>(a.halo, a.u[s], s, P, 0, 0, rows, S::H, n, lb, nb);
+  if (arrive_last(a.count + s, nb) && lead) {
     if (s > 0) release_tag(a.flags + (size_t)(s - 1) * P + s, a.tag0);
     if (s + 1 < P) release_tag(a.flags + (size_t)(s + 1) * P + s, a.tag0);
   }
-  const Ring f = ring_source(a.f[s], a.halo, s, 1, 1, row0, rows, a.hr, n);
+  if (lead) {
+    if (s > 0) spin_until(a.flags + (size_t)s * P + (s - 1), a.tag0);
+    if (s + 1 < P) spin_until(a.flags + (size_t)s * P + (s + 1), a.tag0);
+  }
+  __syncthreads();
 
-  const float* cur = a.u[s];
-  float* nxt = a.out[s];
-  float err = 0.0f;
-  int k = 0;
-  for (;;) {
-    // sweep k + 1 reads iterate k, whose halos sit in the parity k & 1 slots
-    const unsigned long long tag = a.tag0 + k;
-    const Ring u = ring_source(cur, a.halo, s, k & 1, 0, row0, rows, a.hr, n);
-    for (int pass = 0; pass < 2; ++pass) {  // interior tile rows, then boundary ones
-      for (int t = lb; t < count; t += nb) {
-        const int ty = t / tx;
-        const bool top = reads_top(s, ty, a.hr), bot = reads_bot(s, P, ty, rows, a.hr);
-        if ((top || bot) != (pass == 1)) continue;
-        if (top) wait_tag(a.flags + (size_t)s * P + (s - 1), tag);
-        if (bot) wait_tag(a.flags + (size_t)s * P + (s + 1), tag);
-        jacobi_tile(smem, u, f, nxt, part + t, t % tx, ty, g, 1, a.hr, 0, a.err_mode, a.h2,
-                    a.omega, a.inv_h2, 0.0f);
+  WaveRing ring = {};
+  ring.f_top = recv_buf(a.halo, s, 0, 0, 1, n) + (size_t)RING_HALO * n;
+  ring.f_bot = recv_buf(a.halo, s, 0, 1, 1, n);
+  // a pass of `sweeps`: on the B levels, or, for the 1 or 2 sweeps of
+  // next_sweeps' short passes, on 1 or 2 (a pass on B levels costs about as
+  // much for any sweeps: 0.38 ms for 2 at 4097² on 8 shards, on an H100)
+  auto pass = [&](const float* src, float* dst, int sweeps) {
+    ring.sweeps = sweeps;
+    if constexpr (B == RING_BATCH) {
+      static_assert(RingShape<2, E>::WARP_FLOATS <= S::WARP_FLOATS, "the short passes fit");
+      if (!a.fixed && sweeps <= 2) {
+        if (sweeps == 1)
+          ring_pass<1, E>(a, ring, s, g, S::H, S::WARPS, units, chunk_rows, count, part, src,
+                          dst);
+        else
+          ring_pass<2, E>(a, ring, s, g, S::H, S::WARPS, units, chunk_rows, count, part, src,
+                          dst);
+        return;
       }
     }
-    // iterate k + 1 and the shard's tile partials are complete once every
-    // block of the shard has arrived; the last one posts them. A block
-    // arrives at sweep k + 2 only after this round's post (the all-to-all
-    // below), so one count serves every sweep.
-    const int slot = (k + 1) & 1;
+    ring_pass<B, E>(a, ring, s, g, S::H, S::WARPS, units, chunk_rows, count, part, src, dst);
+  };
+
+  const float* src = a.u[s];
+  float* dst = a.out[s];
+  float err = 0.0f, d1 = 0.0f, d0 = 0.0f;   // the last error and slopes (lead)
+  int k = 0, len = a.fixed ? B : next_sweeps(0, d1, d0, a.trigger, B);   // the pass's sweeps
+  for (int p = 0;; ++p) {
+    const int kb = min(len, a.max_sweeps - k);   // >= 1: k < max_sweeps here
+    const int par = p & 1;
+    ring.u_top = recv_buf(a.halo, s, par, 0, 0, n) + (size_t)RING_HALO * n;
+    ring.u_bot = recv_buf(a.halo, s, par, 1, 0, n);
+    ring.up = s > 0 ? recv_buf(a.halo, s - 1, par ^ 1, 1, 0, n) : nullptr;
+    ring.down = s + 1 < P ? recv_buf(a.halo, s + 1, par ^ 1, 0, 0, n) + (size_t)RING_HALO * n
+                          : nullptr;
+    ring.post_rows = S::H;
+    pass(src, dst, kb);
+    // the pass's iterates, edge rows and partials are complete once every
+    // block of the shard has arrived; the last one sums and posts. A block
+    // arrives at pass p + 1 only after this pass's all-to-all, so one count
+    // serves every pass.
+    const unsigned long long tag = a.tag0 + p + 1;
     if (arrive_last(a.count + P + s, nb)) {
-      const float raw = fixed_sum(part, count);
-      post_edges(a.halo, nxt, s, P, slot, 0, rows, a.hr, n, 0, 1);
-      if (threadIdx.x == 0 && threadIdx.y == 0)
-        for (int d = 0; d < P; ++d) a.err[((size_t)d * 2 + slot) * P + s] = raw;
-      __syncthreads();
-      if (threadIdx.x == 0 && threadIdx.y == 0)
-        for (int d = 0; d < P; ++d) release_tag(a.flags + (size_t)d * P + s, tag + 1);
-    }
-    // every shard's partial of iterate k + 1, added in shard order
-    if (threadIdx.x == 0 && threadIdx.y == 0) {
-      float total = 0.0f;
-      for (int d = 0; d < P; ++d) {
-        spin_until(a.flags + (size_t)s * P + d, tag + 1);
-        const float p = __ldcg(a.err + ((size_t)s * 2 + slot) * P + d);
-        total = d == 0 ? p : __fadd_rn(total, p);
+      for (int j = 0; j < kb; ++j) {
+        const float raw = ring_fixed_sum<S::THREADS>(part + (size_t)j * count, count, sh);
+        if (lead)
+          for (int d = 0; d < P; ++d)
+            a.err[(((size_t)d * 2 + par) * P + s) * MAX_STEPS + j] = raw;
       }
-      total_now = __fmul_rn(total, a.err_scale);
+      if (lead)
+        for (int d = 0; d < P; ++d) release_tag(a.flags + (size_t)d * P + s, tag);
+    }
+    // every shard's partials of each sweep, added in shard order, and the
+    // stop rule replayed sweep by sweep
+    if (lead) {
+      for (int d = 0; d < P; ++d) spin_until(a.flags + (size_t)s * P + d, tag);
+      int stop = 0;
+      for (int j = 0; j < kb && !stop; ++j) {
+        float total = 0.0f;
+        for (int d = 0; d < P; ++d) {
+          const float q = __ldcg(a.err + (((size_t)s * 2 + par) * P + d) * MAX_STEPS + j);
+          total = d == 0 ? q : __fadd_rn(total, q);
+        }
+        const float e = __fmul_rn(total, a.err_scale);
+        // the slope test starts at sweep 2 (solver.trigger_loop)
+        const float d = fabsf(__fsub_rn(e, err));
+        const bool above = k + j == 0 || d > a.trigger;
+        d0 = d1;
+        d1 = d;
+        err = e;
+        if (!(above && k + j + 1 < a.max_sweeps)) stop = j + 1;
+      }
+      err_now = err;
+      stop_now = stop;
+      len_now = a.fixed ? B : next_sweeps(k + kb, d1, d0, a.trigger, B);
     }
     __syncthreads();
-    const float e = total_now;
-    __syncthreads();  // every thread has read total_now before it is rewritten
-    ++k;
-    // the slope test starts at sweep 2 (solver.trigger_loop)
-    const bool above = k == 1 || fabsf(__fsub_rn(e, err)) > a.trigger;
-    err = e;
-    cur = nxt;
-    nxt = nxt == a.out[s] ? a.tmp[s] : a.out[s];
-    if (!(above && k < a.max_sweeps)) break;
+    err = err_now;
+    const int stop = stop_now;
+    len = len_now;
+    __syncthreads();   // every thread has read them before they are rewritten
+    if (stop) {
+      k += stop;
+      if (stop < kb) {   // the loop ends inside this pass: redo it with stop sweeps
+        ring.post_rows = 0;
+        pass(src, dst, stop);
+        if (dst != a.out[s]) {   // the shard's blocks meet before the copy below
+          if (arrive_last(a.count + P + s, nb) && lead)
+            release_tag(a.flags + (size_t)s * P + s, tag + 1);
+          wait_tag(a.flags + (size_t)s * P + s, tag + 1);
+        }
+      }
+      break;
+    }
+    k += kb;
+    src = dst;
+    dst = dst == a.out[s] ? a.tmp[s] : a.out[s];
   }
-  if (cur != a.out[s]) copy_rows(a.out[s], cur, rows, n, lb, nb);  // the final iterate is in tmp
-  if (blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0) {
+  if (dst != a.out[s]) copy_rows<S::THREADS>(a.out[s], dst, rows, n, lb, nb);   // in tmp
+  if (blockIdx.x == 0 && lead) {
     a.err_out[0] = err;
     a.sweeps_out[0] = k;
   }
 }
 
+// The passes' sweeps of every later launch, 0: RING_BATCH and next_sweeps.
+static int forced_batch = 0;
+
+extern "C" int mg_rdma_force_batch(int batch) {
+  if (batch < 0 || batch > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  forced_batch = batch;
+  return 0;
+}
+
+template <int B, int E>
+static cudaError_t launch_trigger(RingTriggerArgs& a, const int* row0s, cudaStream_t stream) {
+  using S = RingShape<B, E>;
+  static_assert(S::SMEM <= 48 * 1024, "a block's rings fit the default shared memory");
+  static_assert(S::H <= RING_HALO, "a receive buffer holds a pass's halo rows");
+  const auto kernel = rdma_trigger_kernel<B, E>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::THREADS,
+                                                         S::SMEM)) != cudaSuccess)
+    return e;
+  // the chunks of each shard for the warps a shard keeps resident
+  const int resident = per_sm * sms / a.shards * S::WARPS;
+  int units = 0;
+  for (int s = 0; s < a.shards; ++s) {
+    const Geo g(a.n, row0s[s], 0, row0s[s + 1] - row0s[s], a.n);
+    a.chunk_rows[s] = wave2_rows(g, resident > 0 ? resident : 1, S::H);
+    units = std::max(units, tiles_x(g) * ((g.rows + a.chunk_rows[s] - 1) / a.chunk_rows[s]));
+  }
+  return launch_ring(kernel, a, S::SMEM, a.shards, (units + S::WARPS - 1) / S::WARPS, stream,
+                     dim3(S::THREADS));
+}
+
+template <int E, int B = 1>
+static cudaError_t launch_trigger_b(int batch, RingTriggerArgs& a, const int* row0s,
+                                    cudaStream_t stream) {
+  if constexpr (B + (E == WV_RES ? 1 : 0) > MAX_STEPS) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (batch == B) return launch_trigger<B, E>(a, row0s, stream);
+    return launch_trigger_b<E, B + 1>(batch, a, row0s, stream);
+  }
+}
+
 // The trigger loop on the shard blocks u_ptrs[s] (rows row0s[s]..row0s[s + 1]
 // of the n x n level, each at least 2 rows; not written) into out_ptrs[s],
-// with tmp_ptrs[s] scratch blocks of the same shapes; partials holds the
-// sum over shards of mg_num_tiles_block(rows, n) floats; err_mode as
-// mg_jacobi (not ERR_NONE); err_scale the metric's scale. halo, err, flags
-// and count (2 * shards) are the ring workspace of `shards` shards
-// (ops/rdma.py); tags
-// tag0 .. tag0 + max_sweeps are above every tag the workspace has seen.
+// with tmp_ptrs[s] scratch blocks of the same shapes; u, f, out and tmp
+// blocks start 16-byte aligned (else cudaErrorMisalignedAddress); partials
+// holds MAX_STEPS times the sum over shards of mg_num_tiles_block(rows, n)
+// floats; err_mode as mg_jacobi (not ERR_NONE); err_scale the metric's
+// scale. halo, err, flags and count (2 * shards) are the ring workspace of
+// `shards` shards (ops/rdma.py); tags tag0 .. tag0 + max_sweeps + 1 are
+// above every tag the workspace has seen. A pass runs at most RING_BATCH
+// sweeps, fewer where a shard has fewer rows than its halo (or exactly
+// mg_rdma_force_batch's, at most 7 for cpu / clean).
 extern "C" int mg_rdma_trigger(const unsigned long long* u_ptrs,
                                const unsigned long long* f_ptrs,
                                const unsigned long long* out_ptrs,
@@ -149,23 +354,27 @@ extern "C" int mg_rdma_trigger(const unsigned long long* u_ptrs,
                                int* sweeps_out, int err_mode, float h2, float omega,
                                float inv_h2, float err_scale, float trigger, int max_sweeps,
                                unsigned long long tag0, void* stream) {
-  if (shards < 1 || shards > MAX_SHARDS || n < 3 || err_mode == ERR_NONE || max_sweeps < 1 ||
-      row0s[0] != 0 || row0s[shards] != n)
+  if (shards < 1 || shards > MAX_SHARDS || n < 3 || err_mode <= ERR_NONE ||
+      err_mode > ERR_GPU || max_sweeps < 1 || row0s[0] != 0 || row0s[shards] != n)
     return (int)cudaErrorInvalidValue;
+  const int res = err_mode == ERR_GPU ? 0 : 1;   // the residual's halo row
+  int batch = forced_batch ? forced_batch : RING_BATCH;
+  batch = std::min(batch, std::min(MAX_STEPS - res, max_sweeps));
   RingTriggerArgs a = {};
-  a.hr = jacobi_halo(1, err_mode);
-  int max_tiles = 0, total = 0;
+  int total = 0;
   for (int s = 0; s < shards; ++s) {
-    if (row0s[s + 1] - row0s[s] < a.hr) return (int)cudaErrorInvalidValue;
+    const int rows = row0s[s + 1] - row0s[s];
+    if (rows < 1 + res) return (int)cudaErrorInvalidValue;
+    batch = std::min(batch, rows - res);   // a pass's halo rows come from one neighbour
     a.u[s] = (const float*)u_ptrs[s];
     a.f[s] = (const float*)f_ptrs[s];
     a.out[s] = (float*)out_ptrs[s];
     a.tmp[s] = (float*)tmp_ptrs[s];
+    if (misaligned(a.u[s], a.f[s]) || misaligned(a.out[s], a.tmp[s]))
+      return (int)cudaErrorMisalignedAddress;
     a.row0[s] = row0s[s];
     a.part0[s] = total;
-    const int t = num_tiles(Geo(n, row0s[s], 0, row0s[s + 1] - row0s[s], n));
-    total += t;
-    max_tiles = t > max_tiles ? t : max_tiles;
+    total += num_tiles(Geo(n, row0s[s], 0, rows, n));
   }
   a.row0[shards] = n;
   a.part0[shards] = total;
@@ -178,7 +387,8 @@ extern "C" int mg_rdma_trigger(const unsigned long long* u_ptrs,
   a.sweeps_out = sweeps_out;
   a.shards = shards;
   a.n = n;
-  a.err_mode = err_mode;
+  a.even_only = err_mode == ERR_CPU ? 1 : 0;
+  a.fixed = forced_batch ? 1 : 0;
   a.max_sweeps = max_sweeps;
   a.tag0 = tag0;
   a.h2 = h2;
@@ -186,6 +396,7 @@ extern "C" int mg_rdma_trigger(const unsigned long long* u_ptrs,
   a.inv_h2 = inv_h2;
   a.err_scale = err_scale;
   a.trigger = trigger;
-  return (int)launch_ring(rdma_trigger_kernel, a, tile_smem_bytes(a.hr), shards, max_tiles,
-                          (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(res ? launch_trigger_b<WV_RES>(batch, a, row0s, st)
+                   : launch_trigger_b<WV_GPU>(batch, a, row0s, st));
 }

@@ -1,7 +1,9 @@
 // The row-streaming wavefront pass of the 2-D damped-Jacobi smoother
 // (kernel 1's Jacobi modes, jacobi.cu): k <= 8 sweeps in one pass over
 // device memory, with the cpu / clean / gpu error of the last iterate or of
-// every iterate (the per-sweep mode), whole grid or one shard's block.
+// every iterate (the per-sweep mode), whole grid or one shard's block; and,
+// with a stage of their own, kernel 1's rb-GS mode and the legs (below) and
+// the ring trigger kernel 17's per-sweep passes (WaveRing, rdma_trigger.cu).
 //
 // Work unit: a warp owns one column of the TILE_H x TILE_W error tiles (tile
 // column tx: TILE_W owned columns) and a chunk of whole tile rows, and
@@ -50,7 +52,7 @@
 // twin's and the tile pipeline's.
 //
 // Error partials: bit for bit error_partial + block_sum (common.cuh) of the
-// tile pipeline, which the trigger kernels 8, 9, 17 and 18 keep: there,
+// tile pipeline, which the trigger kernels 8, 9 and 18 keep: there,
 // thread (x, y) of a block adds, from +0 and in this order, the cells of
 // tile rows y, y + 8, y + 16, y + 24, in each row columns x, x + 32, x + 64,
 // x + 96; then a butterfly (xor 16..1) over each warp, then the same over
@@ -64,9 +66,22 @@
 // partials[(s − 1)·stride + t] (the fixed mode: partials[t]), for
 // sum_partials_kernel.
 //
-// The multigrid legs (kernels 3 and 4, descend.cu and ascend.cu) are the
-// same pass with a stage of their own, compiled in only for their instances
-// (LEG; kernel 1's instances compile to the pass above):
+// Kernel 1's rb-GS mode (rbgs.cu) and the multigrid legs (kernels 3 and 4,
+// descend.cu and ascend.cu) are the same pass with a stage of their own,
+// compiled in only for their instances (LEG; the Jacobi instances compile
+// to the pass above):
+//  * rb-GS (WV_RBGS): K = 2·steps half-levels, level s the update of the
+//    colour (s − 1) & 1 (even first: (gi + gj) & 1 == 0, by global index, so
+//    a shard of either origin parity) of level s − 1: ¼·(nb − h²f) on the
+//    interior cells of that colour (stencils.redblack_gs_sweep's order),
+//    every other cell copied. A cell of one colour reads only cells of the
+//    other, so the half-level reads level s − 1's rows r − s − 1 .. r − s + 1
+//    as a Jacobi level does. The colour is a per-lane bit mask flipped by the
+//    row's parity, no branch. With an error (cpu / clean), level K + 1 forms
+//    Δ = ¼·((nb − 4u) − h²f) of level K, the step an ω = 1 Jacobi sweep would
+//    take (the TPU kernel's (h²/4)·r), added as |Δ| in the same order as a
+//    residual. from_zero: level 0 is 0 (GS has no closed form) and u is not
+//    read;
 //  * descend (WV_DESCEND): after level K the pass forms r of level K one row
 //    behind (the s = K + 1 iteration, which the cpu / clean error shares)
 //    and d = −r on the interior, 0 elsewhere, keeping d's last two rows in
@@ -102,7 +117,7 @@ constexpr unsigned WV_FULL = 0xffffffffu;
 static_assert(WV_COLS == TILE_W + 2 * WV_PAD, "a warp stages its tile column and the halo");
 
 enum WaveErr { WV_NONE = 0, WV_GPU = 1, WV_RES = 2 };   // no error, Σ|Δu|, Σ|r| (cpu, clean)
-enum WaveLegKind { WV_SMOOTH = 0, WV_DESCEND = 1, WV_ASCEND = 2 };   // kernels 1, 3, 4
+enum WaveLegKind { WV_SMOOTH = 0, WV_DESCEND = 1, WV_ASCEND = 2, WV_RBGS = 3 };   // 1, 3, 4, 1
 
 constexpr int WV_CRING = 4;    // coarse rows of the ascend leg's ring (a power of 2)
 constexpr int WV_CROW = 96;    // floats of a coarse ring row (3 a lane)
@@ -117,15 +132,35 @@ struct WaveLeg {
   Win c;
 };
 
+// The ring trigger kernel's view of its shard (rdma_trigger.cu, RING): rows
+// of u and f above and below the block come from the receive buffers (row
+// gi at top + (gi − row0)·n above it, at bot + (gi − row0 − rows)·n below),
+// the output's first and last post_rows rows also go into the neighbours'
+// receive buffers (row le of the block at up + le·n and at down + (le −
+// rows)·n; null: no neighbour), a pass runs `sweeps` <= K sweeps (the levels
+// above copy the one below, so level K is iterate `sweeps`), and `unit` is
+// the warp's strip and chunk.
+struct WaveRing {
+  const float* u_top;
+  const float* u_bot;
+  const float* f_top;
+  const float* f_bot;
+  float* up;
+  float* down;
+  int post_rows, sweeps, unit;
+};
+
 // The pass's compile-time shape: K sweeps after level 0, error kind E, and
 // ALL: the error of every level (the per-sweep mode) or of level K alone;
-// LEG: the smoother or a leg.
-template <int K, int E, bool ALL, int LEG = WV_SMOOTH>
+// LEG: the smoother or a leg; RING: the ring trigger kernel's pass, whose
+// copies all take 16-byte chunks (cp.async.cg, read through L2: the grids
+// are rewritten between its passes by other SMs).
+template <int K, int E, bool ALL, int LEG = WV_SMOOTH, bool RING = false>
 struct WaveShape {
   // halo rows (and columns) read; the descend leg forms r of level K
   static constexpr int H = K + (E == WV_RES || LEG == WV_DESCEND ? 1 : 0);
   static constexpr int D = K <= 2 ? 4 : 2;              // rows loaded ahead
-  static constexpr bool CHUNKS = K <= 2;                // 16-byte copies
+  static constexpr bool CHUNKS = K <= 2 || RING;        // 16-byte copies
   static constexpr int NF = H + 1 + D;                  // f ring: rows r − H .. r + D
   static constexpr int NU = D + 1;                      // u ring: rows r .. r + D
   static constexpr int NL = E == WV_NONE ? 0 : (ALL ? K : 1);   // accumulated levels
@@ -140,12 +175,17 @@ struct WaveShape {
 };
 
 // BYTES (4 or 16) global -> shared, asynchronously: the first src_size
-// bytes from src, the rest 0.
-template <int BYTES>
+// bytes from src, the rest 0. L2: through L2 only (16 bytes), for data other
+// SMs wrote earlier in the same launch.
+template <int BYTES, bool L2 = false>
 static __device__ __forceinline__ void wave_copy(float* dst, const float* src, int src_size) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
-               "n"(BYTES), "r"(src_size));
+  if constexpr (L2)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(BYTES), "r"(src_size));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(BYTES), "r"(src_size));
 }
 
 // m ? a : b for a mask m of all ones or all zeros, as bit operations: a
@@ -172,14 +212,15 @@ static __device__ __forceinline__ void wave_wait() {
 // windows extended by ext_r rows and ext_c columns a side; chunk_rows is a
 // multiple of TILE_H. Launched with WaveShape::THREADS threads a block and
 // WaveShape::SMEM bytes of dynamic shared memory. `leg`: the legs'
-// arguments (unused by kernel 1).
-template <bool SHARD, int K, int E, bool ALL, int LEG = WV_SMOOTH>
+// arguments (unused by kernel 1); `ring`: the ring trigger kernel's (RING:
+// u and f are the shard's own rows x n block, ext_r its halo rows, ext_c 0).
+template <bool SHARD, int K, int E, bool ALL, int LEG = WV_SMOOTH, bool RING = false>
 static __device__ __forceinline__ void wave2_pass(
     const float* __restrict__ u, const float* __restrict__ f, float* __restrict__ out,
     float* __restrict__ partials, const Geo& g_, int ext_r, int ext_c, int chunk_rows,
     int stride, int from_zero, int even_only, float h2, float omega, float inv_h2,
-    float zero_coef, const WaveLeg& leg = WaveLeg{}) {
-  using S = WaveShape<K, E, ALL, LEG>;
+    float zero_coef, const WaveLeg& leg = WaveLeg{}, const WaveRing& ring = WaveRing{}) {
+  using S = WaveShape<K, E, ALL, LEG, RING>;
   extern __shared__ float wv_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -187,7 +228,7 @@ static __device__ __forceinline__ void wave2_pass(
   const int n = g.n;
   const int tx_n = tiles_x(g);
   const int chunks = (g.rows + chunk_rows - 1) / chunk_rows;
-  const int w_id = blockIdx.x * S::WARPS + warp;
+  const int w_id = RING ? ring.unit : blockIdx.x * S::WARPS + warp;
   if (w_id >= tx_n * chunks) return;
   const int tx = w_id % tx_n, ch = w_id / tx_n;
   const int a = ch * chunk_rows, b = min(a + chunk_rows, g.rows);
@@ -208,10 +249,12 @@ static __device__ __forceinline__ void wave2_pass(
   const Span sp = owned_interior(g);
   unsigned own_m = 0;
   unsigned int_m[WV_SLOTS], err_m[TILE_W / 32];   // select masks
+  unsigned even_m[WV_SLOTS];   // rb-GS: the computed column is even
 #pragma unroll
   for (int c = 0; c < WV_SLOTS; ++c) {
     const int gj = gc0 + lc + c;          // computed column
     int_m[c] = wave_mask(gj >= 1 && gj <= n - 2);
+    even_m[c] = wave_mask((gj & 1) == 0);
   }
 #pragma unroll
   for (int q = 0; q < TILE_W / 32; ++q) {
@@ -230,19 +273,37 @@ static __device__ __forceinline__ void wave2_pass(
 #pragma unroll
   for (int i = 0; i < S::NL * 8; ++i) acc[i * 32 + lane] = 0.0f;
 
+  // RING: global row gi's column 0 in the shard's block or, beyond it, in
+  // its receive buffers (the pointer of a row outside the window is never
+  // read)
+  auto ring_row = [&](const float* own, const float* top, const float* bot, int gi) {
+    const int le = gi - g.row0;
+    return le < 0 ? top + (ptrdiff_t)le * n
+                  : (le < g.rows ? own + (ptrdiff_t)le * n : bot + (ptrdiff_t)(le - g.rows) * n);
+  };
   // window row gi of src into ring row dst. Chunks: from the one that holds
   // staged column 0, lane copying chunks lane and lane + 32, a chunk reading
   // up to the window's last column of the row (none outside its rows).
-  // Else: lane copying staged columns lane + 32c of the window.
-  auto fetch_row = [&](const float* __restrict__ src, unsigned q, int gi, float* dst) {
+  // Else: lane copying staged columns lane + 32c of the window. RING: the
+  // row from ring_row, its offset within a chunk from its address.
+  auto fetch_row = [&](const float* __restrict__ src, unsigned q, int gi, float* dst,
+                       const float* top, const float* bot) {
     const bool rin = gi >= r_lo && gi < r_hi;
     if constexpr (S::CHUNKS) {
-      const int m = (int)((q + (unsigned)gi * cols) & 3);
-      const float* const row0 = src + (ptrdiff_t)(gi - wf.r0) * wf.cols + (gc0 - wf.c0) - m;
+      const float* at = nullptr;
+      int m;
+      if constexpr (RING) {
+        at = ring_row(src, top, bot, gi) + gc0;
+        m = (int)((reinterpret_cast<uintptr_t>(at) >> 2) & 3);
+      } else {
+        m = (int)((q + (unsigned)gi * cols) & 3);
+      }
+      const float* const row0 =
+          RING ? at - m : src + (ptrdiff_t)(gi - wf.r0) * wf.cols + (gc0 - wf.c0) - m;
       auto chunk = [&](int k) {
         const int cs = gc0 - m + 4 * k;   // global column of the chunk's first float
         const int bytes = rin && cs + 4 > c_lo && cs < c_hi ? 4 * min(4, c_hi - cs) : 0;
-        wave_copy<16>(dst + 4 * k, bytes ? row0 + 4 * k : src, bytes);
+        wave_copy<16, RING>(dst + 4 * k, bytes ? row0 + 4 * k : src, bytes);
       };
       chunk(lane);
       if (lane < WV_CHUNKS - 32) chunk(lane + 32);
@@ -276,8 +337,8 @@ static __device__ __forceinline__ void wave2_pass(
   // row gi of f (and u) into ring slots fs (us); ascend: with coarse row
   // (gi + 1) / 2 for odd gi, the first fine row that reads it
   auto fetch = [&](int gi, int fs, int us) {
-    fetch_row(f, qf, gi, ring_f + fs * WV_ROW);
-    if (!from_zero) fetch_row(u, qu, gi, ring_u + us * WV_ROW);
+    fetch_row(f, qf, gi, ring_f + fs * WV_ROW, ring.f_top, ring.f_bot);
+    if (!from_zero) fetch_row(u, qu, gi, ring_u + us * WV_ROW, ring.u_top, ring.u_bot);
     if constexpr (LEG == WV_ASCEND) {
       if (gi & 1) fetch_coarse((gi + 1) >> 1);
     }
@@ -305,10 +366,14 @@ static __device__ __forceinline__ void wave2_pass(
   // the float offset within its chunk at which window row gi starts in a
   // ring row (0 without chunks), and this lane's columns of f's ring row
   // `slot` holding row gi
-  auto shift = [&](unsigned q, int gi) {
+  auto shift = [&](unsigned q, const float* own, const float* top, const float* bot, int gi) {
+    if constexpr (RING)
+      return (int)((reinterpret_cast<uintptr_t>(ring_row(own, top, bot, gi) + gc0) >> 2) & 3);
     return S::CHUNKS ? (int)((q + (unsigned)gi * cols) & 3) : 0;
   };
-  auto at_f = [&](int slot, int gi) { return ring_f + slot * WV_ROW + shift(qf, gi) + lc; };
+  auto at_f = [&](int slot, int gi) {
+    return ring_f + slot * WV_ROW + shift(qf, f, ring.f_top, ring.f_bot, gi) + lc;
+  };
 
   // row v (this lane's columns lc + c) into the tile layout: thread lane's
   // tile columns lane + 32q
@@ -325,15 +390,29 @@ static __device__ __forceinline__ void wave2_pass(
   // the descend leg's extra halo row a side (full weighting); 0 otherwise
   const int xh = LEG == WV_DESCEND ? leg.full_weighting : 0;
 
-  // the owned cells of global row gi of the last level
+  // the owned cells of global row gi of the last level; RING: an edge row
+  // also into the neighbours' receive buffers
   auto store = [&](int gi, const float (&v)[WV_SLOTS]) {
     if (gi < ga || gi >= gb) return;
     float t[TILE_W / 32];
     exchange(v, t);
-    float* const row = out + (ptrdiff_t)(gi - g.row0) * g.cols + (gt0 - g.col0);
+    const int le = gi - g.row0;
+    float* const row = out + (ptrdiff_t)le * g.cols + (gt0 - g.col0);
 #pragma unroll
     for (int q = 0; q < TILE_W / 32; ++q)
       if ((own_m >> q) & 1) row[32 * q] = t[q];
+    if constexpr (RING) {
+      float* const rows[2] = {
+          ring.up && le < ring.post_rows ? ring.up + (ptrdiff_t)le * n + gt0 : nullptr,
+          ring.down && le >= g.rows - ring.post_rows
+              ? ring.down + (ptrdiff_t)(le - g.rows) * n + gt0 : nullptr};
+      for (float* p : rows) {
+        if (p == nullptr) continue;
+#pragma unroll
+        for (int q = 0; q < TILE_W / 32; ++q)
+          if ((own_m >> q) & 1) p[32 * q] = t[q];
+      }
+    }
   };
 
   // error_partial's terms of global row gi (|v| on the owned interior cells,
@@ -440,11 +519,12 @@ static __device__ __forceinline__ void wave2_pass(
       const unsigned ri = wave_mask(r >= 1 && r <= n - 2);
 #pragma unroll
       for (int c = 0; c < WV_SLOTS; ++c)
-        cur[c] = wave_pick(ri & int_m[c], __fmul_rn(zero_coef, fr[c]), 0.0f);
+        cur[c] = LEG == WV_RBGS ? 0.0f
+                                : wave_pick(ri & int_m[c], __fmul_rn(zero_coef, fr[c]), 0.0f);
     } else {
 #pragma unroll
       for (int c = 0; c < WV_SLOTS; ++c)
-        cur[c] = ring_u[us * WV_ROW + shift(qu, r) + lc + c];
+        cur[c] = ring_u[us * WV_ROW + shift(qu, u, ring.u_top, ring.u_bot, r) + lc + c];
       if constexpr (LEG == WV_ASCEND) {
         // + prolong(c) on the interior: coarse row r >> 1 (interpolated at
         // step r − 1, or now at the chunk's first row), and for odd r the
@@ -490,6 +570,9 @@ static __device__ __forceinline__ void wave2_pass(
       const float right = __shfl_down_sync(WV_FULL, uc[0], 1);
       const bool res_here =
           (E == WV_RES || LEG == WV_DESCEND) && (ALL ? s >= 2 : s - 1 == K);
+      // rb-GS: half-level s updates the cells whose column has the parity
+      // of gi + s − 1, i.e. (gi + gj) & 1 == (s − 1) & 1
+      const unsigned flip = wave_mask((gi + s - 1) & 1);
       float nxt[WV_SLOTS], res[WV_SLOTS];
 #pragma unroll
       for (int c = 0; c < WV_SLOTS; ++c) {
@@ -497,10 +580,21 @@ static __device__ __forceinline__ void wave2_pass(
         const float ea = c < WV_SLOTS - 1 ? uc[c + 1] : right;
         const float nb = __fadd_rn(__fadd_rn(__fadd_rn(nw[s - 1][c], cur[c]), we), ea);
         const float fc = fl[c];
-        if (s <= K) nxt[c] = wave_pick(int_m[c], jacobi_point(nb, uc[c], fc, h2, omega), uc[c]);
-        if (res_here) res[c] = residual_point(nb, uc[c], fc, inv_h2);
+        if constexpr (LEG == WV_RBGS) {
+          if (s <= K)
+            nxt[c] = wave_pick(int_m[c] & (even_m[c] ^ flip),
+                               __fmul_rn(0.25f, __fsub_rn(nb, __fmul_rn(h2, fc))), uc[c]);
+          if (res_here)
+            res[c] = __fmul_rn(0.25f, __fsub_rn(__fsub_rn(nb, __fmul_rn(4.0f, uc[c])),
+                                                __fmul_rn(h2, fc)));
+        } else {
+          if (s <= K) nxt[c] = wave_pick(int_m[c], jacobi_point(nb, uc[c], fc, h2, omega), uc[c]);
+          if (res_here) res[c] = residual_point(nb, uc[c], fc, inv_h2);
+        }
       }
-      if (s <= K && !ri) {   // a frozen row (uniform across the warp)
+      // a frozen row (uniform across the warp); RING: a level above the
+      // pass's sweeps copies the one below
+      if (s <= K && (!ri || (RING && s > ring.sweeps))) {
 #pragma unroll
         for (int c = 0; c < WV_SLOTS; ++c) nxt[c] = uc[c];
       }
@@ -581,6 +675,12 @@ static inline dim3 wave_grid(const Geo& g, int rows, int warps_per_block) {
 // must start on one (u may be null from zero).
 static inline bool misaligned(const float* u, const float* f) {
   return ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(f)) & 15) != 0;
+}
+
+// Whether a block's geometry is out of range: an entry point refuses it.
+static inline bool bad_geo(int n, int row0, int col0, int rows, int cols, int ext_r, int ext_c) {
+  return n < 3 || rows < 1 || cols < 1 || row0 < 0 || col0 < 0 || row0 + rows > n ||
+         col0 + cols > n || ext_r < 0 || ext_c < 0;
 }
 
 }  // namespace mgk

@@ -7,7 +7,7 @@ PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_kernels.py`` and
     ``_fused_jacobi_kernel`` (its Jacobi modes);
   * ``fused_jacobi_errs``: ``csrc/jacobi.cu``, the same kernel's per-sweep
     error mode (``fused_jacobi_errs_padded``);
-  * ``fused_rbgs``, ``fused_rbgs_err``: ``csrc/jacobi.cu``, the same
+  * ``fused_rbgs``, ``fused_rbgs_err``: ``csrc/rbgs.cu``, the same
     kernel's rb-GS modes (``fused_rbgs_padded``, ``fused_rbgs_err_padded``);
   * ``residual``: ``csrc/residual.cu``, replaces ``_residual_kernel``;
   * ``residual_df``, ``residual_tw``: ``csrc/residual_mw.cu``, replaces
@@ -443,8 +443,9 @@ def _ptr(t):
 
 def _aligned(t):
     """t, or a copy of it where it does not start 16-byte aligned (a view at
-    an offset): the wavefront (kernel 1's Jacobi modes, the legs of kernels
-    3 and 4) copies rows of u and f in 16-byte chunks."""
+    an offset): the wavefront (kernel 1's Jacobi and rb-GS modes, the legs
+    of kernels 3 and 4, the ring trigger kernel 17) copies rows of u and f
+    in 16-byte chunks."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -821,7 +822,8 @@ def _rbgs_cuda(u, f, h: float, steps: int, from_zero: bool, mode):
     out = torch.empty_like(f)
     partials, err = _err_buffers(lib, mode, n, dev)
     scale = (2.0 if mode == "cpu" else 1.0) * 4.0 / (h * h) / (n * n)
-    rc = lib.mg_rbgs(_ptr(None if from_zero else u), f.data_ptr(), out.data_ptr(),
+    u, f = _aligned(None if from_zero else u), _aligned(f)
+    rc = lib.mg_rbgs(_ptr(u), f.data_ptr(), out.data_ptr(),
                      _ptr(partials), _ptr(err), n, steps, int(from_zero), _ERR_CODES[mode],
                      h * h, scale if mode else 0.0, stream)
     _raise_on(lib, rc, "rbgs")
@@ -1173,14 +1175,14 @@ def fused_jacobi_shard(u_ext, f_ext, geo: ShardGeo, h: float, steps: int, omega:
     lib, stream, dev = _shard_launch_args(u_ext, f_ext, geo, halo, not from_zero)
     out = torch.empty((geo.rows, geo.cols), dtype=f_ext.dtype, device=dev)
     partials, err = _shard_err_buffers(lib, err_mode, geo, dev)
+    u_ext, f_ext = _aligned(None if from_zero else u_ext), _aligned(f_ext)
     if smoother == "rbgs":
-        rc = lib.mg_rbgs_shard(_ptr(None if from_zero else u_ext), f_ext.data_ptr(),
-                               out.data_ptr(), _ptr(partials), _ptr(err), *_geo_args(geo), steps,
-                               int(from_zero), mode_code, h * h, 1.0, stream)
+        rc = lib.mg_rbgs_shard(_ptr(u_ext), f_ext.data_ptr(), out.data_ptr(), _ptr(partials),
+                               _ptr(err), *_geo_args(geo), steps, int(from_zero), mode_code,
+                               h * h, 1.0, stream)
         _raise_on(lib, rc, "rbgs shard")
         launches["rbgs_shard"] += 1
     else:
-        u_ext, f_ext = _aligned(None if from_zero else u_ext), _aligned(f_ext)
         rc = lib.mg_jacobi_shard(_ptr(u_ext), f_ext.data_ptr(),
                                  out.data_ptr(), _ptr(partials), _ptr(err), *_geo_args(geo),
                                  steps, int(from_zero), mode_code, h * h, omega, 1.0 / (h * h),

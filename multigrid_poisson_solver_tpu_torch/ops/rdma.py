@@ -9,7 +9,10 @@ PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_rdma.py`` (2-D):
     before its boundary tiles wait for theirs;
   * ``rdma_trigger``: ``csrc/rdma_trigger.cu``, replaces
     ``_rdma_trigger_kernel``: the whole |err_k − err_{k−1}| > trigger loop
-    over the ring, the shards' error partials all-to-all per sweep.
+    over the ring as passes of up to 7 sweeps on kernel 1's wavefront
+    (short ones first, as far as the stop is likely), the shards' error
+    partials all-to-all once a pass and the stop rule replayed sweep by
+    sweep, a pass that overshoots the stop redone from its input.
 
 The JAX kernels run one program per chip and move rows by remote DMA; here
 one launch spans the ring (every shard's blocks resident at once), and a
@@ -29,6 +32,7 @@ kernel to. CUDA blocks launch the kernels; a failure raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -52,11 +56,13 @@ def rdma_trigger_fits(rows: int, cp: int, itemsize: int = 4) -> bool:
 
 class _Workspace:
     """What the shards of one ring own (csrc/rdma.cuh): receive buffers,
-    error slots, flags and arrival counts, and the next free tag."""
+    error slots (a pass's sweeps from each sender, by parity), flags and
+    arrival counts, and the next free tag."""
 
     def __init__(self, device, shards: int, n: int):
         self.halo = torch.zeros(shards * 8 * RING_HALO * n, dtype=torch.float32, device=device)
-        self.err = torch.zeros(shards * 2 * shards, dtype=torch.float32, device=device)
+        self.err = torch.zeros(shards * 2 * shards * K.MAX_FUSED_SWEEPS, dtype=torch.float32,
+                               device=device)
         self.flags = torch.zeros(shards * shards, dtype=torch.int64, device=device)
         self.count = torch.zeros(2 * shards, dtype=torch.int32, device=device)
         self.tag = 1
@@ -163,6 +169,22 @@ def rdma_trigger_torch(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 
     return u, err, torch.tensor(sweeps, dtype=torch.int32, device=f.device)
 
 
+@contextlib.contextmanager
+def forced_trigger_batch(batch: int):
+    """``rdma_trigger``'s launches with passes of ``batch`` sweeps (1..8,
+    still capped at 7 for the cpu and clean metrics and by the shards' rows)
+    instead of the kernel's lengths: lets a check reach every pass length.
+    The iterate, the stop sweep and the error do not depend on it."""
+    from . import build
+
+    lib = build.load()
+    K._raise_on(lib, lib.mg_rdma_force_batch(batch), "rdma_trigger batch")
+    try:
+        yield
+    finally:
+        lib.mg_rdma_force_batch(0)
+
+
 def rdma_trigger(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 1.0, compat=True,
                  trigger: float = 0.01, max_sweeps: int = 100_000):
     """The whole error-triggered loop of a row-sharded level in one launch
@@ -183,16 +205,18 @@ def rdma_trigger(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 1.0, c
     out = [torch.empty_like(b) for b in _blocks(f)]
     tmp = [torch.empty_like(b) for b in _blocks(f)]
     tiles = sum(lib.mg_num_tiles_block(r1 - r0, n) for r0, r1 in f.layout.rows)
-    partials = torch.empty(tiles, dtype=torch.float32, device=dev)
+    partials = torch.empty(K.MAX_FUSED_SWEEPS * tiles, dtype=torch.float32, device=dev)
     err = torch.empty(1, dtype=torch.float32, device=dev)
     sweeps = torch.empty(1, dtype=torch.int32, device=dev)
-    rc = lib.mg_rdma_trigger(_ptrs(_blocks(u)), _ptrs(_blocks(f)), _ptrs(out), _ptrs(tmp),
+    # the passes copy rows of u and f in 16-byte chunks
+    ub, fb = [K._aligned(b) for b in _blocks(u)], [K._aligned(b) for b in _blocks(f)]
+    rc = lib.mg_rdma_trigger(_ptrs(ub), _ptrs(fb), _ptrs(out), _ptrs(tmp),
                              K._c_array(ctypes.c_int, row0s), shards, n, partials.data_ptr(),
                              ws.halo.data_ptr(), ws.err.data_ptr(), ws.flags.data_ptr(),
                              ws.count.data_ptr(), err.data_ptr(), sweeps.data_ptr(),
                              K._ERR_CODES[mode], h * h, omega, 1.0 / (h * h),
                              K.shard_err_scale(mode, n, h), trigger, max_sweeps,
-                             ws.take(max_sweeps + 1), stream)
+                             ws.take(max_sweeps + 2), stream)
     K._raise_on(lib, rc, "rdma_trigger")
     K.launches["rdma_trigger"] += 1
     return _grid_of(f, out), err.reshape(()), sweeps.reshape(())

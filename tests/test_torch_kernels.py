@@ -469,7 +469,7 @@ def test_c_entry_points_match_ctypes_signatures():
                                                        "raw_out"]
     assert names["mg3_jacobi_residual_shard"][16] == "want_err"
     assert {s.name for s in build.sources()} == {
-        "common.cuh", "legs.cuh", "jacobi.cu", "residual.cu", "descend.cu", "ascend.cu",
+        "common.cuh", "legs.cuh", "jacobi.cu", "rbgs.cu", "residual.cu", "descend.cu", "ascend.cu",
         "chain_descend.cu", "chain_ascend.cu", "chain_tail.cuh", "trigger.cu", "residual_mw.cu",
         "trigger_stream.cu", "jacobi3.cu", "descend3.cu", "ascend3.cu",
         "residual3.cu", "trigger3.cu", "trigger3_stream.cu", "residual_mw3.cu", "col3.cuh",
