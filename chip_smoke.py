@@ -223,6 +223,16 @@ CLI3_RTOL = 1e-4
 # relative (ROADMAP Queue 3, item 5)
 CLI3_RTOL_OF = {"VcycleTrigger.txt": 5e-3}
 
+# Path B's stop sweeps per level (the 8193² trigger V-cycle), batch 7 and
+# "auto", as the sweep-at-a-time trigger kernels gave them (this script on an
+# NVIDIA H100 80GB HBM3): the kernels' sums and stop rule decide them, not
+# their design
+_PATH_B_MID = [(4097, 2), (2049, 2), (1025, 2), (513, 2), (257, 2), (129, 2), (65, 2),
+               (33, 3), (17, 11), (17, 4), (33, 4), (65, 4), (129, 4), (257, 4), (513, 4),
+               (1025, 4), (2049, 4), (4097, 3)]
+PATH_B_STOPS_BATCH7 = [(8193, 7)] + _PATH_B_MID + [(8193, 7)]
+PATH_B_STOPS_AUTO = [(8193, 2)] + _PATH_B_MID + [(8193, 5)]
+
 PKG = "multigrid_poisson_solver_tpu_torch/ops/csrc/"
 TPU = "multigrid_poisson_solver_tpu/ops/"
 KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, main-path run)
@@ -552,23 +562,44 @@ def phase2(K, torch, cmp, problem, GridSpec):
                             f"{float(ge):.9e}, a fused_ascend launch's {float(le):.9e}")
                 cmp.cases["chain_ascend"] += 1
 
-    def trigger(n, u, f, compat, trig, max_sweeps, loop=False):
+    def one_sweep_loop(n, u, f, compat, trig, max_sweeps):
+        """The loop the whole-loop trigger kernels are held to: trigger_loop
+        over kernel 1's one-sweep launches, whose partials the kernels form
+        and sum in the same order."""
         h = 1.0 / (n - 1)
-        gu, ge, gk = K.trigger_smooth(u, f, h, omega, compat, trig, max_sweeps)
-        wu, we, wk = K.trigger_smooth_torch(u, f, h, omega, compat, trig, max_sweeps)
-        what = f"n={n} err={compat} trigger={trig} max={max_sweeps}"
-        require(int(gk) == int(wk), f"trigger {what}: {int(gk)} sweeps vs twin {int(wk)}")
+        return trigger_loop(lambda v: K.fused_jacobi_err(v, f, h, 1, omega, compat), u, trig,
+                            max_sweeps)
+
+    def trigger(n, u, f, compat, trig, max_sweeps, loop=False, route=None, ref=None,
+                twin=True):
+        """Kernel 8 (on ``route``: "cluster", "tile" or "wave" through
+        K.forced_trigger_route, else the size rule's) against its twin's
+        loop (the same stop) and, with ``loop``, bit for bit the one-sweep
+        loop (``ref`` where given), and then (``twin``) the twin run for
+        that many sweeps."""
+        h = 1.0 / (n - 1)
+        forced = contextlib.nullcontext() if route is None else K.forced_trigger_route(route)
+        with forced:
+            gu, ge, gk = K.trigger_smooth(u, f, h, omega, compat, trig, max_sweeps)
+        what = f"n={n} err={compat} trigger={trig} max={max_sweeps} route={route}"
         if loop:
-            # kernel 8 keeps legs.cuh's tile pipeline, kernel 1 the wavefront:
-            # the same sweep count, iterate and error, bit for bit
-            ru, re_, rk = trigger_loop(lambda v: K.fused_jacobi_err(v, f, h, 1, omega, compat),
-                                       u, trig, max_sweeps)
+            ru, re_, rk = ref or one_sweep_loop(n, u, f, compat, trig, max_sweeps)
             require(int(gk) == rk and bool(torch.equal(gu, ru)) and bool(torch.equal(ge, re_)),
-                    f"trigger {what}: differs from the loop of one-sweep kernel 1 launches")
+                    f"trigger {what}: {int(gk)} sweeps vs {rk} of the loop of one-sweep kernel "
+                    "1 launches, or another iterate or error")
+            cmp.cases["trigger"] += 1
+            if not twin:
+                return int(gk)
+            # the twin run for that many sweeps (its errors sum in another
+            # order, so its own stop test may flip near the threshold)
+            wu, we, wk = K.trigger_smooth_torch(u, f, h, omega, compat, 0.0, int(gk))
+        else:
+            wu, we, wk = K.trigger_smooth_torch(u, f, h, omega, compat, trig, max_sweeps)
+            require(int(gk) == int(wk), f"trigger {what}: {int(gk)} sweeps vs twin {int(wk)}")
+            cmp.cases["trigger"] += 1
         cmp.grid("trigger", f"{what} ({int(wk)} sweeps)", gu, wu)
         cmp.scalar("trigger", what, ge, we)
-        cmp.cases["trigger"] += 1
-        return int(wk)
+        return int(gk)
 
     def stream(n, u, f, compat, trig, max_sweeps):
         """The streamed loop against the sweep-at-a-time loop of one-sweep
@@ -579,8 +610,7 @@ def phase2(K, torch, cmp, problem, GridSpec):
         apart after thousands of sweeps."""
         h = 1.0 / (n - 1)
         gu, ge, gk = K.trigger_smooth_stream(u, f, h, omega, compat, trig, max_sweeps)
-        ru, re_, rk = trigger_loop(lambda v: K.fused_jacobi_err(v, f, h, 1, omega, compat), u,
-                                   trig, max_sweeps)
+        ru, re_, rk = one_sweep_loop(n, u, f, compat, trig, max_sweeps)
         what = f"n={n} err={compat} trigger={trig} max={max_sweeps}"
         require(int(gk) == rk and bool(torch.equal(gu, ru)) and bool(torch.equal(ge, re_)),
                 f"trigger_stream {what}: {int(gk)} sweeps vs {rk} of the one-sweep launches")
@@ -588,7 +618,7 @@ def phase2(K, torch, cmp, problem, GridSpec):
         cmp.grid("trigger_stream", f"{what} ({int(gk)} sweeps)", gu, wu)
         cmp.scalar("trigger_stream", what, ge, we)
         cmp.cases["trigger_stream"] += 1
-        return int(gk)
+        return int(gk), gu, ge
 
     def residual_mw(n):
         h = 1.0 / (n - 1)
@@ -634,15 +664,57 @@ def phase2(K, torch, cmp, problem, GridSpec):
                     cmp.scalar("rbgs", f"{what} err={compat}", ge, we)
                     cmp.cases["rbgs"] += 1
 
+    # kernel 8 on every route at every band layout of the cluster (block 0
+    # alone to 65², 3-5 busy blocks at 66²-131², 8 at 256² and 257²), bit
+    # for bit the one-sweep loop on every metric: max_sweeps 1, 2 and 9, a
+    # stop at sweep 2, and stops on the problem's data
+    trigger_inside = [0]
+    route_stops = {}
+    for n in (16, 33, 65, 66, 100, 129, 131, 256, 257):
+        spec = GridSpec(n)
+        ub = problem.boundary_grid(spec, torch.float32, "cuda")
+        fb = problem.source_grid(spec, torch.float32, "cuda") + ub
+        for compat in (True, False, "gpu"):
+            u, f = rand(n, n), rand(n, n)
+            cases = [(u, f, 0.0, m) for m in (1, 2, 9)] + [(u, f, 1e30, 50)]
+            cases += [(ub, fb, trig, 100_000) for trig in (0.01, 1e-4)]
+            for u, f, trig, max_sweeps in cases:
+                ref = one_sweep_loop(n, u, f, compat, trig, max_sweeps)
+                for route in ("cluster", "tile", "wave"):
+                    k = trigger(n, u, f, compat, trig, max_sweeps, loop=True, route=route,
+                                ref=ref, twin=route == "cluster" and u is not ub)
+                if trig == 1e-4:
+                    route_stops[f"{n}/{compat}"] = k
+    say(f"[2] kernel 8 on every route, stop sweeps at trigger 1e-4 (level/metric): "
+        f"{route_stops}")
     # several tiles per dimension, ragged last tiles; every mode
     for n in (1025, 1031):
         smoother(n, (1, 3, 7, 8), (None, True, False, "gpu"), (False, True))
         # the legs on both routes (the size rule takes the tile kernel here)
         legs(n, (1, 3, 7, 8), (None, True, False, "gpu"), (False, True),
              ("sampling", "full_weighting"), routes=("tile", "wave"))
+        # kernel 8 above the cluster, on the tile loop (the rule's here) and
+        # the wavefront passes: the final iterate in out or the scratch grid,
+        # stops on the problem's data, and with passes forced to 7 a stop
+        # inside a pass
         for compat in (True, False, "gpu"):
-            for max_sweeps in (50, 51):   # the final iterate in either buffer
-                trigger(n, rand(n, n), rand(n, n), compat, 0.0, max_sweeps, loop=True)
+            for max_sweeps in (50, 51):
+                u, f = rand(n, n), rand(n, n)
+                ref = one_sweep_loop(n, u, f, compat, 0.0, max_sweeps)
+                for route in ("tile", "wave"):
+                    trigger(n, u, f, compat, 0.0, max_sweeps, loop=True, route=route, ref=ref,
+                            twin=route == "tile")
+            u = rand(n, n) * 0.01
+            f = problem.source_grid(GridSpec(n), torch.float32, "cuda")
+            for trig in (1e-2, 1e-3):
+                ref = one_sweep_loop(n, u, f, compat, trig, 100_000)
+                for route in ("tile", "wave"):
+                    trigger(n, u, f, compat, trig, 100_000, loop=True, route=route, ref=ref,
+                            twin=False)
+                with K.forced_trigger_batch(7):
+                    k = trigger(n, u, f, compat, trig, 100_000, loop=True, route="wave", ref=ref,
+                                twin=False)
+                trigger_inside[0] += k % 7 != 0
         residual_mw(n)
         jacobi_errs(n)
         rbgs(n)
@@ -724,6 +796,14 @@ def phase2(K, torch, cmp, problem, GridSpec):
         except RuntimeError:
             refused = True
     require(refused, "chain_descend ran a 513² level in the cluster tail")
+    with K.forced_trigger_route("cluster"):
+        try:
+            K.trigger_smooth(f0, f0, 1.0 / 1024, omega, True, 0.0, 3)
+            torch.cuda.synchronize()
+            refused = False
+        except RuntimeError:
+            refused = True
+    require(refused, "trigger_smooth ran a 1025² level in the cluster")
     # the CLI path's even levels: trigger smoothing on the problem's own data,
     # single sweeps with and without the finest error, residuals
     sweeps = {}
@@ -754,12 +834,20 @@ def phase2(K, torch, cmp, problem, GridSpec):
             u = rand(n, n) * 0.01
             f = problem.source_grid(spec, torch.float32, "cuda")
             for trig in (1e-2, 1e-3):
-                k = stream(n, u, f, compat, trig, 100_000)
+                k, ku, ke = stream(n, u, f, compat, trig, 100_000)
                 stops[f"{n}@{trig:g}/{compat}"] = k
-                inside += k % b != 0
+                # passes of 7 (the stop inside a pass unless 7 divides it):
+                # the same loop, bit for bit
+                with K.forced_trigger_batch(7):
+                    gu, ge, gk = K.trigger_smooth_stream(u, f, 1.0 / (n - 1), omega, compat,
+                                                         trig, 100_000)
+                require(int(gk) == k and bool(torch.equal(gu, ku)) and bool(torch.equal(ge, ke)),
+                        f"trigger_stream {n} {compat} {trig}: passes of 7 give another loop")
+                cmp.cases["trigger_stream"] += 1
+                inside += k % 7 != 0
     say(f"[2] streamed trigger stop sweeps (level@trigger/metric): {stops}")
-    require(inside > 0, "no streamed trigger loop stopped inside a pass: the replay went "
-            "unchecked")
+    require(inside > 0 and trigger_inside[0] > 0, "no trigger loop stopped inside a pass of "
+            "7: the redo went unchecked")
     torch.cuda.synchronize()
 
 
@@ -899,6 +987,17 @@ def phase_trigger(tmg, K, torch, run_counts):
             say(f"[t] jacobi_errs (kernel 1's per-sweep mode) in the {tag} run: {ms1:.3f} ms "
                 f"device, {k1:.0f} launches, of {sum(r[1] for r in rows):.3f} ms busy "
                 f"(torch.profiler)")
+            # the whole-loop trigger kernels by route: kernel 8's cluster
+            # (≤ 257²), tile loop (513², 1025²) and wavefront passes (2049²),
+            # kernel 9's passes (4097²)
+            parts = {name: kernel_ms(rows, lambda key, m=match: m(key)) for name, match in (
+                ("kernel 8 cluster", lambda key: "trigger_cluster_kernel" in key),
+                ("kernel 8 tile loop", lambda key: key.startswith("trigger_kernel")),
+                ("kernel 8 wavefront", lambda key: "trigger_wave_kernel<" in key),
+                ("kernel 9 wavefront", lambda key: "trigger_stream_wave_kernel<" in key))}
+            say(f"[t] trigger kernels in the {tag} run (ms device, launches): "
+                + ", ".join(f"{k} {ms:.3f} in {c:.0f}" for k, (ms, c) in parts.items())
+                + f"; kernels 8 + 9 {sum(ms for ms, _ in parts.values()):.3f} ms")
         return tag, counts
 
     main, run_counts["trigger8193"] = run("kernels, batch 7", 7)
@@ -921,6 +1020,11 @@ def phase_trigger(tmg, K, torch, run_counts):
         f"{out[auto][4]}")
     for k in ("trigger", "trigger_stream", "jacobi_errs"):
         require(counts[k] > 0, f"the trigger V-cycle did not launch {k}")
+    # the stop sweeps the sweep-at-a-time trigger kernels gave: the kernels'
+    # sums and stop rule, not their design, decide them
+    for tag, want in ((main, PATH_B_STOPS_BATCH7), (auto, PATH_B_STOPS_AUTO)):
+        require(out[tag][2] == want, f"trigger V-cycle {tag}: stop sweeps {out[tag][2]}, "
+                f"not the earlier runs' {want}")
     # the first node (8193² going down) starts where the exact run's does:
     # its batched passes overshoot the exact stop sweep by fewer than 7
     (m, k), (_, k1) = out[main][2][0], out[batch1][2][0]
@@ -2861,15 +2965,51 @@ def main():
         require(cli.main(argv + ["--device", "cuda"]) == 0, f"in-process CLI on {name} failed")
         run_counts[name] = dict(K.launches)
         say(f"[4] launches over the in-process CLI run on {name}: {run_counts[name]}")
+    # the VcycleTrigger.txt solve on three routes of its trigger nodes (256²
+    # down): kernel 8 as the engine routes them; kernel 9 on the same levels
+    # (trigger_fits off); the loop of one-sweep kernel 1 launches with a host
+    # read a sweep (both off, trigger_batch 1). Then where kernel 8's solve
+    # spends its device time, beside the float64 Gauss-Seidel coarse solve.
     vprog = tmg.parse_cycle_path(ROOT / "schedules" / "VcycleTrigger.txt")
-    for label, fits in (("whole-loop trigger kernel", K.trigger_fits),
-                        ("per-sweep trigger loop", lambda n: False)):
-        saved, K.trigger_fits = K.trigger_fits, fits
-        cc = tmg.compile_program(vprog, tmg.REFERENCE_PROBLEM, device="cuda")
-        ui, fi = cc.init()
-        ms_cli = time_ms(lambda: cc(ui, fi), reps=3, rounds=3)
-        K.trigger_fits = saved
-        say(f"[4] VcycleTrigger.txt compiled solve, {label}: {ms_cli:.3f} ms")
+    no = (lambda n: False)
+    routes = (("kernel 8 (as routed)", K.trigger_fits, K.trigger_stream_fits, "auto"),
+              ("kernel 9 on kernel 8's levels", no, K.trigger_stream_fits, "auto"),
+              ("one-sweep kernel 1 loop", no, no, 1))
+    solves = {}
+    for label, fits, stream_fits, batch in routes:
+        saved = K.trigger_fits, K.trigger_stream_fits
+        K.trigger_fits, K.trigger_stream_fits = fits, stream_fits
+        try:
+            cc = tmg.compile_program(vprog, tmg.REFERENCE_PROBLEM,
+                                     tmg.SolverConfig(trigger_batch=batch), device="cuda")
+            ui, fi = cc.init()
+            K.reset_launch_counts()
+            cc(ui, fi)
+            launched = {k: v for k, v in K.launches.items() if v}
+            say(f"[4] VcycleTrigger.txt compiled solve, {label}: launches {launched}")
+            solves[label] = (cc, ui, fi, fits, stream_fits)
+            if fits is not no:
+                rows = profile("VcycleTrigger.txt compiled solve, kernel 8", lambda: cc(ui, fi))
+                ms8, k8 = kernel_ms(rows, lambda key: "trigger_cluster_kernel" in key)
+                say(f"[t] VcycleTrigger.txt: trigger_cluster_kernel {ms8:.3f} ms device in "
+                    f"{k8:.0f} launches, of {sum(r[1] for r in rows):.3f} ms busy; the rest "
+                    f"(the float64 GS's small kernels, the transfers) "
+                    f"{sum(r[1] for r in rows) - ms8:.3f} ms")
+        finally:
+            K.trigger_fits, K.trigger_stream_fits = saved
+    # host-bound solves: each route timed twice, in turns
+    walls = {label: [] for label in solves}
+    for _ in range(2):
+        for label, (cc, ui, fi, fits, stream_fits) in solves.items():
+            saved = K.trigger_fits, K.trigger_stream_fits
+            K.trigger_fits, K.trigger_stream_fits = fits, stream_fits
+            try:
+                walls[label].append(time_ms(lambda: cc(ui, fi), reps=3, rounds=3))
+            finally:
+                K.trigger_fits, K.trigger_stream_fits = saved
+    for label, ms in walls.items():
+        say(f"[4] VcycleTrigger.txt compiled solve, {label}: "
+            + " / ".join(f"{m:.3f}" for m in ms) + " ms (two turns)")
 
     # -- paths A, B, C ----------------------------------------------------------------
     phase_refine(tmg, K, torch, run_counts)
@@ -3253,6 +3393,40 @@ def main():
         say(f"[t] chains at 1025² → 9², 3 sweeps, split "
             f"{'the rule' if split is None else split}: chain_descend {us_d:.2f} µs device a "
             f"call, chain_ascend {us_a:.2f}")
+    # kernel 8 on each route: 100 sweeps (cpu error, trigger 0; ms a call by
+    # CUDA events) at 256² (the [t] row above), 129² and 65²; the 2-4-sweep
+    # loops of path B's levels above the cluster (µs device a call, graph
+    # replays); kernel 9's 2- and 3-sweep loops at 4097² (µs device a call)
+    # and its 98-sweep loop (ms a call)
+    for m in (256, 129, 65):
+        um, fm = rnd(m), rnd(m)
+        by = {}
+        for route in ("cluster", "tile", "wave"):
+            with K.forced_trigger_route(route):
+                by[route] = time_ms(lambda: K.trigger_smooth(um, fm, 1 / (m - 1), 0.8, True, 0.0,
+                                                             100), reps=5)
+        b_ms, b_by = bound(3 * 4 * m * m, 100 * (SWEEP_OPS + ERR_OPS) * m * m)
+        say(f"[t] trigger at {m}², 100 sweeps, cpu error, ms a call: "
+            + ", ".join(f"{r} {v:.4f}" for r, v in by.items())
+            + f" (the rule's: cluster); bound {b_ms:.4f} ({b_by})")
+    for m in (513, 1025, 2049):
+        um, fm = rnd(m), rnd(m)
+        line = []
+        for sweeps in (2, 3, 4):
+            for route in ("tile", "wave"):
+                with K.forced_trigger_route(route):
+                    us = graph_us(lambda: K.trigger_smooth(um, fm, 1 / (m - 1), 0.8, True, 0.0,
+                                                           sweeps))
+                line.append(f"{sweeps} sweeps {route} {us:.2f}")
+        say(f"[t] trigger at {m}², µs device a call (the rule's route: "
+            f"{'wave' if m * m >= 3 << 19 else 'tile'}): " + ", ".join(line))
+    line = []
+    for sweeps in (2, 3):
+        us = graph_us(lambda: K.trigger_smooth_stream(u, f, h, 0.8, True, 0.0, sweeps))
+        line.append(f"{sweeps} sweeps {us:.2f} µs")
+    ms = time_ms(lambda: K.trigger_smooth_stream(u, f, *s_args), reps=3)
+    line.append(f"{s_sweeps} sweeps {ms:.4f} ms")
+    say(f"[t] trigger_stream at {n}², device a call: " + ", ".join(line))
     # kernel 13's byte yardstick, the card's streaming rate at its 12 B a
     # point: one elementwise PyTorch op that reads the same two 513³ volumes
     # and writes a third

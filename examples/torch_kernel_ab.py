@@ -1,7 +1,7 @@
 """Time the port's single-device 2-D and 3-D kernels of one source tree, to
 compare two trees on the same card.
 
-    python3 examples/torch_kernel_ab.py ROOT
+    python3 examples/torch_kernel_ab.py ROOT [solve]
 
 ROOT is a checkout (or an unpacked ``git archive``) holding
 ``multigrid_poisson_solver_tpu_torch``; its kernels are built from ROOT's
@@ -10,7 +10,11 @@ main paths' shapes (2-D at 4097² and 8193², 3-D at 513³), with one V(3,3)
 cycle at 4097² (ω 0.8, coarsen=3) and one 3-D ``v_cycle3`` V(3,3) at 513³;
 kernel 1's Jacobi modes (8193² with 8 sweeps and the per-sweep mode, 4097²
 with one sweep and each error, 1025², 257² and 65² in device µs a call) and
-the 2-D trigger kernels 8 and 9 and kernel 5; the 2-D shard modes on 8 row
+the 2-D trigger kernels 8 (100 sweeps at 256², 129² and 65²; 2-4-sweep
+loops at 513²-2049² in device µs a call) and 9 (98 sweeps at 4097², and
+2- and 3-sweep loops in device µs) and kernel 5; the
+``schedules/VcycleTrigger.txt`` compiled solve (ms, device ms) and the host
+µs of one kernel-8 call at 256²; the 2-D shard modes on 8 row
 shards of the card (kernel 1 at 4097² and 8193², also in device µs at 4097²,
 and rb-GS, also in device µs from CUDA graph replays); rb-GS at 4097², 1025²
 and 257² (device µs, graph replays); the legs (kernels 3 and 4) at 8193² to 257², whole
@@ -53,7 +57,9 @@ trigger_batch 7, and on 8 z-shards with "auto" (halo ppermute, and rdma
 where the tree has the ring kernels), medians of the warm runs. It prints
 one JSON line of milliseconds (µs where the key says so). Compare two trees
 in one process run each, alternating (A, B, B, A), on one card: a card set
-below its power limit, or another card, moves every number.
+below its power limit, or another card, moves every number. With ``solve``
+it times the ``VcycleTrigger.txt`` solve and the kernel-8 call's host µs
+alone (a process a side, for more pairs of that host-bound row).
 """
 
 import contextlib
@@ -165,15 +171,39 @@ def rand(m):
     return torch.randn(m, m, generator=g, device="cuda")
 
 
+res = {}
+ut, ft = rand(256), rand(256)
+# the schedules/VcycleTrigger.txt compiled solve (chip_smoke.py's phase 4,
+# its trigger nodes on kernel 8 as the engine routes them): ms a solve by
+# CUDA events, median of 7 rounds of 3, its device ms (torch.profiler), and
+# the host µs a kernel-8 call costs at 256² (2 sweeps; 200 calls issued,
+# then one synchronize)
+vsolve = tmg.compile_program(
+    tmg.parse_cycle_path(os.path.join(root, "schedules", "VcycleTrigger.txt")),
+    tmg.REFERENCE_PROBLEM, tmg.SolverConfig(), device="cuda")
+vu, vf = vsolve.init()
+res["vcycle_trigger_txt_solve"] = timed(lambda: vsolve(vu, vf), reps=3, rounds=7)
+res["vcycle_trigger_txt_solve_device"] = device_ms(lambda: vsolve(vu, vf), 1)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(200):
+    K.trigger_smooth(ut, ft, 1 / 255, 0.8, True, 0.0, 2)
+res["trigger2_256_host_us"] = (time.perf_counter() - t0) * 1e6 / 200
+torch.cuda.synchronize()
+del vsolve, vu, vf
+if sys.argv[2:] == ["solve"]:
+    print(json.dumps({"root": sys.argv[1], **{k: round(v, 4) for k, v in res.items()}}),
+          flush=True)
+    sys.exit(0)
 n, n8 = 4097, 8193
 u, f, h = rand(n), rand(n), 1 / (n - 1)
 u8, f8, h8 = rand(n8), rand(n8), 1 / (n8 - 1)
-res = {
+res.update({
     "jacobi8_8193": timed(lambda: K.fused_jacobi(u8, f8, h8, 8, 0.8)),
     "jacobi3err_4097": timed(lambda: K.fused_jacobi_err(u, f, h, 3, 0.8, True)),
     "residual_4097": timed(lambda: K.residual(u, f, h)),
     "rbgs2err_4097": timed(lambda: K.fused_rbgs_err(u, f, h, 2, True)),
-}
+})
 prog = tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=3)
 cfg = tmg.SolverConfig(omega=0.8, collect_node_stats=False)
 warm = tmg.compile_program(prog, tmg.REFERENCE_PROBLEM, cfg, device="cuda", warm=True)
@@ -181,8 +211,8 @@ u0, f0 = warm.init()
 res["vcycle_4097"] = timed(lambda: warm(u0, f0), reps=5, rounds=3)
 # kernel 1's Jacobi modes: the per-sweep mode at 8193², one sweep with each
 # error and 8 from zero at 4097², 3 sweeps + cpu error at the small levels
-# (device µs a call); the trigger kernels 8 and 9, which keep legs.cuh's
-# tile pipeline; kernel 5
+# (device µs a call); the trigger kernels 8 (256², 100 sweeps) and 9 (4097²,
+# 98 sweeps); kernel 5
 res.update({
     "jacobi_errs7cpu_8193": timed(lambda: K.fused_jacobi_errs(u8, f8, h8, 7, 0.8, True), reps=5),
     "jacobi_errs8gpu_8193": timed(lambda: K.fused_jacobi_errs(u8, f8, h8, 8, 0.8, "gpu"), reps=5),
@@ -195,7 +225,6 @@ for m in (1025, 257, 65):
     um, fm = rand(m), rand(m)
     res[f"jacobi3err_{m}_us"] = 1e3 * device_ms(
         lambda: [K.fused_jacobi_err(um, fm, 1 / (m - 1), 3, 0.8, True) for _ in range(10)], 10)
-ut, ft = rand(256), rand(256)
 w1, w2 = f8 * 1e-8, f8 * 1e-16
 res.update({
     "trigger100_256": timed(lambda: K.trigger_smooth(ut, ft, 1 / 255, 0.8, True, 0.0, 100),
@@ -205,6 +234,23 @@ res.update({
     "residual_tw_8193": timed(lambda: K.residual_tw(u8, w1, w2, f8, h8)),
 })
 del w1, w2
+# the whole-loop trigger kernels 8 and 9 at the main paths' shapes: kernel 8
+# with 100 sweeps at 129² and 65² (cpu error, trigger 0; ms), its 2-4-sweep
+# loops at 513², 1025² and 2049² (path B's levels above 257²) and kernel 9's
+# 2- and 3-sweep loops at 4097² (µs device a call, CUDA graph replays)
+for m in (129, 65):
+    um, fm = rand(m), rand(m)
+    res[f"trigger100_{m}"] = timed(lambda: K.trigger_smooth(um, fm, 1 / (m - 1), 0.8, True,
+                                                            0.0, 100), reps=3)
+for m in (513, 1025, 2049):
+    um, fm = rand(m), rand(m)
+    for s in (2, 3, 4):
+        res[f"trigger{s}_{m}_graph_us"] = graph_us(lambda: K.trigger_smooth(
+            um, fm, 1 / (m - 1), 0.8, True, 0.0, s))
+for s in (2, 3):
+    res[f"trigger_stream{s}_4097_graph_us"] = graph_us(lambda: K.trigger_smooth_stream(
+        u, f, h, 0.8, True, 0.0, s))
+del um, fm
 # the 2-D shard modes on 8 row shards of the card, on windows of KS.HALO rows
 # exchanged beforehand: kernel 1 (G2's 3 sweeps + cpu error at 4097², G3's
 # one sweep + cpu error and its per-sweep pass at 8193²) and rb-GS

@@ -44,6 +44,8 @@ SIGNATURES = {
     "mg_chain_force_split": ([_I], _I),
     "mg_chain_launched": ([], _I),
     "mg_rdma_force_batch": ([_I], _I),
+    "mg_trigger_force_route": ([_I], _I),
+    "mg_trigger_force_batch": ([_I], _I),
     "mg_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
     "mg_jacobi_errs": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P], _I),
     "mg_rbgs": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I),

@@ -320,6 +320,67 @@ static inline cudaError_t launch_error_sum(const float* partials, int count, flo
   return cudaGetLastError();
 }
 
+// --- the 2-D trigger loops' rule and sum (trigger.cu's cluster kernel,
+// trigger_wave.cuh's wavefront passes, rdma_trigger.cu's ring) -------------
+
+// block_sum over 256 thread values v[0..count) (+0 from count on), played
+// by one warp: lane x adds v[32y + x], thread (x, y)'s value, for each warp
+// y with block_sum's butterfly, lane y keeps warp y's sum, then the
+// butterfly over lanes 0..7 (the others +0). Every lane gets the total:
+// fixed_sum's for count <= THREADS, and its second step for any count.
+static __device__ __forceinline__ float warp_block_sum(const float* v, int count) {
+  const int lane = threadIdx.x & 31;
+  float w[BLOCK_Y];
+#pragma unroll
+  for (int y = 0; y < BLOCK_Y; ++y)
+    w[y] = y * BLOCK_X + lane < count ? v[y * BLOCK_X + lane] : 0.0f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int y = 0; y < BLOCK_Y; ++y) w[y] += __shfl_xor_sync(0xffffffffu, w[y], o);
+  float total = 0.0f;
+#pragma unroll
+  for (int y = 0; y < BLOCK_Y; ++y)
+    if (lane == y) total = w[y];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(0xffffffffu, total, o);
+  return total;
+}
+
+// The reference's stop rule (solver.trigger_loop) on the error e of the
+// loop's sweep i + 1 (i from 0): the loop goes on while the slope |e − err|
+// stays above the trigger (the test starts at sweep 2) and fewer than
+// max_sweeps sweeps have run. Moves the last error err and the last two
+// slopes d1 (this sweep's) and d0 on.
+static __device__ __forceinline__ bool trigger_goes_on(int i, float e, float trigger,
+                                                       int max_sweeps, float& err, float& d1,
+                                                       float& d0) {
+  const float d = fabsf(__fsub_rn(e, err));
+  const bool above = i == 0 || d > trigger;
+  d0 = d1;
+  d1 = d;
+  err = e;
+  return above && i + 1 < max_sweeps;
+}
+
+// The sweeps of a temporal-blocking trigger loop's pass after k sweeps, at
+// most B: a loop stops where the slope d_k = |err_k − err_{k−1}| first falls
+// to the trigger, and a pass that runs past the stop is redone, so a pass
+// runs about as far as the stop is likely to be: the 2 sweeps the slope test
+// needs, then 1, then as many as the decay of the last two slopes d1 (sweep
+// k) and d0 (sweep k − 1), taken as geometric, needs to reach the trigger.
+// The engine's trigger nodes stop after 2-5 sweeps; a loop whose slopes do
+// not fall (trigger 0) runs passes of B. Every block computes it from the
+// same errors: the same lengths.
+static __device__ int next_sweeps(int k, float d1, float d0, float trigger, int B) {
+  if (k == 0) return min(2, B);
+  if (k < 3) return 1;
+  const float rho = d1 / d0;
+  if (!(trigger > 0.0f && d1 > trigger && rho > 0.0f && rho < 1.0f)) return B;
+  const float m = ceilf(logf(trigger / d1) / logf(rho));
+  return m < 1.0f ? 1 : (m > (float)B ? B : (int)m);
+}
+
 // Launch a persistent kernel: as many blocks of `block` threads as can be
 // resident at once (the occupancy at `smem` bytes of dynamic shared memory,
 // at most `tiles`), each walking tiles t = blockIdx.x, + gridDim.x, ..., with

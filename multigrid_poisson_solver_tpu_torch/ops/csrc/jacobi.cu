@@ -25,8 +25,8 @@
 // each row of per-tile partials in the fixed order (sum_partials_kernel),
 // so errs[s − 1] is bit for bit the error a launch of s sweeps reports, and
 // the partials are formed in legs.cuh's tile order, so the trigger kernels
-// that keep the tile pipeline (trigger.cu, trigger_stream.cu) report the
-// same errors as loops of these launches. No atomics: every metric is
+// (trigger.cu, trigger_stream.cu, rdma_trigger.cu) report the same errors
+// as loops of these launches. No atomics: every metric is
 // deterministic.
 //
 // Shard mode: every mode above on one shard's block of a sharded level.

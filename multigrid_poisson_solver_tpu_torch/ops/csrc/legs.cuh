@@ -1,16 +1,16 @@
 // The work of one tile for each fused operation that keeps the tile
-// pipeline: the smoother's tile (jacobi_tile, jacobi_errs_tile) in the
-// trigger loops (trigger.cu, trigger_stream.cu) and the ring kernel
+// pipeline: the smoother's tile (jacobi_tile) in the ring kernel
 // rdma_jacobi.cu; the descend leg (chain_descend.cu, and descend.cu's small
 // levels) and the ascend leg (chain_ascend.cu, and ascend.cu's small
-// levels). Kernel 1 (its Jacobi and rb-GS modes), the ring trigger kernel
-// rdma_trigger.cu and the legs' larger levels run wave2.cuh's wavefront
-// instead, whose iterates, coarse right-hand sides and error partials equal
-// these tiles' bit for bit. A one-launch kernel runs one tile per block; a
+// levels). Kernel 1 (its Jacobi and rb-GS modes), the trigger loops
+// (trigger_stream.cu, rdma_trigger.cu) and the legs' larger levels run
+// wave2.cuh's wavefront instead, and trigger.cu's small levels a thread
+// block cluster; their iterates, coarse right-hand sides and error partials
+// equal these tiles' bit for bit. A one-launch kernel runs one tile per block; a
 // persistent kernel walks many tiles per block and levels or sweeps between
 // grid barriers.
-// Both run this same code, so the chain and trigger kernels reproduce the
-// per-level launches bit for bit.
+// Both run this same code, so the chain kernels reproduce the per-level
+// launches bit for bit.
 //
 // `smem` holds tile_smem_bytes(halo): f, then two ping-pong buffers. Every
 // function starts with a barrier, so a block may call them back to back.
@@ -101,36 +101,6 @@ static __device__ void jacobi_tile(float* smem, const S& u, const S& f, float* _
     const float* prev = n_sweeps > 0 ? bufs[fin ^ 1] : nullptr;
     error_partial(partial, bufs[fin], prev, sf, t, halo, g, err_mode, inv_h2);
   }
-}
-
-// n_sweeps Jacobi sweeps of tile (tx, ty) into out with the error of every
-// iterate: after sweep s the tile's partial of u_s goes to
-// partials[(s − 1) · stride]. Each partial is the one jacobi_tile writes
-// after s sweeps (the same cells, values and order), so a row of partials
-// sums to what a launch of s sweeps reports.
-static __device__ void jacobi_errs_tile(float* smem, const Win& u, const Win& f,
-                                        float* __restrict__ out, float* partials, int stride,
-                                        int tx, int ty, const Geo& g, int n_sweeps, int halo,
-                                        int err_mode, float h2, float omega, float inv_h2) {
-  __syncthreads();
-  const int n = g.n;
-  const Tile t = make_tile(g, halo, tx, ty);
-  const int cells = t.rows * t.cols;
-  float* sf = smem;
-  float* bufs[2] = {smem + cells, smem + 2 * cells};
-
-  load_tile(sf, f, n, t);
-  load_tile(bufs[0], u, n, t);
-  __syncthreads();
-  for (int s = 1; s <= n_sweeps; ++s) {
-    sweep(bufs[(s - 1) & 1], bufs[s & 1], sf, t, s, n, h2, omega);
-    __syncthreads();
-    // ends with block_sum's barriers: the next sweep may overwrite u_{s−1}
-    error_partial(partials + (size_t)(s - 1) * stride, bufs[s & 1],
-                  err_mode == ERR_GPU ? bufs[(s - 1) & 1] : nullptr, sf, t, halo, g, err_mode,
-                  inv_h2);
-  }
-  store_owned(out, bufs[n_sweeps & 1], g, t, halo);
 }
 
 // The descend leg of tile (tx, ty) on the level n = 2m − 1: sweeps into out,

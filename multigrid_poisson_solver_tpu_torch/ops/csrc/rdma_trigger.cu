@@ -23,9 +23,9 @@
 // warps walking the (strip, chunk) units, so a pass reads and writes the
 // grids once for its sweeps and leaves each sweep's tile partials in
 // legs.cuh's tile order. A pass runs about as far as the stop is likely to
-// be (next_sweeps: 2 sweeps, 1, then what the slopes' decay predicts): the
-// engine's trigger nodes stop after a few sweeps, and a pass that runs
-// past the stop costs a redo. Rows beyond the block come from the
+// be (next_sweeps, common.cuh: 2 sweeps, 1, then what the slopes' decay
+// predicts): the engine's trigger nodes stop after a few sweeps, and a pass
+// that runs past the stop costs a redo. Rows beyond the block come from the
 // receive buffers (WaveRing): the pass's input's H = B (+1 for cpu / clean)
 // edge rows, which the neighbours' warps wrote there when they stored them
 // in the pass before (f's once, before the loop, with u_0's). The slots
@@ -98,23 +98,6 @@ static __device__ float ring_fixed_sum(const float* p, int count, float* sh) {
   }
   __syncthreads();  // sh is read before it is rewritten
   return total;
-}
-
-// The sweeps of the pass after k sweeps, at most B: a loop stops where the
-// slope d_k = |err_k − err_{k−1}| first falls to the trigger, and a pass that
-// runs past the stop is redone, so a pass runs about as far as the stop is
-// likely to be: the 2 sweeps the slope test needs, then 1, then as many as
-// the decay of the last two slopes d1 (sweep k) and d0 (sweep k − 1), taken
-// as geometric, needs to reach the trigger. The engine's trigger nodes stop
-// after 2-5 sweeps; a loop whose slopes do not fall (trigger 0) runs passes
-// of B. Every block computes it from the same errors: the same lengths.
-static __device__ int next_sweeps(int k, float d1, float d0, float trigger, int B) {
-  if (k == 0) return min(2, B);
-  if (k < 3) return 1;
-  const float rho = d1 / d0;
-  if (!(trigger > 0.0f && d1 > trigger && rho > 0.0f && rho < 1.0f)) return B;
-  const float m = ceilf(logf(trigger / d1) / logf(rho));
-  return m < 1.0f ? 1 : (m > (float)B ? B : (int)m);
 }
 
 template <int B, int E>

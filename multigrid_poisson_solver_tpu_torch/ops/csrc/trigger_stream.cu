@@ -4,126 +4,52 @@
 // max_sweeps, with the cpu / clean / gpu smoothing-error metric.
 //
 // Replaces: multigrid_poisson_solver_tpu/ops/pallas_chain.py,
-// _trigger_stream_kernel, reached through fused_trigger_stream (levels up to
-// 4097² on the TPU).
+// _trigger_stream_kernel, reached through fused_trigger_stream (the engine's
+// trigger nodes of 2176 < n <= 4097, trigger_stream_fits).
 //
-// Bound: device-memory bandwidth. Swept one at a time, a sweep reads u and f
-// and writes u, 12 B per point: 0.060 ms at 4097² at 3.35 TB/s. At 4097² a
-// grid is 67 MB, above the 50 MB L2, so the TPU's plan (u resident on chip,
-// f streamed, wavefronts committed in place) has no counterpart here.
-// Design: temporal blocking with an exact replay. One persistent cooperative
-// launch runs passes of `batch` sweeps; a pass is the per-sweep-error tile
-// code (jacobi_errs_tile, legs.cuh), so it reads and writes the grids once for
-// `batch` sweeps and leaves one error partial per iterate. After a grid
-// barrier every block sums each row of partials in the one-launch
-// reduction's fixed order and replays the stop rule sweep by sweep, so all
-// blocks take the same decision. If the loop stops inside the pass, at sweep
-// s < batch, the blocks redo the pass from its input with s sweeps (the
-// input is still intact: passes ping-pong between two grids). The iterates,
-// the stop sweep and the reported error are therefore those of the
-// sweep-at-a-time loop, bit for bit, at 1/batch of its memory traffic plus
-// the replay. The partials of consecutive passes alternate between two
-// halves of their buffer, as in trigger.cu.
-#include "legs.cuh"
+// Bound and design: trigger_wave.cuh's wavefront passes with an exact replay
+// (kernel 8's levels above its cluster run the same loop, trigger.cu), in a
+// kernel of this entry point's own name.
+#include "trigger_wave.cuh"
 
 using namespace mgk;
 
-struct StreamArgs {
-  const float* u;       // starting iterate (read only)
-  const float* f;
-  float* out;           // final iterate
-  float* tmp;           // ping-pong partner of out
-  float* partials;      // 2 * batch * num_tiles(n) floats
-  float* err_out;       // the final iterate's error
-  int* sweeps_out;      // sweeps run
-  int n, halo, err_mode, batch, max_sweeps;
-  float h2, omega, inv_h2, err_scale, trigger;
-};
+namespace mgk {
+int trigger_forced_batch = 0;
+}  // namespace mgk
 
-static __global__ void __launch_bounds__(THREADS) trigger_stream_kernel(StreamArgs a) {
-  extern __shared__ float smem[];
-  __shared__ float err_now;
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const int tx = tiles_x(a.n), count = num_tiles(a.n);
-  const float* src = a.u;
-  float* dst = a.out;
-  float err = 0.0f;
-  int k = 0;
-  for (int pass = 0;; ++pass) {
-    const int kb = min(a.batch, a.max_sweeps - k);  // >= 1: k < max_sweeps here
-    float* part = a.partials + (size_t)(pass & 1) * a.batch * count;
-    for (int t = blockIdx.x; t < count; t += gridDim.x)
-      jacobi_errs_tile(smem, window(src, a.n), window(a.f, a.n), dst, part + t, count, t % tx,
-                       t / tx, a.n, kb, a.halo, a.err_mode, a.h2, a.omega, a.inv_h2);
-    grid.sync();  // dst and the partials complete
-    int stop = 0;
-    for (int s = 1; s <= kb && !stop; ++s) {
-      const float total = fixed_sum(part + (size_t)(s - 1) * count, count);
-      if (threadIdx.x == 0 && threadIdx.y == 0) err_now = __fmul_rn(total, a.err_scale);
-      __syncthreads();
-      const float e = err_now;
-      __syncthreads();  // every thread has read err_now before it is rewritten
-      // the slope test starts at sweep 2 (solver.trigger_loop)
-      const bool above = k + s == 1 || fabsf(__fsub_rn(e, err)) > a.trigger;
-      err = e;
-      if (!(above && k + s < a.max_sweeps)) stop = s;
-    }
-    if (stop) {
-      k += stop;
-      if (stop < kb) {  // the loop ends inside this pass: redo it with stop sweeps
-        for (int t = blockIdx.x; t < count; t += gridDim.x)
-          jacobi_tile(smem, window(src, a.n), window(a.f, a.n), dst, nullptr, t % tx, t / tx,
-                      a.n, stop, stop, 0, ERR_NONE, a.h2, a.omega, a.inv_h2, 0.0f);
-        grid.sync();
-      }
-      break;
-    }
-    k += kb;
-    src = dst;
-    dst = dst == a.out ? a.tmp : a.out;
-  }
-  if (dst != a.out) {  // the final iterate is in tmp
-    const size_t cells = (size_t)a.n * a.n;
-    for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.y * BLOCK_X + threadIdx.x;
-         i < cells; i += (size_t)gridDim.x * THREADS)
-      a.out[i] = __ldcg(dst + i);
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0) {
-    a.err_out[0] = err;
-    a.sweeps_out[0] = k;
-  }
+template <int E>
+static __global__ void __launch_bounds__(TrigShape<TRIG_BATCH, E>::THREADS,
+                                         TRIG_WARPS_PER_SM / TrigShape<TRIG_BATCH, E>::WARPS)
+trigger_stream_wave_kernel(WaveTriggerArgs a) {
+  trigger_wave_loop<E>(a);
 }
 
-// The trigger loop on u (not written) into out, batch sweeps per pass
-// (batch <= 8, and <= 7 for the cpu / clean metrics); tmp is an n x n
-// scratch grid, partials 2 * batch * mg_num_tiles(n) floats; err_mode as
-// mg_jacobi (not ERR_NONE).
+// The passes of every later wavefront trigger launch (kernels 8 and 9): 0
+// next_sweeps' lengths, 1..TRIG_BATCH that many sweeps each (checks reach
+// stops inside long passes with it; the results do not depend on it).
+extern "C" int mg_trigger_force_batch(int batch) {
+  if (batch < 0 || batch > TRIG_BATCH) return (int)cudaErrorInvalidValue;
+  trigger_forced_batch = batch;
+  return 0;
+}
+
+// The trigger loop on u (not written) into out, passes of at most
+// min(batch, 7) sweeps (batch 1..8); tmp is an n x n scratch grid; u, f, out
+// and tmp start 16-byte aligned (else cudaErrorMisalignedAddress); partials
+// holds 2 * 7 * mg_num_tiles(n) floats; err_mode as mg_jacobi (not
+// ERR_NONE).
 extern "C" int mg_trigger_stream(const float* u, const float* f, float* out, float* tmp,
                                  float* partials, float* err_out, int* sweeps_out, int n,
                                  int err_mode, int batch, float h2, float omega, float inv_h2,
                                  float err_scale, float trigger, int max_sweeps, void* stream) {
-  const int halo = jacobi_halo(batch, err_mode);
-  if (n < 3 || err_mode == ERR_NONE || max_sweeps < 1 || batch < 1 || batch > MAX_STEPS ||
-      halo > MAX_HALO)
-    return (int)cudaErrorInvalidValue;
-  StreamArgs a = {};
-  a.u = u;
-  a.f = f;
-  a.out = out;
-  a.tmp = tmp;
-  a.partials = partials;
-  a.err_out = err_out;
-  a.sweeps_out = sweeps_out;
-  a.n = n;
-  a.halo = halo;
-  a.err_mode = err_mode;
-  a.batch = batch;
-  a.max_sweeps = max_sweeps;
-  a.h2 = h2;
-  a.omega = omega;
-  a.inv_h2 = inv_h2;
-  a.err_scale = err_scale;
-  a.trigger = trigger;
-  return (int)launch_persistent(trigger_stream_kernel, a, tile_smem_bytes(halo), num_tiles(n),
-                                (cudaStream_t)stream);
+  WaveTriggerArgs a;
+  const cudaError_t e = trigger_wave_args(u, f, out, tmp, partials, err_out, sweeps_out, n,
+                                          err_mode, batch, h2, omega, inv_h2, err_scale,
+                                          trigger, max_sweeps, a);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(err_mode == ERR_GPU
+                   ? launch_wave_trigger<WV_GPU>(trigger_stream_wave_kernel<WV_GPU>, a, s)
+                   : launch_wave_trigger<WV_RES>(trigger_stream_wave_kernel<WV_RES>, a, s));
 }

@@ -3,7 +3,9 @@
 // device memory, with the cpu / clean / gpu error of the last iterate or of
 // every iterate (the per-sweep mode), whole grid or one shard's block; and,
 // with a stage of their own, kernel 1's rb-GS mode and the legs (below) and
-// the ring trigger kernel 17's per-sweep passes (WaveRing, rdma_trigger.cu).
+// the trigger kernels' per-sweep passes (WaveRing: the ring trigger kernel
+// 17, rdma_trigger.cu, and the whole grid as a ring of one shard,
+// trigger_stream.cu).
 //
 // Work unit: a warp owns one column of the TILE_H x TILE_W error tiles (tile
 // column tx: TILE_W owned columns) and a chunk of whole tile rows, and
@@ -52,7 +54,7 @@
 // twin's and the tile pipeline's.
 //
 // Error partials: bit for bit error_partial + block_sum (common.cuh) of the
-// tile pipeline, which the trigger kernels 8, 9 and 18 keep: there,
+// tile pipeline, which the trigger kernels keep: there,
 // thread (x, y) of a block adds, from +0 and in this order, the cells of
 // tile rows y, y + 8, y + 16, y + 24, in each row columns x, x + 32, x + 64,
 // x + 96; then a butterfly (xor 16..1) over each warp, then the same over

@@ -20,9 +20,11 @@ PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_kernels.py`` and
     ``_ascend_chain_kernel`` (both chains: the levels above the split size
     ``CHAIN_SPLIT`` of ``csrc/chain_tail.cuh`` as a grid-wide tile launch,
     those at or below it in one thread block cluster);
-  * ``trigger_smooth``: ``csrc/trigger.cu``, replaces ``_trigger_vmem_kernel``;
+  * ``trigger_smooth``: ``csrc/trigger.cu``, replaces ``_trigger_vmem_kernel``
+    (levels up to 257² in one thread block cluster, then a tile loop, and
+    from 1.5 M cells the next kernel's passes);
   * ``trigger_smooth_stream``: ``csrc/trigger_stream.cu``, replaces
-    ``_trigger_stream_kernel``.
+    ``_trigger_stream_kernel`` (wavefront passes with an exact replay).
 
 Routing is by the tensors' device and nothing else: CPU tensors run the
 plain PyTorch twin (``*_torch``, built from the oracle ops in
@@ -66,6 +68,7 @@ MAX_FUSED_SWEEPS = 8
 # the fused error's extra Δ one more: ≤ 3 sweeps in an error pass
 MAX_FUSED_RBGS = MAX_FUSED_SWEEPS // 2
 MAX_CHAIN_LEVELS = 16       # MAX_CHAIN in chain_descend.cu / chain_ascend.cu
+TRIGGER_BATCH = 7           # TRIG_BATCH in trigger_wave.cuh: a trigger pass's most sweeps
 CHAIN_MAX_ROOT = 1025       # pallas_chain.CHAIN_MAX_ROOT
 STREAM_BUDGET = 112 * 1024 * 1024   # pallas_chain.STREAM_VMEM_BUDGET
 _ERR_CODES = {None: 0, "cpu": 1, "clean": 2, "gpu": 3}
@@ -504,6 +507,43 @@ def forced_chain_split(split: int):
         lib.mg_chain_force_split(-1)
 
 
+_TRIGGER_ROUTES = {"cluster": 1, "tile": 2, "wave": 3}
+
+
+@contextlib.contextmanager
+def forced_trigger_route(route: str):
+    """``trigger_smooth``'s launches (kernel 8) on one route, ``"cluster"``
+    (one thread block cluster, levels up to 257²), ``"tile"`` (the tile
+    loop) or ``"wave"`` (the wavefront passes), instead of the one its size
+    rule picks (``csrc/trigger.cu``): lets a check or a timing reach every
+    route at every size it takes. All are bit for bit the loop of one-sweep
+    kernel 1 launches; a level above 257² sent to the cluster raises."""
+    from . import build
+
+    lib = build.load()
+    _raise_on(lib, lib.mg_trigger_force_route(_TRIGGER_ROUTES[route]), "trigger route")
+    try:
+        yield
+    finally:
+        lib.mg_trigger_force_route(0)
+
+
+@contextlib.contextmanager
+def forced_trigger_batch(batch: int):
+    """The wavefront trigger passes (kernel 8's wavefront route and kernel 9)
+    of exactly ``batch`` sweeps, 1..TRIGGER_BATCH, instead of next_sweeps'
+    lengths (2, 1, then the slopes' prediction): lets a check reach stops
+    inside long passes. Results do not depend on the passes' lengths."""
+    from . import build
+
+    lib = build.load()
+    _raise_on(lib, lib.mg_trigger_force_batch(batch), "trigger batch")
+    try:
+        yield
+    finally:
+        lib.mg_trigger_force_batch(0)
+
+
 def _err_buffers(lib, mode, n: int, device):
     """(per-tile partials, the 1-element metric), or Nones without an error."""
     if mode is None:
@@ -735,23 +775,41 @@ def chain_ascend(u_list, f_list, uc, sizes, h0: float, post_steps, omega: float 
     return outs[0], (None if err is None else err.reshape(()))
 
 
+def _trigger_buffers(lib, n: int, device):
+    """(out, tmp, partials, err, sweeps) of a whole-loop trigger launch:
+    the partials of two passes of up to TRIGGER_BATCH sweeps
+    (``csrc/trigger_wave.cuh``)."""
+    part = 2 * TRIGGER_BATCH * lib.mg_num_tiles(n)
+    return (torch.empty(n, n, dtype=torch.float32, device=device),
+            torch.empty(n, n, dtype=torch.float32, device=device),
+            torch.empty(part, dtype=torch.float32, device=device),
+            torch.empty(1, dtype=torch.float32, device=device),
+            torch.empty(1, dtype=torch.int32, device=device))
+
+
+def _check_max_sweeps(max_sweeps: int) -> None:
+    if not 1 <= max_sweeps < 2 ** 31:
+        raise ValueError(f"max_sweeps must lie in 1..2**31 − 1, got {max_sweeps}")
+
+
 def trigger_smooth(u, f, h: float, omega: float = 1.0, compat=True, trigger: float = 0.01,
                    max_sweeps: int = 100_000):
     """Error-triggered smoothing with the whole loop in one launch
     (counterpart of ``fused_trigger_vmem``): one sweep at a time while
-    |err_k − err_{k−1}| > trigger, at most ``max_sweeps``. Returns (u, err,
-    sweeps), ``sweeps`` a 0-d int32 tensor; nothing is read back to the host."""
+    |err_k − err_{k−1}| > trigger, at most ``max_sweeps``. Levels up to
+    257² run in one thread block cluster, those below 1.5 M cells as a
+    sweep-at-a-time tile loop, larger ones as ``trigger_smooth_stream``'s
+    passes (``csrc/trigger.cu``; ``forced_trigger_route`` overrides the
+    rule). Returns (u, err, sweeps), ``sweeps`` a 0-d int32 tensor; nothing
+    is read back to the host."""
     if not f.is_cuda:
         return trigger_smooth_torch(u, f, h, omega, compat, trigger, max_sweeps)
-    if not 1 <= max_sweeps < 2 ** 31:
-        raise ValueError(f"max_sweeps must lie in 1..2**31 − 1, got {max_sweeps}")
+    _check_max_sweeps(max_sweeps)
     n, dev, lib, stream = _grid_args(f)
     _check("u", u, (n, n), dev)
     mode = err_mode_of(compat)
-    out, tmp = torch.empty_like(f), torch.empty_like(f)
-    partials = torch.empty(2 * lib.mg_num_tiles(n), dtype=torch.float32, device=dev)
-    err = torch.empty(1, dtype=torch.float32, device=dev)
-    sweeps = torch.empty(1, dtype=torch.int32, device=dev)
+    out, tmp, partials, err, sweeps = _trigger_buffers(lib, n, dev)
+    u, f = _aligned(u), _aligned(f)
     rc = lib.mg_trigger(u.data_ptr(), f.data_ptr(), out.data_ptr(), tmp.data_ptr(),
                         partials.data_ptr(), err.data_ptr(), sweeps.data_ptr(), n,
                         _ERR_CODES[mode], h * h, omega, 1.0 / (h * h), _err_scale(mode, n, h),
@@ -764,26 +822,23 @@ def trigger_smooth(u, f, h: float, omega: float = 1.0, compat=True, trigger: flo
 def trigger_smooth_stream(u, f, h: float, omega: float = 1.0, compat=True,
                           trigger: float = 0.01, max_sweeps: int = 100_000):
     """The same loop for levels too large for ``trigger_smooth`` to stay in
-    L2 (counterpart of ``fused_trigger_stream``): passes of
-    ``errs_sweep_cap(compat)`` sweeps with an exact replay of the stop rule,
-    so the iterate, the stop sweep and the error are the sweep-at-a-time
-    loop's. Returns (u, err, sweeps) as ``trigger_smooth``."""
+    L2 (counterpart of ``fused_trigger_stream``): wavefront passes of up to
+    ``TRIGGER_BATCH`` sweeps with an exact replay of the stop rule, so the
+    iterate, the stop sweep and the error are the sweep-at-a-time loop's.
+    Returns (u, err, sweeps) as ``trigger_smooth``."""
     if not f.is_cuda:
         return trigger_smooth_torch(u, f, h, omega, compat, trigger, max_sweeps)
-    if not 1 <= max_sweeps < 2 ** 31:
-        raise ValueError(f"max_sweeps must lie in 1..2**31 − 1, got {max_sweeps}")
+    _check_max_sweeps(max_sweeps)
     n, dev, lib, stream = _grid_args(f)
     _check("u", u, (n, n), dev)
     mode = err_mode_of(compat)
-    batch = errs_sweep_cap(compat)
-    out, tmp = torch.empty_like(f), torch.empty_like(f)
-    partials = torch.empty(2 * batch * lib.mg_num_tiles(n), dtype=torch.float32, device=dev)
-    err = torch.empty(1, dtype=torch.float32, device=dev)
-    sweeps = torch.empty(1, dtype=torch.int32, device=dev)
+    out, tmp, partials, err, sweeps = _trigger_buffers(lib, n, dev)
+    u, f = _aligned(u), _aligned(f)
     rc = lib.mg_trigger_stream(u.data_ptr(), f.data_ptr(), out.data_ptr(), tmp.data_ptr(),
                                partials.data_ptr(), err.data_ptr(), sweeps.data_ptr(), n,
-                               _ERR_CODES[mode], batch, h * h, omega, 1.0 / (h * h),
-                               _err_scale(mode, n, h), trigger, max_sweeps, stream)
+                               _ERR_CODES[mode], errs_sweep_cap(compat), h * h, omega,
+                               1.0 / (h * h), _err_scale(mode, n, h), trigger, max_sweeps,
+                               stream)
     _raise_on(lib, rc, "trigger_stream")
     launches["trigger_stream"] += 1
     return out, err.reshape(()), sweeps.reshape(())

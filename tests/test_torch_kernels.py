@@ -475,6 +475,6 @@ def test_c_entry_points_match_ctypes_signatures():
         "residual3.cu", "trigger3.cu", "trigger3_stream.cu", "residual_mw3.cu", "col3.cuh",
         "col3_legs.cuh", "ring.cuh", "wave2.cuh",
         "rdma.cuh", "rdma_jacobi.cu", "rdma_trigger.cu", "rdma3.cuh", "rdma_jacobi3.cu",
-        "rdma_descend3.cu", "rdma_ascend3.cu", "rdma_trigger3.cu"}
+        "rdma_descend3.cu", "rdma_ascend3.cu", "rdma_trigger3.cu", "trigger_wave.cuh"}
     assert build.library_path().parent == build.BUILD_DIR
     assert Path(build.library_path()).name.startswith("libmg_kernels_")

@@ -102,7 +102,7 @@ def _stop(totals, k, err, slopes, trigger, max_sweeps):
 
 
 def next_sweeps(k, slopes, trigger, B):
-    """rdma_trigger.cu's next_sweeps in float32: the 2 sweeps the slope test
+    """common.cuh's next_sweeps in float32: the 2 sweeps the slope test
     needs, 1, then the sweeps the last two slopes' geometric decay takes to
     reach the trigger, at most B."""
     if k == 0:
