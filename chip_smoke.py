@@ -78,6 +78,8 @@ Phases (progress on stdout; the first failure exits non-zero):
      modes also on the wavefront, with the rule's chunks and chunks of 64
      and 256 rows, bit for bit against the tile kernel, errors too); every
      shard mode's owned cells bit for bit against the unsharded kernel;
+     kernel 18 on both routes (rdma.forced_jacobi_route "tile" and
+     "wave"), kernel 2's shard mode through its one batched launch a card;
      kernel 17 with
      caps of 1-60 sweeps and a mid-loop trigger bit for bit against the loop
      of one-sweep sharded error launches, and with passes forced to every
@@ -85,8 +87,10 @@ Phases (progress on stdout; the first failure exits non-zero):
      2, 3 and 8 shards and one with an 8-row shard. G2: at 4097² on 8 shards
      (threshold 16) through compile_program(policy=...) with halo ppermute
      and rdma, and the plain path: bench_scaling.py's program (coarsen=1)
-     and the bench's V(3,3), one cold and five warm cycles each, against the
-     unsharded kernel run, ms/cycle and profiles; the rb-GS V(2,2) FW.
+     and the bench's V(3,3), one cold and five warm cycles each, bit for
+     bit against the unsharded kernel run, ms/cycle and profiles (coarsen=1:
+     6 residual_shard launches a cycle, and the residual's, kernel 18's and
+     the DtoD copies' device ms a cycle); the rb-GS V(2,2) FW.
      G3: the 8193² trigger V-cycle on 8 shards (threshold 32) with rdma,
      ppermute and the twins ("auto") and batch 7, equal stop sweeps per
      level, held against phase B's unsharded run; and a 4097² rb-GS
@@ -153,7 +157,11 @@ Phases (progress on stdout; the first failure exits non-zero):
      from the profiler; H2 and I2 kernel 13's, emit_residual's and the ring
      kernels' a cycle. Kernel 1's rb-GS mode at 4097², 1025² and 257² and
      its shard pass on 8 row shards (device µs, graph replays) and kernel 17
-     a sweep at 4097² on 8 shards print beside the tile-era parent's.
+     a sweep at 4097² on 8 shards print beside the tile-era parent's; kernel
+     18 on both routes (8 sweeps at 4097², and in device µs at every launch
+     shape of G2's coarsen=1 cycle and at 4097²-513²) and kernel 2's batched
+     shard mode at every G2 level (device µs), each bit for bit its twin,
+     beside the parent's (2327a20: the tile pipeline, a launch a shard).
 Launch counts are set to 0 just before each main-path run and read just
 after it. The line before the last is a JSON object describing each kernel;
 the last line is the JSON device record. Without a CUDA device the script
@@ -202,6 +210,20 @@ RBGS_ERR_OPS = 10  # the Jacobi Δ of a cell: 3 adds, 4u, −, h²f, −, ×¼, 
 # (µs a call from CUDA graph replays; kernel 17 ms a sweep from CUDA events)
 PARENT_RBGS_US = {4097: 255.3168, 1025: 29.488, 257: 22.776, "shard": 326.432}
 PARENT_RING_MS_A_SWEEP = 0.2156
+# Kernel 18 and kernel 2's shard mode before their redesign (2327a20: the
+# tile pipeline, a launch a shard): examples/torch_kernel_ab.py ROOT ring on
+# an NVIDIA H100 80GB HBM3 at 700 W; kernel 18 with 8 sweeps at 4097² on 8
+# shards in ms (CUDA events), 3 sweeps from zero and not at (n, from_zero)
+# and a pass of the residual's 8 launches at n in device µs (graph replays)
+PARENT_RING18_MS = 0.5817
+PARENT_RING18_US = {(4097, True): 169.4064, (4097, False): 253.592, (2049, True): 59.4896,
+                    (2049, False): 86.4848, (2048, True): 52.8816, (2048, False): 77.2496,
+                    (1025, True): 21.4576, (1025, False): 27.552, (1024, True): 18.7296,
+                    (1024, False): 23.728, (513, True): 16.4672, (513, False): 20.488,
+                    (512, True): 15.9232, (512, False): 20.4224, (256, True): 16.0496,
+                    (256, False): 21.296, (128, True): 15.272, (128, False): 19.7728}
+PARENT_RES_SHARD_US = {4097: 148.192, 2048: 120.176, 1024: 61.9696, 512: 60.456, 256: 59.7104,
+                       128: 43.736}
 RES_MW_OPS = {2: 227, 3: 232}   # two dd chains, the exact product, the combination
 # the 3-D kernels (col3.cuh's passes), per fine point unless noted
 SWEEP3_OPS = 11    # 7-point sweep: 5 adds, 6u, −, h²f, −, ×ω/6, +
@@ -1503,7 +1525,7 @@ def sharded_twins_in_place(K, rdma):
     ops.rdma replaced by their plain twins (the sharded wrappers look them up
     at each call)."""
     names = ["fused_jacobi_shard", "fused_jacobi_errs_shard", "residual_shard",
-             "fused_descend_shard", "fused_ascend_shard"]
+             "residual_shards", "fused_descend_shard", "fused_ascend_shard"]
     saved = {name: getattr(K, name) for name in names}
     saved_ring = (rdma.rdma_jacobi, rdma.rdma_trigger)
     for name in names:
@@ -2340,12 +2362,14 @@ def phase_g1(K, torch, cmp):
                              G(twin(KS.sharded_fused_jacobi, us, fs, h, steps, omega, fz)))
                     cmp.cases["jacobi_shard"] += 1
                     same(f"jacobi_shard {w}", got, K.fused_jacobi(u, f, h, steps, omega, fz))
-                    if ring:
-                        ring_u = G(KS.rdma_fused_jacobi(us, fs, h, steps, omega, fz))
-                        same(f"rdma_jacobi {w}", ring_u, got)
-                        cmp.grid("rdma_jacobi", w, ring_u,
-                                 G(rdma.rdma_jacobi_torch(us, fs, h, steps, omega, fz)))
-                        cmp.cases["rdma_jacobi"] += 1
+                    if ring:   # kernel 18 on both routes
+                        ring_twin = G(rdma.rdma_jacobi_torch(us, fs, h, steps, omega, fz))
+                        for route in ("tile", "wave"):
+                            with rdma.forced_jacobi_route(route):
+                                ring_u = G(KS.rdma_fused_jacobi(us, fs, h, steps, omega, fz))
+                            same(f"rdma_jacobi {w} {route}", ring_u, got)
+                            cmp.grid("rdma_jacobi", f"{w} {route}", ring_u, ring_twin)
+                            cmp.cases["rdma_jacobi"] += 1
             for compat in (True, False, "gpu"):
                 for steps in (1, 7, 11):
                     w = f"{what} steps={steps} err={compat}"
@@ -2636,6 +2660,62 @@ def phase_g1(K, torch, cmp):
     require(all(k < 60 for k in stops.values()), "a mid-loop ring trigger ran to its cap")
 
 
+def ring18_rows(K, torch, rdma, S, ring8, u, f, h, us2, fs2, g2, pts):
+    """[t] rows of kernel 18 on both routes (forced) and the batched
+    residual, each held bit for bit against its twin: 8 sweeps at 4097² on
+    8 shards (CUDA events); every launch shape of G2's coarsen=1 rdma cycle
+    (2048² down to 128², 3 sweeps from zero and not) and the threshold's
+    A/B sizes (4097², 2049², 1025², 513²), device µs a call (graph_us: a
+    replay reuses the captured ring tags, so its flag waits pass at once;
+    the posts still run); the batched residual at every G2 level (4097²
+    down to 128² on one-row windows), device µs a launch. The parent's
+    (2327a20, the tile pipeline and a launch a shard) beside."""
+    n = u.shape[0]
+    want = S.gather(rdma.rdma_jacobi_torch(us2, fs2, h, 8, 0.8))
+    for route in ("tile", "wave"):
+        with rdma.forced_jacobi_route(route):
+            require(bool(torch.equal(S.gather(rdma.rdma_jacobi(us2, fs2, h, 8, 0.8)), want)),
+                    f"rdma_jacobi at {n}², 8 sweeps, {route}: differs from its twin")
+            ms = time_ms(lambda: rdma.rdma_jacobi(us2, fs2, h, 8, 0.8), reps=10)
+        say(f"[t] rdma_jacobi at {n}² on 8 shards, 8 sweeps, {route} route: {ms:.4f} ms "
+            f"(parent {PARENT_RING18_MS:.4f}); bound "
+            f"{bound(3 * g2, 8 * SWEEP_OPS * pts)[0]:.4f} ms")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1819)
+    for m in (4097, 2049, 2048, 1025, 1024, 513, 512, 256, 128):
+        um, fm = (torch.randn(m, m, generator=gen, device="cuda") for _ in range(2))
+        lay, hm = S.layout_of(ring8, m), 1.0 / (m - 1)
+        us, fs = S.shard(um, lay), S.shard(fm, lay)
+        for fz in (True, False):
+            src = fs if fz else us
+            twin = S.gather(rdma.rdma_jacobi_torch(src, fs, hm, 3, 0.8, fz))
+            got = {}
+            for route in ("tile", "wave"):
+                with rdma.forced_jacobi_route(route):
+                    require(bool(torch.equal(S.gather(rdma.rdma_jacobi(src, fs, hm, 3, 0.8, fz)),
+                                             twin)),
+                            f"rdma_jacobi at {m}², 3 sweeps, fz={fz}, {route}: differs from its "
+                            f"twin")
+                    got[route] = graph_us(lambda: rdma.rdma_jacobi(src, fs, hm, 3, 0.8, fz))
+            say(f"[t] rdma_jacobi at {m}² on 8 shards, 3 sweeps, from_zero={fz}: tile "
+                f"{got['tile']:.2f} µs, wave {got['wave']:.2f} µs device a call (parent "
+                f"{PARENT_RING18_US.get((m, fz), float('nan')):.2f}); bound "
+                f"{bound((8 if fz else 12) * m * m, (3 - fz) * SWEEP_OPS * m * m)[0] * 1e3:.2f} "
+                f"µs")
+        if m in (2049, 1025, 513):
+            continue
+        wins = [(S.extend(us, i, 0, 1, 0), S.extend(fs, i, 0, 1, 0))
+                for i in range(len(lay.rows))]
+        geos = [K.ShardGeo(m, r0, 0, r1 - r0, m, 1, 0) for r0, r1 in lay.rows]
+        args = ([w[0] for w in wins], [w[1] for w in wins], geos, hm)
+        for a, b in zip(K.residual_shards(*args), K.residual_shards_torch(*args)):
+            require(bool(torch.equal(a, b)), f"residual_shards at {m}²: differs from its twin")
+        us_ = graph_us(lambda: K.residual_shards(*args))
+        say(f"[t] residual_shard at {m}² on 8 shards, one batched launch: {us_:.2f} µs device "
+            f"(parent, 8 launches: {PARENT_RES_SHARD_US.get(m, float('nan')):.2f}); bound "
+            f"{bound(12 * m * m, RES_OPS * m * m)[0] * 1e3:.2f} µs")
+
+
 def phase_g2(tmg, K, torch, run_counts):
     """G2: two V-cycles at 4097² on a ring of 8 shards on one card, through
     compile_program(policy=...) with halo="ppermute" and "rdma" and on the
@@ -2695,9 +2775,20 @@ def phase_g2(tmg, K, torch, run_counts):
             say(f"[G2] {n}² {name} {tag}: {ms:.3f} ms/cycle (cold cycle {ms_cold:.1f} ms wall), "
                 f"float64 rel. residual {r1:.6e} after 1 cycle, {r6:.6e} after 6; launches "
                 f"{ {k: v for k, v in counts.items() if v} }")
+            if tag in ("ppermute", "rdma") and "coarsen=1" in name:
+                # kernel 2's shard mode: one launch a sharded level (6 a cycle)
+                require(counts["residual_shard"] == 6 * 6, f"[G2] {name} {tag}: "
+                        f"{counts['residual_shard']} residual_shard launches in 6 cycles, not 36")
             if tag in ("ppermute", "rdma") and "rb-GS" not in name:
-                profile(f"{n}² {name} {tag} per cycle",
-                        lambda: [warm(u, f) for _ in range(3)], per=3)
+                rows = profile(f"{n}² {name} {tag} per cycle",
+                               lambda: [warm(u, f) for _ in range(3)], per=3)
+                parts = [(what, *kernel_ms(rows, match, per=3)) for what, match in (
+                    ("residual", lambda key: "residual" in key),
+                    ("rdma_jacobi", lambda key: "rdma_jacobi" in key),
+                    ("jacobi shard mode", lambda key: key.startswith("void jacobi_kernel<true")),
+                    ("DtoD copies", lambda key: "Memcpy DtoD" in key))]
+                say(f"[p] {n}² {name} {tag}, device ms a cycle: " + "; ".join(
+                    f"{what} {ms:.4f} in {cnt:.1f} launches" for what, ms, cnt in parts))
         if "rdma" in runs:
             for i, what in ((0, "1 cycle"), (1, "6 cycles")):
                 require(bool(torch.equal(runs["rdma"][i], runs["ppermute"][i])),
@@ -2715,6 +2806,9 @@ def phase_g2(tmg, K, torch, run_counts):
                     f"{got[j]:.6e} vs {want[j]:.6e}")
                 require(diff <= U_RTOL * scale and abs(got[j] - want[j]) <= RES_RTOL * want[j],
                         f"[G2] {name} {tag}: outside the phase 3 gate after {what}")
+                # the kernel paths' owned cells are the unsharded kernels', bit for bit
+                require(tag == "plain" or bool(torch.equal(got[i], want[i])),
+                        f"[G2] {name} {tag}: not bit-identical to the unsharded run after {what}")
         if "plain" in runs:
             require(not any(runs["plain"][4].values()),
                     f"[G2] {name}: the plain sharded path launched a kernel")
@@ -3245,8 +3339,11 @@ def main():
                              lambda ue, fe, g: K.fused_jacobi_shard_torch(ue, fe, g, h, 2, 1.0,
                                                                           False, "cpu", "rbgs")),
                        3 * g2, (2 * RBGS_OPS + RBGS_ERR_OPS) * pts),
-        "residual_shard": (on8, *both(lambda ue, fe, g: K.residual_shard(ue, fe, g, h),
-                                      lambda ue, fe, g: K.residual_shard_torch(ue, fe, g, h)),
+        "residual_shard": (f"{on8}, one batched launch",
+                           lambda: K.residual_shards([e[0] for e in ext2], [e[1] for e in ext2],
+                                                     geo2, h),
+                           lambda: K.residual_shards_torch([e[0] for e in ext2],
+                                                           [e[1] for e in ext2], geo2, h),
                            3 * g2, RES_OPS * pts),
         "descend_shard": (f"{on8}, 3 sweeps, sampling, cpu error",
                           *both(lambda ue, fe, g: K.fused_descend_shard(ue, fe, g, h, 3, 0.8,
@@ -3551,6 +3648,7 @@ def main():
     say(f"[t] 8 sweeps at {n}²: unsharded kernel {ms_un:.4f} ms; 8 shards through the exchange "
         f"path (halo copies + a launch a shard) {ms_ex:.4f} ms; through the ring kernel "
         f"{times['rdma_jacobi'][0]:.4f} ms")
+    ring18_rows(K, torch, rdma, S, ring8, u, f, h, us2, fs2, g2, pts)
     say(f"[t] ring trigger loop at {n}² on 8 shards: {times['rdma_trigger'][0] / s_sweeps:.4f} "
         f"ms per sweep; the unsharded streamed loop {times['trigger_stream'][0] / s_sweeps:.4f} "
         f"ms per sweep")

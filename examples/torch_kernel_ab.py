@@ -59,7 +59,18 @@ one JSON line of milliseconds (µs where the key says so). Compare two trees
 in one process run each, alternating (A, B, B, A), on one card: a card set
 below its power limit, or another card, moves every number. With ``solve``
 it times the ``VcycleTrigger.txt`` solve and the kernel-8 call's host µs
-alone (a process a side, for more pairs of that host-bound row).
+alone (a process a side, for more pairs of that host-bound row). With
+``ring`` it times only the ring smoother 18 and kernel 2's shard mode
+(``ring_rows``, which the full run times too): kernel 18 on 8 row shards at
+4097², 2049², 1025² and 513² and at every level G2's coarsen=1 cycle gives
+it (2048² down to 128², 3 sweeps from zero and not; 8 sweeps at 4097² also
+by CUDA events), on the tree's route and, where the tree has
+``rdma.forced_jacobi_route``, on each; the residual of 8 row shards on
+one-row windows at G2's levels (4097² down to 128², the tree's launches:
+one a shard, or ``residual_shards``' one); G2's coarsen=1 cycle with halo
+ppermute and rdma (device ms a cycle, and its residual and kernel 18 kernels'
+share). Device µs from CUDA graph replays: a replay reuses the captured
+ring tags, so its flag waits pass at once (the posts still run).
 """
 
 import contextlib
@@ -171,7 +182,62 @@ def rand(m):
     return torch.randn(m, m, generator=g, device="cuda")
 
 
+def ring_rows(out):
+    """Kernel 18 and kernel 2's shard mode at G2's shapes (see the header)."""
+    pol = M.ShardingPolicy(M.make_mesh(["cuda:0"] * 8), threshold_rows=16)
+    routes = [None] + (["tile", "wave"] if hasattr(rdma, "forced_jacobi_route") else [])
+    for m in (4097, 2049, 2048, 1025, 1024, 513, 512, 256, 128):
+        lay = S.layout_of(pol, m)
+        um, fm, hm = rand(m), rand(m), 1 / (m - 1)
+        us, fs = S.shard(um, lay), S.shard(fm, lay)
+        cases = ((3, True), (3, False)) + (((8, False),) if m == 4097 else ())
+        for route in routes:
+            with (rdma.forced_jacobi_route(route) if route else contextlib.nullcontext()):
+                for steps, fz in cases:
+                    key = (f"rdma_jacobi{steps}{'fz' if fz else ''}_{m}"
+                           f"{'_' + route if route else ''}")
+                    out[key + "_graph_us"] = graph_us(lambda: rdma.rdma_jacobi(
+                        fs if fz else us, fs, hm, steps, 0.8, fz))
+                    if steps == 8:
+                        out[key] = timed(lambda: rdma.rdma_jacobi(us, fs, hm, 8, 0.8))
+        if m in (2049, 1025, 513):
+            continue
+        wins = [(S.extend(us, i, 0, 1, 0), S.extend(fs, i, 0, 1, 0)) for i in range(8)]
+        geos = [K.ShardGeo(m, r0, 0, r1 - r0, m, 1, 0) for r0, r1 in lay.rows]
+        if hasattr(K, "residual_shards"):
+            def res_pass():
+                return K.residual_shards([w[0] for w in wins], [w[1] for w in wins], geos, hm)
+        else:
+            def res_pass():
+                return [K.residual_shard(ue, fe, gm, hm) for (ue, fe), gm in zip(wins, geos)]
+        out[f"residual_shard8_{m}_graph_us"] = graph_us(res_pass)
+        if m == 4097:
+            out["residual_shard8_4097"] = timed(res_pass)
+    del um, fm, us, fs, wins
+    g2 = {}
+    for halo in ("ppermute", "rdma"):
+        g2[halo] = tmg.compile_program(
+            tmg.v_cycle(4097, n_min=8, steps=3, coarse_option=0, coarsen=1),
+            tmg.REFERENCE_PROBLEM, tmg.SolverConfig(collect_node_stats=False, halo=halo),
+            device="cuda", warm=True, policy=pol)
+        gu, gf = g2[halo].init()
+        out[f"g2_coarsen1_{halo}_4097_device"] = device_ms(
+            lambda: [g2[halo](gu, gf) for _ in range(3)], 3)
+        out[f"g2_coarsen1_{halo}_4097_residual_device"] = kernel_device_ms(
+            lambda: g2[halo](gu, gf), lambda key: "residual" in key)
+        if halo == "rdma":
+            out["g2_coarsen1_rdma_4097_rdma_jacobi_device"] = kernel_device_ms(
+                lambda: g2[halo](gu, gf), lambda key: "rdma_jacobi" in key)
+        del gu, gf
+    del g2
+
+
 res = {}
+if sys.argv[2:] == ["ring"]:
+    ring_rows(res)
+    print(json.dumps({"root": sys.argv[1], **{k: round(v, 4) for k, v in res.items()}}),
+          flush=True)
+    sys.exit(0)
 ut, ft = rand(256), rand(256)
 # the schedules/VcycleTrigger.txt compiled solve (chip_smoke.py's phase 4,
 # its trigger nodes on kernel 8 as the engine routes them): ms a solve by
@@ -406,6 +472,7 @@ res.update({
                                  reps=3),
 })
 del u, f, u8, f8, u0, f0, us, fs
+ring_rows(res)
 
 n3, w3 = 513, 6.0 / 7.0
 h3 = 1 / (n3 - 1)

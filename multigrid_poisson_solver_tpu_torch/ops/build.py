@@ -44,6 +44,7 @@ SIGNATURES = {
     "mg_chain_force_split": ([_I], _I),
     "mg_chain_launched": ([], _I),
     "mg_rdma_force_batch": ([_I], _I),
+    "mg_rdma_jacobi_force_route": ([_I], _I),
     "mg_trigger_force_route": ([_I], _I),
     "mg_trigger_force_batch": ([_I], _I),
     "mg_jacobi": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
@@ -75,6 +76,8 @@ SIGNATURES = {
     "mg_jacobi_errs_shard": ([_P] * 5 + [_I] * 7 + [_I, _I, _F, _F, _F, _F, _P], _I),
     "mg_rbgs_shard": ([_P] * 5 + [_I] * 7 + [_I, _I, _I, _F, _F, _P], _I),
     "mg_residual_shard": ([_P] * 3 + [_I] * 7 + [_F, _I, _P], _I),
+    # every shard of a level on one card: pointer and geometry arrays
+    "mg_residual_shards": ([_P] * 3 + [_P] * 4 + [_I] * 4 + [_F, _I, _P], _I),
     "mg_descend_shard": ([_P] * 6 + [_I] * 7 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
     "mg_ascend_shard": ([_P] * 6 + [_I] * 7 + [_I] * 4 + [_I, _I, _F, _F, _F, _F, _P], _I),
     # 3-D shard modes: the shard's planes (n, z0, nz, ext)

@@ -48,7 +48,6 @@
 #include <algorithm>
 
 #include "rdma.cuh"
-#include "wave2.cuh"
 
 using namespace mgk;
 
@@ -103,36 +102,12 @@ static __device__ float ring_fixed_sum(const float* p, int count, float* sh) {
 template <int B, int E>
 using RingShape = WaveShape<B, E, true, WV_SMOOTH, true>;
 
-// One pass of ring.sweeps <= K sweeps over shard s's units that this block's
-// `warps` warps own, src into dst, on K levels of the wavefront: its window
-// is the block with `halo` rows a side (the receive buffers' rows, posted
-// for the kernel's longest pass), its tile partials `stride` a sweep.
-template <int K, int E>
-static __device__ __forceinline__ void ring_pass(const RingTriggerArgs& a, WaveRing& ring,
-                                                 int s, const Geo& g, int halo, int warps,
-                                                 int units, int chunk_rows, int stride,
-                                                 float* part, const float* src, float* dst) {
-  const int lb = blockIdx.x % a.blocks_per_shard;
-  for (int w = lb * warps + (threadIdx.x >> 5); w < units; w += a.blocks_per_shard * warps) {
-    ring.unit = w;
-    __syncwarp();   // every lane is done with the previous unit's rings
-    wave2_pass<true, K, E, true, WV_SMOOTH, true>(src, a.f[s], dst, part, g, halo, 0, chunk_rows,
-                                                  stride, 0, a.even_only, a.h2, a.omega,
-                                                  a.inv_h2, 0.0f, WaveLeg{}, ring);
-  }
-}
-
 // B, the most sweeps a pass runs: 7 for every metric (at 8, the gpu
 // metric's cap, its pass spills at RING_WARPS_PER_SM: 0.0688 against 0.0598
 // ms a sweep at 4097² on 8 shards, on an H100), its passes' lengths from
 // next_sweeps; or for every later launch passes of 1..MAX_STEPS (capped by
 // the metric's and the shards' limits) as mg_rdma_force_batch set it.
 constexpr int RING_BATCH = 7;
-
-// Warps an SM keeps resident: the passes are latency-bound (a warp's row
-// steps wait on its copies), and left to itself the compiler gives the
-// 7- and 8-sweep passes 209-224 registers, 8 warps an SM.
-constexpr int RING_WARPS_PER_SM = 12;
 
 template <int B, int E>
 static __global__ void __launch_bounds__(RingShape<B, E>::THREADS,
@@ -171,22 +146,26 @@ rdma_trigger_kernel(RingTriggerArgs a) {
   ring.f_bot = recv_buf(a.halo, s, 0, 1, 1, n);
   // a pass of `sweeps`: on the B levels, or, for the 1 or 2 sweeps of
   // next_sweeps' short passes, on 1 or 2 (a pass on B levels costs about as
-  // much for any sweeps: 0.38 ms for 2 at 4097² on 8 shards, on an H100)
+  // much for any sweeps: 0.38 ms for 2 at 4097² on 8 shards, on an H100);
+  // its units in wave2_pass's order: every block has waited for both
+  // neighbours' first post above, and the passes meet between them
+  const auto in_order = [](int w) { return w; };
   auto pass = [&](const float* src, float* dst, int sweeps) {
     ring.sweeps = sweeps;
     if constexpr (B == RING_BATCH) {
       static_assert(RingShape<2, E>::WARP_FLOATS <= S::WARP_FLOATS, "the short passes fit");
       if (!a.fixed && sweeps <= 2) {
         if (sweeps == 1)
-          ring_pass<1, E>(a, ring, s, g, S::H, S::WARPS, units, chunk_rows, count, part, src,
-                          dst);
+          ring_pass<1, E, true>(a, ring, in_order, s, g, S::H, S::WARPS, units, chunk_rows,
+                                count, part, src, dst, 0, 0.0f);
         else
-          ring_pass<2, E>(a, ring, s, g, S::H, S::WARPS, units, chunk_rows, count, part, src,
-                          dst);
+          ring_pass<2, E, true>(a, ring, in_order, s, g, S::H, S::WARPS, units, chunk_rows,
+                                count, part, src, dst, 0, 0.0f);
         return;
       }
     }
-    ring_pass<B, E>(a, ring, s, g, S::H, S::WARPS, units, chunk_rows, count, part, src, dst);
+    ring_pass<B, E, true>(a, ring, in_order, s, g, S::H, S::WARPS, units, chunk_rows, count,
+                          part, src, dst, 0, 0.0f);
   };
 
   const float* src = a.u[s];
@@ -282,28 +261,7 @@ extern "C" int mg_rdma_force_batch(int batch) {
 
 template <int B, int E>
 static cudaError_t launch_trigger(RingTriggerArgs& a, const int* row0s, cudaStream_t stream) {
-  using S = RingShape<B, E>;
-  static_assert(S::SMEM <= 48 * 1024, "a block's rings fit the default shared memory");
-  static_assert(S::H <= RING_HALO, "a receive buffer holds a pass's halo rows");
-  const auto kernel = rdma_trigger_kernel<B, E>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::THREADS,
-                                                         S::SMEM)) != cudaSuccess)
-    return e;
-  // the chunks of each shard for the warps a shard keeps resident
-  const int resident = per_sm * sms / a.shards * S::WARPS;
-  int units = 0;
-  for (int s = 0; s < a.shards; ++s) {
-    const Geo g(a.n, row0s[s], 0, row0s[s + 1] - row0s[s], a.n);
-    a.chunk_rows[s] = wave2_rows(g, resident > 0 ? resident : 1, S::H);
-    units = std::max(units, tiles_x(g) * ((g.rows + a.chunk_rows[s] - 1) / a.chunk_rows[s]));
-  }
-  return launch_ring(kernel, a, S::SMEM, a.shards, (units + S::WARPS - 1) / S::WARPS, stream,
-                     dim3(S::THREADS));
+  return launch_ring_wave<RingShape<B, E>>(rdma_trigger_kernel<B, E>, a, row0s, stream);
 }
 
 template <int E, int B = 1>

@@ -156,12 +156,13 @@ struct WaveRing {
 // ALL: the error of every level (the per-sweep mode) or of level K alone;
 // LEG: the smoother or a leg; RING: the ring trigger kernel's pass, whose
 // copies all take 16-byte chunks (cp.async.cg, read through L2: the grids
-// are rewritten between its passes by other SMs).
-template <int K, int E, bool ALL, int LEG = WV_SMOOTH, bool RING = false>
+// are rewritten between its passes by other SMs); AHEAD: the rows loaded
+// ahead, 0 for the rule below.
+template <int K, int E, bool ALL, int LEG = WV_SMOOTH, bool RING = false, int AHEAD = 0>
 struct WaveShape {
   // halo rows (and columns) read; the descend leg forms r of level K
   static constexpr int H = K + (E == WV_RES || LEG == WV_DESCEND ? 1 : 0);
-  static constexpr int D = K <= 2 ? 4 : 2;              // rows loaded ahead
+  static constexpr int D = AHEAD ? AHEAD : (K <= 2 ? 4 : 2);   // rows loaded ahead
   static constexpr bool CHUNKS = K <= 2 || RING;        // 16-byte copies
   static constexpr int NF = H + 1 + D;                  // f ring: rows r − H .. r + D
   static constexpr int NU = D + 1;                      // u ring: rows r .. r + D
@@ -216,13 +217,14 @@ static __device__ __forceinline__ void wave_wait() {
 // WaveShape::SMEM bytes of dynamic shared memory. `leg`: the legs'
 // arguments (unused by kernel 1); `ring`: the ring trigger kernel's (RING:
 // u and f are the shard's own rows x n block, ext_r its halo rows, ext_c 0).
-template <bool SHARD, int K, int E, bool ALL, int LEG = WV_SMOOTH, bool RING = false>
+template <bool SHARD, int K, int E, bool ALL, int LEG = WV_SMOOTH, bool RING = false,
+          int AHEAD = 0>
 static __device__ __forceinline__ void wave2_pass(
     const float* __restrict__ u, const float* __restrict__ f, float* __restrict__ out,
     float* __restrict__ partials, const Geo& g_, int ext_r, int ext_c, int chunk_rows,
     int stride, int from_zero, int even_only, float h2, float omega, float inv_h2,
     float zero_coef, const WaveLeg& leg = WaveLeg{}, const WaveRing& ring = WaveRing{}) {
-  using S = WaveShape<K, E, ALL, LEG, RING>;
+  using S = WaveShape<K, E, ALL, LEG, RING, AHEAD>;
   extern __shared__ float wv_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;

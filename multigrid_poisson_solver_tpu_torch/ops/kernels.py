@@ -1169,10 +1169,8 @@ def _check_shard(name: str, t, geo: ShardGeo, shape=None):
     _check(name, t, geo.ext_shape if shape is None else shape, t.device)
 
 
-def _shard_launch_args(u_ext, f_ext, geo: ShardGeo, halo: int, need_u: bool = True):
-    """Validate a shard-mode launch; return (library, stream, device)."""
-    from . import build
-
+def _check_shard_block(u_ext, f_ext, geo: ShardGeo, halo: int, need_u: bool = True):
+    """Validate one shard's block and windows for a shard-mode launch."""
     if not f_ext.is_cuda:
         raise ValueError(f"CUDA kernel called on a {f_ext.device} tensor")
     n = geo.n
@@ -1187,6 +1185,13 @@ def _shard_launch_args(u_ext, f_ext, geo: ShardGeo, halo: int, need_u: bool = Tr
     _check_shard("f", f_ext, geo)
     if need_u:
         _check_shard("u", u_ext, geo)
+
+
+def _shard_launch_args(u_ext, f_ext, geo: ShardGeo, halo: int, need_u: bool = True):
+    """Validate a shard-mode launch; return (library, stream, device)."""
+    from . import build
+
+    _check_shard_block(u_ext, f_ext, geo, halo, need_u)
     if f_ext.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {f_ext.device}, but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -1282,6 +1287,47 @@ def residual_shard(u_ext, f_ext, geo: ShardGeo, h: float, negate: bool = False):
     _raise_on(lib, rc, "residual shard")
     launches["residual_shard"] += 1
     return r
+
+
+MAX_RESIDUAL_BATCH = 16   # MAX_BATCH in csrc/residual.cu: the shards of one launch
+
+
+def residual_shards_torch(u_exts, f_exts, geos, h: float, negate: bool = False):
+    """Twin of ``residual_shards``: ``residual_shard_torch`` of each shard."""
+    return [residual_shard_torch(ue, fe, g, h, negate) for ue, fe, g in zip(u_exts, f_exts, geos)]
+
+
+def residual_shards(u_exts, f_exts, geos, h: float, negate: bool = False):
+    """``residual_shard`` of every shard of one level that lives on one card,
+    as one launch per ``MAX_RESIDUAL_BATCH`` shards
+    (``residual_shards_kernel``), each shard's r bit for bit its own launch's.
+    The windows share one halo (``geos``' ext_r and ext_c) and the current
+    card. Counts ``launches["residual_shard"]`` once per launch. Returns the
+    owned blocks in the order given."""
+    if not f_exts[0].is_cuda:
+        return residual_shards_torch(u_exts, f_exts, geos, h, negate)
+    if len({(g.n, g.ext_r, g.ext_c) for g in geos}) != 1:
+        raise ValueError("one launch takes the shards of one level with one halo")
+    out = []
+    for a in range(0, len(geos), MAX_RESIDUAL_BATCH):
+        us, fs, gs = (x[a:a + MAX_RESIDUAL_BATCH] for x in (u_exts, f_exts, geos))
+        lib, stream, dev = _shard_launch_args(us[0], fs[0], gs[0], 1)
+        for ue, fe, g in zip(us, fs, gs):
+            _check_shard_block(ue, fe, g, 1)
+            if fe.device != dev or ue.device != dev:
+                raise ValueError(f"one launch runs on one card, {dev}: got {ue.device}, "
+                                 f"{fe.device}")
+        rs = [torch.empty((g.rows, g.cols), dtype=torch.float32, device=dev) for g in gs]
+
+        ptrs = [_c_array(ctypes.c_uint64, [t.data_ptr() for t in ts]) for ts in (us, fs, rs)]
+        blocks = [_c_array(ctypes.c_int, [getattr(g, k) for g in gs])
+                  for k in ("row0", "col0", "rows", "cols")]
+        rc = lib.mg_residual_shards(*ptrs, *blocks, len(gs), gs[0].n, gs[0].ext_r, gs[0].ext_c,
+                                    1.0 / (h * h), int(negate), stream)
+        _raise_on(lib, rc, "residual shards")
+        launches["residual_shard"] += 1
+        out += rs
+    return out
 
 
 def _check_leg_block(geo: ShardGeo):

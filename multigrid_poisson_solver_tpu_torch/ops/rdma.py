@@ -5,8 +5,11 @@ PyTorch port of ``multigrid_poisson_solver_tpu/ops/pallas_rdma.py`` (2-D):
 
   * ``rdma_jacobi``: ``csrc/rdma_jacobi.cu``, replaces ``_rdma_jacobi_kernel``:
     one fused pass of k <= 8 Jacobi sweeps over every shard, each shard
-    posting its edge rows to its neighbours and smoothing its interior tiles
-    before its boundary tiles wait for theirs;
+    posting its edge rows to its neighbours, then from 1.5 M cells a launch
+    kernel 17's wavefront pass over its block (a warp waits for a
+    neighbour's post before a unit that reads its rows), below that the
+    tile pipeline (interior tiles before its boundary tiles wait for theirs;
+    ``forced_jacobi_route``); blocks not 16-byte aligned take the tiles;
   * ``rdma_trigger``: ``csrc/rdma_trigger.cu``, replaces
     ``_rdma_trigger_kernel``: the whole |err_k − err_{k−1}| > trigger loop
     over the ring as passes of up to 7 sweeps on kernel 1's wavefront
@@ -153,6 +156,26 @@ def rdma_jacobi(u: ShardedGrid, f: ShardedGrid, h: float, steps: int, omega: flo
     K._raise_on(lib, rc, "rdma_jacobi")
     K.launches["rdma_jacobi"] += 1
     return _grid_of(f, out)
+
+
+_JACOBI_ROUTES = {"tile": 1, "wave": 2}
+
+
+@contextlib.contextmanager
+def forced_jacobi_route(route: str):
+    """``rdma_jacobi``'s launches on one route, ``"tile"`` (legs.cuh's tile
+    pipeline) or ``"wave"`` (kernel 17's wavefront pass), instead of the one
+    its size rule picks (``RING_WAVE_CELLS`` in csrc/rdma_jacobi.cu): lets a
+    check or a timing reach both at any size. Both are bit for bit the
+    exchange path's."""
+    from . import build
+
+    lib = build.load()
+    K._raise_on(lib, lib.mg_rdma_jacobi_force_route(_JACOBI_ROUTES[route]), "rdma_jacobi route")
+    try:
+        yield
+    finally:
+        lib.mg_rdma_jacobi_force_route(0)
 
 
 def rdma_trigger_torch(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 1.0,

@@ -117,10 +117,22 @@ def sharded_fused_jacobi(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
 
 def sharded_residual(u: ShardedGrid, f: ShardedGrid, h: float,
                      negate: bool = False) -> ShardedGrid:
-    """The 5-point residual of a sharded level (one halo row and column)."""
+    """The 5-point residual of a sharded level (one halo row and column):
+    one ``K.residual_shards`` call per card over the shards that live there,
+    in shard order, with that card current."""
     ec = _ext_c(f, 1)
-    return _grid(u, _each(u, lambda i, j: K.residual_shard(
-        extend(u, i, j, 1, ec), extend(f, i, j, 1, ec), _geo(f, i, j, 1, ec), h, negate)))
+    lay = f.layout
+    by_card: dict = {}
+    for ij in lay.order():
+        by_card.setdefault(lay.devices[ij[0]][ij[1]], []).append(ij)
+    blocks = {}
+    for dev, ijs in by_card.items():
+        with on_device(dev):
+            rs = K.residual_shards([extend(u, i, j, 1, ec) for i, j in ijs],
+                                   [extend(f, i, j, 1, ec) for i, j in ijs],
+                                   [_geo(f, i, j, 1, ec) for i, j in ijs], h, negate)
+        blocks.update(zip(ijs, rs))
+    return _grid(u, blocks)
 
 
 def _sum_err(raws, mode, n, h, smoother="jacobi"):

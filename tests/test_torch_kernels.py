@@ -468,6 +468,9 @@ def test_c_entry_points_match_ctypes_signatures():
     assert names["mg3_jacobi_residual_shard"][3:9] == ["wa", "wb", "r", "partials", "work",
                                                        "raw_out"]
     assert names["mg3_jacobi_residual_shard"][16] == "want_err"
+    # kernel 2's batched shard mode: each shard's pointers and block
+    assert names["mg_residual_shards"][:8] == ["u_ptrs", "f_ptrs", "r_ptrs", "row0s", "col0s",
+                                               "rows", "cols", "shards"]
     assert {s.name for s in build.sources()} == {
         "common.cuh", "legs.cuh", "jacobi.cu", "rbgs.cu", "residual.cu", "descend.cu", "ascend.cu",
         "chain_descend.cu", "chain_ascend.cu", "chain_tail.cuh", "trigger.cu", "residual_mw.cu",
