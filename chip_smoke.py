@@ -5,11 +5,11 @@
 
 Phases (progress on stdout; the first failure exits non-zero):
   0. require a CUDA device; print the card's name and power limit;
-  1. build the CUDA kernels from ops/csrc (twenty-two sources: nvcc,
+  1. build the CUDA kernels from ops/csrc (twenty-seven sources: nvcc,
      sm_90a, one process per source): nineteen single-device kernels and
      modes, the shard modes of kernels 1-4 and the two 2-D ring kernels, the
      shard modes of the 3-D kernels 10-13 with kernel 10's emit_residual
-     mode, and the four 3-D ring kernels;
+     mode, the four 3-D ring kernels and the bf16 modes of kernels 1-4;
   2. hold each kernel against its plain PyTorch twin on the card: at
      n = 1025 and 1031 (several tiles per dimension, ragged last tiles),
      every sweep count, error mode and from_zero (kernel 1's Jacobi modes
@@ -47,6 +47,22 @@ Phases (progress on stdout; the first failure exits non-zero):
   A. refinement to a tolerance: tw32 to 1e-10 at 8193² and df32 at 4097²
      (IterativeRefinementSolver), with the kernels and with kernels="torch";
      then the CLI --tol 1e-10 --state tw32 on schedules/Vcycle.txt;
+  R. refinement under a policy: tw32 to 1e-10 at 4097² with the correction
+     cycles on 8 row shards of the card (threshold 16), the same cycle count
+     as the unsharded run;
+  J. the bf16 modes of kernels 1-4 (*_bf16.cu): (a) each mode bit for bit
+     its twin run on bf16 tensors (errors within BF16_ERR_RTOL): kernel 1
+     with every sweep count, from_zero and metric at 65², 257², 1025² and
+     1031² (rows at every 2-byte offset of a 16-byte chunk), with chunks
+     forced to 64 and 256 rows, at 2049² and 4097² (1, 3, 8 sweeps) and
+     8193² (8 sweeps); the legs on both routes at 65²-4097²; the residual;
+     views at a 2-byte offset; (b) the bf16 V(3,3) at 4097² on the kernels
+     and on the twins, bit for bit after 1 and 4 cycles, ms/cycle beside
+     the fp32 cycle's; (c) tw32 refinement with bf16 inner cycles: six
+     cycles at 8193² bit for bit the twins' (their relative residuals
+     printed: bf16 corrections do not converge there), to 1e-10 at 513² on
+     the kernels and the twins, beside fp32 inner cycles at 8193²; (d) the
+     CLI's --dtype bf16 on schedules/Vcycle.txt, its Error the twins';
   B. a trigger V-cycle at 8193² (ω = 0.8, coarsen=3, trigger_batch "auto"):
      its levels reach the batched loop (8193²), the streamed kernel (4097²)
      and the whole-loop kernel (2049² and below); held against the plain
@@ -169,6 +185,7 @@ exits 1 and prints no result.
 """
 
 import contextlib
+import io
 import json
 import math
 import re
@@ -225,6 +242,17 @@ PARENT_RING18_US = {(4097, True): 169.4064, (4097, False): 253.592, (2049, True)
 PARENT_RES_SHARD_US = {4097: 148.192, 2048: 120.176, 1024: 61.9696, 512: 60.456, 256: 59.7104,
                        128: 43.736}
 RES_MW_OPS = {2: 227, 3: 232}   # two dd chains, the exact product, the combination
+# The bf16 modes of kernels 1-4 (phase J): the kernels round every result the
+# twin materialises to bf16 (a cvt and a widening move, 2 instructions each;
+# the Jacobi point 10 roundings, the residual point 7), and their error sums
+# are float partials in the tile order rounded once, where the twins' torch.sum
+# rounds the sum and each scaling to bf16 (2-3 roundings of 2^-9): errors are
+# held to 2^-6 relative. Bytes count 2 a state word.
+BF16_SWEEP_OPS = SWEEP_OPS + 2 * 10
+BF16_RES_OPS = RES_OPS + 2 * 7
+BF16_ERR_OPS = BF16_RES_OPS + 2
+BF16_PROLONG_OPS = 3 + 2 * 4   # the prolongation and add of a point: ~3 ops, ~4 roundings
+BF16_ERR_RTOL = 2.0 ** -6
 # the 3-D kernels (col3.cuh's passes), per fine point unless noted
 SWEEP3_OPS = 11    # 7-point sweep: 5 adds, 6u, −, h²f, −, ×ω/6, +
 EXTRA3_OPS = 11    # the clean error of an iterate: 5 adds, 6u, −, ×h⁻², −, |·|, accumulate
@@ -299,16 +327,23 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, main-path run)
     "rdma_jacobi3": (PKG + "rdma_jacobi3.cu", TPU + "pallas_rdma3.py:422", "i_compiled3_gpu"),
     "rdma_descend3": (PKG + "rdma_descend3.cu", TPU + "pallas_rdma3.py:856", "i_compiled3"),
     "rdma_ascend3": (PKG + "rdma_ascend3.cu", TPU + "pallas_rdma3.py:1285", "i_compiled3"),
+    # the bf16 modes of kernels 1-4 (phase J): kernels 1 and 2 on the CLI's
+    # --dtype bf16 Vcycle.txt run, the legs on the bf16-inner refinement
+    "jacobi_bf16": (PKG + "jacobi_bf16.cu", TPU + "pallas_kernels.py:161", "cli_bf16"),
+    "residual_bf16": (PKG + "residual_bf16.cu", TPU + "pallas_kernels.py:1077", "cli_bf16"),
+    "descend_bf16": (PKG + "descend_bf16.cu", TPU + "pallas_kernels.py:590", "refine_bf16"),
+    "ascend_bf16": (PKG + "ascend_bf16.cu", TPU + "pallas_kernels.py:852", "refine_bf16"),
 }
 
 
 # the kernels every single-device path reaches (phase 2 holds them); then
 # the 2-D shard modes and the ring kernels (phase G), the 3-D shard modes
-# (phase H) and the 3-D ring kernels (phase I)
+# (phase H), the 3-D ring kernels (phase I) and the bf16 modes (phase J)
 SINGLE_DEVICE = tuple(KERNELS)[:19]
 PHASE_G = tuple(KERNELS)[19:27]
 PHASE_H = tuple(KERNELS)[27:33]
-PHASE_I = tuple(KERNELS)[33:]
+PHASE_I = tuple(KERNELS)[33:37]
+PHASE_J = tuple(KERNELS)[37:]
 
 
 def require(cond, what):
@@ -2943,6 +2978,327 @@ def phase_g3_rbgs(tmg, K, torch, run_counts):
             f"(bit-identical: {bool(torch.equal(got[0], want[0]))})")
 
 
+def phase_bf16_kernels(K, torch, cmp):
+    """Phase J (a): the bf16 modes of kernels 1-4 against their twins run on
+    bf16 tensors, on the card: iterates, coarse right-hand sides and
+    residuals bit for bit, the errors within BF16_ERR_RTOL. Kernel 1 with
+    every sweep count, from_zero and metric at 65², 257², 1025² and 1031²
+    (1031 = 2^10 + 7: a row of 2062 bytes, so rows start at every 2-byte
+    offset of a 16-byte chunk) and with chunks forced to 64 and 256 rows,
+    at 2049² and 4097² with 1, 3 and 8 sweeps, at 8193² with 8; the legs
+    on both routes (tile and wavefront, each output of one bit for bit the
+    other's) at 65²-4097²; the residual at every size; views at a 2-byte
+    offset (the wrappers copy them aligned)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2020)
+    bf16 = torch.bfloat16
+    omega = 0.8
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf16)
+
+    def same(k, what, got, want):
+        cmp.grid(k, what, got.float(), want.float())
+        require(got.dtype == bf16 and bool(torch.equal(got, want)),
+                f"{k} {what}: not bit for bit the bf16 twin")
+
+    def err(k, what, got, want):
+        require(got.dtype == bf16 and want.dtype == bf16, f"{k} {what}: the error is not bf16")
+        got, want = float(got), float(want)
+        require(abs(got - want) <= BF16_ERR_RTOL * abs(want),
+                f"{k} {what}: error {got:.6e} vs twin {want:.6e}")
+
+    def smoother(n, steps_list, modes, fzs):
+        h = 1.0 / (n - 1)
+        u, f = rand(n, n), rand(n, n)
+        for steps in steps_list:
+            for compat in modes:
+                for fz in fzs:
+                    what = f"n={n} steps={steps} err={compat} fz={fz}"
+                    if compat is None:
+                        same("jacobi_bf16", what, K.fused_jacobi(u, f, h, steps, omega, fz),
+                             K.fused_jacobi_torch(u, f, h, steps, omega, fz))
+                    else:
+                        gu, ge = K.fused_jacobi_err(u, f, h, steps, omega, compat, fz)
+                        wu, we = K.fused_jacobi_err_torch(u, f, h, steps, omega, compat, fz)
+                        same("jacobi_bf16", what, gu, wu)
+                        err("jacobi_bf16", what, ge, we)
+                    cmp.cases["jacobi_bf16"] += 1
+
+    def residual(n):
+        h = 1.0 / (n - 1)
+        u, f = rand(n, n), rand(n, n)
+        for negate in (False, True):
+            same("residual_bf16", f"n={n} negate={negate}", K.residual(u, f, h, negate),
+                 K.residual_torch(u, f, h, negate))
+            cmp.cases["residual_bf16"] += 1
+
+    def legs(n, steps_list, modes, fzs, routes):
+        h = 1.0 / (n - 1)
+        m = (n + 1) // 2
+        u, f, uc = rand(n, n), rand(n, n), rand(m, m)
+
+        def on_routes(name, what, fn):
+            outs = []
+            for route in routes:
+                with K.forced_leg_route(route) if route else contextlib.nullcontext():
+                    outs.append(fn())
+            for route, out in zip(routes[1:], outs[1:]):
+                require(all(a is b or bool(torch.equal(a, b)) for a, b in zip(out, outs[0])),
+                        f"{name} {what}: the {route} route differs from the {routes[0]} route")
+            return outs[0]
+
+        for steps in steps_list:
+            for compat in modes:
+                mode = True if compat is None else compat
+                for fz in fzs:
+                    for restriction in ("sampling", "full_weighting"):
+                        args = (h, steps, omega, restriction, mode, compat is not None, fz)
+                        what = f"n={n} steps={steps} err={compat} fz={fz} {restriction}"
+                        gu, gfc, ge = on_routes("descend_bf16", what,
+                                                lambda: K.fused_descend(u, f, *args))
+                        wu, wfc, we = K.fused_descend_torch(u, f, *args)
+                        same("descend_bf16", what + " u", gu, wu)
+                        same("descend_bf16", what + " f_coarse", gfc, wfc)
+                        if compat is not None:
+                            err("descend_bf16", what, ge, we)
+                        cmp.cases["descend_bf16"] += 1
+                args = (h, steps, omega, mode, compat is not None)
+                what = f"n={n} steps={steps} err={compat}"
+                gu, ge = on_routes("ascend_bf16", what, lambda: K.fused_ascend(u, f, uc, *args))
+                wu, we = K.fused_ascend_torch(u, f, uc, *args)
+                same("ascend_bf16", what, gu, wu)
+                if compat is not None:
+                    err("ascend_bf16", what, ge, we)
+                cmp.cases["ascend_bf16"] += 1
+
+    every = (None, True, False, "gpu")
+    for n in (65, 257, 1025, 1031):
+        smoother(n, range(1, 9), every, (False, True))
+        residual(n)
+        legs(n, range(1, 9), every, (False, True), ("tile", "wave"))
+    for rows in (64, 256):
+        with K.forced_chunk_rows(rows):
+            smoother(1031, range(1, 9), every, (False, True))
+            legs(1031, (1, 2, 3, 8), every, (False, True), ("wave", "tile"))
+    for n in (2049, 4097):
+        smoother(n, (1, 3, 8), every, (False, True))
+        residual(n)
+        legs(n, (1, 3, 8), (None, True, "gpu"), (False, True), (None, "tile"))
+    smoother(8193, (8,), every, (False, True))
+    residual(8193)
+    # views 2 bytes into a buffer: the wrappers copy them aligned, and the
+    # results are the aligned inputs', bit for bit; the entry points refuse
+    # them (cudaErrorMisalignedAddress)
+    from multigrid_poisson_solver_tpu_torch.ops import build
+
+    lib = build.load()
+    for n in (1025, 1031):
+        h, m = 1.0 / (n - 1), (n + 1) // 2
+        u, f, uc = rand(n, n), rand(n, n), rand(m, m)
+
+        def view(x):
+            return torch.empty(x.numel() + 1, device="cuda", dtype=bf16)[1:].view(
+                x.shape).copy_(x)
+
+        uv, fv, cv = view(u), view(f), view(uc)
+        for route in ("tile", "wave"):
+            with K.forced_leg_route(route):
+                pairs = [(K.fused_jacobi_err(uv, fv, h, 3, omega, True),
+                          K.fused_jacobi_err(u, f, h, 3, omega, True)),
+                         (K.fused_descend(uv, fv, h, 3, omega, "full_weighting", True, True),
+                          K.fused_descend(u, f, h, 3, omega, "full_weighting", True, True)),
+                         (K.fused_ascend(uv, fv, cv, h, 3, omega, "gpu", True),
+                          K.fused_ascend(u, f, uc, h, 3, omega, "gpu", True))]
+            for got, want in pairs:
+                require(all(bool(torch.equal(a, b)) for a, b in zip(got, want)),
+                        f"bf16 n={n} {route}: a view at an offset differs")
+        rc = lib.mg_jacobi_bf16(uv.data_ptr(), fv.data_ptr(), torch.empty_like(u).data_ptr(),
+                                None, None, n, 1, 0, 0, h * h, omega, 1.0 / (h * h), 0.0, 0.0,
+                                torch.cuda.current_stream().cuda_stream)
+        require(rc == 716, f"mg_jacobi_bf16 took a misaligned u and f (rc {rc})")
+        rc = lib.mg_ascend_bf16(u.data_ptr(), f.data_ptr(), cv.data_ptr(),
+                                torch.empty_like(u).data_ptr(), None, None, n, 1, 0, h * h,
+                                omega, 1.0 / (h * h), 0.0, torch.cuda.current_stream().cuda_stream)
+        require(rc == 716, f"mg_ascend_bf16 took a misaligned coarse correction (rc {rc})")
+    torch.cuda.synchronize()
+
+
+def phase_bf16(tmg, K, torch, run_counts):
+    """Phase J (b)-(d): the bf16 main paths on the card. (b) the bf16 V(3,3)
+    at 4097² on the kernels and on the twins (the engine's kernel routing
+    with every entry point replaced by its twin): iterates bit for bit after
+    1 and 4 cycles, ms/cycle beside the fp32 cycle's (chained bf16 cycles
+    diverge at this size, as JAX's bf16 engine's do at 513²-2049² on the
+    CPU: tests/bf16_witness.py; the residuals are printed, not bounded); (c) tw32 refinement
+    with inner_dtype=torch.bfloat16: at 8193² six cycles, the words and each
+    cycle's relative residual bit for bit the twins' (bf16 corrections do not
+    converge there: see the comment below), and to 1e-10 at 513² on the
+    kernels and the twins (equal cycles and words), beside fp32 inner cycles
+    to 1e-10 at 8193²; (d) the CLI's --dtype bf16 on schedules/Vcycle.txt, in
+    a subprocess and in process, its Error the twins' run's."""
+    from multigrid_poisson_solver_tpu_torch import cli
+    from multigrid_poisson_solver_tpu_torch.ops.transfers import relative_residual_norm
+
+    bf16 = torch.bfloat16
+    # (b) the library V(3,3) with a bf16 state
+    n = 4097
+    program = tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=3)
+    iterates, ms = {}, {}
+    for route in ("kernels", "twins"):
+        cfg = tmg.SolverConfig(omega=0.8, collect_node_stats=False, dtype=bf16)
+        cold = tmg.compile_program(program, tmg.REFERENCE_PROBLEM, cfg, device="cuda")
+        warm = tmg.compile_program(program, tmg.REFERENCE_PROBLEM, cfg, device="cuda",
+                                   warm=True)
+        with twins_in_place(K) if route == "twins" else contextlib.nullcontext():
+            u0, f = cold.init()
+            K.reset_launch_counts()
+            u1, err = cold(u0, f)
+            u = u1
+            for _ in range(3):
+                u, err = warm(u, f)
+            torch.cuda.synchronize()
+            counts = dict(K.launches)
+            if route == "kernels":
+                run_counts["library_bf16"] = counts
+                ms[route] = time_ms(lambda: warm(u, f), reps=5, rounds=3)
+        require(u.dtype == bf16 and bool(torch.isfinite(u.float()).all()),
+                f"[J] bf16 V(3,3) on the {route}: non-finite or not bf16")
+        iterates[route] = (u1, u, err)
+        h = cold.finest_spec.h
+        say(f"[J] bf16 V(3,3) {n}² on the {route}: float64 rel. residual "
+            f"{float(relative_residual_norm(u1.double(), f.double(), h)):.6e} after 1 cycle, "
+            f"{float(relative_residual_norm(u.double(), f.double(), h)):.6e} after 4, "
+            f"last error {float(err):.6e}; launches {({k: v for k, v in counts.items() if v})}")
+    require(run_counts["library_bf16"]["descend_bf16"] > 0
+            and run_counts["library_bf16"]["ascend_bf16"] > 0
+            and run_counts["library_bf16"]["descend"] == 0,
+            f"[J] the bf16 V(3,3) did not run the bf16 legs: {run_counts['library_bf16']}")
+    for k, what in ((0, "1 cycle"), (1, "4 cycles")):
+        got, want = iterates["kernels"][k], iterates["twins"][k]
+        require(bool(torch.equal(got, want)), f"[J] bf16 V(3,3): the kernels' iterate after "
+                f"{what} differs from the twins' (max|Δ| {float((got - want).abs().max()):.3e})")
+    cfg32 = tmg.SolverConfig(omega=0.8, collect_node_stats=False)
+    warm32 = tmg.compile_program(program, tmg.REFERENCE_PROBLEM, cfg32, device="cuda", warm=True)
+    u32, f32 = warm32.init()
+    ms["fp32"] = time_ms(lambda: warm32(u32, f32), reps=5, rounds=3)
+    say(f"[J] bf16 V(3,3) {n}²: iterates bit-identical to the twins' after 1 and 4 cycles; "
+        f"{ms['kernels']:.3f} ms/cycle (fp32 cycle {ms['fp32']:.3f} ms/cycle, CUDA events)")
+
+    # (c) tw32 refinement with bf16 inner cycles. A bf16 correction carries
+    # its rounding, 2^-9 of |e| at each point, and A multiplies that
+    # high-frequency part by ~8/h²: from ~1025² the outer residual stalls and
+    # from 2049² it rises instead of falling. JAX's solver does the same on
+    # the CPU (tests/bf16_witness.py --refine: at 2049² both rise over 8
+    # cycles; ROADMAP Queue 3 item 9), so at 8193² a fixed budget of cycles
+    # runs, the kernels' words and per-cycle relative residuals the twins',
+    # bit for bit; the 1e-10 target at 513², where bf16 cycles still reach
+    # it, on both
+    bud = 6
+    traj = {}
+    for route in ("kernels", "twins"):
+        with twins_in_place(K) if route == "twins" else contextlib.nullcontext():
+            solver = tmg.IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, 8193, max_cycles=bud,
+                                                   state="tw32", inner_dtype=bf16,
+                                                   device="cuda")
+            f8 = solver.init_rhs()
+            words, rels = solver._fresh(), []
+            K.reset_launch_counts()
+            t_k = time.perf_counter()
+            for _ in range(bud):
+                words, rel, _ = solver._words(words, f8, 0.0, 1)
+                rels.append(float(rel))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t_k) * 1e3
+            if route == "kernels":
+                run_counts["refine_bf16"] = dict(K.launches)
+        traj[route] = (words, rels, wall)
+        say(f"[J] tw32 8193² inner bf16 on the {route}: relative residual after each of "
+            f"{bud} cycles " + ", ".join(f"{r:.3e}" for r in rels)
+            + f"; {wall / bud:.2f} ms/cycle (host clock, with a residual read a cycle)")
+    # bit patterns, so a residual that overflows to NaN on both compares equal
+    require([r.hex() for r in traj["kernels"][1]] == [r.hex() for r in traj["twins"][1]]
+            and all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                    for a, b in zip(traj["kernels"][0], traj["twins"][0])),
+            "[J] bf16-inner tw32 8193²: the kernels' words or residuals differ from the twins'")
+    rc = run_counts["refine_bf16"]
+    require(rc["descend_bf16"] > 0 and rc["ascend_bf16"] > 0 and rc["residual_mw"] > 0
+            and rc["descend"] == 0, f"[J] the bf16-inner refinement's launches: {rc}")
+    reps = {}
+    for n_r, inner, route in ((513, bf16, "kernels"), (513, bf16, "twins"), (8193, None, "kernels")):
+        with twins_in_place(K) if route == "twins" else contextlib.nullcontext():
+            solver = tmg.IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, n_r, max_cycles=60,
+                                                   state="tw32", inner_dtype=inner,
+                                                   device="cuda")
+            wall, rep = wall_ms(lambda: solver.solve(1e-10))
+        require(bool(torch.isfinite(rep.u).all()) and rep.rel_residual <= 1e-10,
+                f"[J] tw32 {n_r}² inner {inner} on the {route}: rel {rep.rel_residual:.3e}")
+        reps[(n_r, route)] = (rep, wall)
+        say(f"[J] tw32 {n_r}² to 1e-10, inner {'bf16' if inner else 'fp32'} on the {route}: "
+            f"{rep.cycles} cycles, rel {rep.rel_residual:.6e}, error "
+            f"{rep.error_vs_analytic:.6e}, wall {wall:.1f} ms ({wall / rep.cycles:.2f} ms/cycle)")
+    k513, t513 = reps[(513, "kernels")][0], reps[(513, "twins")][0]
+    require(k513.cycles == t513.cycles and bool(torch.equal(k513.u, t513.u)),
+            "[J] bf16-inner tw32 513²: the kernels' solve differs from the twins'")
+
+    # (d) the CLI with --dtype bf16 on a fixed-step schedule
+    argv = ["1", "schedules/Vcycle.txt", "--engine", "compiled", "--dtype", "bf16", "--quiet",
+            "--no-output"]
+    proc = subprocess.run([sys.executable, "-m", "multigrid_poisson_solver_tpu_torch", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"[J] CLI --dtype bf16 failed:\n{proc.stdout}\n{proc.stderr}")
+    errors = {"subprocess": re.search(r"Error = (\S+)", proc.stdout)}
+    for route in ("kernels", "twins"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                (twins_in_place(K) if route == "twins" else contextlib.nullcontext()):
+            K.reset_launch_counts()
+            rc_cli = cli.main(argv + ["--device", "cuda"])
+            counts = dict(K.launches)
+        require(rc_cli == 0, f"[J] in-process CLI --dtype bf16 on the {route} failed")
+        if route == "kernels":
+            run_counts["cli_bf16"] = counts
+        errors[route] = re.search(r"Error = (\S+)", buf.getvalue())
+    require(all(m is not None for m in errors.values()), f"[J] CLI --dtype bf16: no Error {errors}")
+    e = {k: m.group(1) for k, m in errors.items()}
+    say(f"[J] CLI --dtype bf16 Vcycle.txt: Error = {e['subprocess']} (in process "
+        f"{e['kernels']}, on the twins {e['twins']}); launches "
+        f"{({k: v for k, v in run_counts['cli_bf16'].items() if v})}")
+    require(e["subprocess"] == e["kernels"] == e["twins"] and math.isfinite(float(e["kernels"])),
+            f"[J] CLI --dtype bf16: the kernels' Error differs from the twins' ({e})")
+    return ms, {"8193 bf16": traj["kernels"][1], "513 bf16": reps[(513, "kernels")],
+                "8193 fp32": reps[(8193, "kernels")]}
+
+
+def phase_refine_policy(tmg, K, torch, run_counts):
+    """Refinement under a policy: tw32 to 1e-10 at 4097² with the correction
+    cycles on 8 row shards of the card (threshold 16; the shard-mode
+    kernels), against the unsharded run: the same cycle count."""
+    n, tol = 4097, 1e-10
+    pol = ring_policies()["rows-8"]
+    reps = {}
+    for label, policy in (("unsharded", None), ("8 row shards", pol)):
+        solver = tmg.IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, n, max_cycles=40,
+                                               state="tw32", device="cuda", policy=policy)
+        K.reset_launch_counts()
+        wall, rep = wall_ms(lambda: solver.solve(tol))
+        counts = {k: v for k, v in K.launches.items() if v}
+        if policy is not None:
+            run_counts["refine_policy"] = dict(K.launches)
+        require(bool(torch.isfinite(rep.u).all()) and rep.rel_residual <= tol,
+                f"[R] tw32 {n}² {label}: rel {rep.rel_residual:.3e} > {tol:g}")
+        reps[label] = rep
+        say(f"[R] tw32 {n}² to {tol:g}, {label}: {rep.cycles} cycles, rel "
+            f"{rep.rel_residual:.6e}, error {rep.error_vs_analytic:.6e}, wall {wall:.1f} ms "
+            f"({wall / rep.cycles:.2f} ms/cycle); launches {counts}")
+    require(reps["8 row shards"].cycles == reps["unsharded"].cycles,
+            f"[R] tw32 {n}²: {reps['8 row shards'].cycles} cycles on 8 row shards, "
+            f"{reps['unsharded'].cycles} unsharded")
+    rc = run_counts["refine_policy"]
+    require(rc["descend_shard"] > 0 and rc["ascend_shard"] > 0,
+            f"[R] the sharded refinement did not run the shard-mode legs: {rc}")
+
+
 def main():
     import torch
 
@@ -3108,6 +3464,22 @@ def main():
     # -- paths A, B, C ----------------------------------------------------------------
     phase_refine(tmg, K, torch, run_counts)
     phase_cli_tol(cli, K, run_counts)
+    t0 = time.perf_counter()
+    phase_refine_policy(tmg, K, torch, run_counts)
+    say(f"[R] done in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase J: the bf16 modes of kernels 1-4 and the bf16 main paths ----------
+    t0 = time.perf_counter()
+    phase_bf16_kernels(K, torch, cmp)
+    for k in PHASE_J:
+        say(f"[J] {k}: {cmp.cases[k]} cases ok, max|Δ| {cmp.max_abs[k]:.3e}, "
+            f"bit-identical to the bf16 twin: {cmp.bitwise[k]}")
+        require(cmp.bitwise[k], f"[J] {k}: not bit-identical to its twin")
+    say(f"[J] kernels done in {time.perf_counter() - t0:.1f} s (errors within "
+        f"{BF16_ERR_RTOL:g} relative)")
+    t0 = time.perf_counter()
+    ms_bf16, refine_bf16 = phase_bf16(tmg, K, torch, run_counts)
+    say(f"[J] paths done in {time.perf_counter() - t0:.1f} s")
     ms_trigger, trigger_levels, auto_levels = phase_trigger(tmg, K, torch, run_counts)
     ms_rbgs = phase_rbgs(tmg, K, torch, run_counts)
     ms_3d, runs_3d = phase_3d(tmg, K, torch, run_counts)
@@ -3269,6 +3641,25 @@ def main():
                          lambda: K3.residual_tw3(u3, c4, c5, f3, h3),
                          lambda: K3.residual_tw3_torch(u3, c4, c5, f3, h3),
                          5 * g3, RES_MW3_OPS[3] * pts3),
+    })
+    # the bf16 modes at the fp32 rows' shapes (kernel 1 at 8193² with 8
+    # sweeps, the rest at 4097²), bytes at 2 a state word
+    ub, fb, ucb, u8b, f8b = (x.to(torch.bfloat16) for x in (u, f, uc, w0, f8))
+    dsc16 = (h, 3, 0.8, "sampling", True, True)
+    asc16 = (h, 3, 0.8, True, True)
+    calls.update({
+        "jacobi_bf16": (f"{n8}², 8 sweeps", lambda: K.fused_jacobi(u8b, f8b, h8, 8, 0.8),
+                        lambda: K.fused_jacobi_torch(u8b, f8b, h8, 8, 0.8),
+                        3 * g8 / 2, 8 * BF16_SWEEP_OPS * pts8),
+        "residual_bf16": (f"{n}²", lambda: K.residual(ub, fb, h),
+                          lambda: K.residual_torch(ub, fb, h), 3 * g2 / 2, BF16_RES_OPS * pts),
+        "descend_bf16": (f"{n}², 3 sweeps, sampling, cpu error",
+                         lambda: K.fused_descend(ub, fb, *dsc16),
+                         lambda: K.fused_descend_torch(ub, fb, *dsc16), 3.25 * g2 / 2,
+                         (3 * BF16_SWEEP_OPS + BF16_ERR_OPS + BF16_RES_OPS) * pts),
+        "ascend_bf16": (f"{n}², 3 sweeps, cpu error", lambda: K.fused_ascend(ub, fb, ucb, *asc16),
+                        lambda: K.fused_ascend_torch(ub, fb, ucb, *asc16), 3.25 * g2 / 2,
+                        (3 * BF16_SWEEP_OPS + BF16_ERR_OPS + BF16_PROLONG_OPS) * pts),
     })
     # the whole-loop trigger kernels at their main-path sizes, a trigger of 0
     # and a fixed sweep count; a trigger loop's bound counts its sweeps'
@@ -3554,7 +3945,11 @@ def main():
                 require(bool(torch.equal(a, b)), f"{k} {what}: {a.tolist()} vs {b.tolist()}")
             elif a.dim() <= 1:
                 for x, y in zip(a.reshape(-1), b.reshape(-1)):
-                    cmp.scalar(k, what, x, y)
+                    if a.dtype == torch.bfloat16:   # a bf16 mode's error (phase J's bound)
+                        require(abs(float(x) - float(y)) <= BF16_ERR_RTOL * abs(float(y)),
+                                f"{k} {what}: error {float(x):.9e} vs twin {float(y):.9e}")
+                    else:
+                        cmp.scalar(k, what, x, y)
             else:
                 cmp.grid(k, what, a, b)
         cmp.cases[k] += 1
@@ -3829,6 +4224,12 @@ def main():
         + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_trigger.items()))
     say(f"[end] sweeps per level, batch 7: {trigger_levels}; auto: {auto_levels}")
     say(f"[end] rb-GS V(2,2) {n}² {ms_rbgs:.3f} ms/cycle")
+    r513, w513 = refine_bf16["513 bf16"]
+    r8, w8 = refine_bf16["8193 fp32"]
+    say(f"[end] bf16 V(3,3) {n}² {ms_bf16['kernels']:.3f} ms/cycle (fp32 {ms_bf16['fp32']:.3f}); "
+        f"tw32 to 1e-10 with bf16 inner cycles: 513² {r513.cycles} cycles, {w513:.1f} ms; "
+        f"8193² relative residuals " + ", ".join(f"{r:.2e}" for r in refine_bf16["8193 bf16"])
+        + f" (fp32 inner: {r8.cycles} cycles, {w8:.1f} ms)")
     say("[end] 3-D ms/cycle (kernels, plain): "
         + "; ".join(f"{tag} {a:.3f}, {b:.3f}" for tag, (a, b) in ms_3d.items()))
     say(f"[end] 3-D trigger V-cycle 513³ wall ms: "

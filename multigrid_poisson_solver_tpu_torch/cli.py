@@ -52,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="spatial dimension: 2 (reference-compatible) or 3 (the same "
                         "cycle file drives a cubic hierarchy; .npz output)")
     p.add_argument("--dtype", default="f32", choices=sorted(DTYPES),
-                   help="level-array precision (default f32; the CUDA kernels take f32)")
+                   help="level-array precision (default f32; the CUDA kernels take f32, "
+                        "and bf16 on a fixed-step Jacobi schedule)")
     p.add_argument("--smoother", default="jacobi", choices=["jacobi", "rbgs"])
     p.add_argument("--restriction", default="sampling",
                    choices=["sampling", "full_weighting"],

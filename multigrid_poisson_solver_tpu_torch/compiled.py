@@ -30,6 +30,12 @@ The names ``compile_program``/``CompiledCycle`` are kept for the
 counterpart; nothing is compiled ahead of time except the CUDA kernels
 (``ops.build``).
 
+A bfloat16 state runs on the kernels where they have a bf16 mode, kernels
+1-4 on the whole grid: a Jacobi program of fixed-step nodes without a
+policy, its V-ladders level by level through the legs (the chains have no
+bf16 mode). ``_check_ported`` raises for every other bf16 path on the
+kernels (trigger nodes, rb-GS, a policy, 3-D) rather than run it plainly.
+
 Under a sharding policy (``parallel.mesh``) a level the policy shards is a
 ``parallel.sharded.ShardedGrid``, a replicated one a tensor on the mesh's
 first device; levels change layout between levels as JAX's GSPMD re-splits
@@ -72,12 +78,36 @@ def _use_kernels(cfg: SolverConfig, device: torch.device) -> bool:
     return K.use_kernels(cfg.kernels, device)
 
 
-def _check_ported(cfg: SolverConfig, use_kernels: bool) -> None:
-    """Refuse configurations the kernels do not take instead of quietly
-    running the plain path."""
-    if use_kernels and cfg.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernels take float32, got dtype={cfg.dtype}; "
-                        f"use kernels='torch' for other dtypes")
+BF16_ITEM = "ROADMAP Queue 2 A2"
+
+
+def _check_ported(cfg: SolverConfig, use_kernels: bool, program: CycleProgram = None,
+                  policy=None, dim: int = 2) -> None:
+    """The kernel path's admission rule, which refuses what the kernels do
+    not take instead of quietly running the plain path: float32 everywhere;
+    bfloat16 on kernels 1-4 alone (their bf16 modes), so for a 2-D Jacobi
+    program whose nodes are all fixed-step (the legs, kernel 1, kernel 2,
+    the plain transfers and coarse solves) without a sharding policy; a
+    V-ladder that would take the chains runs level by level (``_match_chain``).
+    ``kernels="torch"`` runs every dtype."""
+    if not use_kernels or cfg.dtype == torch.float32:
+        return
+    if cfg.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernels take float32 (and bfloat16 on kernels 1-4), got "
+                        f"dtype={cfg.dtype}; use kernels='torch' for other dtypes")
+    if dim == 3:
+        why = "the 3-D kernels (10-16, 19-22)"
+    elif policy is not None:
+        why = "a sharding policy (the shard modes and ring kernels)"
+    elif cfg.smoother != "jacobi":
+        why = f"smoother={cfg.smoother!r} (kernel 1's rb-GS mode)"
+    elif program is not None and any(getattr(ins, "steps", 0) == -1
+                                     for ins in program.instructions):
+        why = "a trigger node (kernels 8 and 9, and kernel 1's per_sweep mode)"
+    else:
+        return
+    raise TypeError(f"bfloat16 runs on the CUDA kernels 1-4 only: {why} run float32 only "
+                    f"({BF16_ITEM}); use kernels='torch' for a bfloat16 run")
 
 
 @dataclasses.dataclass
@@ -124,7 +154,7 @@ class CompiledCycle:
         self.device = home(policy, device)
         self.warm = warm
         self.use_kernels = _use_kernels(config, self.device)
-        _check_ported(config, self.use_kernels)
+        _check_ported(config, self.use_kernels, program, policy)
         if config.halo not in ("ppermute", "rdma"):
             raise ValueError(f"unknown halo {config.halo!r}; expected ppermute or rdma")
         if (policy is not None and config.halo == "rdma" and self.use_kernels
@@ -229,10 +259,12 @@ def _match_chain(instructions, i: int, n0: int, cfg: SolverConfig, use_kernels: 
     JAX's guards: kernels and Jacobi only; trigger (−1) and FMG (0) descents
     never chain; no level of the ladder sharded under the policy; the ladder
     must pass ``chain_fits``; at the finest level the error metric must be
-    cpu or clean. One more here: every sweep count within the tile budget of
+    cpu or clean. Two more here: every sweep count within the tile budget of
     the leg kernels whose tile code the chain kernels run (JAX's chain
-    sweeps whole levels, uncapped)."""
-    if cfg.smoother != "jacobi" or not use_kernels:
+    sweeps whole levels, uncapped); and a float32 state, since the chains
+    have no bf16 mode: a bf16 ladder runs level by level through kernels 3
+    and 4, the chains' twin composition (``chain_descend_torch``)."""
+    if cfg.smoother != "jacobi" or not use_kernels or cfg.dtype != torch.float32:
         return None
     if finest and cfg.compat_error == "gpu":
         return None

@@ -425,7 +425,7 @@ class CompiledCycle3:
         self.device = home(policy, device)
         self.warm = warm
         self.use_kernels = _use_kernels(config, self.device)
-        _check_ported(config, self.use_kernels)
+        _check_ported(config, self.use_kernels, dim=3)
         KS3.check_halo3(config.halo, policy.mesh if policy is not None and self.use_kernels
                         else None)
 

@@ -27,6 +27,10 @@ def grid_from_jax(padded, n: int, device="cpu") -> torch.Tensor:
     """The true (n, n) grid of a JAX level array in its padded tile layout
     (the top-left corner; ``ops/layout.py::unpad_grid``)."""
     arr = np.asarray(padded)[:n, :n]
+    if arr.dtype.name == "bfloat16":
+        # numpy holds JAX's bf16 as ml_dtypes' type, which torch does not
+        # read: through float32, exactly
+        return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 

@@ -55,6 +55,13 @@ SIGNATURES = {
     "mg_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
                    _I),
     "mg_ascend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P], _I),
+    # the bf16 modes of kernels 1-4 (*_bf16.cu): mg_jacobi's, mg_residual's,
+    # mg_descend's and mg_ascend's arguments, the grids and the error bf16
+    "mg_jacobi_bf16": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P], _I),
+    "mg_residual_bf16": ([_P, _P, _P, _I, _F, _I, _P], _I),
+    "mg_descend_bf16": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+                        _I),
+    "mg_ascend_bf16": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P], _I),
     "mg_chain_descend": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P], _I),
     "mg_chain_ascend": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _F, _P], _I),
     "mg_trigger": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _I, _P], _I),

@@ -26,7 +26,7 @@
 // block per 32 x 128 tile of u and f staged with a halo of k (+1 for the
 // residual-based error), the prolonged correction added to every staged
 // interior cell from the coarse array, the sweeps in shared memory), which
-// the chain kernel 7 runs too. The size rule (ascend_takes_wave) is decided
+// the chain kernel 7 runs too. The size rule (legs_take_wave, wave2.cuh) is decided
 // by the owned region's size alone; both routes are bit for bit the plain
 // twin's, and a launch that fails on its route is never retried on the
 // other. Measured with examples/torch_kernel_ab.py on an NVIDIA H100 80GB
@@ -129,15 +129,6 @@ static cudaError_t launch_ascend_wave(int k, int err_mode, const AscendCall& a) 
   }
 }
 
-// Whether a launch on the owned region g takes the wavefront (else the tile
-// kernel): from 1.5 M owned cells (see the header), or the forced route.
-constexpr long ASCEND_WAVE_MIN_CELLS = 3L << 19;
-
-static bool ascend_takes_wave(const Geo& g) {
-  if (legs_forced_route) return legs_forced_route == 2;
-  return (long)g.rows * g.cols >= ASCEND_WAVE_MIN_CELLS;
-}
-
 // Whether coarse indices [c0, c0 + cnt) hold every coarse index the interior
 // fine indices in [lo, hi) interpolate from: i >> 1, and (i >> 1) + 1 for
 // odd i.
@@ -176,7 +167,7 @@ extern "C" int mg_ascend_shard(const float* u, const float* f, const float* c, f
                      ccols == m;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if (ascend_takes_wave(g)) {
+  if (legs_take_wave(g.rows, g.cols)) {
     const AscendCall a = {u, f, c, out, partials, g, ext_r, ext_c, cr0, cc0, crows, ccols,
                           err_mode == ERR_CPU ? 1 : 0, h2, omega, inv_h2, s};
     e = whole ? launch_ascend_wave<false>(steps, err_mode, a)

@@ -23,6 +23,17 @@
 // in the plain PyTorch twins' operation order. They are never contracted into
 // FMAs, so a kernel can reproduce its twin bit for bit on the same card.
 //
+// Storage type T: grids in device memory are float, or __nv_bfloat16 for the
+// bf16 modes of kernels 1-4 (the *_bf16.cu sources). Shared memory and
+// registers stay float either way: a bf16 value converts at its global load
+// and store, and arithmetic is the same __f*_rn sequence, each result that
+// the twin materialises as a tensor rounded to bf16 (rnd<T>). PyTorch computes
+// an op on bf16 tensors in float, a Python scalar as a float, and rounds the
+// result to bf16, so the twins run on bf16 tensors round after every op. The
+// native bf16 intrinsics (__hadd, __hfma2) round once where the twin rounds
+// twice (f32, then bf16), and are not used. For T = float every rnd<T> is the
+// identity and the code is the fp32 kernels' own.
+//
 // Grid reads go through __ldcg (cached in L2 only). The persistent kernels
 // read, after a grid-wide barrier, what other blocks wrote earlier in the
 // same launch; an L1 or read-only-cache line from an earlier read could be
@@ -30,7 +41,10 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace mgk {
 
@@ -43,6 +57,27 @@ constexpr int MAX_STEPS = 8;
 constexpr int MAX_HALO = MAX_STEPS + 2;  // sweeps + residual read + full weighting
 
 enum ErrMode { ERR_NONE = 0, ERR_CPU = 1, ERR_CLEAN = 2, ERR_GPU = 3 };
+
+// A stored value as float, a float as the storage type T (round to nearest
+// even), and a float rounded to T's precision (the identity for float).
+static __device__ __forceinline__ float to_f(float x) { return x; }
+static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <class T>
+static __device__ __forceinline__ T from_f(float x) {
+  if constexpr (std::is_same<T, float>::value)
+    return x;
+  else
+    return __float2bfloat16_rn(x);
+}
+
+template <class T>
+static __device__ __forceinline__ float rnd(float x) {
+  if constexpr (std::is_same<T, float>::value)
+    return x;
+  else
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 struct Tile {
   int gr0, gc0;    // global (row, col) of staged cell (0, 0)
@@ -61,15 +96,18 @@ struct Geo {
 
 // A window of the grid in device memory: global cell (gi, gj) at
 // p[(gi − r0) · cols + (gj − c0)] for r0 <= gi < r0 + rows, c0 <= gj < c0 + cols.
-struct Win {
-  const float* p;
+template <class T = float>
+struct WinT {
+  const T* p;
   int r0, c0, rows, cols;
 };
+using Win = WinT<float>;
 
 // The owned region's window extended by er rows and ec columns per side.
-static __host__ __device__ __forceinline__ Win window(const float* p, const Geo& g, int er = 0,
-                                                      int ec = 0) {
-  Win w = {p, g.row0 - er, g.col0 - ec, g.rows + 2 * er, g.cols + 2 * ec};
+template <class T>
+static __host__ __device__ __forceinline__ WinT<T> window(const T* p, const Geo& g, int er = 0,
+                                                          int ec = 0) {
+  WinT<T> w = {p, g.row0 - er, g.col0 - ec, g.rows + 2 * er, g.cols + 2 * ec};
   return w;
 }
 
@@ -93,8 +131,8 @@ static __device__ __forceinline__ Geo region(const Geo& g) {
 
 // p's window of region<SHARD>'s g, extended by er rows and ec columns per
 // side (the whole grid, unextended, for SHARD = false).
-template <bool SHARD>
-static __device__ __forceinline__ Win region(const float* p, const Geo& g, int er, int ec) {
+template <bool SHARD, class T>
+static __device__ __forceinline__ WinT<T> region(const T* p, const Geo& g, int er, int ec) {
   return SHARD ? window(p, g, er, ec) : window(p, g);
 }
 
@@ -138,13 +176,16 @@ static __device__ __forceinline__ bool interior(int gi, int gj, int n) {
 
 // One global row of a source: p[gj] holds cell (gi, gj) for c_lo <= gj < c_hi
 // (an empty range where the source has no cell of the row in the grid).
-struct RowRef {
-  const float* p;
+template <class T = float>
+struct RowRefT {
+  const T* p;
   int c_lo, c_hi;
 };
+using RowRef = RowRefT<float>;
 
-static __device__ __forceinline__ RowRef row_of(const Win& w, int gi, int n) {
-  RowRef r = {w.p, 0, 0};
+template <class T>
+static __device__ __forceinline__ RowRefT<T> row_of(const WinT<T>& w, int gi, int n) {
+  RowRefT<T> r = {w.p, 0, 0};
   if (gi >= max(0, w.r0) && gi < min(n, w.r0 + w.rows)) {
     r.p = w.p + (ptrdiff_t)(gi - w.r0) * w.cols - w.c0;
     r.c_lo = max(0, w.c0);
@@ -159,35 +200,60 @@ static __device__ __forceinline__ RowRef row_of(const Win& w, int gi, int n) {
 template <class S>
 static __device__ void load_tile(float* s, const S& src, int n, const Tile& t) {
   for (int i = threadIdx.y; i < t.rows; i += BLOCK_Y) {
-    const RowRef r = row_of(src, t.gr0 + i, n);
+    const auto r = row_of(src, t.gr0 + i, n);
     for (int j = threadIdx.x; j < t.cols; j += BLOCK_X) {
       const int gj = t.gc0 + j;
-      s[i * t.cols + j] = gj >= r.c_lo && gj < r.c_hi ? __ldcg(r.p + gj) : 0.0f;
+      s[i * t.cols + j] = gj >= r.c_lo && gj < r.c_hi ? to_f(__ldcg(r.p + gj)) : 0.0f;
     }
   }
 }
 
-// ((N + S) + W) + E: the oracle's neighbor-sum order.
-static __device__ __forceinline__ float nb_sum(const float* s, int ld, int i, int j) {
-  const int k = i * ld + j;
-  return __fadd_rn(__fadd_rn(__fadd_rn(s[k - ld], s[k + ld]), s[k - 1]), s[k + 1]);
+// ((N + S) + W) + E: the oracle's neighbor-sum order (each add rounded to T).
+template <class T = float>
+static __device__ __forceinline__ float nb_add(float n, float s, float w, float e) {
+  return rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(n, s)), w)), e));
 }
 
-// u + ω·(¼·((nb − 4u) − h²f))  (stencils.jacobi_sweep)
+template <class T = float>
+static __device__ __forceinline__ float nb_sum(const float* s, int ld, int i, int j) {
+  const int k = i * ld + j;
+  return nb_add<T>(s[k - ld], s[k + ld], s[k - 1], s[k + 1]);
+}
+
+// u + ω·(¼·((nb − 4u) − h²f))  (stencils.jacobi_sweep; T: each product,
+// difference and sum rounded as the twin's tensors are)
+template <class T = float>
 static __device__ __forceinline__ float jacobi_point(float nb, float uc, float fc,
                                                      float h2, float omega) {
-  const float t = __fsub_rn(__fsub_rn(nb, __fmul_rn(4.0f, uc)), __fmul_rn(h2, fc));
-  return __fadd_rn(uc, __fmul_rn(omega, __fmul_rn(0.25f, t)));
+  const float t = rnd<T>(__fsub_rn(rnd<T>(__fsub_rn(nb, rnd<T>(__fmul_rn(4.0f, uc)))),
+                                   rnd<T>(__fmul_rn(h2, fc))));
+  return rnd<T>(__fadd_rn(uc, rnd<T>(__fmul_rn(omega, rnd<T>(__fmul_rn(0.25f, t))))));
 }
 
 // (1/h²)·(nb − 4u) − f  (stencils.residual)
+template <class T = float>
 static __device__ __forceinline__ float residual_point(float nb, float uc, float fc,
                                                        float inv_h2) {
-  return __fsub_rn(__fmul_rn(inv_h2, __fsub_rn(nb, __fmul_rn(4.0f, uc))), fc);
+  return rnd<T>(__fsub_rn(
+      rnd<T>(__fmul_rn(inv_h2, rnd<T>(__fsub_rn(nb, rnd<T>(__fmul_rn(4.0f, uc)))))), fc));
+}
+
+// The full weighting's combination (¼·a + ½·b) + ¼·c, and the prolongation's
+// ½·a + ½·b, in the twins' order (ops.transfers), each step rounded to T.
+template <class T = float>
+static __device__ __forceinline__ float fw_comb(float a, float b, float c) {
+  return rnd<T>(__fadd_rn(rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(0.25f, a)), rnd<T>(__fmul_rn(0.5f, b)))),
+                          rnd<T>(__fmul_rn(0.25f, c))));
+}
+
+template <class T = float>
+static __device__ __forceinline__ float half_sum(float a, float b) {
+  return rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(0.5f, a)), rnd<T>(__fmul_rn(0.5f, b))));
 }
 
 // One Jacobi sweep src -> dst over the staged region shrunk by `lo` >= 1;
 // frozen cells are copied.
+template <class T = float>
 static __device__ void sweep(const float* src, float* dst, const float* sf,
                              const Tile& t, int lo, int n, float h2, float omega) {
   for (int i = lo + threadIdx.y; i < t.rows - lo; i += BLOCK_Y) {
@@ -196,7 +262,7 @@ static __device__ void sweep(const float* src, float* dst, const float* sf,
       const int k = i * t.cols + j;
       const float uc = src[k];
       dst[k] = interior(gi, t.gc0 + j, n)
-                   ? jacobi_point(nb_sum(src, t.cols, i, j), uc, sf[k], h2, omega)
+                   ? jacobi_point<T>(nb_sum<T>(src, t.cols, i, j), uc, sf[k], h2, omega)
                    : uc;
     }
   }
@@ -204,10 +270,11 @@ static __device__ void sweep(const float* src, float* dst, const float* sf,
 
 // Sweeps 1..n_sweeps starting from bufs[0]; returns the buffer index holding
 // the final iterate. Ends with a barrier.
+template <class T = float>
 static __device__ int run_sweeps(float* bufs[2], const float* sf, const Tile& t,
                                  int n_sweeps, int n, float h2, float omega) {
   for (int s = 1; s <= n_sweeps; ++s) {
-    sweep(bufs[(s - 1) & 1], bufs[s & 1], sf, t, s, n, h2, omega);
+    sweep<T>(bufs[(s - 1) & 1], bufs[s & 1], sf, t, s, n, h2, omega);
     __syncthreads();
   }
   return n_sweeps & 1;
@@ -227,13 +294,14 @@ static __device__ __forceinline__ ptrdiff_t out_at(const Geo& g, int gi, int gj)
 
 // Write the owned cells of the staged buffer's tile window to out, laid out
 // as g's region.
-static __device__ void store_owned(float* __restrict__ out, const float* s, const Geo& g,
+template <class T>
+static __device__ void store_owned(T* __restrict__ out, const float* s, const Geo& g,
                                    const Tile& t, int halo) {
   for (int i = halo + threadIdx.y; i < halo + TILE_H; i += BLOCK_Y) {
     const int gi = t.gr0 + i;
     for (int j = halo + threadIdx.x; j < halo + TILE_W; j += BLOCK_X) {
       const int gj = t.gc0 + j;
-      if (owned(g, gi, gj)) out[out_at(g, gi, gj)] = s[i * t.cols + j];
+      if (owned(g, gi, gj)) out[out_at(g, gi, gj)] = from_f<T>(s[i * t.cols + j]);
     }
   }
 }
@@ -270,7 +338,9 @@ static __device__ float block_sum(float v) {
 // cells: Σ|r(fin)| (ERR_CPU: even color only, the reference's color bug;
 // ERR_CLEAN: all cells) or Σ|fin − prev| (ERR_GPU; prev == nullptr means
 // the zero iterate). Needs fin exact on the owned window plus one ring for
-// the residual modes. Written to *partial without atomics.
+// the residual modes. Written to *partial without atomics. T: the terms are
+// the rounded r or Δu of the twin; the partial is a float sum.
+template <class T = float>
 static __device__ void error_partial(float* __restrict__ partial, const float* fin,
                                      const float* prev, const float* sf, const Tile& t,
                                      int halo, const Geo& g, int err_mode, float inv_h2) {
@@ -284,9 +354,9 @@ static __device__ void error_partial(float* __restrict__ partial, const float* f
       if (err_mode == ERR_CPU && ((gi + gj) & 1)) continue;
       const int k = i * t.cols + j;
       if (err_mode == ERR_GPU) {
-        acc += fabsf(__fsub_rn(fin[k], prev ? prev[k] : 0.0f));
+        acc += fabsf(rnd<T>(__fsub_rn(fin[k], prev ? prev[k] : 0.0f)));
       } else {
-        acc += fabsf(residual_point(nb_sum(fin, t.cols, i, j), fin[k], sf[k], inv_h2));
+        acc += fabsf(residual_point<T>(nb_sum<T>(fin, t.cols, i, j), fin[k], sf[k], inv_h2));
       }
     }
   }

@@ -28,7 +28,7 @@
 // shared memory, the restriction from the spare buffer), which the chain
 // kernel 6 runs too: a warp's 32 + 2H serial row steps lose to a tile's
 // eight warps where the level has too few strips and chunks to fill the
-// card. The size rule (descend_takes_wave) is decided by the owned region's
+// card. The size rule (legs_take_wave, wave2.cuh) is decided by the owned region's
 // size alone; both routes are bit for bit the plain twin's, so no result
 // depends on it, and a launch that fails on its route is never retried on
 // the other. Measured with examples/torch_kernel_ab.py on an NVIDIA H100
@@ -128,15 +128,6 @@ static cudaError_t launch_descend_wave(int k, int err_mode, const DescendCall& c
   }
 }
 
-// Whether a launch on the owned region g takes the wavefront (else the tile
-// kernel): from 1.5 M owned cells (see the header), or the forced route.
-constexpr long DESCEND_WAVE_MIN_CELLS = 3L << 19;
-
-static bool descend_takes_wave(const Geo& g) {
-  if (legs_forced_route) return legs_forced_route == 2;
-  return (long)g.rows * g.cols >= DESCEND_WAVE_MIN_CELLS;
-}
-
 // steps <= MAX_STEPS sweeps of the rows x cols block at global (row0, col0)
 // (both even) of the n x n level (n = 2m − 1) into out, the restricted
 // negated residual of its coarse points into fc ((rows + 1) / 2 x
@@ -160,7 +151,7 @@ extern "C" int mg_descend_shard(const float* u, const float* f, float* out, floa
   const bool whole = whole_grid(g, ext_r, ext_c);
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if (descend_takes_wave(g)) {
+  if (legs_take_wave(g.rows, g.cols)) {
     const DescendCall c = {u, f, out, fc, partials, g, ext_r, ext_c, from_zero ? 1 : 0,
                            full_weighting ? 1 : 0, err_mode == ERR_CPU ? 1 : 0, h2, omega,
                            inv_h2, zero_coef, s};

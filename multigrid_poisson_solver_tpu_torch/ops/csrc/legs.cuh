@@ -34,17 +34,18 @@ namespace mgk {
 constexpr int TILE_BATCH_ROWS = 4;
 constexpr int TILE_BATCH_COLS = (TILE_W + 2 * MAX_HALO + BLOCK_X - 1) / BLOCK_X;
 
-static __device__ void load_tile_batched(float* s, const Win& src, int n, const Tile& t) {
+template <class T>
+static __device__ void load_tile_batched(float* s, const WinT<T>& src, int n, const Tile& t) {
   for (int i0 = threadIdx.y; i0 < t.rows; i0 += TILE_BATCH_ROWS * BLOCK_Y) {
     float v[TILE_BATCH_ROWS][TILE_BATCH_COLS];
 #pragma unroll
     for (int r = 0; r < TILE_BATCH_ROWS; ++r) {
       const int i = i0 + r * BLOCK_Y;
-      const RowRef row = i < t.rows ? row_of(src, t.gr0 + i, n) : RowRef{src.p, 0, 0};
+      const RowRefT<T> row = i < t.rows ? row_of(src, t.gr0 + i, n) : RowRefT<T>{src.p, 0, 0};
 #pragma unroll
       for (int c = 0; c < TILE_BATCH_COLS; ++c) {
         const int j = threadIdx.x + c * BLOCK_X, gj = t.gc0 + j;
-        v[r][c] = j < t.cols && gj >= row.c_lo && gj < row.c_hi ? __ldcg(row.p + gj) : 0.0f;
+        v[r][c] = j < t.cols && gj >= row.c_lo && gj < row.c_hi ? to_f(__ldcg(row.p + gj)) : 0.0f;
       }
     }
 #pragma unroll
@@ -61,7 +62,7 @@ static __device__ void load_tile_batched(float* s, const Win& src, int n, const 
 
 // Stage the starting iterate into buf: u's window, or with from_zero the
 // closed-form first sweep from u ≡ 0, zero_coef·f on the interior (u unread).
-template <class S>
+template <class T = float, class S>
 static __device__ void stage_iterate(float* buf, const float* sf, const S& u, int n,
                                      const Tile& t, int from_zero, float zero_coef) {
   if (!from_zero) {
@@ -72,7 +73,7 @@ static __device__ void stage_iterate(float* buf, const float* sf, const S& u, in
   for (int i = threadIdx.y; i < t.rows; i += BLOCK_Y)
     for (int j = threadIdx.x; j < t.cols; j += BLOCK_X) {
       const int k = i * t.cols + j;
-      buf[k] = interior(t.gr0 + i, t.gc0 + j, n) ? __fmul_rn(zero_coef, sf[k]) : 0.0f;
+      buf[k] = interior(t.gr0 + i, t.gc0 + j, n) ? rnd<T>(__fmul_rn(zero_coef, sf[k])) : 0.0f;
     }
 }
 
@@ -108,9 +109,10 @@ static __device__ void jacobi_tile(float* smem, const S& u, const S& f, float* _
 // the tile's 16 x 64 window of the coarse right-hand side fc. fc is laid out
 // as the coarse points of g's region: rows from row0 / 2, (rows + 1) / 2 of
 // them, and the same for columns (the m x m grid for the whole level; g's
-// origin is even).
-static __device__ void descend_tile(float* smem, const Win& u, const Win& f,
-                                    float* __restrict__ out, float* __restrict__ fc,
+// origin is even). T: the grids' storage type (common.cuh).
+template <class T>
+static __device__ void descend_tile(float* smem, const WinT<T>& u, const WinT<T>& f,
+                                    T* __restrict__ out, T* __restrict__ fc,
                                     float* partial, int tx, int ty, const Geo& g, int n_sweeps,
                                     int halo, int from_zero, int full_weighting, int err_mode,
                                     float h2, float omega, float inv_h2, float zero_coef) {
@@ -123,18 +125,18 @@ static __device__ void descend_tile(float* smem, const Win& u, const Win& f,
 
   load_tile_batched(sf, f, n, t);
   if (from_zero)
-    stage_iterate(bufs[0], sf, u, n, t, 1, zero_coef);
+    stage_iterate<T>(bufs[0], sf, u, n, t, 1, zero_coef);
   else
     load_tile_batched(bufs[0], u, n, t);
   __syncthreads();
 
-  const int fin_i = run_sweeps(bufs, sf, t, n_sweeps, n, h2, omega);
+  const int fin_i = run_sweeps<T>(bufs, sf, t, n_sweeps, n, h2, omega);
   const float* fin = bufs[fin_i];
   float* d = bufs[fin_i ^ 1];
   store_owned(out, fin, g, t, halo);
   if (err_mode != ERR_NONE) {
     const float* prev = n_sweeps > 0 ? d : nullptr;
-    error_partial(partial, fin, prev, sf, t, halo, g, err_mode, inv_h2);
+    error_partial<T>(partial, fin, prev, sf, t, halo, g, err_mode, inv_h2);
   }
   __syncthreads();  // the error pass may still read the spare buffer
 
@@ -145,7 +147,7 @@ static __device__ void descend_tile(float* smem, const Win& u, const Win& f,
     for (int j = halo - e + threadIdx.x; j < halo + TILE_W + e; j += BLOCK_X) {
       const int k = i * t.cols + j;
       d[k] = interior(gi, t.gc0 + j, n)
-                 ? -residual_point(nb_sum(fin, t.cols, i, j), fin[k], sf[k], inv_h2)
+                 ? -residual_point<T>(nb_sum<T>(fin, t.cols, i, j), fin[k], sf[k], inv_h2)
                  : 0.0f;
     }
   }
@@ -167,16 +169,14 @@ static __device__ void descend_tile(float* smem, const Win& u, const Win& f,
           float sy[3];
           for (int c = 0; c < 3; ++c) {
             const int kc = k + c - 1;
-            sy[c] = __fadd_rn(__fadd_rn(__fmul_rn(0.25f, d[kc - t.cols]), __fmul_rn(0.5f, d[kc])),
-                              __fmul_rn(0.25f, d[kc + t.cols]));
+            sy[c] = fw_comb<T>(d[kc - t.cols], d[kc], d[kc + t.cols]);
           }
-          v = __fadd_rn(__fadd_rn(__fmul_rn(0.25f, sy[0]), __fmul_rn(0.5f, sy[1])),
-                        __fmul_rn(0.25f, sy[2]));
+          v = fw_comb<T>(sy[0], sy[1], sy[2]);
         } else {
           v = d[k];
         }
       }
-      fc[(size_t)lI * ccols + lJ] = v;
+      fc[(size_t)lI * ccols + lJ] = from_f<T>(v);
     }
   }
 }
@@ -187,8 +187,10 @@ static __device__ void descend_tile(float* smem, const Win& u, const Win& f,
 // interior cells of u's window interpolate from (mg_ascend_shard checks it).
 // u, f and the tile's coarse cells are staged by load_tile_batched (the
 // coarse ones into the spare buffer) and the prolongation reads them there.
-static __device__ void ascend_tile(float* smem, const Win& u, const Win& f, const Win& c,
-                                   float* __restrict__ out, float* partial, int tx, int ty,
+template <class T>
+static __device__ void ascend_tile(float* smem, const WinT<T>& u, const WinT<T>& f,
+                                   const WinT<T>& c, T* __restrict__ out, float* partial,
+                                   int tx, int ty,
                                    const Geo& g, int steps, int halo, int err_mode, float h2,
                                    float omega, float inv_h2) {
   __syncthreads();
@@ -222,22 +224,20 @@ static __device__ void ascend_tile(float* smem, const Win& u, const Win& f, cons
       const float* r0 = cw + ((gi >> 1) - ct.gr0) * ct.cols + ((gj >> 1) - ct.gc0);
       const float* r1 = r0 + ct.cols;
       // the column pass on coarse rows I = gi >> 1 and I + 1, then the row pass
-      const float w0 = (gj & 1) ? __fadd_rn(__fmul_rn(0.5f, r0[0]), __fmul_rn(0.5f, r0[1]))
-                                : r0[0];
+      const float w0 = (gj & 1) ? half_sum<T>(r0[0], r0[1]) : r0[0];
       float p = w0;
       if (gi & 1) {
-        const float w1 = (gj & 1) ? __fadd_rn(__fmul_rn(0.5f, r1[0]), __fmul_rn(0.5f, r1[1]))
-                                  : r1[0];
-        p = __fadd_rn(__fmul_rn(0.5f, w0), __fmul_rn(0.5f, w1));
+        const float w1 = (gj & 1) ? half_sum<T>(r1[0], r1[1]) : r1[0];
+        p = half_sum<T>(w0, w1);
       }
-      bufs[0][i * t.cols + j] = __fadd_rn(bufs[0][i * t.cols + j], p);
+      bufs[0][i * t.cols + j] = rnd<T>(__fadd_rn(bufs[0][i * t.cols + j], p));
     }
   }
   __syncthreads();
-  const int fin = run_sweeps(bufs, sf, t, steps, n, h2, omega);
+  const int fin = run_sweeps<T>(bufs, sf, t, steps, n, h2, omega);
   store_owned(out, bufs[fin], g, t, halo);
   if (err_mode != ERR_NONE)
-    error_partial(partial, bufs[fin], bufs[fin ^ 1], sf, t, halo, g, err_mode, inv_h2);
+    error_partial<T>(partial, bufs[fin], bufs[fin ^ 1], sf, t, halo, g, err_mode, inv_h2);
 }
 
 // Halo of each tile operation (see the header of common.cuh).

@@ -103,6 +103,18 @@
 //    16-byte aligned) into a per-warp ring of WV_CRING rows with fine row
 //    2I − 1, and its column interpolation at the lane's five columns is
 //    formed once, kept in registers for the next fine row.
+//
+// Storage type T (the last template argument; float but for the bf16 modes
+// of kernels 1, 3 and 4, jacobi_bf16.cu, descend_bf16.cu, ascend_bf16.cu):
+// the rings hold rows as stored, every other buffer and register is float,
+// and a value converts where it leaves a ring and where it is stored. A bf16
+// pass always copies 16-byte chunks (cp.async has no 2-byte copy): a chunk
+// holds 8 values, so a row's staged columns start at one of 8 offsets in
+// their chunk (n = 2^k + 1 puts successive rows at successive offsets), and
+// a ring row holds WV_COLS / 8 + 1 = 21 chunks. The ascend leg's coarse rows
+// take chunks too, from the chunk holding the strip's first coarse column,
+// so the coarse correction must start 16-byte aligned as u and f do. The
+// arithmetic rounds to bf16 where the twins' tensors do (common.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -128,11 +140,13 @@ static_assert(WV_COLS / 2 + 1 <= WV_CROW, "a ring row holds the coarse columns a
 // The legs' extra arguments: the descend leg's coarse right-hand side fc
 // (laid out as the coarse points of the owned region) and restriction, the
 // ascend leg's window of the coarse correction.
-struct WaveLeg {
-  float* fc;
+template <class T = float>
+struct WaveLegT {
+  T* fc;
   int full_weighting;
-  Win c;
+  WinT<T> c;
 };
+using WaveLeg = WaveLegT<float>;
 
 // The ring trigger kernel's view of its shard (rdma_trigger.cu, RING): rows
 // of u and f above and below the block come from the receive buffers (row
@@ -157,21 +171,33 @@ struct WaveRing {
 // LEG: the smoother or a leg; RING: the ring trigger kernel's pass, whose
 // copies all take 16-byte chunks (cp.async.cg, read through L2: the grids
 // are rewritten between its passes by other SMs); AHEAD: the rows loaded
-// ahead, 0 for the rule below.
-template <int K, int E, bool ALL, int LEG = WV_SMOOTH, bool RING = false, int AHEAD = 0>
+// ahead, 0 for the rule below; T: the grids' storage type.
+template <int K, int E, bool ALL, int LEG = WV_SMOOTH, bool RING = false, int AHEAD = 0,
+          class T = float>
 struct WaveShape {
+  static_assert(sizeof(T) == 4 || (LEG != WV_RBGS && !RING), "bf16: kernels 1, 3 and 4 only");
   // halo rows (and columns) read; the descend leg forms r of level K
   static constexpr int H = K + (E == WV_RES || LEG == WV_DESCEND ? 1 : 0);
   static constexpr int D = AHEAD ? AHEAD : (K <= 2 ? 4 : 2);   // rows loaded ahead
-  static constexpr bool CHUNKS = K <= 2 || RING;        // 16-byte copies
+  static constexpr bool CHUNKS = K <= 2 || RING || sizeof(T) != 4;   // 16-byte copies
+  static constexpr int EL = 16 / (int)sizeof(T);       // values of a 16-byte chunk
+  static constexpr int LOG = sizeof(T) == 4 ? 2 : 1;   // log2 of a value's bytes
+  static constexpr int CH = WV_COLS / EL + 1;          // chunks holding a row at any offset
+  static constexpr int ROW = EL * CH;                  // values of a ring row (WV_ROW: float)
+  // the ascend leg's coarse ring rows: WV_CROW floats by 4-byte copies, or
+  // CCH chunks of bf16 values
+  static constexpr int CCH = WV_CROW / EL + 1;
+  static constexpr int CROW = sizeof(T) == 4 ? WV_CROW : EL * CCH;
   static constexpr int NF = H + 1 + D;                  // f ring: rows r − H .. r + D
   static constexpr int NU = D + 1;                      // u ring: rows r .. r + D
   static constexpr int NL = E == WV_NONE ? 0 : (ALL ? K : 1);   // accumulated levels
   static constexpr int WIN = H > 0 ? H : 1;             // level windows: levels 0 .. H − 1
   static constexpr int NC = LEG == WV_ASCEND ? WV_CRING : 0;   // coarse ring rows
-  // the rings, the row exchange and the accumulators of one warp
-  static constexpr int WARP_FLOATS =
-      (NF + NU) * WV_ROW + WV_COLS + NL * 8 * 32 + NC * WV_CROW;
+  static_assert(sizeof(T) != 4 || ROW == WV_ROW, "a float ring row is WV_ROW floats");
+  // the rings, the row exchange and the accumulators of one warp, in floats
+  // (a bf16 ring row is 84 of them; every part is a multiple of 16 bytes)
+  static constexpr int WARP_FLOATS = (NF + NU) * ROW * (int)sizeof(T) / 4 + WV_COLS +
+                                     NL * 8 * 32 + NC * CROW * (int)sizeof(T) / 4;
   static constexpr int WARPS = WARP_FLOATS * 4 * 4 <= 48 * 1024 ? 4 : 2;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr size_t SMEM = (size_t)WARPS * WARP_FLOATS * sizeof(float);
@@ -180,8 +206,8 @@ struct WaveShape {
 // BYTES (4 or 16) global -> shared, asynchronously: the first src_size
 // bytes from src, the rest 0. L2: through L2 only (16 bytes), for data other
 // SMs wrote earlier in the same launch.
-template <int BYTES, bool L2 = false>
-static __device__ __forceinline__ void wave_copy(float* dst, const float* src, int src_size) {
+template <int BYTES, bool L2 = false, class P = float>
+static __device__ __forceinline__ void wave_copy(P* dst, const P* src, int src_size) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (L2)
     asm volatile("cp.async.cg.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
@@ -218,13 +244,13 @@ static __device__ __forceinline__ void wave_wait() {
 // arguments (unused by kernel 1); `ring`: the ring trigger kernel's (RING:
 // u and f are the shard's own rows x n block, ext_r its halo rows, ext_c 0).
 template <bool SHARD, int K, int E, bool ALL, int LEG = WV_SMOOTH, bool RING = false,
-          int AHEAD = 0>
+          int AHEAD = 0, class T = float>
 static __device__ __forceinline__ void wave2_pass(
-    const float* __restrict__ u, const float* __restrict__ f, float* __restrict__ out,
+    const T* __restrict__ u, const T* __restrict__ f, T* __restrict__ out,
     float* __restrict__ partials, const Geo& g_, int ext_r, int ext_c, int chunk_rows,
     int stride, int from_zero, int even_only, float h2, float omega, float inv_h2,
-    float zero_coef, const WaveLeg& leg = WaveLeg{}, const WaveRing& ring = WaveRing{}) {
-  using S = WaveShape<K, E, ALL, LEG, RING, AHEAD>;
+    float zero_coef, const WaveLegT<T>& leg = WaveLegT<T>{}, const WaveRing& ring = WaveRing{}) {
+  using S = WaveShape<K, E, ALL, LEG, RING, AHEAD, T>;
   extern __shared__ float wv_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -237,15 +263,15 @@ static __device__ __forceinline__ void wave2_pass(
   const int tx = w_id % tx_n, ch = w_id / tx_n;
   const int a = ch * chunk_rows, b = min(a + chunk_rows, g.rows);
 
-  float* const ring_f = wv_smem + warp * S::WARP_FLOATS;   // [NF][WV_ROW]
-  float* const ring_u = ring_f + S::NF * WV_ROW;            // [NU][WV_ROW]
-  float* const xrow = ring_u + S::NU * WV_ROW;              // a row between layouts
+  T* const ring_f = reinterpret_cast<T*>(wv_smem + warp * S::WARP_FLOATS);   // [NF][ROW]
+  T* const ring_u = ring_f + S::NF * S::ROW;                // [NU][ROW]
+  float* const xrow = reinterpret_cast<float*>(ring_u + S::NU * S::ROW);   // between layouts
   float* const acc = xrow + WV_COLS;                        // [NL][8][32]
-  float* const ring_c = acc + S::NL * 8 * 32;               // ascend: [NC][WV_CROW]
+  T* const ring_c = reinterpret_cast<T*>(acc + S::NL * 8 * 32);   // ascend: [NC][CROW]
   const int lc = WV_SLOTS * lane;                           // the lane's first column
 
   // the input windows (u's and f's share their geometry), cut to the grid
-  const Win wf = region<SHARD>(f, g, ext_r, ext_c);
+  const WinT<T> wf = region<SHARD>(f, g, ext_r, ext_c);
   const int r_lo = max(0, wf.r0), r_hi = min(n, wf.r0 + wf.rows);
   const int c_lo = max(0, wf.c0), c_hi = min(n, wf.c0 + wf.cols);
   const int gc0 = g.col0 + tx * TILE_W - WV_PAD;   // global column of staged column 0
@@ -267,12 +293,12 @@ static __device__ __forceinline__ void wave2_pass(
     own_m |= (own ? 1u : 0u) << q;
     err_m[q] = wave_mask(own && gj >= sp.j_lo && gj <= sp.j_hi);
   }
-  // staged column 0 of window row gi lies at float offset (q + gi·cols) & 3
-  // of a 16-byte chunk, q for u's and f's base addresses
+  // staged column 0 of window row gi lies at value offset (q + gi·cols) &
+  // (EL − 1) of a 16-byte chunk, q for u's and f's base addresses
   const unsigned cols = (unsigned)wf.cols;
   const unsigned q0 = (unsigned)(gc0 - wf.c0) - (unsigned)wf.r0 * cols;
-  const unsigned qf = (unsigned)(reinterpret_cast<uintptr_t>(f) >> 2) + q0;
-  const unsigned qu = (unsigned)(reinterpret_cast<uintptr_t>(u) >> 2) + q0;
+  const unsigned qf = (unsigned)(reinterpret_cast<uintptr_t>(f) >> S::LOG) + q0;
+  const unsigned qu = (unsigned)(reinterpret_cast<uintptr_t>(u) >> S::LOG) + q0;
   const int par = gt0 & 1;                         // parity of the lane's tile columns
 #pragma unroll
   for (int i = 0; i < S::NL * 8; ++i) acc[i * 32 + lane] = 0.0f;
@@ -280,7 +306,7 @@ static __device__ __forceinline__ void wave2_pass(
   // RING: global row gi's column 0 in the shard's block or, beyond it, in
   // its receive buffers (the pointer of a row outside the window is never
   // read)
-  auto ring_row = [&](const float* own, const float* top, const float* bot, int gi) {
+  auto ring_row = [&](auto own, const float* top, const float* bot, int gi) {
     const int le = gi - g.row0;
     return le < 0 ? top + (ptrdiff_t)le * n
                   : (le < g.rows ? own + (ptrdiff_t)le * n : bot + (ptrdiff_t)(le - g.rows) * n);
@@ -290,29 +316,30 @@ static __device__ __forceinline__ void wave2_pass(
   // up to the window's last column of the row (none outside its rows).
   // Else: lane copying staged columns lane + 32c of the window. RING: the
   // row from ring_row, its offset within a chunk from its address.
-  auto fetch_row = [&](const float* __restrict__ src, unsigned q, int gi, float* dst,
+  auto fetch_row = [&](const T* __restrict__ src, unsigned q, int gi, T* dst,
                        const float* top, const float* bot) {
     const bool rin = gi >= r_lo && gi < r_hi;
     if constexpr (S::CHUNKS) {
-      const float* at = nullptr;
+      const T* at = nullptr;
       int m;
       if constexpr (RING) {
         at = ring_row(src, top, bot, gi) + gc0;
-        m = (int)((reinterpret_cast<uintptr_t>(at) >> 2) & 3);
+        m = (int)((reinterpret_cast<uintptr_t>(at) >> S::LOG) & (S::EL - 1));
       } else {
-        m = (int)((q + (unsigned)gi * cols) & 3);
+        m = (int)((q + (unsigned)gi * cols) & (S::EL - 1));
       }
-      const float* const row0 =
+      const T* const row0 =
           RING ? at - m : src + (ptrdiff_t)(gi - wf.r0) * wf.cols + (gc0 - wf.c0) - m;
       auto chunk = [&](int k) {
-        const int cs = gc0 - m + 4 * k;   // global column of the chunk's first float
-        const int bytes = rin && cs + 4 > c_lo && cs < c_hi ? 4 * min(4, c_hi - cs) : 0;
-        wave_copy<16, RING>(dst + 4 * k, bytes ? row0 + 4 * k : src, bytes);
+        const int cs = gc0 - m + S::EL * k;   // global column of the chunk's first value
+        const int bytes =
+            rin && cs + S::EL > c_lo && cs < c_hi ? (int)sizeof(T) * min(S::EL, c_hi - cs) : 0;
+        wave_copy<16, RING>(dst + S::EL * k, bytes ? row0 + S::EL * k : src, bytes);
       };
-      chunk(lane);
-      if (lane < WV_CHUNKS - 32) chunk(lane + 32);
+      if (S::CH >= 32 || lane < S::CH) chunk(lane);
+      if (lane < S::CH - 32) chunk(lane + 32);
     } else {
-      const float* const row = src + (ptrdiff_t)(gi - wf.r0) * wf.cols + (gc0 - wf.c0) + lane;
+      const T* const row = src + (ptrdiff_t)(gi - wf.r0) * wf.cols + (gc0 - wf.c0) + lane;
 #pragma unroll
       for (int c = 0; c < WV_SLOTS; ++c) {
         const int gl = gc0 + lane + 32 * c;
@@ -323,26 +350,42 @@ static __device__ __forceinline__ void wave2_pass(
   };
   // ascend: coarse row I of c's window (its columns from gc0 / 2, the first
   // the staged columns read; 0 outside the window and the m x m grid) into
-  // its ring slot, lane copying columns lane + 32t
+  // its ring slot, lane copying columns lane + 32t; bf16: lane copying chunk
+  // lane from the one that holds column j0 (at value offset coffset(I) of
+  // it), as fetch_row does
+  const WinT<T>& cwin = leg.c;
+  const int j0 = gc0 >> 1;
+  auto coffset = [&](int I) {
+    return (int)((reinterpret_cast<uintptr_t>(cwin.p + (ptrdiff_t)(I - cwin.r0) * cwin.cols +
+                                              (j0 - cwin.c0)) >> S::LOG) & (S::EL - 1));
+  };
   auto fetch_coarse = [&](int I) {
-    const Win& c = leg.c;
-    const int m = (n + 1) / 2, j0 = gc0 >> 1;
-    const bool rin = I >= max(0, c.r0) && I < min(m, c.r0 + c.rows);
-    const int j_lo = max(0, c.c0), j_hi = min(m, c.c0 + c.cols);
-    const float* const row = c.p + (ptrdiff_t)(I - c.r0) * c.cols + (j0 - c.c0) + lane;
-    float* const dst = ring_c + (I & (WV_CRING - 1)) * WV_CROW + lane;
+    const int m = (n + 1) / 2;
+    const bool rin = I >= max(0, cwin.r0) && I < min(m, cwin.r0 + cwin.rows);
+    const int j_lo = max(0, cwin.c0), j_hi = min(m, cwin.c0 + cwin.cols);
+    if constexpr (sizeof(T) == 4) {
+      const T* const row = cwin.p + (ptrdiff_t)(I - cwin.r0) * cwin.cols + (j0 - cwin.c0) + lane;
+      T* const dst = ring_c + (I & (WV_CRING - 1)) * S::CROW + lane;
 #pragma unroll
-    for (int t = 0; t < WV_CROW / 32; ++t) {
-      const int gj = j0 + lane + 32 * t;
-      const bool ok = rin && gj >= j_lo && gj < j_hi;
-      wave_copy<4>(dst + 32 * t, ok ? row + 32 * t : c.p, ok ? 4 : 0);
+      for (int t = 0; t < WV_CROW / 32; ++t) {
+        const int gj = j0 + lane + 32 * t;
+        const bool ok = rin && gj >= j_lo && gj < j_hi;
+        wave_copy<4>(dst + 32 * t, ok ? row + 32 * t : cwin.p, ok ? 4 : 0);
+      }
+    } else {
+      const int cs = j0 - coffset(I) + S::EL * lane;   // coarse column of the chunk's first
+      const int bytes =
+          rin && cs + S::EL > j_lo && cs < j_hi ? (int)sizeof(T) * min(S::EL, j_hi - cs) : 0;
+      const T* const src = cwin.p + (ptrdiff_t)(I - cwin.r0) * cwin.cols + (cs - cwin.c0);
+      T* const dst = ring_c + (I & (WV_CRING - 1)) * S::CROW + S::EL * lane;
+      if (lane < S::CCH) wave_copy<16>(dst, bytes ? src : cwin.p, bytes);
     }
   };
   // row gi of f (and u) into ring slots fs (us); ascend: with coarse row
   // (gi + 1) / 2 for odd gi, the first fine row that reads it
   auto fetch = [&](int gi, int fs, int us) {
-    fetch_row(f, qf, gi, ring_f + fs * WV_ROW, ring.f_top, ring.f_bot);
-    if (!from_zero) fetch_row(u, qu, gi, ring_u + us * WV_ROW, ring.u_top, ring.u_bot);
+    fetch_row(f, qf, gi, ring_f + fs * S::ROW, ring.f_top, ring.f_bot);
+    if (!from_zero) fetch_row(u, qu, gi, ring_u + us * S::ROW, ring.u_top, ring.u_bot);
     if constexpr (LEG == WV_ASCEND) {
       if (gi & 1) fetch_coarse((gi + 1) >> 1);
     }
@@ -353,12 +396,13 @@ static __device__ __forceinline__ void wave2_pass(
   // reads coarse column gj >> 1 at ring column (lc + c) >> 1, and an odd gj
   // the next one too; gc0 is even, so gj is odd where lane + c is
   auto wide_row = [&](int I, float (&w)[WV_SLOTS]) {
-    const float* const cr = ring_c + (I & (WV_CRING - 1)) * WV_CROW + (lc >> 1);
+    const T* cr = ring_c + (I & (WV_CRING - 1)) * S::CROW + (lc >> 1);
+    if constexpr (sizeof(T) != 4) cr += coffset(I);
     float cc[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) cc[k] = cr[k];
+    for (int k = 0; k < 4; ++k) cc[k] = to_f(cr[k]);
     const unsigned odd = wave_mask(lane & 1);
-    auto half = [](float a, float b) { return __fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, b)); };
+    auto half = [](float a, float b) { return half_sum<T>(a, b); };
 #pragma unroll
     for (int c = 0; c < WV_SLOTS; ++c) {
       if (c % 2 == 0)   // even lanes: gj even; odd lanes: gj odd
@@ -370,13 +414,14 @@ static __device__ __forceinline__ void wave2_pass(
   // the float offset within its chunk at which window row gi starts in a
   // ring row (0 without chunks), and this lane's columns of f's ring row
   // `slot` holding row gi
-  auto shift = [&](unsigned q, const float* own, const float* top, const float* bot, int gi) {
+  auto shift = [&](unsigned q, const T* own, const float* top, const float* bot, int gi) {
     if constexpr (RING)
-      return (int)((reinterpret_cast<uintptr_t>(ring_row(own, top, bot, gi) + gc0) >> 2) & 3);
-    return S::CHUNKS ? (int)((q + (unsigned)gi * cols) & 3) : 0;
+      return (int)((reinterpret_cast<uintptr_t>(ring_row(own, top, bot, gi) + gc0) >> S::LOG) &
+                   (S::EL - 1));
+    return S::CHUNKS ? (int)((q + (unsigned)gi * cols) & (S::EL - 1)) : 0;
   };
   auto at_f = [&](int slot, int gi) {
-    return ring_f + slot * WV_ROW + shift(qf, f, ring.f_top, ring.f_bot, gi) + lc;
+    return ring_f + slot * S::ROW + shift(qf, f, ring.f_top, ring.f_bot, gi) + lc;
   };
 
   // row v (this lane's columns lc + c) into the tile layout: thread lane's
@@ -401,10 +446,10 @@ static __device__ __forceinline__ void wave2_pass(
     float t[TILE_W / 32];
     exchange(v, t);
     const int le = gi - g.row0;
-    float* const row = out + (ptrdiff_t)le * g.cols + (gt0 - g.col0);
+    T* const row = out + (ptrdiff_t)le * g.cols + (gt0 - g.col0);
 #pragma unroll
     for (int q = 0; q < TILE_W / 32; ++q)
-      if ((own_m >> q) & 1) row[32 * q] = t[q];
+      if ((own_m >> q) & 1) row[32 * q] = from_f<T>(t[q]);
     if constexpr (RING) {
       float* const rows[2] = {
           ring.up && le < ring.post_rows ? ring.up + (ptrdiff_t)le * n + gt0 : nullptr,
@@ -464,22 +509,21 @@ static __device__ __forceinline__ void wave2_pass(
     for (int c = 0; c < WV_SLOTS; ++c) d[c] = wave_pick(rim & int_m[c], -res[c], 0.0f);
     const int I = gi >> 1;   // full weighting: row 2I + 1; sampling: row 2I
     if ((gi & 1) == fw && 2 * I >= ga && 2 * I < gb) {
-      auto comb = [](float x, float y, float z) {
-        return __fadd_rn(__fadd_rn(__fmul_rn(0.25f, x), __fmul_rn(0.5f, y)), __fmul_rn(0.25f, z));
-      };
+      auto comb = [](float x, float y, float z) { return fw_comb<T>(x, y, z); };
       __syncwarp();
 #pragma unroll
       for (int c = 0; c < WV_SLOTS; ++c) xrow[lc + c] = fw ? comb(dm2[c], dm1[c], d[c]) : d[c];
       __syncwarp();
       const int m = (n + 1) / 2, ccols = (g.cols + 1) / 2;
       const unsigned row_in = wave_mask(I >= 1 && I <= m - 2);
-      float* const row = leg.fc + (ptrdiff_t)(I - (g.row0 >> 1)) * ccols;
+      T* const row = leg.fc + (ptrdiff_t)(I - (g.row0 >> 1)) * ccols;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {   // coarse columns lane + 32q of the strip's 64
         const int j = WV_PAD + 2 * lane + 64 * q;   // the staged column of fine 2J
         const float v = fw ? comb(xrow[j - 1], xrow[j], xrow[j + 1]) : xrow[j];
         const int lJ = tx * (TILE_W / 2) + lane + 32 * q, J = (g.col0 >> 1) + lJ;
-        if (lJ < ccols) row[lJ] = wave_pick(row_in & wave_mask(J >= 1 && J <= m - 2), v, 0.0f);
+        if (lJ < ccols)
+          row[lJ] = from_f<T>(wave_pick(row_in & wave_mask(J >= 1 && J <= m - 2), v, 0.0f));
       }
     }
 #pragma unroll
@@ -518,17 +562,18 @@ static __device__ __forceinline__ void wave2_pass(
 
     // level 0 at row r
     float cur[WV_SLOTS];
-    const float* const fr = at_f(fs, r);
+    const T* const fr = at_f(fs, r);
     if (from_zero) {
       const unsigned ri = wave_mask(r >= 1 && r <= n - 2);
 #pragma unroll
       for (int c = 0; c < WV_SLOTS; ++c)
-        cur[c] = LEG == WV_RBGS ? 0.0f
-                                : wave_pick(ri & int_m[c], __fmul_rn(zero_coef, fr[c]), 0.0f);
+        cur[c] = LEG == WV_RBGS
+                     ? 0.0f
+                     : wave_pick(ri & int_m[c], rnd<T>(__fmul_rn(zero_coef, to_f(fr[c]))), 0.0f);
     } else {
 #pragma unroll
       for (int c = 0; c < WV_SLOTS; ++c)
-        cur[c] = ring_u[us * WV_ROW + shift(qu, u, ring.u_top, ring.u_bot, r) + lc + c];
+        cur[c] = to_f(ring_u[us * S::ROW + shift(qu, u, ring.u_top, ring.u_bot, r) + lc + c]);
       if constexpr (LEG == WV_ASCEND) {
         // + prolong(c) on the interior: coarse row r >> 1 (interpolated at
         // step r − 1, or now at the chunk's first row), and for odd r the
@@ -540,7 +585,7 @@ static __device__ __forceinline__ void wave2_pass(
           wide_row((r >> 1) + 1, wn);
 #pragma unroll
           for (int c = 0; c < WV_SLOTS; ++c) {
-            p[c] = __fadd_rn(__fmul_rn(0.5f, wc[c]), __fmul_rn(0.5f, wn[c]));
+            p[c] = half_sum<T>(wc[c], wn[c]);
             wc[c] = wn[c];
           }
         } else {
@@ -550,7 +595,7 @@ static __device__ __forceinline__ void wave2_pass(
         const unsigned ri = wave_mask(r >= 1 && r <= n - 2);
 #pragma unroll
         for (int c = 0; c < WV_SLOTS; ++c)
-          cur[c] = wave_pick(ri & int_m[c], __fadd_rn(cur[c], p[c]), cur[c]);
+          cur[c] = wave_pick(ri & int_m[c], rnd<T>(__fadd_rn(cur[c], p[c])), cur[c]);
       }
     }
     if (K == 0) {
@@ -566,7 +611,7 @@ static __device__ __forceinline__ void wave2_pass(
       const bool ri = gi >= 1 && gi <= n - 2;
       int sl = fs - s;
       if (sl < 0) sl += S::NF;
-      const float* const fl = at_f(sl, gi);
+      const T* const fl = at_f(sl, gi);
       const float (&uc)[WV_SLOTS] = cw[s - 1];
       // the side neighbours: the lane's own columns, and one column of each
       // adjacent lane (staged columns −1 and WV_COLS read a lane's own)
@@ -582,8 +627,8 @@ static __device__ __forceinline__ void wave2_pass(
       for (int c = 0; c < WV_SLOTS; ++c) {
         const float we = c > 0 ? uc[c - 1] : left;
         const float ea = c < WV_SLOTS - 1 ? uc[c + 1] : right;
-        const float nb = __fadd_rn(__fadd_rn(__fadd_rn(nw[s - 1][c], cur[c]), we), ea);
-        const float fc = fl[c];
+        const float nb = nb_add<T>(nw[s - 1][c], cur[c], we, ea);
+        const float fc = to_f(fl[c]);
         if constexpr (LEG == WV_RBGS) {
           if (s <= K)
             nxt[c] = wave_pick(int_m[c] & (even_m[c] ^ flip),
@@ -592,8 +637,9 @@ static __device__ __forceinline__ void wave2_pass(
             res[c] = __fmul_rn(0.25f, __fsub_rn(__fsub_rn(nb, __fmul_rn(4.0f, uc[c])),
                                                 __fmul_rn(h2, fc)));
         } else {
-          if (s <= K) nxt[c] = wave_pick(int_m[c], jacobi_point(nb, uc[c], fc, h2, omega), uc[c]);
-          if (res_here) res[c] = residual_point(nb, uc[c], fc, inv_h2);
+          if (s <= K)
+            nxt[c] = wave_pick(int_m[c], jacobi_point<T>(nb, uc[c], fc, h2, omega), uc[c]);
+          if (res_here) res[c] = residual_point<T>(nb, uc[c], fc, inv_h2);
         }
       }
       // a frozen row (uniform across the warp); RING: a level above the
@@ -609,7 +655,7 @@ static __device__ __forceinline__ void wave2_pass(
       if (E == WV_GPU && s <= K && (ALL || s == K)) {
         float d[WV_SLOTS];
 #pragma unroll
-        for (int c = 0; c < WV_SLOTS; ++c) d[c] = __fsub_rn(nxt[c], uc[c]);
+        for (int c = 0; c < WV_SLOTS; ++c) d[c] = rnd<T>(__fsub_rn(nxt[c], uc[c]));
         add(ALL ? s - 1 : 0, gi, d);
       }
 #pragma unroll
@@ -661,9 +707,21 @@ static inline int wave2_chunk_rows(const Geo& g, int resident, int halo) {
 // 4), a multiple of TILE_H; 0: the occupancy rule's. Set by
 // mg_wave2_force_rows (jacobi.cu, which defines it).
 extern int wave2_forced_rows;
-// The legs' route for every launch: 0 the size rule of each leg, 1 the tile
-// kernel, 2 the wavefront. Set by mg_legs_force_route (jacobi.cu).
+// The legs' route for every launch: 0 the size rule (legs_take_wave), 1 the
+// tile kernel, 2 the wavefront. Set by mg_legs_force_route (jacobi.cu).
 extern int legs_forced_route;
+
+// The size rule of kernels 3 and 4 (descend.cu, ascend.cu and their bf16
+// modes): a launch on an owned region of rows x cols cells takes the
+// wavefront from min_cells cells, else the tile kernel; or the forced
+// route. The fp32 legs' crossover is 1.5 M cells (3 · 2^19: between 1025²'s
+// 1.05 M and a 512 x 4097 shard's 2.1 M; measured in descend.cu's and
+// ascend.cu's headers); the bf16 legs pass their own (descend_bf16.cu,
+// ascend_bf16.cu).
+static inline bool legs_take_wave(long rows, long cols, long min_cells = 3L << 19) {
+  if (legs_forced_route) return legs_forced_route == 2;
+  return rows * cols >= min_cells;
+}
 
 static inline int wave2_rows(const Geo& g, int resident, int halo) {
   return wave2_forced_rows ? wave2_forced_rows : wave2_chunk_rows(g, resident, halo);
@@ -677,7 +735,7 @@ static inline dim3 wave_grid(const Geo& g, int rows, int warps_per_block) {
 
 // The wavefront's 16-byte copies read from u's and f's 16-byte chunks: both
 // must start on one (u may be null from zero).
-static inline bool misaligned(const float* u, const float* f) {
+static inline bool misaligned(const void* u, const void* f) {
   return ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(f)) & 15) != 0;
 }
 

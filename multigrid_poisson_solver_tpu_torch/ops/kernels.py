@@ -32,6 +32,14 @@ plain PyTorch twin (``*_torch``, built from the oracle ops in
 a build or launch failure, or an input the kernel does not take (not fp32,
 not contiguous, wrong shape), raises. There is no fallback.
 
+bf16 states: ``fused_jacobi``, ``fused_jacobi_err``, ``residual``,
+``fused_descend`` and ``fused_ascend`` also take bfloat16 grids on the whole
+grid (``csrc/*_bf16.cu``, the bf16 modes of kernels 1-4, counted under
+``*_bf16``): bit for bit their twins run on bf16 tensors, which PyTorch
+computes op by op in float and rounds to bf16; the error partials are
+float, the error a bf16 scalar. Every other entry point takes float32 only
+(ROADMAP Queue 2 A2).
+
 ``launches`` counts kernel launches per kernel (the ``sum_partials`` second
 pass of an error reduction belongs to the launch it finishes); it lets a run
 show that the main path went through the kernels. A chain call counts the
@@ -86,7 +94,9 @@ launches = {"jacobi": 0, "jacobi_errs": 0, "rbgs": 0, "residual": 0, "residual_m
             "jacobi_shard": 0, "jacobi_errs_shard": 0, "rbgs_shard": 0, "residual_shard": 0,
             "descend_shard": 0, "ascend_shard": 0, "rdma_jacobi": 0, "rdma_trigger": 0,
             # the 3-D ring kernels (ops.rdma3)
-            "rdma_jacobi3": 0, "rdma_descend3": 0, "rdma_ascend3": 0, "rdma_trigger3": 0}
+            "rdma_jacobi3": 0, "rdma_descend3": 0, "rdma_ascend3": 0, "rdma_trigger3": 0,
+            # the bf16 modes of kernels 1-4
+            "jacobi_bf16": 0, "residual_bf16": 0, "descend_bf16": 0, "ascend_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -401,19 +411,23 @@ def trigger_smooth_torch(u, f, h: float, omega: float = 1.0, compat=True,
 
 # --- CUDA launches ---------------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype} here, got {t.dtype}"
+                        + ("" if dtype != torch.float32 else
+                           " (bfloat16 only on kernels 1-4, ROADMAP Queue 2 A2)"))
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _grid_args(f: torch.Tensor, aligned: bool = False):
-    """Validate the level's f and return (n, device, library, stream)."""
+def _grid_args(f: torch.Tensor, aligned: bool = False, bf16: bool = False):
+    """Validate the level's f and return (n, device, library, stream).
+    ``bf16``: the entry point has a bf16 mode (kernels 1-4), so f may be
+    bfloat16 too; the caller checks the other grids against f's dtype."""
     from . import build
 
     if not f.is_cuda:
@@ -422,7 +436,8 @@ def _grid_args(f: torch.Tensor, aligned: bool = False):
     if f.dim() != 2 or f.shape[1] != n or n < 3 or (aligned and n % 2 == 0):
         raise ValueError(f"expected an (n, n) level with n >= 3"
                          f"{' odd (2:1-aligned)' if aligned else ''}, got {tuple(f.shape)}")
-    _check("f", f, (n, n), f.device)
+    _check("f", f, (n, n), f.device,
+           f.dtype if bf16 and f.dtype == torch.bfloat16 else torch.float32)
     if f.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {f.device}, but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -477,8 +492,8 @@ _LEG_ROUTES = {"tile": 1, "wave": 2}
 def forced_leg_route(route: str):
     """The legs' launches (kernels 3 and 4, whole grid and shard mode) on
     one route, ``"tile"`` (legs.cuh's tile kernel) or ``"wave"`` (the
-    wavefront), instead of the one each leg's size rule picks
-    (``csrc/descend.cu``, ``csrc/ascend.cu``): lets a check or a timing
+    wavefront), instead of the one the legs' size rule picks
+    (``legs_take_wave`` in ``csrc/wave2.cuh``): lets a check or a timing
     reach both at any size. Both are bit for bit the plain twins'."""
     from . import build
 
@@ -544,28 +559,37 @@ def forced_trigger_batch(batch: int):
         lib.mg_trigger_force_batch(0)
 
 
-def _err_buffers(lib, mode, n: int, device):
-    """(per-tile partials, the 1-element metric), or Nones without an error."""
+def _err_buffers(lib, mode, n: int, device, dtype=torch.float32):
+    """(per-tile float partials, the 1-element metric in the state's dtype),
+    or Nones without an error."""
     if mode is None:
         return None, None
     return (torch.empty(lib.mg_num_tiles(n), dtype=torch.float32, device=device),
-            torch.empty(1, dtype=torch.float32, device=device))
+            torch.empty(1, dtype=dtype, device=device))
+
+
+def _mode(name: str, f: torch.Tensor, lib):
+    """(the C entry point of kernel ``name`` for f's dtype, its launch
+    count's key): the fp32 one, or its bf16 mode (``mg_<name>_bf16``)."""
+    key = name + ("_bf16" if f.dtype == torch.bfloat16 else "")
+    return getattr(lib, "mg_" + key), key
 
 
 def _jacobi_cuda(u, f, h: float, steps: int, omega: float, from_zero: bool, mode):
     """One ≤8-sweep launch; returns (u, err or None)."""
-    n, dev, lib, stream = _grid_args(f)
+    n, dev, lib, stream = _grid_args(f, bf16=True)
     if not from_zero:
-        _check("u", u, (n, n), dev)
+        _check("u", u, (n, n), dev, f.dtype)
     out = torch.empty_like(f)
-    partials, err = _err_buffers(lib, mode, n, dev)
+    partials, err = _err_buffers(lib, mode, n, dev, f.dtype)
     u, f = _aligned(None if from_zero else u), _aligned(f)
-    rc = lib.mg_jacobi(_ptr(u), f.data_ptr(), out.data_ptr(),
-                       _ptr(partials), _ptr(err), n, steps, int(from_zero),
-                       _ERR_CODES[mode], h * h, omega, 1.0 / (h * h), _zero_coef(h, omega),
-                       _err_scale(mode, n, h) if mode else 0.0, stream)
-    _raise_on(lib, rc, "jacobi")
-    launches["jacobi"] += 1
+    fn, key = _mode("jacobi", f, lib)
+    rc = fn(_ptr(u), f.data_ptr(), out.data_ptr(),
+            _ptr(partials), _ptr(err), n, steps, int(from_zero),
+            _ERR_CODES[mode], h * h, omega, 1.0 / (h * h), _zero_coef(h, omega),
+            _err_scale(mode, n, h) if mode else 0.0, stream)
+    _raise_on(lib, rc, key)
+    launches[key] += 1
     return out, (None if err is None else err.reshape(()))
 
 
@@ -611,13 +635,13 @@ def residual(u, f, h: float, negate: bool = False):
     of ``residual_pallas``)."""
     if not f.is_cuda:
         return residual_torch(u, f, h, negate)
-    n, dev, lib, stream = _grid_args(f)
-    _check("u", u, (n, n), dev)
+    n, dev, lib, stream = _grid_args(f, bf16=True)
+    _check("u", u, (n, n), dev, f.dtype)
     r = torch.empty_like(f)
-    rc = lib.mg_residual(u.data_ptr(), f.data_ptr(), r.data_ptr(), n, 1.0 / (h * h),
-                         int(negate), stream)
-    _raise_on(lib, rc, "residual")
-    launches["residual"] += 1
+    fn, key = _mode("residual", f, lib)
+    rc = fn(u.data_ptr(), f.data_ptr(), r.data_ptr(), n, 1.0 / (h * h), int(negate), stream)
+    _raise_on(lib, rc, key)
+    launches[key] += 1
     return r
 
 
@@ -634,22 +658,23 @@ def fused_descend(u, f, h: float, steps: int, omega: float = 1.0,
         return fused_descend_torch(u, f, h, steps, omega, restriction, compat,
                                    want_err, from_zero)
     _check_steps(steps)
-    n, dev, lib, stream = _grid_args(f, aligned=True)
+    n, dev, lib, stream = _grid_args(f, aligned=True, bf16=True)
     if not from_zero:
-        _check("u", u, (n, n), dev)
+        _check("u", u, (n, n), dev, f.dtype)
     m = (n + 1) // 2
     out = torch.empty_like(f)
     fc = torch.empty((m, m), dtype=f.dtype, device=dev)
     mode = err_mode_of(compat) if want_err else None
-    partials, err = _err_buffers(lib, mode, n, dev)
+    partials, err = _err_buffers(lib, mode, n, dev, f.dtype)
     u, f = _aligned(None if from_zero else u), _aligned(f)
-    rc = lib.mg_descend(_ptr(u), f.data_ptr(), out.data_ptr(),
-                        fc.data_ptr(), _ptr(partials), _ptr(err), n, steps, int(from_zero),
-                        int(restriction == "full_weighting"), _ERR_CODES[mode], h * h, omega,
-                        1.0 / (h * h), _zero_coef(h, omega),
-                        _err_scale(mode, n, h) if mode else 0.0, stream)
-    _raise_on(lib, rc, "descend")
-    launches["descend"] += 1
+    fn, key = _mode("descend", f, lib)
+    rc = fn(_ptr(u), f.data_ptr(), out.data_ptr(),
+            fc.data_ptr(), _ptr(partials), _ptr(err), n, steps, int(from_zero),
+            int(restriction == "full_weighting"), _ERR_CODES[mode], h * h, omega,
+            1.0 / (h * h), _zero_coef(h, omega),
+            _err_scale(mode, n, h) if mode else 0.0, stream)
+    _raise_on(lib, rc, key)
+    launches[key] += 1
     return out, fc, (None if err is None else err.reshape(()))
 
 
@@ -662,19 +687,23 @@ def fused_ascend(u, f, uc, h: float, steps: int, omega: float = 1.0, compat=True
     if not f.is_cuda:
         return fused_ascend_torch(u, f, uc, h, steps, omega, compat, want_err)
     _check_steps(steps)
-    n, dev, lib, stream = _grid_args(f, aligned=True)
+    n, dev, lib, stream = _grid_args(f, aligned=True, bf16=True)
     m = (n + 1) // 2
-    _check("u", u, (n, n), dev)
-    _check("uc", uc, (m, m), dev)
+    _check("u", u, (n, n), dev, f.dtype)
+    _check("uc", uc, (m, m), dev, f.dtype)
     out = torch.empty_like(f)
     mode = err_mode_of(compat) if want_err else None
-    partials, err = _err_buffers(lib, mode, n, dev)
+    partials, err = _err_buffers(lib, mode, n, dev, f.dtype)
+    # the bf16 mode copies the coarse rows in 16-byte chunks too
     u, f = _aligned(u), _aligned(f)
-    rc = lib.mg_ascend(u.data_ptr(), f.data_ptr(), uc.data_ptr(), out.data_ptr(),
-                       _ptr(partials), _ptr(err), n, steps, _ERR_CODES[mode], h * h, omega,
-                       1.0 / (h * h), _err_scale(mode, n, h) if mode else 0.0, stream)
-    _raise_on(lib, rc, "ascend")
-    launches["ascend"] += 1
+    if f.dtype == torch.bfloat16:
+        uc = _aligned(uc)
+    fn, key = _mode("ascend", f, lib)
+    rc = fn(u.data_ptr(), f.data_ptr(), uc.data_ptr(), out.data_ptr(),
+            _ptr(partials), _ptr(err), n, steps, _ERR_CODES[mode], h * h, omega,
+            1.0 / (h * h), _err_scale(mode, n, h) if mode else 0.0, stream)
+    _raise_on(lib, rc, key)
+    launches[key] += 1
     return out, (None if err is None else err.reshape(()))
 
 

@@ -18,10 +18,18 @@ JAX runs the whole loop as one ``lax.while_loop`` on the device. Here the
 host drives it: per cycle one engine cycle, the add, one residual launch,
 one norm and one read of the relative residual to the host for the stop
 test. The residual of the df32 and tw32 states is the multi-word kernel's
-function on every path (its plain twin on the CPU and with
-``kernels="torch"``), so the kernel and plain runs compute the same
-refinement; with two words both get the doubly compensated chain, which is
-more accurate than ``residual_df_p`` (kept here as JAX's form).
+function on every path (its plain twin on the CPU, with
+``kernels="torch"`` and under a policy), so the kernel and plain runs
+compute the same refinement; with two words both get the doubly compensated
+chain, which is more accurate than ``residual_df_p`` (kept here as JAX's
+form).
+
+Under a sharding policy (``policy=``, JAX's ``refine.py`` 2-D policy
+argument) the correction cycle runs on the policy's mesh
+(``CompiledCycle(policy=...)``, which lays each right-hand side out by it)
+and the state lives on the mesh's first device as (n, n) words: the port's
+levels carry no padding, so JAX's padded layout has no counterpart. The
+residual is then the plain multi-word one, as JAX's is under a policy.
 """
 
 from __future__ import annotations
@@ -128,13 +136,19 @@ class IterativeRefinementSolver:
       * "f64": a float64 state and a float64 residual (plain PyTorch).
 
     ``inner_dtype`` (e.g. ``torch.bfloat16``) runs the correction cycles in
-    another dtype, on the plain path only: the CUDA kernels take float32.
-    Runs on ``device`` ("cuda" unless the caller asks for "cpu").
+    another dtype. bfloat16 runs on the CUDA kernels (the bf16 modes of
+    kernels 1-4) for a fixed-step Jacobi program without a policy, as the
+    default V(3,3) is; the outer state, the multi-word residual and the add
+    stay float32. Other dtypes, and bfloat16 elsewhere, need
+    ``kernels="torch"`` (the engine's admission rule raises otherwise).
+    ``policy``: a ``parallel.mesh`` sharding policy for the correction
+    cycles (float32 only). Runs on ``device`` ("cuda" unless the caller asks
+    for "cpu"; the mesh's first device under a policy).
     """
 
     def __init__(self, problem: Problem, n: int, program: Optional[CycleProgram] = None,
                  config: Optional[SolverConfig] = None, max_cycles: int = 60,
-                 state: str = "df32", inner_dtype: Any = None, device="cuda"):
+                 state: str = "df32", inner_dtype: Any = None, device="cuda", policy=None):
         if state not in STATES:
             raise ValueError(f"unknown state {state!r}; expected 'df32', 'tw32', or 'f64'")
         self.problem = problem
@@ -148,14 +162,16 @@ class IterativeRefinementSolver:
         self.max_cycles = max_cycles
         self.state = state
         self.inner_dtype = inner_dtype
-        self.device = torch.device(device)
+        self.policy = policy
         icfg = (self.config if inner_dtype is None
                 else dataclasses.replace(self.config, dtype=inner_dtype))
         # the correction problem: zero source, zero Dirichlet boundary; its
         # right-hand side is −r, fed per cycle
         zero_problem = Problem(source=_zero_source, name="refine-correction")
-        self._cycle = CompiledCycle(self.program, zero_problem, icfg, self.device)
-        kern = self._cycle.use_kernels
+        self._cycle = CompiledCycle(self.program, zero_problem, icfg, device, policy=policy)
+        self.device = self._cycle.device
+        # under a policy the multi-word residual is the plain one (JAX's too)
+        kern = self._cycle.use_kernels and policy is None
         self._res_df = K.residual_df if kern else K.residual_df_torch
         self._res_tw = K.residual_tw if kern else K.residual_tw_torch
 
@@ -176,7 +192,7 @@ class IterativeRefinementSolver:
         dt = self.config.dtype
         zero = torch.zeros_like(rhs, dtype=self._cycle.config.dtype)
         e, _ = self._cycle(zero, rhs.to(self._cycle.config.dtype))
-        return e.to(dt)
+        return self._cycle.unpad(e).to(dt)
 
     def _den(self, f: torch.Tensor, r0: torch.Tensor) -> torch.Tensor:
         """Convergence normalization: ‖f‖ over the interior for source-driven
@@ -338,7 +354,8 @@ class IterativeRefinementSolver:
 def solve_to_tolerance(problem: Problem, n: int, tol: float = 1e-8,
                        program: Optional[CycleProgram] = None,
                        config: Optional[SolverConfig] = None, max_cycles: int = 60,
-                       state: str = "df32", device="cuda") -> RefineReport:
-    """One call: iterative refinement until ‖r‖/‖f‖ ≤ tol."""
+                       state: str = "df32", device="cuda", policy=None) -> RefineReport:
+    """One call: iterative refinement until ‖r‖/‖f‖ ≤ tol (``policy``: the
+    correction cycles' sharding policy)."""
     return IterativeRefinementSolver(problem, n, program, config, max_cycles, state=state,
-                                     device=device).solve(tol)
+                                     device=device, policy=policy).solve(tol)

@@ -228,13 +228,25 @@ def test_refine_cli_solver_on_shared_data_prints_the_jax_cli_digits(capsys):
 
 
 def test_inner_bf16_runs_on_the_plain_path_and_is_refused_by_the_kernels(monkeypatch):
+    """bf16 inner cycles converge on the plain path, and the kernel route
+    admits them for the default fixed-step V(3,3) (kernels 1-4's bf16 modes;
+    their twins on CPU tensors, the same iterates as the plain run's fused
+    twins) but refuses a program with a trigger node (no bf16 mode of kernels
+    8, 9 or the per_sweep pass)."""
     rep = tmg.IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, 65, state="df32", max_cycles=40,
                                         inner_dtype=torch.bfloat16, device="cpu").solve(1e-7)
     assert rep.rel_residual < 1e-7
     monkeypatch.setattr(tmg.compiled, "_use_kernels", lambda cfg, device: True)
-    with pytest.raises(TypeError, match="float32"):
-        tmg.IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, 65, inner_dtype=torch.bfloat16,
-                                      device="cpu")
+    routed = tmg.IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, 65, state="df32",
+                                           max_cycles=40, inner_dtype=torch.bfloat16,
+                                           device="cpu")
+    assert routed._cycle.use_kernels
+    rep_k = routed.solve(1e-7)
+    assert rep_k.rel_residual < 1e-7 and rep_k.cycles == rep.cycles
+    trigger = tmg.v_cycle(65, n_min=8, steps=-1, coarse_option=0, coarsen=3)
+    with pytest.raises(TypeError, match="trigger node.*Queue 2 A2"):
+        tmg.IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, 65, program=trigger,
+                                      inner_dtype=torch.bfloat16, device="cpu")
 
 
 def test_schedule_fingerprint_matches_jax():

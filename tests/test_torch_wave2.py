@@ -34,7 +34,16 @@ to (chip_smoke.py phases 2 and G1):
     s sweeps, bit for bit;
   * the checks above see a wrong schedule: the emulation run with a halo a
     row short, a lane map shifted by a lane, a wrong tile-row-mod-8 index or
-    an f ring a row short fails them.
+    an f ring a row short fails them;
+  * the bf16 mode (``csrc/jacobi_bf16.cu``): the same pass on bf16 rows,
+    each op rounded to bf16 as the twin's tensors are (the emulation's ops
+    on bf16 tensors), the partials float sums of the rounded terms, against
+    the twin run on bf16 tensors bit for bit, with the mutations seen; and
+    its copy plan: every row copied in 16-byte chunks of 8 values from the
+    chunk holding the strip's first staged column, at any of 8 offsets (the
+    fp32 plan's 4), lands every staged column of the grid where the pass
+    reads it and reads no byte outside the grid, and so does the ascend
+    leg's coarse-row plan.
 
 The emulation is test code: the kernels' own schedule lives in
 csrc/wave2.cuh and its launch rule in csrc/jacobi.cu.
@@ -64,10 +73,10 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
-def _grid(n, seed):
+def _grid(n, seed, dtype=torch.float32):
     rng = np.random.default_rng(seed)
-    return (torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)),
-            torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)))
+    return (torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(dtype),
+            torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(dtype))
 
 
 def _window(x, geo):
@@ -241,7 +250,8 @@ def wave_pass(u_ext, f_ext, geo, h, steps, err=None, per_sweep=False, from_zero=
     warps = len(wav.tx)
     ga, gb = geo.row0 + wav.a, geo.row0 + wav.b
     r_end = gb + halo
-    out = torch.full((geo.rows, geo.cols), NAN)
+    dt = f_ext.dtype   # the storage type: every level and ring row rounds to it
+    out = torch.full((geo.rows, geo.cols), NAN, dtype=dt)
     levels = 0 if err is None else (k if per_sweep else 1)
     errs = _Partials(levels, wav.strips * -(-geo.rows // TILE_H), warps, geo, wav, err == "cpu",
                      mutate)
@@ -264,15 +274,15 @@ def wave_pass(u_ext, f_ext, geo, h, steps, err=None, per_sweep=False, from_zero=
         out[le[w_idx], wav.gt[w_idx, l_idx, q_idx] - geo.col0] = t[w_idx, l_idx, q_idx]
 
     shape = (warps, LANES, SLOTS)
-    ring_f = torch.full((warps, nf) + shape[1:], NAN)
-    ring_u = torch.full((warps, nu) + shape[1:], NAN)
+    ring_f = torch.full((warps, nf) + shape[1:], NAN, dtype=dt)
+    ring_u = torch.full((warps, nu) + shape[1:], NAN, dtype=dt)
     r_first = ga - halo + late
     for d in range(ahead):
         ring_f[:, d] = fetch(f_ext, r_first + d)
         if not from_zero:
             ring_u[:, d] = fetch(u_ext, r_first + d)
-    nw = [torch.full(shape, NAN) for _ in range(max(halo, 1))]
-    cw = [torch.full(shape, NAN) for _ in range(max(halo, 1))]
+    nw = [torch.full(shape, NAN, dtype=dt) for _ in range(max(halo, 1))]
+    cw = [torch.full(shape, NAN, dtype=dt) for _ in range(max(halo, 1))]
     fs = us = 0
     for i in range(rows + 2 * halo - late):
         r = r_first + i
@@ -355,12 +365,12 @@ def _terms(u_ext, f_ext, geo, h, steps, err, from_zero):
 
 # --- the cases ----------------------------------------------------------------------------------
 
-def _check(geo, steps, err, from_zero, seed, rows=None):
+def _check(geo, steps, err, from_zero, seed, rows=None, dtype=torch.float32):
     """The emulated pass against the twin (owned block bit for bit), its
     partials against legs.cuh's order bit for bit, and their sum against the
-    twin's raw error."""
+    twin's raw error (a bf16 twin's sum is rounded to bf16: 2^-8)."""
     h = 1.0 / (geo.n - 1)
-    ug, fg = _grid(geo.n, seed)
+    ug, fg = _grid(geo.n, seed, dtype)
     u_ext, f_ext = _window(ug, geo), _window(fg, geo)
     got, parts = wave_pass(None if from_zero else u_ext, f_ext, geo, h, steps, err,
                            from_zero=from_zero, rows=rows)
@@ -372,7 +382,8 @@ def _check(geo, steps, err, from_zero, seed, rows=None):
     ref = tile_partials(_terms(u_ext, f_ext, geo, h, steps, err, from_zero), geo)
     assert torch.equal(parts[0], ref), f"partials differ from the tile order: {geo} {err}"
     total = float(parts[0].double().sum())
-    assert abs(total - float(raw)) <= 1e-5 * abs(float(raw)) + 1e-30
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    assert abs(total - float(raw)) <= rtol * abs(float(raw)) + 1e-30
     return parts[0]
 
 
@@ -501,3 +512,105 @@ def test_mutated_schedule_fails(mutation):
 
     assert matches(None)
     assert not matches(mutation), f"the {mutation} mutation went unseen"
+
+
+# --- the bf16 mode (csrc/jacobi_bf16.cu) ------------------------------------------------------
+
+@pytest.mark.parametrize("steps", [1, 2, 3, 5, 8])
+def test_bf16_modes_whole_grid(steps):
+    """The pass on bf16 rows, every error and from_zero: 257² (rows at every
+    2-byte offset of a 16-byte chunk) and ragged 1031² with chunks of 64
+    rows."""
+    for geo, rows in ((K.ShardGeo(257, 0, 0, 257, 257), None),
+                      (K.ShardGeo(1031, 0, 0, 1031, 1031), 64)):
+        for err, fz in ((None, False), ("cpu", True), ("clean", False), ("gpu", steps % 2 == 0)):
+            if geo.n == 1031 and err in ("clean", None) and steps not in (1, 8):
+                continue
+            _check(geo, steps, err, fz, seed=80 + steps, rows=rows, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("mutation", ["halo", "lane", "rowmod", "ring"])
+def test_bf16_mutated_schedule_fails(mutation):
+    """test_mutated_schedule_fails on bf16 rows: every mutation is seen."""
+    geo = K.ShardGeo(257, 0, 0, 257, 257)
+    h = 1.0 / (geo.n - 1)
+    ug, fg = _grid(geo.n, 71, torch.bfloat16)
+    want, _ = K.fused_jacobi_shard_torch(ug, fg, geo, h, 3, OMEGA, False, "cpu")
+    ref = tile_partials(_terms(ug, fg, geo, h, 3, "cpu", False), geo)
+
+    def matches(mutate):
+        got, parts = wave_pass(ug, fg, geo, h, 3, "cpu", rows=64, mutate=mutate)
+        return torch.equal(got, want) and torch.equal(parts[0], ref)
+
+    assert matches(None)
+    assert not matches(mutation), f"the {mutation} mutation went unseen"
+
+
+def _chunk_copies(n, rows_n, gi, c0, cols, el, chunks):
+    """wave2_pass's 16-byte chunk copies of the ``cols`` values of row gi from
+    column c0 on, in a row-major rows_n × n grid whose first value starts a
+    chunk (16-byte aligned): (the value offset m of column c0 in its chunk,
+    the ring row, each slot the flat index of the value it holds or None for
+    a zero fill). Chunk k copies from column c0 − m + el·k the values up to
+    the row's last column, none from a row outside the grid."""
+    m = (gi * n + c0) % el
+    ring = [None] * (el * chunks)
+    for k in range(chunks):
+        cs = c0 - m + el * k
+        start = gi * n + cs
+        count = min(el, n - cs) if 0 <= gi < rows_n and cs + el > 0 and cs < n else 0
+        assert start % el == 0, "a chunk's source is not 16-byte aligned"
+        if count:
+            assert 0 <= start and start + count <= rows_n * n, "a copy reads outside the grid"
+        for v in range(count):
+            ring[el * k + v] = start + v
+    return m, ring
+
+
+@pytest.mark.parametrize("el", [4, 8], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n", [257, 1031, 2049, 8193])
+def test_chunk_plan_lands_every_staged_column(el, n):
+    """fetch_row's plan (WaveShape CH = 160 / el + 1 chunks a ring row, lane
+    x copying chunks x and x + 32): each staged column of a strip that lies
+    in the grid lands at ring slot m + c, where the pass reads it; a chunk
+    before column 0 or past the row's end copies nothing outside the grid.
+    Rows of every offset class in a chunk (n = 2^k + 1 and 1031 step through
+    all el of them), the first and last strips."""
+    chunks = (TILE_W + 2 * PAD) // el + 1
+    assert chunks <= 2 * LANES
+    strips = -(-n // TILE_W)
+    for gi in list(range(-2, 2 * el + 2)) + [n // 2, n - 2, n - 1, n]:
+        for tx in (0, 1, strips - 1):
+            c0 = tx * TILE_W - PAD
+            m, ring = _chunk_copies(n, n, gi, c0, TILE_W + 2 * PAD, el, chunks)
+            assert m < el
+            for c in range(TILE_W + 2 * PAD):
+                gj = c0 + c
+                if 0 <= gi < n and 0 <= gj < n:
+                    assert ring[m + c] == gi * n + gj, (gi, tx, c)
+                elif not 0 <= gi < n:
+                    assert ring[m + c] is None
+
+
+@pytest.mark.parametrize("n", [257, 1031, 4097])
+def test_bf16_coarse_row_plan(n):
+    """The ascend leg's bf16 coarse rows (fetch_coarse): CCH = 96 / 8 + 1
+    chunks from the one holding column j0 = gc0 / 2 of the m × m correction
+    (at offset coffset, one of 8), the lanes reading ring slots coffset +
+    (5x >> 1) + k, k < 4: every coarse column the strip's interior fine
+    cells interpolate from lands there, and no copy leaves the grid."""
+    m = (n + 1) // 2
+    chunks = 96 // 8 + 1
+    strips = -(-n // TILE_W)
+    for ci in list(range(0, 18)) + [m // 2, m - 2, m - 1]:
+        for tx in (0, 1, strips - 1):
+            gc0 = tx * TILE_W - PAD
+            j0 = gc0 >> 1
+            off, ring = _chunk_copies(m, m, ci, j0, 96, 8, chunks)
+            for lane in range(LANES):
+                for k in range(4):
+                    j = j0 + ((SLOTS * lane) >> 1) + k
+                    slot = off + ((SLOTS * lane) >> 1) + k
+                    assert slot < 8 * chunks
+                    if 0 <= j < m:
+                        assert ring[slot] == ci * m + j, (ci, tx, lane, k)

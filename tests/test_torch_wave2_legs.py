@@ -30,7 +30,11 @@ whose helpers they reuse:
     blocks (even origins), k 1-8, from_zero, both restrictions, every error;
   * the checks see a wrong schedule: a halo a row short for full weighting,
     a coarse ring a row short, the prolongation's rows before its columns,
-    chunk origins a row off.
+    chunk origins a row off;
+  * the bf16 legs (``csrc/descend_bf16.cu``, ``csrc/ascend_bf16.cu``): the
+    same passes on bf16 rows, each op of the sweeps, −r, the full weighting
+    and the prolongation rounded to bf16 as the twins' tensors are, against
+    the twins run on bf16 tensors bit for bit, the mutations seen.
 
 The twins are held against the JAX package's Pallas legs at 257² here (the
 sizes tests/test_torch_kernels.py compares are 65² and 129²).
@@ -98,10 +102,11 @@ def leg_pass(leg, u_ext, f_ext, geo, h, steps, err=None, fw=False, from_zero=Fal
     lanes = torch.arange(LANES)
     ga, gb = geo.row0 + wav.a, geo.row0 + wav.b
     r_first, r_end = ga - halo - xh, gb + halo + xh
-    out = torch.full((geo.rows, geo.cols), NAN)
+    dt = f_ext.dtype   # the storage type: every level and ring row rounds to it
+    out = torch.full((geo.rows, geo.cols), NAN, dtype=dt)
     m = (n + 1) // 2
     crows, ccols = (geo.rows + 1) // 2, (geo.cols + 1) // 2
-    fc = torch.full((crows, ccols), NAN) if descend else None
+    fc = torch.full((crows, ccols), NAN, dtype=dt) if descend else None
     errs = _Partials(0 if err is None else 1, wav.strips * -(-geo.rows // TILE_H), warps, geo,
                      wav, err == "cpu")
     h2, inv_h2, zc = h * h, 1.0 / (h * h), K._zero_coef(h, OMEGA)
@@ -116,7 +121,7 @@ def leg_pass(leg, u_ext, f_ext, geo, h, steps, err=None, fw=False, from_zero=Fal
     # the coarse ring: row I of c's window at the strip's coarse columns
     # from gc0 / 2 (NaN outside the window and the grid: never to be read)
     j0 = (geo.col0 + wav.tx * TILE_W - PAD) // 2
-    ring_c = torch.full((warps, nc, CROW), NAN)
+    ring_c = torch.full((warps, nc, CROW), NAN, dtype=dt)
 
     def fetch_coarse(I, sel=None):
         """Coarse row I[w] into warp w's ring (the warps ``sel`` only)."""
@@ -168,8 +173,8 @@ def leg_pass(leg, u_ext, f_ext, geo, h, steps, err=None, fw=False, from_zero=Fal
             fc[I[w_idx] - geo.row0 // 2, lJ[w_idx, l_idx]] = v[w_idx, l_idx]
 
     shape = (warps, LANES, SLOTS)
-    ring_f = torch.full((warps, nf) + shape[1:], NAN)
-    ring_u = torch.full((warps, nu) + shape[1:], NAN)
+    ring_f = torch.full((warps, nf) + shape[1:], NAN, dtype=dt)
+    ring_u = torch.full((warps, nu) + shape[1:], NAN, dtype=dt)
     fetch_coarse(torch.div(r_first, 2, rounding_mode="floor"))
 
     def fetch_all(gi, fs_, us_):
@@ -180,9 +185,9 @@ def leg_pass(leg, u_ext, f_ext, geo, h, steps, err=None, fw=False, from_zero=Fal
 
     for d in range(ahead):
         fetch_all(r_first + d, d, d)
-    nw = [torch.full(shape, NAN) for _ in range(max(halo, 1))]
-    cw = [torch.full(shape, NAN) for _ in range(max(halo, 1))]
-    dm2 = dm1 = torch.full(shape, NAN)
+    nw = [torch.full(shape, NAN, dtype=dt) for _ in range(max(halo, 1))]
+    cw = [torch.full(shape, NAN, dtype=dt) for _ in range(max(halo, 1))]
+    dm2 = dm1 = torch.full(shape, NAN, dtype=dt)
     wc = None
     fs = us = 0
     for i in range(int((r_end - r_first).max())):
@@ -247,14 +252,15 @@ def _ascend_start(u_ext, c_win, cr0, cc0, geo):
     return torch.where(inside, u_ext + K._prolong_ext(c_win, cr0, cc0, geo), u_ext)
 
 
-def _check(leg, geo, steps, err, seed, fw=False, from_zero=False, rows=None, mutate=None):
+def _check(leg, geo, steps, err, seed, fw=False, from_zero=False, rows=None, mutate=None,
+           dtype=torch.float32):
     """The emulated leg against its twin (owned and coarse blocks bit for
     bit), its partials against legs.cuh's order bit for bit, their sum
-    against the twin's raw error. Returns whether all held (a mutation must
-    make it False)."""
+    against the twin's raw error (a bf16 twin's sum rounded to bf16: 2^-8).
+    Returns whether all held (a mutation must make it False)."""
     h = 1.0 / (geo.n - 1)
     rng = np.random.default_rng(seed)
-    ug, fg = _grid(geo.n, seed)
+    ug, fg = _grid(geo.n, seed, dtype)
     u_ext, f_ext = _window(ug, geo), _window(fg, geo)
     mode = {"cpu": "cpu", "clean": "clean", "gpu": "gpu", None: None}[err]
     if leg == "descend":
@@ -267,7 +273,7 @@ def _check(leg, geo, steps, err, seed, fw=False, from_zero=False, rows=None, mut
         start, fz = u_ext, from_zero
     else:
         m = (geo.n + 1) // 2
-        cg = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32))
+        cg = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32)).to(dtype)
         # the coarse window the sharded callers cut: the block's coarse
         # points and the halo's, clipped to the grid
         ch = max(geo.ext_r, geo.ext_c) // 2 + 1
@@ -288,7 +294,8 @@ def _check(leg, geo, steps, err, seed, fw=False, from_zero=False, rows=None, mut
     if not torch.equal(parts, ref):
         return False
     total = float(parts.double().sum())
-    assert abs(total - float(raw)) <= 1e-5 * abs(float(raw)) + 1e-30
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    assert abs(total - float(raw)) <= rtol * abs(float(raw)) + 1e-30
     return True
 
 
@@ -439,3 +446,37 @@ def test_ascend_twin_matches_pallas_257():
     np.testing.assert_allclose(got_u.numpy(), want_u, rtol=0,
                                atol=1e-5 * float(np.abs(want_u).max()))
     assert float(got_err) == pytest.approx(float(want_err), rel=1e-4)
+
+
+# --- the bf16 legs ------------------------------------------------------------------------------
+
+@pytest.mark.parametrize("leg", ["descend", "ascend"])
+@pytest.mark.parametrize("steps", [1, 3, 8])
+def test_bf16_legs(leg, steps):
+    """The legs on bf16 rows: 257² whole (rows at every 2-byte offset of a
+    16-byte chunk) with every error, both restrictions and from_zero, and
+    ragged 1031² with chunks of 64 rows."""
+    BF16 = torch.bfloat16
+    geo = K.ShardGeo(257, 0, 0, 257, 257)
+    for err in ERRS:
+        for fw, fz in ((False, False), (True, True)) if leg == "descend" else ((False, False),):
+            assert _check(leg, geo, steps, err, seed=90 + steps, fw=fw, from_zero=fz,
+                          dtype=BF16), f"{leg} steps={steps} err={err} fw={fw} fz={fz}"
+    geo = K.ShardGeo(1031, 0, 0, 1031, 1031)
+    err = ("cpu", "gpu", "clean")[steps % 3]
+    assert _check(leg, geo, steps, err, seed=91, fw=steps > 1, rows=64, dtype=BF16)
+
+
+@pytest.mark.parametrize("leg,mutation,steps,err,fw",
+                         [("descend", "fw_halo", 3, "cpu", True),
+                          ("descend", "origin", 3, "cpu", True),
+                          ("ascend", "cring", 2, "cpu", False),
+                          ("ascend", "rows_first", 3, None, False),
+                          ("ascend", "origin", 3, "gpu", False)])
+def test_bf16_mutated_schedule_fails(leg, mutation, steps, err, fw):
+    """test_mutated_schedule_fails's cases on bf16 rows: each mutation seen."""
+    geo = K.ShardGeo(257, 0, 0, 257, 257)
+    args = dict(fw=fw, rows=64, dtype=torch.bfloat16)
+    assert _check(leg, geo, steps, err, seed=92, **args)
+    assert not _check(leg, geo, steps, err, seed=92, mutate=mutation, **args), \
+        f"the {mutation} mutation went unseen"
