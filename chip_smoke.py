@@ -152,7 +152,32 @@ Phases (progress on stdout; the first failure exits non-zero):
      I3: H3's trigger V-cycle with halo="rdma" ("auto", batch 1, batch 7):
      kernel 19 once per trigger node at 257³-65³ and never at 513³; "auto"
      and batch 1 stop where H3 stops, with its iterates; batch 7 at 513³ as
-     H3's, below it as the exact loop. The ring kernels are timed beside
+     H3's, below it as the exact loop.
+  K. (run last, after phase 5) the native runtime and the user-facing utilities:
+     the port's own build of native/mg_runtime.cpp (build/torch_native/)
+     must load; the four
+     bundled schedules and generated ones (v_cycle, w_cycle, fmg,
+     coarsen=2) parse natively to the Python parser's programs, and the
+     natively parsed Vcycle.txt's compiled cycle gives the Python-parsed
+     one's iterate bit for bit; a 4097² solution written by the native and
+     the numpy CSV writers (byte-identical files, seconds each) and read
+     back by read_solution_csv and read_csv_native (its values to 6
+     decimals); the CLI on Vcycle.txt writing its Sol_GPU_ file through
+     the native writer (Error = 0.000876); utils.profiling.trace() around
+     one V(3,3) cycle at 4097², four times, each trace whole (naming the
+     CUDA kernels the launch counters say the cycle ran, no launch without
+     its kernel event) or empty (late in this script every other profiler
+     session holds no device event, PERF.md §7), at least two whole; beside
+     four bare torch.profiler sessions of the same cycle (kernel events,
+     launch calls, the least launch-to-start time), cost_report's bytes
+     bound beside the cycle's ms by CUDA events and DeviceTimer.measure; a tw32 solve
+     to 1e-10 at 4097² with DistCheckpointManager(every=2) stopped by
+     max_cycles and resumed from latest() by a fresh solver, ending with
+     the uninterrupted solve's cycle count and words bit for bit (save and
+     resume seconds); examples/torch_01-05 as subprocesses on the card (01
+     prints Vcycle.txt's Error, 02-04 residuals within the tolerances they
+     ask for, 05 BIT-IDENTICAL with the chains on and off).
+The ring kernels are timed beside
      their twins and the exchange path they replace on the same inputs;
      kernel 19 with the planned tiles at 257³ is held bit for bit against
      the loop of one-sweep sharded error steps, and timed a sweep at 257³,
@@ -453,6 +478,26 @@ def graph_us(fn, per=1, replays=20):
     us = start.elapsed_time(end) * 1e3 / replays / per
     del graph
     return us
+
+
+def trace_device_side(path, counts):
+    """A Chrome trace's device side: per counted kernel its kernel events;
+    the kernel events in all; the places (0 = first, in time order) of the
+    kernel launch calls whose kernel event is missing; and the least time in
+    µs from a launch call to its kernel's start, by correlation (negative:
+    the device's timestamps run behind the host's)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "LaunchKernel" in e.get("name", "")), key=lambda e: e["ts"])
+    start = {e["args"].get("correlation"): e["ts"] for e in launches}
+    seen = {e.get("args", {}).get("correlation") for e in kernels}
+    lost = [i for i, e in enumerate(launches) if e["args"].get("correlation") not in seen]
+    lags = [e["ts"] - start[c] for e in kernels
+            if (c := e.get("args", {}).get("correlation")) in start]
+    hits = {k: sum(bool(re.search(rf"\b{k}_(kernel|wave_kernel|tail)\b", e.get("name", "")))
+                   for e in kernels) for k in counts}
+    return hits, len(kernels), len(launches), lost, min(lags, default=float("nan"))
 
 
 def bound(nbytes, ops):
@@ -3299,6 +3344,241 @@ def phase_refine_policy(tmg, K, torch, run_counts):
             f"[R] the sharded refinement did not run the shard-mode legs: {rc}")
 
 
+def phase_k(tmg, K, torch, run_counts):
+    """K: the native runtime, the CSV writers, profiling, the checkpoint
+    manager and the user examples on the card. Returns the figures for the
+    [end] lines."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from multigrid_poisson_solver_tpu_torch import native
+    from multigrid_poisson_solver_tpu_torch.refine import IterativeRefinementSolver
+    from multigrid_poisson_solver_tpu_torch.schedule import parse_cycle_file, to_cycle_file
+    from multigrid_poisson_solver_tpu_torch.utils import io as tio
+    from multigrid_poisson_solver_tpu_torch.utils import profiling as tprof
+    from multigrid_poisson_solver_tpu_torch.utils.checkpoint import SolverState
+    from multigrid_poisson_solver_tpu_torch.utils.dist_checkpoint import DistCheckpointManager
+
+    out = {}
+    # -- the native runtime: built by the port into build/torch_native/ ----------
+    t0 = time.perf_counter()
+    require(native.available(), "[K] the native runtime library did not build or load")
+    say(f"[K] native runtime {native.library_path().relative_to(ROOT)} loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    texts = {name: (ROOT / "schedules" / name).read_text()
+             for name in ("test.txt", "Vcycle.txt", "VcycleTrigger.txt", "Wcycle.txt")}
+    for label, prog in (("v_cycle 4097", tmg.v_cycle(4097, n_min=8, steps=3, coarse_option=0,
+                                                     coarsen=3)),
+                        ("w_cycle 257", tmg.w_cycle(257, n_min=8, steps=2)),
+                        ("fmg 257", tmg.fmg(257, n_min=8, steps=2)),
+                        ("v_cycle 256 coarsen=2", tmg.v_cycle(256, n_min=5, steps=-1,
+                                                              coarsen=2))):
+        texts[label] = to_cycle_file(prog)
+    for label, text in texts.items():
+        require(native.parse_cycle_native(text) == parse_cycle_file(text),
+                f"[K] the native parser's program for {label} differs from the Python one")
+    say(f"[K] native parser: {len(texts)} schedules equal to the Python parser's "
+        f"({', '.join(texts)})")
+    iterates = []
+    for prog in (native.parse_cycle_native(texts["Vcycle.txt"]),
+                 parse_cycle_file(texts["Vcycle.txt"])):
+        cc = tmg.compile_program(prog, tmg.REFERENCE_PROBLEM, device="cuda")
+        u, f = cc.init()
+        iterates.append(cc(u, f)[0])
+    require(torch.equal(*iterates), "[K] Vcycle.txt parsed natively runs another iterate")
+    say("[K] compile_program of the natively parsed Vcycle.txt: iterate bit-identical to "
+        "the Python-parsed program's")
+
+    # -- CSV: a 4097² card solution through both writers --------------------------
+    n = 4097
+    program = tmg.v_cycle(n, n_min=8, steps=3, coarse_option=0, coarsen=3)
+    cfg = tmg.SolverConfig(omega=0.8, collect_node_stats=False)
+    cold = tmg.compile_program(program, tmg.REFERENCE_PROBLEM, cfg, device="cuda")
+    warm = tmg.compile_program(program, tmg.REFERENCE_PROBLEM, cfg, device="cuda", warm=True)
+    u0, f = cold.init()
+    u = cold(u0, f)[0]
+    torch.cuda.synchronize()
+    u64 = u.double().cpu().numpy()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        tio.write_solution_csv(u, tmp / "native.txt")
+        t_native = time.perf_counter() - t0
+        with mock.patch.object(native, "load", lambda: None):
+            t0 = time.perf_counter()
+            tio.write_solution_csv(u, tmp / "numpy.txt")
+            t_numpy = time.perf_counter() - t0
+        size = (tmp / "native.txt").stat().st_size
+        require((tmp / "native.txt").read_bytes() == (tmp / "numpy.txt").read_bytes(),
+                "[K] the native and numpy CSV writers wrote different files")
+        t0 = time.perf_counter()
+        back = tio.read_solution_csv(tmp / "native.txt")
+        t_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fast = native.read_csv_native(tmp / "native.txt", n, n)
+        t_read_native = time.perf_counter() - t0
+        require(back.shape == (n, n) and np.array_equal(fast[::-1], back),
+                "[K] read_csv_native and read_solution_csv read different values")
+        d_round = float(np.abs(back - u64.round(6)).max())
+        d_value = float(np.abs(back - u64).max())
+        require(d_round <= 1e-12 and d_value <= 5.000001e-7,
+                f"[K] the CSV holds other values than the solution to 6 decimals "
+                f"(max|Δ| {d_round:.3e} to the rounded tensor, {d_value:.3e} to the tensor)")
+        say(f"[K] CSV {n}² ({size / 1e6:.1f} MB): native writer {t_native:.3f} s, numpy writer "
+            f"{t_numpy:.3f} s, byte-identical; read_solution_csv {t_read:.3f} s, "
+            f"read_csv_native {t_read_native:.3f} s, equal; max|Δ| to the tensor rounded to 6 "
+            f"decimals {d_round:.1e}")
+        out["csv"] = (size, t_native, t_numpy)
+        # the CLI writes its Sol_GPU_ file through the native writer
+        sol = tmp / "Sol_GPU_Vcycle.txt"
+        proc = subprocess.run([sys.executable, "-m", "multigrid_poisson_solver_tpu_torch", "1",
+                               "schedules/Vcycle.txt", "--engine", "compiled", "--quiet",
+                               "--output", str(sol)], cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        require(proc.returncode == 0, f"[K] CLI failed:\n{proc.stdout}\n{proc.stderr}")
+        match = re.search(r"Error = ([0-9.eE+-]+)", proc.stdout)
+        require(match is not None and f"{float(match.group(1)):.6f}" == "0.000876",
+                f"[K] CLI Vcycle.txt error is not the reference's 0.000876:\n{proc.stdout}")
+        m = parse_cycle_file(texts["Vcycle.txt"]).n_max
+        require(tio.read_solution_csv(sol).shape == (m, m), "[K] the CLI's Sol_GPU_ file")
+        say(f"[K] CLI Vcycle.txt: Error = {match.group(1)}, {sol.name} written ({m}×{m})")
+
+        # -- profiling: trace(), cost_report, DeviceTimer -----------------------------
+        u = warm(u, f)[0]
+        torch.cuda.synchronize()
+        # late in this script every other torch.profiler session holds no
+        # device event (PERF.md §7): bare sessions of the same cycle show
+        # it, and trace() is held to whole or empty, never a partial trace
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        got = []
+        for _ in range(4):
+            K.reset_launch_counts()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                warm(u, f)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(tmp / "bare.json"))
+            counts = {k: v for k, v in K.launches.items() if v}
+            hits, n_kern, n_launch, lost, lag = trace_device_side(tmp / "bare.json", counts)
+            got.append(f"{n_kern}/{n_launch} (lost {len(lost)}, lag {lag:.1f} µs)")
+        say("[K] bare profiles: kernel events / launch calls " + ", ".join(got))
+        whole = []
+        for i in range(4):
+            K.reset_launch_counts()
+            with tprof.trace(tmp / "trace"):
+                warm(u, f)
+            counts = {k: v for k, v in K.launches.items() if v}
+            hits, n_kern, n_launch, lost, lag = trace_device_side(tmp / "trace" / "trace.json",
+                                                                  counts)
+            say(f"[K] trace() {i}: {n_kern} kernel events of {n_launch} launch calls; calls "
+                f"without a kernel event at places {lost[:12]}; the counted kernels' events "
+                f"{hits}; least launch-to-start {lag:.1f} µs")
+            require(n_kern == 0 or (all(hits.values()) and not lost),
+                    f"[K] trace() {i} is partial: {n_kern} kernel events, launches lost at "
+                    f"{lost[:12]}, the counted kernels' events {hits} (counted: {counts})")
+            if n_kern:
+                whole.append((hits, counts))
+        require(len(whole) >= 2, f"[K] only {len(whole)} of 4 traces hold device events")
+        hits, counts = whole[-1]
+        run_counts["K trace"] = counts
+        ours = sum(hits.values())
+        require(ours >= sum(counts.values()),
+                f"[K] the trace holds {ours} kernel events of the port's kernels, the counters "
+                f"{sum(counts.values())} launches")
+        say(f"[K] trace() of one V(3,3) at {n}²: {len(whole)} of 4 traces whole, the last "
+            f"{ours} kernel events of the port's kernels; launch counters {counts}")
+    ms = time_ms(lambda: warm(u, f), reps=5, rounds=3)
+    cost = tprof.cost_report(program)
+    timer = tprof.DeviceTimer()
+    t_measure = timer.measure(warm, u, f)
+    t_diff, spread = timer.measure_differential_median(warm, u, f, reps=4, k=3)
+    say(f"[K] V(3,3) {n}²: cost_report roofline {cost.roofline_s * 1e3:.4f} ms "
+        f"({cost.total_bytes / 1e6:.1f} MB at 3.35 TB/s); measured {ms:.4f} ms/cycle (CUDA "
+        f"events), DeviceTimer.measure {t_measure * 1e3:.4f} ms, measure_differential_median "
+        f"{t_diff * 1e3:.4f} ms ({spread[0] * 1e3:.4f}-{spread[1] * 1e3:.4f}); the cycle takes "
+        f"{ms / (cost.roofline_s * 1e3):.2f}× the bytes bound")
+    out["cost"] = (cost.roofline_s * 1e3, ms, t_measure * 1e3, t_diff * 1e3)
+    del cold, warm, u0, u, f, iterates
+
+    # -- checkpoints: tw32 to 1e-10 at 4097², stopped and resumed -----------------
+    tol = 1e-10
+
+    def solver(**kw):
+        return IterativeRefinementSolver(tmg.REFERENCE_PROBLEM, n, state="tw32", device="cuda",
+                                         **kw)
+
+    full = solver().solve(tol)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        with DistCheckpointManager(Path(tmp), every=2) as mgr:
+            cut = solver(max_cycles=5).solve(tol, checkpoints=mgr, checkpoint_chunk=1)
+        t_cut = time.perf_counter() - t0
+        mgr = DistCheckpointManager(Path(tmp), every=2)
+        t0 = time.perf_counter()
+        saved = mgr.latest()
+        t_latest = time.perf_counter() - t0
+        require(saved is not None and saved.cycle == 4 and cut.cycles == 5,
+                f"[K] the cut solve's checkpoint: {None if saved is None else saved.cycle}")
+        t0 = time.perf_counter()
+        rep = solver().solve(tol, checkpoints=mgr, checkpoint_chunk=1)
+        t_resumed = time.perf_counter() - t0
+        words = (rep.u, rep.u_lo)
+        # one save of the final state, timed: the async return, then the commit
+        state = SolverState(u=rep.u, f=torch.zeros_like(rep.u), u_lo=rep.u_lo,
+                            u_lo2=torch.zeros_like(rep.u), cycle=1000)
+        t0 = time.perf_counter()
+        mgr.maybe_save(state)
+        t_async = time.perf_counter() - t0
+        mgr.wait_until_finished()
+        t_commit = time.perf_counter() - t0
+        mgr.close()
+    require(rep.cycles == full.cycles and rep.rel_residual == full.rel_residual
+            and torch.equal(words[0], full.u) and torch.equal(words[1], full.u_lo),
+            f"[K] the resumed solve ({rep.cycles} cycles, {rep.rel_residual:.6e}) is not the "
+            f"uninterrupted one ({full.cycles}, {full.rel_residual:.6e}) bit for bit")
+    say(f"[K] DistCheckpointManager tw32 to {tol:g} at {n}²: uninterrupted {full.cycles} "
+        f"cycles ({full.wall_time_s * 1e3:.1f} ms); cut at 5 cycles with saves at 2 and 4 "
+        f"({t_cut:.3f} s), latest() {t_latest:.3f} s, resumed from cycle 4 to {rep.cycles} "
+        f"cycles ({t_resumed:.3f} s), words and residual bit-identical; one save of four "
+        f"{n}² words: async return {t_async:.3f} s, committed {t_commit:.3f} s")
+    out["ckpt"] = (t_async, t_commit, t_latest)
+    del full, rep, words, state
+
+    # -- the user examples, as subprocesses on the card ---------------------------
+    t0 = time.perf_counter()
+    names = sorted(p.name for p in (ROOT / "examples").glob("torch_0*.py"))
+    require(len(names) == 5, f"[K] examples: {names}")
+    procs = [(name, subprocess.Popen([sys.executable, f"examples/{name}"], cwd=ROOT,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for name in names]
+    texts = {}
+    for name, proc in procs:
+        stdout, stderr = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"[K] {name} exited {proc.returncode}:\n{stdout}\n"
+                f"{stderr[-3000:]}")
+        texts[name] = stdout
+        for line in stdout.strip().splitlines():
+            say(f"[K]   {name}: {line}")
+    match = re.search(r"\[compiled\]\s+Error = (\S+)", texts[names[0]])
+    require(match is not None and f"{float(match.group(1)):.6f}" == "0.000876",
+            f"[K] {names[0]} printed no Vcycle.txt Error of 0.000876")
+    # 02-04: each printed residual finite and within the tolerance it asked for
+    for name, tols in ((names[1], (1e-10, 1e-13)), (names[2], (1e-10,)), (names[3], (1e-9,))):
+        res = [float(v) for v in re.findall(r"(?:rel residual|refined to|sharded refinement:) "
+                                            r"(\S+)", texts[name])]
+        require(len(res) == len(tols) and all(math.isfinite(r) and r <= t
+                                              for r, t in zip(res, tols)),
+                f"[K] {name}: residuals {res} against the tolerances {tols}")
+    require("BIT-IDENTICAL" in texts[names[4]] and
+            re.search(r"chain kernel launches [1-9]\d* \(chains on\), 0 \(off\)",
+                      texts[names[4]]), f"[K] {names[4]}: the chains did not run or differ")
+    say(f"[K] examples torch_01-05 exited 0 in {time.perf_counter() - t0:.1f} s (run together)")
+    return out
+
+
 def main():
     import torch
 
@@ -4220,6 +4500,11 @@ def main():
     say(f"[5] smoothing {n8}², 8 sweeps per launch: kernel {dofs / ms_k / 1e6:.2f} GDoF/s "
         f"({ms_k / 8:.4f} ms/sweep), plain {dofs / ms_p / 1e6:.2f} GDoF/s "
         f"({ms_p / 8:.4f} ms/sweep)")
+    # -- phase K: the native runtime and the user-facing utilities -------------------
+    t0 = time.perf_counter()
+    k_out = phase_k(tmg, K, torch, run_counts)
+    say(f"[K] done in {time.perf_counter() - t0:.1f} s")
+
     say(f"[end] trigger V-cycle {n8}² wall ms: "
         + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_trigger.items()))
     say(f"[end] sweeps per level, batch 7: {trigger_levels}; auto: {auto_levels}")
@@ -4252,6 +4537,12 @@ def main():
                     for tag, ms in ms_i2.items()))
     say("[end] I3 sharded 3-D trigger V-cycle 513³ wall ms, halo rdma: "
         + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_i3.items()))
+    size, t_native, t_numpy = k_out["csv"]
+    roof, ms_cycle, ms_measure, ms_diff = k_out["cost"]
+    say(f"[end] K: CSV {n}² ({size / 1e6:.1f} MB) native {t_native:.3f} s, numpy {t_numpy:.3f} "
+        f"s; V(3,3) {n}² cost_report roofline {roof:.4f} ms vs {ms_cycle:.4f} ms/cycle (events), "
+        f"DeviceTimer {ms_measure:.4f} / {ms_diff:.4f} ms; checkpoint save {k_out['ckpt'][0]:.3f}"
+        f" s (commit {k_out['ckpt'][1]:.3f} s), latest() {k_out['ckpt'][2]:.3f} s")
     say(f"[end] chip_smoke ran {time.perf_counter() - t_start:.0f} s")
 
     # no single PyTorch call computes any of these functions: library_ms is null

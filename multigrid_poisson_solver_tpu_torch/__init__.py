@@ -23,8 +23,18 @@ kernels of ``ops.rdma``; and the 3-D multi-device path on a z-plane mesh
 (``ZShardingPolicy3``, ``make_mesh_z``): ``v_cycle3_sharded`` and
 ``compile_program3(..., policy=...)`` with the shard modes of the 3-D
 kernels and, with ``halo="rdma"``, the four 3-D ring kernels of
-``ops.rdma3``. Every TPU kernel of the JAX package has a counterpart; not
-ported: multi-process runs.
+``ops.rdma3``. Every TPU kernel of the JAX package has a counterpart.
+
+The user-facing utilities: the native runtime binding (``native``: the
+Cycle.txt parser and the multithreaded CSV writer and reader of
+``native/mg_runtime.cpp``, built into ``build/torch_native/``), solution
+I/O (``utils.io``), the public zoom operators (``ops``), profiling
+(``utils.profiling``: ``trace``, ``DeviceTimer``, ``cost_report``),
+checkpoints on ``torch.distributed.checkpoint``
+(``utils.dist_checkpoint``), plotting (``utils.plotting``) and the
+examples ``examples/torch_01``-``05``. Not ported: multi-process runs
+(``parallel/multihost.py``) and the TPU collective scaling models
+(``utils/scaling_model.py``, ``utils/scaling_model3.py``).
 """
 
 __version__ = "0.1.0"

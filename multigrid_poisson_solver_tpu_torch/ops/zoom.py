@@ -1,7 +1,8 @@
 """The unified bilinear "zoom" primitive: general N→M grid resampling.
 
-PyTorch port of ``multigrid_poisson_solver_tpu/ops/zoom.py`` (``zoom`` and
-its 3-D member ``zoom3``) and of the gather form ``zoom_take_p`` in
+PyTorch port of ``multigrid_poisson_solver_tpu/ops/zoom.py`` (``zoom``, its
+3-D member ``zoom3``, ``zoom_matrix``, ``restrict_residual`` and
+``prolongate``) and of the gather form ``zoom_take_p`` in
 ``ops/padded.py``. Restriction and
 prolongation are the same resampling op with swapped sizes (ker_Zoom_GPU,
 MG_solver_GPU.cu:913-958): target point ``i`` maps to source coordinate
@@ -52,6 +53,12 @@ def _zoom_matrix_np(n_src: int, n_dst: int) -> np.ndarray:
     return mat
 
 
+def zoom_matrix(n_src: int, n_dst: int, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """The (n_dst, n_src) interpolation matrix, built in float64 then cast
+    (JAX ``ops/zoom.py:46``)."""
+    return torch.as_tensor(_zoom_matrix_np(n_src, n_dst), device=device).to(dtype)
+
+
 def _zero_border(a: torch.Tensor) -> torch.Tensor:
     a[0, :] = 0
     a[-1, :] = 0
@@ -83,8 +90,7 @@ def _zoom_matmul(src: torch.Tensor, n_dst: int, zero_boundary: bool) -> torch.Te
     if n_dst == n_src:
         out = src.clone()
     else:
-        w = torch.as_tensor(_zoom_matrix_np(n_src, n_dst),
-                            device=src.device).to(src.dtype)
+        w = zoom_matrix(n_src, n_dst, src.dtype, src.device)
         out = (w @ src) @ w.T
     if zero_boundary:
         out = _zero_border(out)
@@ -100,7 +106,7 @@ def zoom3(src: torch.Tensor, n_dst: int, zero_boundary: bool = False) -> torch.T
     if n_dst == n_src:
         out = src.clone()
     else:
-        w = torch.as_tensor(_zoom_matrix_np(n_src, n_dst), device=src.device).to(src.dtype)
+        w = zoom_matrix(n_src, n_dst, src.dtype, src.device)
         out = src
         for _ in range(3):
             # contract the leading axis; the axes cycle back after three passes
@@ -125,3 +131,17 @@ def zoom(src: torch.Tensor, n_dst: int, zero_boundary: bool = False,
     if form == "matmul":
         return _zoom_matmul(src, n_dst, zero_boundary)
     raise ValueError(f"unknown zoom form {form!r}; expected 'take' or 'matmul'")
+
+
+def restrict_residual(d: torch.Tensor, n_coarse: int) -> torch.Tensor:
+    """Coarse-level RHS = zoom of the *negated* fine residual, zero boundary:
+    the scheduler's down-leg F_coarse = restrict(−D_fine)
+    (MG_solver_CPU.cpp:274-287; JAX ``ops/zoom.py:104``, whose zoom is the
+    matrix form)."""
+    return zoom(-d, n_coarse, zero_boundary=True, form="matmul")
+
+
+def prolongate(u_coarse: torch.Tensor, n_fine: int) -> torch.Tensor:
+    """Fine-level correction = zoom of the coarse solution
+    (MG_solver_CPU.cpp:682-724; JAX ``ops/zoom.py:113``)."""
+    return zoom(u_coarse, n_fine, zero_boundary=False, form="matmul")

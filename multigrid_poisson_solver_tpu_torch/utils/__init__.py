@@ -1,1 +1,2 @@
-"""Utilities (solution I/O)."""
+"""Utilities: solution I/O, checkpoints (npz and torch.distributed.checkpoint),
+profiling and plotting."""
