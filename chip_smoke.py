@@ -177,6 +177,19 @@ Phases (progress on stdout; the first failure exits non-zero):
      resume seconds); examples/torch_01-05 as subprocesses on the card (01
      prints Vcycle.txt's Error, 02-04 residuals within the tolerances they
      ask for, 05 BIT-IDENTICAL with the chains on and off).
+  L. (after phase K) the sharded cycles across processes: two worker
+     processes joined by gloo (NCCL refuses two ranks on one card), both on
+     cuda:0 with two mesh entries each, run the bench's V(3,3) at 4097²
+     (coarsen=3, ω 0.8) under multihost.block_policy on the 2×2
+     hybrid_block_mesh (1 cold + 3 warm cycles), a trigger V-cycle at 2049²
+     on a row ring of the four entries, and compile_program3 V(3,3) at 513³
+     (clean metric, 2 cycles) on a z ring across both processes; this
+     process runs the same programs on ["cuda:0"] * 4. Every owned block
+     (SHA-256), error and stop sweep is the one-process run's, each worker
+     launches the shard-mode kernels, the sharded layer's counters equal
+     utils.scaling_model's prediction; ms/cycle by CUDA events for both
+     runs and the layer's host overheads (a correctness phase: the
+     processes share one card, no scaling is shown).
 The ring kernels are timed beside
      their twins and the exchange path they replace on the same inputs;
      kernel 19 with the planned tiles at 257³ is held bit for bit against
@@ -2040,9 +2053,6 @@ def phase_h3(tmg, K, K3, torch, run_counts, unsharded_levels, n=513):
             f"{cc.trigger_sweeps}, last error {float(err):.6e}; launches "
             f"{ {k: v for k, v in counts.items() if v} }")
         out[tag] = (g, cc.trigger_sweeps, ms, counts)
-        if tag == "kernels, auto":
-            cc.trigger_sweeps = None
-            profile(f"sharded trigger V-cycle {n}³ {tag}", lambda: cc(u0, f))
         return tag
 
     auto = run("kernels, auto", "auto")
@@ -2119,10 +2129,10 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
         require(bool(torch.equal(got, want)), f"{what}: differs from the shard-mode path "
                 f"(max|Δ| {float((got - want).abs().max()):.3e})")
 
-    def errs(name, what, got_raws, twin_raws, want, compat, n, h):
-        got = halo3.sum_err3(got_raws, compat, n, h, torch.float32)
+    def errs(name, what, got_raws, twin_raws, want, compat, n, h, lay):
+        got = halo3.sum_err3(got_raws, compat, n, h, torch.float32, lay)
         same(f"{name} {what} error", got, want)
-        cmp.scalar(name, what, got, halo3.sum_err3(twin_raws, compat, n, h, torch.float32))
+        cmp.scalar(name, what, got, halo3.sum_err3(twin_raws, compat, n, h, torch.float32, lay))
 
     def raws(name, what, got_raws, shard_raws):
         """A ring kernel's raw float64 sums per shard against the shard
@@ -2186,7 +2196,7 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
                             else:
                                 ref, rerr = KS3.sharded_fused_jacobi3_err(us, fs, h, steps, omega,
                                                                           mode, fz, nl)
-                                errs("rdma_jacobi3", w, graw, traw, rerr, mode, n, h)
+                                errs("rdma_jacobi3", w, graw, traw, rerr, mode, n, h, lay)
                                 raws("rdma_jacobi3", w, graw,
                                      shard_jacobi_raws(us, fs, h, steps, fz, mode))
                             same(f"rdma_jacobi3 {w}", G(gu), G(ref))
@@ -2203,7 +2213,7 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
                             cmp.grid("rdma_descend3", w + " f_coarse", G(gfc), G(tfc))
                             same(f"rdma_descend3 {w} u", G(gu), G(ru))
                             same(f"rdma_descend3 {w} f_coarse", G(gfc), G(rfc))
-                            errs("rdma_descend3", w, graw, traw, rerr, "clean", n, h)
+                            errs("rdma_descend3", w, graw, traw, rerr, "clean", n, h, lay)
                             raws("rdma_descend3", w, graw,
                                  shard_descend_raws(us, fs, h, steps, fz, restriction))
                             cmp.cases["rdma_descend3"] += 1
@@ -2219,7 +2229,7 @@ def phase_i1(K3, torch, cmp, sizes=((65, (6, 10, 6), (2, 3, 4, 8, 16)),
                         cmp.grid("rdma_ascend3", w, G(gu), G(tu))
                         same(f"rdma_ascend3 {w}", G(gu), G(ru))
                         if want_err:
-                            errs("rdma_ascend3", w, graw, traw, rerr, "clean", n, h)
+                            errs("rdma_ascend3", w, graw, traw, rerr, "clean", n, h, lay)
                             raws("rdma_ascend3", w, graw,
                                  shard_ascend_raws(us, fs, child, h, steps))
                         cmp.cases["rdma_ascend3"] += 1
@@ -3342,6 +3352,95 @@ def phase_refine_policy(tmg, K, torch, run_counts):
     rc = run_counts["refine_policy"]
     require(rc["descend_shard"] > 0 and rc["ascend_shard"] > 0,
             f"[R] the sharded refinement did not run the shard-mode legs: {rc}")
+
+
+PHASE_L_SPECS = {
+    # the bench's V(3,3) under the block policy on the 2×2 hybrid mesh
+    "V(3,3) 4097² block": {"kind": "block2d", "n": 4097, "threshold": 32, "cycles": 4,
+                           "reps": 2, "program": {"n_min": 8, "steps": 3, "coarse_option": 0,
+                                                  "coarsen": 3}, "config": {"omega": 0.8}},
+    "trigger V-cycle 2049² rows": {"kind": "trigger2d", "n": 2049, "threshold": 32,
+                                   "cycles": 1, "reps": 1,
+                                   "program": {"n_min": 8, "steps": -1, "coarse_option": 0,
+                                               "coarsen": 3},
+                                   "config": {"omega": 0.8, "max_trigger_sweeps": 2000}},
+    "compile_program3 V(3,3) 513³ z": {"kind": "compiled3", "n": 513, "threshold": 8,
+                                        "cycles": 2, "reps": 2,
+                                        "program": {"n_min": 8, "steps": 3, "coarse_option": 0,
+                                                    "coarsen": 3},
+                                        "config": {"omega": 6.0 / 7.0, "compat_error": True}},
+}
+# both processes of phase L share one card: NCCL refuses two ranks on one GPU
+PHASE_L_DEVICE = "cuda:0"
+# shard-mode kernels each program must launch in every worker
+PHASE_L_LAUNCHES = {"V(3,3) 4097² block": ("descend_shard", "ascend_shard"),
+                    # the one-sweep step with its fused error, the sharded residual
+                    "trigger V-cycle 2049² rows": ("jacobi_shard", "residual_shard"),
+                    "compile_program3 V(3,3) 513³ z": ("descend3_shard", "ascend3_shard")}
+
+
+def phase_l(tmg, K, torch, run_counts):
+    """L: the sharded cycles across processes (two gloo workers on
+    ``PHASE_L_DEVICE``) against one process on the same logical meshes.
+    Returns the [end] figures."""
+    if str(ROOT / "examples") not in sys.path:
+        sys.path.insert(0, str(ROOT / "examples"))
+    import torch_multihost_cpu as runner
+
+    from multigrid_poisson_solver_tpu_torch.parallel import multihost
+    from multigrid_poisson_solver_tpu_torch.utils import scaling_model as sm
+
+    t0 = time.perf_counter()
+    one = runner.run_programs(PHASE_L_SPECS, [PHASE_L_DEVICE] * 4, time_it=True)
+    one_over = runner.overheads([PHASE_L_DEVICE] * 2)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    each = multihost.spawn(runner.worker, 2,
+                           (PHASE_L_SPECS, 2, PHASE_L_DEVICE, False, False, True, True),
+                           backend="gloo", timeout=150, threads=torch.get_num_threads())
+    t_multi = time.perf_counter() - t0
+    multi = runner.merge(each)
+    report = runner.compare(one, multi)
+    out = {}
+    for name, diffs in report.items():
+        a, b = one[name], multi[name]
+        require(not diffs, f"[L] {name}: two processes differ from one: {diffs}")
+        for r, w in enumerate(each):
+            got = {k: v for k, v in w[name]["launches"].items() if v}
+            require(all(got.get(k, 0) > 0 for k in PHASE_L_LAUNCHES[name]),
+                    f"[L] {name}: worker {r} launched {got}, not the shard modes "
+                    f"{PHASE_L_LAUNCHES[name]}")
+            run_counts[f"l {name} worker {r}"] = w[name]["launches"]
+        say(f"[L] {name}: {len(a['blocks'])} blocks bit-identical (SHA-256), errors {b['errs']}"
+            f", stop sweeps {b['sweeps'] or '-'}; launches a worker "
+            f"{[{k: v for k, v in w[name]['launches'].items() if v} for w in each]}")
+        ms = " / ".join(f"{w[name]['ms']:.3f}" for w in each)
+        walls = " / ".join(f"{w[name]['wall_ms']:.1f}" for w in each)
+        say(f"[L] {name}: {a['ms']:.3f} ms/cycle in one process (4 entries), {ms} ms/cycle in "
+            f"the two workers (CUDA events; host wall {a['wall_ms']:.1f}, {walls} ms)")
+        out.setdefault("ms", {})[name] = (a["ms"], [w[name]["ms"] for w in each])
+    # the sharded layer's counters against the model's prediction
+    spec = PHASE_L_SPECS["V(3,3) 4097² block"]
+    prog = tmg.v_cycle(spec["n"], **spec["program"])
+    cfg = tmg.SolverConfig(collect_node_stats=False, **spec["config"])
+    model = sm.comm_report(prog, 4, spec["threshold"], 2, 2, cfg)
+    require(model.counts() == multi["V(3,3) 4097² block"]["counts"],
+            "[L] the 4097² block cycle's counters differ from utils.scaling_model's")
+    say(f"[L] V(3,3) 4097² block: counters equal utils.scaling_model.comm_report's "
+        f"({model.pieces} pieces, {model.pieces_xproc} between processes in "
+        f"{model.messages} messages, {model.events_gather} gathers a cold cycle)")
+    w = each[0]["overheads"]
+    piece_s = one_over["exchange_s"] / one_over["pieces"]
+    message_s = w["exchange_s"]
+    say(f"[L] overheads (host s; gloo, staged through host memory, both processes on one "
+        f"card): PIECE_S {piece_s:.3e} (one process, {one_over['pieces']} pieces an "
+        f"exchange), MESSAGE_S {message_s:.3e} (an exchange of one message a process), "
+        f"COLLECTIVE_S {w['psum_s']:.3e} (a psum); the one-process psum "
+        f"{one_over['psum_s']:.3e}")
+    say(f"[L] one process {t_one:.1f} s, two workers {t_multi:.1f} s with their start; "
+        f"both processes share cuda:0: a correctness phase, no scaling is shown")
+    out["overheads"] = (piece_s, message_s, w["psum_s"])
+    return out
 
 
 def phase_k(tmg, K, torch, run_counts):
@@ -4504,6 +4603,10 @@ def main():
     t0 = time.perf_counter()
     k_out = phase_k(tmg, K, torch, run_counts)
     say(f"[K] done in {time.perf_counter() - t0:.1f} s")
+    # -- phase L: the sharded cycles across processes ---------------------------------
+    t0 = time.perf_counter()
+    l_out = phase_l(tmg, K, torch, run_counts)
+    say(f"[L] done in {time.perf_counter() - t0:.1f} s")
 
     say(f"[end] trigger V-cycle {n8}² wall ms: "
         + ", ".join(f"{tag} {ms:.1f}" for tag, ms in ms_trigger.items()))
@@ -4543,6 +4646,10 @@ def main():
         f"s; V(3,3) {n}² cost_report roofline {roof:.4f} ms vs {ms_cycle:.4f} ms/cycle (events), "
         f"DeviceTimer {ms_measure:.4f} / {ms_diff:.4f} ms; checkpoint save {k_out['ckpt'][0]:.3f}"
         f" s (commit {k_out['ckpt'][1]:.3f} s), latest() {k_out['ckpt'][2]:.3f} s")
+    say("[end] L ms/cycle, one process on 4 entries vs two workers on 2 each (one card, no "
+        "scaling): " + "; ".join(f"{name} {a:.3f} vs {' / '.join(f'{x:.3f}' for x in b)}"
+                                 for name, (a, b) in l_out["ms"].items())
+        + "; PIECE_S, MESSAGE_S, COLLECTIVE_S " + ", ".join(f"{x:.3e}" for x in l_out["overheads"]))
     say(f"[end] chip_smoke ran {time.perf_counter() - t_start:.0f} s")
 
     # no single PyTorch call computes any of these functions: library_ms is null

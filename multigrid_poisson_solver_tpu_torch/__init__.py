@@ -23,7 +23,11 @@ kernels of ``ops.rdma``; and the 3-D multi-device path on a z-plane mesh
 (``ZShardingPolicy3``, ``make_mesh_z``): ``v_cycle3_sharded`` and
 ``compile_program3(..., policy=...)`` with the shard modes of the 3-D
 kernels and, with ``halo="rdma"``, the four 3-D ring kernels of
-``ops.rdma3``. Every TPU kernel of the JAX package has a counterpart.
+``ops.rdma3``. Every TPU kernel of the JAX package has a counterpart. The
+sharded cycles also run across processes (``parallel.multihost`` on
+``torch.distributed``: every rank owns its mesh entries' blocks, the
+results one process's bit for bit), with ``utils.scaling_model`` and
+``utils.scaling_model3`` as the model of their exchanges.
 
 The user-facing utilities: the native runtime binding (``native``: the
 Cycle.txt parser and the multithreaded CSV writer and reader of

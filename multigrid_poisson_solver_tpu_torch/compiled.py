@@ -49,7 +49,9 @@ the fused legs run per shard (JAX's ``_leg_sharded_ok``), never on a
 replicated level under a policy; chains take no sharded level; replicated
 levels take the single-device kernels for their sweeps and the plain ops
 for the rest. Without kernels, sharded levels run ``parallel.halo``'s plain
-per-shard ops.
+per-shard ops. On a mesh of several processes (``parallel.multihost``) every
+process runs the same calls on its own blocks, replicated levels on every
+process; ``halo="rdma"`` is refused there (ROADMAP Queue 2 A1).
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from .ops import transfers
 from .ops.zoom import zoom
 from .parallel import halo as sharded_halo
 from .parallel import kernel_shard as KS
+from .parallel import kernel_shard3 as KS3
 from .parallel.sharded import as_level, gather, home, on_device
 from .schedule import Ascend, CoarseSolve, CycleProgram, Descend
 from .solver import SolverConfig, coarse_solve, restrict, trigger_loop
@@ -157,6 +160,8 @@ class CompiledCycle:
         _check_ported(config, self.use_kernels, program, policy)
         if config.halo not in ("ppermute", "rdma"):
             raise ValueError(f"unknown halo {config.halo!r}; expected ppermute or rdma")
+        if policy is not None and config.halo == "rdma":
+            KS3.check_rdma_one_process(policy.mesh)
         if (policy is not None and config.halo == "rdma" and self.use_kernels
                 and len(set(policy.mesh.devices)) > 1):
             raise ValueError(f"halo='rdma' runs every shard of a ring in one launch on one "

@@ -43,7 +43,8 @@ oracle ops; so does every trigger node on the plain path, as
 Under a ``parallel.mesh.ZShardingPolicy3`` (``policy=``) a level the policy
 shards, with the Jacobi smoother (JAX's ``sharded()``), is a
 ``parallel.sharded.ShardedGrid`` of z-plane blocks; other levels are
-tensors on the mesh's first device, and the glue (restriction off the
+tensors on the process's first mesh entry (every process of a
+multi-process mesh computes them), and the glue (restriction off the
 legs, prolongation, zoom, coarse solve) runs on gathered volumes. Sharded
 levels route in JAX's order (``compiled3.py:126-300``, ``:496-545``,
 ``:619-676``), with JAX's planes per device (``padded_depth // P``):
@@ -93,7 +94,7 @@ from .ops import transfers3 as T3
 from .ops.zoom import zoom3
 from .parallel import halo3
 from .parallel import kernel_shard3 as KS3
-from .parallel.sharded import as_level, gather, home, on_device
+from .parallel.sharded import ShardedGrid, as_level, gather, home, on_device
 from .schedule import Ascend, CoarseSolve, CycleProgram, Descend
 from .solver import SolverConfig, trigger_loop, trigger_loop_lagged
 from .solver3 import _prolong_add3, _restrict_residual3, coarse_solve3, smooth3_node
@@ -136,6 +137,15 @@ def _layout3(x, n: int, policy, cfg: SolverConfig, device):
     if policy is None:
         return x
     return as_level(x, policy, n) if _sharded3(policy, cfg, n) else gather(x, device)
+
+
+def _zero_inner(b: torch.Tensor, z0: int, n: int) -> torch.Tensor:
+    """A copy of the z block of planes [z0, z0 + len(b)) of an n-volume with
+    the volume's interior set to 0."""
+    out = b.clone()
+    lo = max(1, z0) - z0
+    out[lo:max(lo, min(n - 1, z0 + b.shape[0]) - z0), 1:-1, 1:-1] = 0
+    return out
 
 
 def _ring3(cfg: SolverConfig, use_kernels: bool) -> bool:
@@ -206,6 +216,8 @@ def _run3(u0, f0, program: CycleProgram, problem: Problem3D, cfg: SolverConfig,
         return lay(torch.zeros((n, n, n), dtype=cfg.dtype, device=device), n)
 
     def zero_interior(lu, n):
+        if isinstance(lu, ShardedGrid):   # block by block: no gather
+            return lu.map(lambda i, j, b: _zero_inner(b, lu.layout.rows[i][0], n))
         out = gather(lu).clone()
         out[1:-1, 1:-1, 1:-1] = 0
         return lay(out, n)
@@ -426,6 +438,8 @@ class CompiledCycle3:
         self.warm = warm
         self.use_kernels = _use_kernels(config, self.device)
         _check_ported(config, self.use_kernels, dim=3)
+        if policy is not None and config.halo == "rdma":
+            KS3.check_rdma_one_process(policy.mesh)
         KS3.check_halo3(config.halo, policy.mesh if policy is not None and self.use_kernels
                         else None)
 

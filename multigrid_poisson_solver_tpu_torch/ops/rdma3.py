@@ -256,7 +256,7 @@ def coarse_layout3(x: ShardedGrid) -> Layout:
     slabs; the ascend leg's coarse blocks)."""
     lay, m = x.layout, (x.n + 1) // 2
     half = tuple((a // 2, (b + 1) // 2) for a, b in lay.rows)
-    return Layout(m, half, ((0, m),), lay.devices, 3)
+    return lay.coarse(m, half, ((0, m),))
 
 
 def _check_ring3(u, f: ShardedGrid, even: bool = False):
@@ -534,7 +534,7 @@ def rdma_trigger3_torch(u: ShardedGrid, f: ShardedGrid, h: float, omega: float =
             extend(v, i, 0, ext), extend(f, i, 0, ext), halo3.geo3(f, i, ext), h, 1, omega,
             False, compat))
         return (_grid_of(f, [b for b, _ in res]),
-                halo3.sum_err3([raw for _, raw in res], compat, f.n, h, f.dtype))
+                halo3.sum_err3([raw for _, raw in res], compat, f.n, h, f.dtype, f))
 
     u, err, sweeps = trigger_loop(step, u, trigger, max_sweeps)
     return u, err, torch.tensor(sweeps, dtype=torch.int32, device=f.device)

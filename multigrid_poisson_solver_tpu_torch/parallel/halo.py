@@ -3,7 +3,7 @@
 PyTorch port of ``multigrid_poisson_solver_tpu/parallel/halo.py``. Each shard
 owns a block of grid rows (and columns, under a block policy); before every
 sweep, one halo row (and column) per side comes from its ring neighbours
-(``sharded.extend``, the counterpart of ``lax.ppermute``), and error
+(``sharded.extend_all``, the counterpart of ``lax.ppermute``), and error
 reductions add the shards' partials in shard order (``sharded.psum``). Masks
 use the global index, so the Dirichlet boundary stays frozen and the result
 on owned cells is the unsharded op's (``ops.stencils``), bit for bit for the
@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import kernels as K
-from .sharded import ShardedGrid, extend, psum
+from .sharded import ShardedGrid, extend_all, psum
 
 
 def shard_geo(x: ShardedGrid, i: int, j: int, ext: int = 1) -> K.ShardGeo:
@@ -29,12 +29,6 @@ def shard_geo(x: ShardedGrid, i: int, j: int, ext: int = 1) -> K.ShardGeo:
     cells per side."""
     (r0, r1), (c0, c1) = x.layout.rows[i], x.layout.cols[j]
     return K.ShardGeo(x.n, r0, c0, r1 - r0, c1 - c0, ext, ext)
-
-
-def exchange_halo(x: ShardedGrid, i: int, j: int = 0) -> torch.Tensor:
-    """Block (i, j) with one row and one column of its neighbours on each
-    side (0 beyond the grid)."""
-    return extend(x, i, j, 1, 1)
 
 
 def jacobi_sweep_shard(u_ext, f_ext, geo: K.ShardGeo, h: float, omega: float = 1.0):
@@ -69,9 +63,10 @@ def smoothing_error_shard(u_ext, f_ext, geo: K.ShardGeo, h: float, compat: bool 
 
 
 def _per_shard(x: ShardedGrid, f: ShardedGrid, fn):
-    """A grid of x's layout whose block (i, j) is fn(u_ext, f_ext, geo)."""
-    return x.map(lambda i, j, *_: fn(exchange_halo(x, i, j), exchange_halo(f, i, j),
-                                     shard_geo(x, i, j)))
+    """A grid of x's layout whose block (i, j) is fn(u_ext, f_ext, geo), the
+    windows from one exchange each."""
+    ue, fe = extend_all(x, 1, 1), extend_all(f, 1, 1)
+    return x.map(lambda i, j, *_: fn(ue[i, j], fe[i, j], shard_geo(x, i, j)))
 
 
 def sharded_smooth(u: ShardedGrid, f: ShardedGrid, h: float, steps: int, omega: float = 1.0,
@@ -98,10 +93,10 @@ def sharded_smoothing_error(u: ShardedGrid, f: ShardedGrid, h: float,
                             compat: bool = True) -> torch.Tensor:
     """The smoothing error of a sharded level: the shards' partials added in
     shard order, / n²."""
-    parts = [smoothing_error_shard(exchange_halo(u, i, j), exchange_halo(f, i, j),
-                                   shard_geo(u, i, j), h, compat)
-             for i, j in u.layout.order()]
-    return psum(parts) / (u.n * u.n)
+    ue, fe = extend_all(u, 1, 1), extend_all(f, 1, 1)
+    parts = [smoothing_error_shard(ue[i, j], fe[i, j], shard_geo(u, i, j), h, compat)
+             for i, j in u.layout.local_order()]
+    return psum(parts, u) / (u.n * u.n)
 
 
 def sharded_gpu_smoothing_error(u_new: ShardedGrid, u_old: ShardedGrid,
@@ -109,9 +104,9 @@ def sharded_gpu_smoothing_error(u_new: ShardedGrid, u_old: ShardedGrid,
     """The GPU reference's metric, Σ|u_new − u_old| over the interior · 4/h²
     / n², the shards' partials added in shard order."""
     parts = []
-    for i, j in u_new.layout.order():
+    for i, j in u_new.layout.local_order():
         geo = shard_geo(u_new, i, j, 0)
         d = torch.abs(u_new.blocks[i][j] - u_old.blocks[i][j])
         parts.append(K._raw_partial(d, geo, geo.interior(d.device), "clean"))
     n = u_new.n
-    return psum(parts) * (4.0 / (h * h)) / (n * n)
+    return psum(parts, u_new) * (4.0 / (h * h)) / (n * n)

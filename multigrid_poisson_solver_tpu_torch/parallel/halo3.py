@@ -4,7 +4,7 @@ No file of the JAX package holds this: under a ``ZShardingPolicy3`` without
 its Pallas kernels, JAX runs the plain ``v_cycle3`` ops on global arrays and
 lets GSPMD partition them (``compiled3.py:129-136``, ``tests/test_parallel3.py``).
 Here each shard owns a block of z planes; before every sweep one plane per
-side comes from its ring neighbours (``sharded.extend``, the ppermute
+side comes from its ring neighbours (``sharded.extend_all``, the ppermute
 exchange), the masks go by global z (``ops.kernels3.ShardGeo3``), and error
 sums add each shard's float64 partial over its owned interior in shard order
 (``sharded.psum``), scaled and rounded once. The owned planes are the plain
@@ -21,7 +21,7 @@ import torch
 
 from ..models import poisson3d as p3
 from ..ops import kernels3 as K3
-from .sharded import ShardedGrid, extend, psum
+from .sharded import ShardedGrid, extend_all, psum
 
 
 def geo3(x: ShardedGrid, i: int, ext: int = 1) -> K3.ShardGeo3:
@@ -31,16 +31,18 @@ def geo3(x: ShardedGrid, i: int, ext: int = 1) -> K3.ShardGeo3:
     return K3.ShardGeo3(x.n, z0, z1 - z0, ext)
 
 
-def sum_err3(raws, compat: str, n: int, h: float, dtype) -> torch.Tensor:
+def sum_err3(raws, compat: str, n: int, h: float, dtype, x) -> torch.Tensor:
     """The shards' raw float64 error sums added in shard order, scaled,
-    rounded to ``dtype`` once."""
-    return (psum(raws) * p3.error_scale3(compat, n, h)).to(dtype)
+    rounded to ``dtype`` once (``x``: the level they are of, as
+    ``sharded.psum`` takes it)."""
+    return (psum(raws, x) * p3.error_scale3(compat, n, h)).to(dtype)
 
 
 def _per_shard(u: ShardedGrid, f: ShardedGrid, fn) -> ShardedGrid:
     """A grid of u's layout whose block i is fn(u_ext, f_ext, geo), the
     windows one plane deep."""
-    return u.map(lambda i, j, *_: fn(extend(u, i, 0, 1), extend(f, i, 0, 1), geo3(u, i)))
+    ue, fe = extend_all(u, 1), extend_all(f, 1)
+    return u.map(lambda i, j, *_: fn(ue[i, j], fe[i, j], geo3(u, i)))
 
 
 def jacobi_sweep3_shard(u_ext, f_ext, geo: K3.ShardGeo3, h: float, omega: float):
@@ -66,18 +68,19 @@ def sharded_residual3(u: ShardedGrid, f: ShardedGrid, h: float,
 def sharded_smoothing_error3(u: ShardedGrid, f: ShardedGrid, h: float) -> torch.Tensor:
     """The clean metric Σ|r|/n³ (``smoothing_error3``), the shards' float64
     partials added in shard order."""
+    ue, fe = extend_all(u, 1), extend_all(f, 1)
     parts = [K3._raw3(torch.abs(K3._residual3_ext(
-        extend(u, i, 0, 1), extend(f, i, 0, 1), geo3(u, i).inner(u.device), h)), geo3(u, i))
-        for i in range(len(u.layout.rows))]
-    return sum_err3(parts, "clean", u.n, h, u.dtype)
+        ue[i, j], fe[i, j], geo3(u, i).inner(u.device), h)), geo3(u, i))
+        for i, j in u.layout.local_order()]
+    return sum_err3(parts, "clean", u.n, h, u.dtype, u)
 
 
 def sharded_gpu_smoothing_error3(u_new: ShardedGrid, u_old: ShardedGrid,
                                  h: float) -> torch.Tensor:
     """The gpu metric Σ|u_new − u_old|·6/h²/n³ (``gpu_smoothing_error3``)."""
     parts = [K3._raw3(torch.abs(u_new.blocks[i][0] - u_old.blocks[i][0]), geo3(u_new, i, 0))
-             for i in range(len(u_new.layout.rows))]
-    return sum_err3(parts, "gpu", u_new.n, h, u_new.dtype)
+             for i, _ in u_new.layout.local_order()]
+    return sum_err3(parts, "gpu", u_new.n, h, u_new.dtype, u_new)
 
 
 def sharded_smooth3_err(u: ShardedGrid, f: ShardedGrid, h: float, steps: int, omega: float,

@@ -5,7 +5,8 @@ PyTorch port of ``multigrid_poisson_solver_tpu/parallel/pallas_shard.py``
 (named for what it holds: the port's kernels are CUDA, not Pallas). Per
 fused pass (at most 8 sweeps, 4 for rb-GS) each shard's block is extended by
 8 rows (and 8 columns under a block policy) of its ring neighbours
-(``sharded.extend``, the ppermute exchange), and the shard-mode kernel
+(``sharded.extend_all``, the ppermute exchange: one batched exchange a call
+site, across processes too), and the shard-mode kernel
 (``ops.kernels``, ``*_shard``) runs on it with the block's global origin, so
 the Dirichlet masks stay exact and the owned cells are the unsharded
 kernel's, bit for bit (the trapezoid argument of the single-device tiles
@@ -18,7 +19,8 @@ order (``sharded.psum``) and scaled once, the order the ring kernels of
 instead (``SolverConfig(halo="rdma")``); like JAX's they are for rows-only
 layouts.
 
-Every function takes and returns ``ShardedGrid``s. The shard-mode kernels
+Every function takes and returns ``ShardedGrid``s and works on this
+process's blocks (every process calls it). The shard-mode kernels
 are looked up in ``ops.kernels`` at each call, so replacing them there by
 their ``*_torch`` twins runs these wrappers on the twins (CPU blocks always
 run them). Each shard's kernel launches with its shard's card current, so a
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 from ..ops import kernels as K
 from ..ops import rdma
-from .sharded import Layout, ShardedGrid, extend, on_device, psum, window
+from .sharded import Layout, ShardedGrid, exchange, extend_all, on_device, psum
 
 HALO = 8  # rows (and columns) of a shard's halo per fused pass
 
@@ -63,20 +65,21 @@ class _Pass:
     def __init__(self, f: ShardedGrid):
         self.f = f
         self.ec = _ext_c(f, HALO)
-        self.f_ext = {ij: extend(f, *ij, HALO, self.ec) for ij in f.layout.order()}
+        self.f_ext = extend_all(f, HALO, self.ec)
 
     def geo(self, i, j):
         return _geo(self.f, i, j, HALO, self.ec)
 
-    def u_ext(self, u: ShardedGrid, i, j):
-        return extend(u, i, j, HALO, self.ec)
+    def u_ext(self, u: ShardedGrid) -> dict:
+        """Every local block of u with the pass's halo (one exchange)."""
+        return extend_all(u, HALO, self.ec)
 
 
 def _each(x: ShardedGrid, fn) -> dict:
-    """{(i, j): fn(i, j)} over x's shards in shard order, each call with its
-    shard's card current."""
+    """{(i, j): fn(i, j)} over this process's shards of x in shard order,
+    each call with its shard's card current."""
     out = {}
-    for i, j in x.layout.order():
+    for i, j in x.layout.local_order():
         with on_device(x.layout.devices[i][j]):
             out[i, j] = fn(i, j)
     return out
@@ -93,8 +96,9 @@ def _passes(u: ShardedGrid, px: _Pass, steps: int, cap: int, from_zero: bool, fn
     while steps > 0:
         k = min(steps, cap)
         fz = from_zero and first
-        u = _grid(u, _each(u, lambda i, j, k=k, fz=fz, src=u: fn(
-            None if fz else px.u_ext(src, i, j), px.f_ext[i, j], px.geo(i, j), k, fz)))
+        ue = None if fz else px.u_ext(u)
+        u = _grid(u, _each(u, lambda i, j, k=k, fz=fz: fn(
+            None if fz else ue[i, j], px.f_ext[i, j], px.geo(i, j), k, fz)))
         steps -= k
         first = False
     return u
@@ -123,21 +127,22 @@ def sharded_residual(u: ShardedGrid, f: ShardedGrid, h: float,
     ec = _ext_c(f, 1)
     lay = f.layout
     by_card: dict = {}
-    for ij in lay.order():
+    for ij in lay.local_order():
         by_card.setdefault(lay.devices[ij[0]][ij[1]], []).append(ij)
+    ue, fe = extend_all(u, 1, ec), extend_all(f, 1, ec)
     blocks = {}
     for dev, ijs in by_card.items():
         with on_device(dev):
-            rs = K.residual_shards([extend(u, i, j, 1, ec) for i, j in ijs],
-                                   [extend(f, i, j, 1, ec) for i, j in ijs],
+            rs = K.residual_shards([ue[ij] for ij in ijs], [fe[ij] for ij in ijs],
                                    [_geo(f, i, j, 1, ec) for i, j in ijs], h, negate)
         blocks.update(zip(ijs, rs))
     return _grid(u, blocks)
 
 
-def _sum_err(raws, mode, n, h, smoother="jacobi"):
-    """The shards' raw partials added in shard order, then scaled."""
-    return psum(raws) * _err_scale(mode, n, h, smoother)
+def _sum_err(raws, mode, x: ShardedGrid, h, smoother="jacobi"):
+    """The shards' raw partials of level x added in shard order, then
+    scaled."""
+    return psum(raws, x) * _err_scale(mode, x.n, h, smoother)
 
 
 def _smooth_err(u, f, h, steps, omega, compat, from_zero, smoother, op):
@@ -156,10 +161,11 @@ def _smooth_err(u, f, h, steps, omega, compat, from_zero, smoother, op):
         u = _passes(u, px, steps - last, cap, from_zero,
                     lambda ue, fe, g, k, fz: op(ue, fe, g, h, k, omega, fz, None, smoother)[0])
         from_zero = False
-    res = _each(f, lambda i, j: op(None if from_zero else px.u_ext(u, i, j), px.f_ext[i, j],
+    ue = None if from_zero else px.u_ext(u)
+    res = _each(f, lambda i, j: op(None if from_zero else ue[i, j], px.f_ext[i, j],
                                    px.geo(i, j), h, last, omega, from_zero, mode, smoother))
     return (_grid(u, {ij: b for ij, (b, _) in res.items()}),
-            _sum_err([raw for _, raw in res.values()], mode, f.n, h, smoother))
+            _sum_err([raw for _, raw in res.values()], mode, f, h, smoother))
 
 
 def sharded_fused_jacobi_err(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
@@ -181,10 +187,11 @@ def sharded_fused_jacobi_errs(u: ShardedGrid, f: ShardedGrid, h: float, steps: i
                          f"got {steps}")
     mode = K.err_mode_of(compat)
     px = _Pass(f)
+    ue = px.u_ext(u)
     res = _each(f, lambda i, j: K.fused_jacobi_errs_shard(
-        px.u_ext(u, i, j), px.f_ext[i, j], px.geo(i, j), h, steps, omega, mode))
+        ue[i, j], px.f_ext[i, j], px.geo(i, j), h, steps, omega, mode))
     return (_grid(u, {ij: b for ij, (b, _) in res.items()}),
-            _sum_err([r for _, r in res.values()], mode, f.n, h))
+            _sum_err([r for _, r in res.values()], mode, f, h))
 
 
 def _coarse_layout(x: ShardedGrid) -> Layout:
@@ -194,7 +201,7 @@ def _coarse_layout(x: ShardedGrid) -> Layout:
     m = (x.n + 1) // 2
     half = tuple((a // 2, (b + 1) // 2) for a, b in lay.rows)
     halfc = tuple((a // 2, (b + 1) // 2) for a, b in lay.cols)
-    return Layout(m, half, halfc, lay.devices)
+    return lay.coarse(m, half, halfc)
 
 
 def sharded_fused_descend(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
@@ -205,14 +212,15 @@ def sharded_fused_descend(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
     (``_coarse_layout``); ``sharded.as_level`` re-splits it for the coarse
     level where that level is laid out otherwise."""
     px = _Pass(f)
+    ue = None if from_zero else px.u_ext(u)
     res = _each(f, lambda i, j: K.fused_descend_shard(
-        None if from_zero else px.u_ext(u, i, j), px.f_ext[i, j], px.geo(i, j), h, steps, omega,
+        None if from_zero else ue[i, j], px.f_ext[i, j], px.geo(i, j), h, steps, omega,
         restriction, err_mode, from_zero))
     lay = _coarse_layout(f)
-    fc = ShardedGrid(lay, [[res[i, j][1] for j in range(len(lay.cols))]
-                           for i in range(len(lay.rows))])
+    fc = ShardedGrid(lay, [[res[i, j][1] if (i, j) in res else None
+                            for j in range(len(lay.cols))] for i in range(len(lay.rows))])
     err = None if err_mode is None else _sum_err([r for _, _, r in res.values()], err_mode,
-                                                 f.n, h)
+                                                 f, h)
     return _grid(u, {ij: b for ij, (b, _, _) in res.items()}), fc, err
 
 
@@ -229,17 +237,19 @@ def sharded_fused_ascend(u: ShardedGrid, f: ShardedGrid, child, h: float, steps:
     window of it around its coarse points. Returns (u, err or None)."""
     px = _Pass(f)
     ch = COARSE_HALO
+    lay = f.layout
+    ue = px.u_ext(u)
+    c_win = exchange(child, lay, lambda i, j: (
+        lay.rows[i][0] // 2 - ch, (lay.rows[i][1] + 1) // 2 + ch,
+        lay.cols[j][0] // 2 - ch, (lay.cols[j][1] + 1) // 2 + ch))
 
     def one(i, j):
-        (r0, r1), (c0, c1) = f.layout.rows[i], f.layout.cols[j]
-        cr0, cc0 = r0 // 2 - ch, c0 // 2 - ch
-        c_win = window(child, cr0, (r1 + 1) // 2 + ch, cc0, (c1 + 1) // 2 + ch,
-                       f.layout.devices[i][j])
-        return K.fused_ascend_shard(px.u_ext(u, i, j), px.f_ext[i, j], c_win, cr0, cc0,
+        cr0, cc0 = lay.rows[i][0] // 2 - ch, lay.cols[j][0] // 2 - ch
+        return K.fused_ascend_shard(ue[i, j], px.f_ext[i, j], c_win[i, j], cr0, cc0,
                                     px.geo(i, j), h, steps, omega, err_mode)
 
     res = _each(f, one)
-    err = None if err_mode is None else _sum_err([r for _, r in res.values()], err_mode, f.n, h)
+    err = None if err_mode is None else _sum_err([r for _, r in res.values()], err_mode, f, h)
     return _grid(u, {ij: b for ij, (b, _) in res.items()}), err
 
 

@@ -4,9 +4,10 @@ then the shard-mode kernel on every shard; and the sharded V-cycle.
 PyTorch port of ``multigrid_poisson_solver_tpu/parallel/pallas_shard3.py``
 with ``halo="ppermute"`` (its ``:173-506`` and ``v_cycle3_sharded``,
 ``:721-848``). Per fused pass each shard's planes are extended by the halo
-planes of its ring neighbours (``sharded.extend``, the counterpart of
-``_extend_planes``) and the shard-mode kernel (``ops.kernels3``,
-``*_shard``) runs on them with the shard's global z origin, so the
+planes of its ring neighbours (``sharded.extend_all``, the counterpart of
+``_extend_planes``: one batched exchange, across processes too) and the
+shard-mode kernel (``ops.kernels3``, ``*_shard``) runs on them with the
+shard's global z origin, so the
 z-Dirichlet gates stay exact and the owned planes are the unsharded
 kernel's, bit for bit. Each shard's error comes back as its raw float64 sum
 over its owned interior planes; the sums are added in shard order
@@ -29,8 +30,9 @@ while ``rdma_jacobi3_fits`` refuses it; the clean error's last pass at most
 min(7, nl − 1)) and return what the exchange path returns, the same values
 bit for bit. Their callers route by JAX's admission predicates on JAX's nl
 and padded (rp, cp). A ring launch runs every shard on one card, so a mesh
-over several cards keeps the exchange path and refuses "rdma", as the 2-D
-engine does.
+over several cards or several processes keeps the exchange path and
+refuses "rdma", as the 2-D engine does (across processes: ROADMAP Queue 2
+A1).
 
 The shard-mode kernels are looked up in ``ops.kernels3`` at each call, so
 replacing them there by their ``*_torch`` twins runs these wrappers on the
@@ -49,15 +51,30 @@ from ..ops import rdma3 as R3
 from ..ops import transfers3 as T3
 from . import halo3
 from .mesh import Z_AXIS, padded_depth3
-from .sharded import (Layout, ShardedGrid, as_level, each_shard, extend, gather, home, on_device,
-                      planes)
+from .sharded import (Layout, ShardedGrid, as_level, each_shard, exchange, extend_all, gather,
+                      home, on_device)
+
+MULTI_PROCESS_RDMA = "ROADMAP Queue 2 A1"
+
+
+def check_rdma_one_process(mesh) -> None:
+    """Refuse halo="rdma" on a mesh of several processes: a ring launch
+    reads every shard's buffers, which another process does not map."""
+    if not mesh.one_process:
+        raise ValueError(f"halo='rdma' needs every shard of a ring in one process; this mesh "
+                         f"spans processes {sorted(set(mesh.ranks))}: use halo='ppermute' "
+                         f"(the ring across processes is {MULTI_PROCESS_RDMA})")
+
 
 def check_halo3(halo: str, mesh=None) -> None:
-    """Refuse an unknown halo, and halo="rdma" on a mesh over several cards:
-    a ring kernel runs every shard of a ring in one launch on one card (the
-    2-D engine's refusal, ``compiled.py``)."""
+    """Refuse an unknown halo, and halo="rdma" on a mesh of several
+    processes or over several cards: a ring kernel runs every shard of a
+    ring in one launch on one card (the 2-D engine's refusal,
+    ``compiled.py``)."""
     if halo not in ("ppermute", "rdma"):
         raise ValueError(f"unknown halo {halo!r}; expected ppermute or rdma")
+    if halo == "rdma" and mesh is not None:
+        check_rdma_one_process(mesh)
     if halo == "rdma" and mesh is not None and len(set(mesh.devices)) > 1:
         raise ValueError(f"halo='rdma' runs every shard of a ring in one launch on one card; "
                          f"this mesh spans {sorted(set(map(str, mesh.devices)))}: use "
@@ -77,7 +94,10 @@ def _geo(x: ShardedGrid, i: int, ext: int) -> K3.ShardGeo3:
 
 
 def _grid(x: ShardedGrid, blocks) -> ShardedGrid:
-    return x.map(lambda i, j, b: blocks[i])
+    """x's layout with ``blocks``, this process's blocks in shard order (as
+    ``each_shard`` returns them)."""
+    it = iter(blocks)
+    return x.map(lambda i, j, b: next(it))
 
 
 def _passes(u: ShardedGrid, f: ShardedGrid, h: float, steps: int, omega: float,
@@ -90,12 +110,11 @@ def _passes(u: ShardedGrid, f: ShardedGrid, h: float, steps: int, omega: float,
         k = min(steps, kmax)
         ext = ext_of(k)
         if ext not in f_e:
-            f_e[ext] = [extend(f, i, 0, ext) for i in range(len(f.layout.rows))]
+            f_e[ext] = extend_all(f, ext)
         fz = from_zero and first
-        src = u
+        ue = None if fz else extend_all(u, ext)
         u = _grid(u, each_shard(f, lambda i: K3.fused_jacobi3_shard(
-            None if fz else extend(src, i, 0, ext), f_e[ext][i], _geo(f, i, ext), h, k, omega,
-            fz)[0]))
+            None if fz else ue[i, 0], f_e[ext][i, 0], _geo(f, i, ext), h, k, omega, fz)[0]))
         steps -= k
         first = False
     return u, from_zero and first
@@ -131,16 +150,17 @@ def sharded_fused_jacobi3_err(u: ShardedGrid, f: ShardedGrid, h: float, steps: i
     u, fz = _passes(u, f, h, steps - last, omega, from_zero, kmax, lambda k: k)
     z_halo = last if mode == "gpu" else last - fz + 1
     ext = min(max(z_halo, 1), nl)
+    ue, fe = None if fz else extend_all(u, ext), extend_all(f, ext)
 
     def one(i):
         geo = _geo(f, i, ext)
         plan = K3.err_plan3(geo.nz) if err_plan else None
-        return K3.fused_jacobi3_shard(None if fz else extend(u, i, 0, ext), extend(f, i, 0, ext),
-                                      geo, h, last, omega, fz, mode, plan)
+        return K3.fused_jacobi3_shard(None if fz else ue[i, 0], fe[i, 0], geo, h, last, omega,
+                                      fz, mode, plan)
 
     res = each_shard(f, one)
     return (_grid(u, [b for b, _ in res]),
-            halo3.sum_err3([raw for _, raw in res], mode, f.n, h, f.dtype))
+            halo3.sum_err3([raw for _, raw in res], mode, f.n, h, f.dtype, f))
 
 
 def sharded_trigger_step3(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 6.0 / 7.0,
@@ -161,10 +181,11 @@ def sharded_trigger_pass3(u: ShardedGrid, f: ShardedGrid, h: float, omega: float
     exchange; the same float ``sharded_trigger_step3`` reports for that
     iterate."""
     mode = "gpu" if compat == "gpu" else "clean"
+    ue, fe = extend_all(u, 1), extend_all(f, 1)
     res = each_shard(f, lambda i: K3.trigger_pass3_shard(
-        extend(u, i, 0, 1), extend(f, i, 0, 1), _geo(f, i, 1), h, omega, mode))
+        ue[i, 0], fe[i, 0], _geo(f, i, 1), h, omega, mode))
     return (_grid(u, [b for b, _ in res]),
-            halo3.sum_err3([raw for _, raw in res], mode, f.n, h, f.dtype))
+            halo3.sum_err3([raw for _, raw in res], mode, f.n, h, f.dtype, f))
 
 
 def sharded_fused_jacobi3_errs(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
@@ -181,18 +202,20 @@ def sharded_fused_jacobi3_errs(u: ShardedGrid, f: ShardedGrid, h: float, steps: 
     if ext > _nl(f, nl):
         raise ValueError(f"a batched sharded trigger pass needs {ext} halo planes <= "
                          f"{_nl(f, nl)} planes per device")
+    ue, fe = extend_all(u, ext), extend_all(f, ext)
     res = each_shard(f, lambda i: K3.fused_jacobi3_errs_shard(
-        extend(u, i, 0, ext), extend(f, i, 0, ext), _geo(f, i, ext), h, steps, omega, mode))
+        ue[i, 0], fe[i, 0], _geo(f, i, ext), h, steps, omega, mode))
     return (_grid(u, [b for b, _ in res]),
-            halo3.sum_err3([raws for _, raws in res], mode, f.n, h, f.dtype))
+            halo3.sum_err3([raws for _, raws in res], mode, f.n, h, f.dtype, f))
 
 
 def sharded_residual3(u: ShardedGrid, f: ShardedGrid, h: float,
                       negate: bool = False) -> ShardedGrid:
     """The 7-point residual of a z-sharded level (``sharded_residual3_pallas``;
     one halo plane)."""
+    ue, fe = extend_all(u, 1), extend_all(f, 1)
     return _grid(u, each_shard(f, lambda i: K3.residual3_shard(
-        extend(u, i, 0, 1), extend(f, i, 0, 1), _geo(f, i, 1), h, negate)))
+        ue[i, 0], fe[i, 0], _geo(f, i, 1), h, negate)))
 
 
 def sharded_smooth_residual3(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
@@ -208,9 +231,10 @@ def sharded_smooth_residual3(u: ShardedGrid, f: ShardedGrid, h: float, steps: in
         out = sharded_fused_jacobi3(u, f, h, steps, omega, from_zero, nl)
         return out, sharded_residual3(out, f, h, negate)
     ext = k_eff + 1
+    ue, fe = None if from_zero else extend_all(u, ext), extend_all(f, ext)
     res = each_shard(f, lambda i: K3.fused_jacobi3_residual_shard(
-        None if from_zero else extend(u, i, 0, ext), extend(f, i, 0, ext), _geo(f, i, ext), h,
-        steps, omega, from_zero, negate))
+        None if from_zero else ue[i, 0], fe[i, 0], _geo(f, i, ext), h, steps, omega, from_zero,
+        negate))
     return _grid(u, [a for a, _ in res]), _grid(u, [b for _, b in res])
 
 
@@ -219,7 +243,7 @@ def _coarse_layout3(x: ShardedGrid) -> Layout:
     ``coarse_planes3``."""
     lay, m = x.layout, (x.n + 1) // 2
     half = tuple((a // 2, (b + 1) // 2) for a, b in lay.rows)
-    return Layout(m, half, ((0, m),), lay.devices, 3)
+    return lay.coarse(m, half, ((0, m),))
 
 
 def sharded_fused_descend3(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
@@ -239,12 +263,13 @@ def sharded_fused_descend3(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
     if nl % 2 or not (1 <= steps and 0 <= k_nb <= cap and z_halo <= nl):
         raise ValueError(f"the sharded descend leg needs an even plane count per device "
                          f"holding its {z_halo}-plane halo, got nl={nl}, steps={steps}")
+    ue, fe = None if from_zero else extend_all(u, z_halo), extend_all(f, z_halo)
     res = each_shard(f, lambda i: K3.fused_descend3_shard(
-        None if from_zero else extend(u, i, 0, z_halo), extend(f, i, 0, z_halo),
-        _geo(f, i, z_halo), h, steps, omega, from_zero, restriction, want_err))
+        None if from_zero else ue[i, 0], fe[i, 0], _geo(f, i, z_halo), h, steps, omega,
+        from_zero, restriction, want_err))
     lay = _coarse_layout3(f)
-    fc = ShardedGrid(lay, [[fc] for _, fc, _ in res])
-    err = (halo3.sum_err3([raw for _, _, raw in res], "clean", f.n, h, f.dtype) if want_err
+    fc = _grid(ShardedGrid(lay, [[None] for _ in lay.rows]), [c for _, c, _ in res])
+    err = (halo3.sum_err3([raw for _, _, raw in res], "clean", f.n, h, f.dtype, f) if want_err
            else None)
     return _grid(u, [b for b, _, _ in res]), fc, err
 
@@ -272,15 +297,18 @@ def sharded_fused_ascend3(u: ShardedGrid, f: ShardedGrid, child, h: float, steps
         raise ValueError(f"the sharded ascend leg needs an even plane count per device "
                          f"holding its {ext_z}-plane halo, got nl={nl}, steps={steps}")
 
+    lay, m = f.layout, child.shape[0]
+    ue, fe = extend_all(u, ext_z), extend_all(f, ext_z)
+    c_win = exchange(child, lay, lambda i, j: (lay.rows[i][0] // 2 - ext_c,
+                                               (lay.rows[i][1] + 1) // 2 + ext_c + 1, 0, m))
+
     def one(i):
-        z0, z1 = f.layout.rows[i]
-        cz0 = z0 // 2 - ext_c
-        c_win = planes(child, cz0, (z1 + 1) // 2 + ext_c + 1, f.layout.devices[i][0])
-        return K3.fused_ascend3_shard(extend(u, i, 0, ext_z), extend(f, i, 0, ext_z), c_win,
-                                      cz0, _geo(f, i, ext_z), h, steps, omega, want_err)
+        cz0 = lay.rows[i][0] // 2 - ext_c
+        return K3.fused_ascend3_shard(ue[i, 0], fe[i, 0], c_win[i, 0], cz0, _geo(f, i, ext_z), h,
+                                      steps, omega, want_err)
 
     res = each_shard(f, one)
-    err = (halo3.sum_err3([raw for _, raw in res], "clean", f.n, h, f.dtype) if want_err
+    err = (halo3.sum_err3([raw for _, raw in res], "clean", f.n, h, f.dtype, f) if want_err
            else None)
     return _grid(u, [b for b, _ in res]), err
 
@@ -330,7 +358,7 @@ def rdma_fused_jacobi3_err(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
         u = R3.rdma_jacobi3(u, f, h, k, omega)[0]
         remaining -= k
     u, raws = R3.rdma_jacobi3(u, f, h, last, omega, err_mode=mode)
-    return u, halo3.sum_err3(raws, mode, f.n, h, f.dtype)
+    return u, halo3.sum_err3(raws, mode, f.n, h, f.dtype, f)
 
 
 def rdma_fused_descend3(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
@@ -344,7 +372,7 @@ def rdma_fused_descend3(u: ShardedGrid, f: ShardedGrid, h: float, steps: int,
         raise ValueError(f"the sharded descend leg needs an even plane count per device, "
                          f"got nl={nl}")
     u, fc, raws = R3.rdma_descend3(u, f, h, steps, omega, from_zero, restriction, want_err)
-    return u, fc, (halo3.sum_err3(raws, "clean", f.n, h, f.dtype) if want_err else None)
+    return u, fc, (halo3.sum_err3(raws, "clean", f.n, h, f.dtype, f) if want_err else None)
 
 
 def rdma_fused_ascend3(u: ShardedGrid, f: ShardedGrid, child, h: float, steps: int,
@@ -357,7 +385,7 @@ def rdma_fused_ascend3(u: ShardedGrid, f: ShardedGrid, child, h: float, steps: i
         raise ValueError(f"the sharded ascend leg needs an even plane count per device, "
                          f"got nl={nl}")
     u, raws = R3.rdma_ascend3(u, f, child, h, steps, omega, want_err)
-    return u, (halo3.sum_err3(raws, "clean", f.n, h, f.dtype) if want_err else None)
+    return u, (halo3.sum_err3(raws, "clean", f.n, h, f.dtype, f) if want_err else None)
 
 
 def rdma_fused_trigger3(u: ShardedGrid, f: ShardedGrid, h: float, omega: float = 6.0 / 7.0,

@@ -6,7 +6,10 @@ the z-plane policy of ``parallel/pallas_shard3.py:57-141`` (``make_mesh_z``,
 ``Mesh`` names the axes of an array of devices; here a ``Mesh`` names the
 axes of an array of torch devices, and a device may appear more than once:
 each entry is one shard, with its own buffers and neighbours, wherever it
-lives. A level is row-sharded (or block-sharded) while every shard owns at
+lives. An entry may also belong to another process (``Mesh.ranks``, the
+``torch.distributed`` rank that owns it; ``parallel.multihost`` builds such
+meshes): every process then holds the same mesh and works on its own
+entries. A level is row-sharded (or block-sharded) while every shard owns at
 least ``threshold_rows`` rows, replicated below (coarse-level
 agglomeration), with JAX's rules unchanged.
 
@@ -48,17 +51,37 @@ def padded_shape(n: int) -> tuple[int, int]:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Named axes over a row-major array of torch devices (repeats allowed)."""
+    """Named axes over a row-major array of torch devices (repeats allowed).
+
+    ``ranks``: the process that owns each entry, None when this process owns
+    them all (every mesh built without ``parallel.multihost``). The devices
+    of another process's entries are that process's names for them."""
 
     devices: tuple
     axis_names: tuple
     axis_sizes: tuple
+    ranks: Optional[tuple] = None
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes) or \
                 math.prod(self.axis_sizes) != len(self.devices):
             raise ValueError(f"a mesh of shape {self.axis_sizes} needs "
                              f"{math.prod(self.axis_sizes)} devices, got {len(self.devices)}")
+        if self.ranks is not None and len(self.ranks) != len(self.devices):
+            raise ValueError(f"{len(self.ranks)} ranks for {len(self.devices)} mesh entries")
+
+    @property
+    def one_process(self) -> bool:
+        """Whether one process owns every entry (no ``torch.distributed``
+        call is then made by the sharded layer)."""
+        return self.ranks is None or len(set(self.ranks)) == 1
+
+    def local_entries(self) -> list:
+        """The flat indices of the entries this process owns."""
+        if self.ranks is None:
+            return list(range(self.size))
+        me = process_rank()
+        return [k for k, r in enumerate(self.ranks) if r == me]
 
     @property
     def shape(self) -> dict:
@@ -67,6 +90,18 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+
+def process_rank() -> int:
+    """This process's ``torch.distributed`` rank (0 without a process
+    group)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _ranks(ranks) -> Optional[tuple]:
+    return None if ranks is None else tuple(int(r) for r in ranks)
 
 
 def _devices(devices) -> tuple:
@@ -78,18 +113,21 @@ def _devices(devices) -> tuple:
     return out
 
 
-def make_mesh(devices: Optional[Sequence] = None, axis_name: str = ROW_AXIS) -> Mesh:
+def make_mesh(devices: Optional[Sequence] = None, axis_name: str = ROW_AXIS,
+              ranks: Optional[Sequence] = None) -> Mesh:
     """A 1-D mesh over the given devices (default: every CUDA device), named
     for the row axis. ``make_mesh(["cuda:0"] * 8)`` is a ring of eight
-    shards on one card."""
+    shards on one card; ``ranks`` names each entry's process."""
     devs = _devices(devices)
-    return Mesh(devs, (axis_name,), (len(devs),))
+    return Mesh(devs, (axis_name,), (len(devs),), _ranks(ranks))
 
 
 def make_mesh_2d(shape: tuple[int, int], devices: Optional[Sequence] = None,
-                 axis_names: tuple[str, str] = (ROW_AXIS, COL_AXIS)) -> Mesh:
+                 axis_names: tuple[str, str] = (ROW_AXIS, COL_AXIS),
+                 ranks: Optional[Sequence] = None) -> Mesh:
     """A 2-D mesh for block partitioning (rows × cols of the grid)."""
-    return Mesh(_devices(devices), tuple(axis_names), tuple(shape))
+    devs = _devices(devices)
+    return Mesh(devs, tuple(axis_names), tuple(shape), _ranks(ranks))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,11 +197,12 @@ def _policy_padded_shape(n: int, spec: tuple, mesh: Mesh) -> tuple[int, int]:
     return rp, cp
 
 
-def make_mesh_z(devices: Optional[Sequence] = None, axis_name: str = Z_AXIS) -> Mesh:
+def make_mesh_z(devices: Optional[Sequence] = None, axis_name: str = Z_AXIS,
+                ranks: Optional[Sequence] = None) -> Mesh:
     """A 1-D mesh over the z (plane) axis of a volume (default: every CUDA
     device); ``make_mesh_z(["cuda:0"] * 8)`` is a ring of eight z-shards on
     one card."""
-    return make_mesh(devices, axis_name)
+    return make_mesh(devices, axis_name, ranks)
 
 
 def padded_depth3(n: int, n_devices: int) -> int:

@@ -282,7 +282,7 @@ def _ring_trigger(us, fs, h, compat, trigger, max_sweeps):
             post(s, nxt[s], wpar)
         iters[j + 1] = nxt
         if k >= 1:
-            e = halo3.sum_err3(raws, compat, n, h, torch.float32)
+            e = halo3.sum_err3(raws, compat, n, h, torch.float32, fs)
             above = k == 1 or bool(torch.abs(e - err) > trigger)
             err = e
             if not (above and k < max_sweeps):

@@ -141,7 +141,7 @@ def test_layouts_split_and_gather():
             (r0, r1), (c0, c1) = lay.rows[i], lay.cols[j]
             assert torch.equal(sharded.extend(g, i, j, 3, 2), xp[r0:r1 + 6, c0:c1 + 4])
     parts = [torch.tensor(v, dtype=torch.float32) for v in (1e8, 1.0, -1e8, 1.0)]
-    assert float(sharded.psum(parts)) == float(((parts[0] + parts[1]) + parts[2]) + parts[3])
+    assert float(sharded.psum(parts, lay)) == float(((parts[0] + parts[1]) + parts[2]) + parts[3])
 
 
 @pytest.mark.parametrize("n", [64, 67, 257])

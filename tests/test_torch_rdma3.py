@@ -379,7 +379,7 @@ def test_jacobi3_twin_bitmatches_unsharded(n, shards):
         wu, we = K3.fused_jacobi3_err_torch(u, f, h, steps, OMEGA3, mode, fz)
         assert torch.equal(S.gather(got), wu)
         assert len(raws) == shards
-        assert float(halo3.sum_err3(raws, mode, n, h, torch.float32)) == pytest.approx(
+        assert float(halo3.sum_err3(raws, mode, n, h, torch.float32, fs)) == pytest.approx(
             float(we), rel=SUM_ORDER_RTOL)
 
 
@@ -393,7 +393,7 @@ def test_descend3_twin_bitmatches_unsharded(n, shards):
         wu, wfc, we = K3.fused_descend3_torch(u, f, h, steps, OMEGA3, fz, restriction, True)
         assert gfc.layout == R3.coarse_layout3(fs)
         assert torch.equal(S.gather(gu), wu) and torch.equal(S.gather(gfc), wfc)
-        assert float(halo3.sum_err3(raws, "clean", n, h, torch.float32)) == pytest.approx(
+        assert float(halo3.sum_err3(raws, "clean", n, h, torch.float32, fs)) == pytest.approx(
             float(we), rel=SUM_ORDER_RTOL)
 
 
@@ -410,7 +410,7 @@ def test_ascend3_twin_bitmatches_unsharded(n, shards):
             gu, raws = R3.rdma_ascend3(us, fs, child, h, steps, OMEGA3, want_err)
             assert torch.equal(S.gather(gu), wu)
             if want_err:
-                assert float(halo3.sum_err3(raws, "clean", n, h, torch.float32)) == pytest.approx(
+                assert float(halo3.sum_err3(raws, "clean", n, h, torch.float32, fs)) == pytest.approx(
                     float(we), rel=SUM_ORDER_RTOL)
             else:
                 assert raws is None

@@ -82,6 +82,12 @@ def fixed_sum(p):
     return _butterfly(torch.cat([warps, torch.zeros(24)]))[0]
 
 
+def _layout(bounds):
+    """The row layout of the shard bounds on the CPU."""
+    return S.Layout(N, tuple(zip(bounds[:-1], bounds[1:])), ((0, N),),
+                    tuple((torch.device("cpu"),) for _ in bounds[1:]))
+
+
 def _geo(bounds, s, ext):
     r0, r1 = bounds[s], bounds[s + 1]
     return K.ShardGeo(N, r0, 0, r1 - r0, N, ext, 0)
@@ -137,7 +143,7 @@ class OneSweepLoop:
             blocks.append(blk)
             raws.append(fixed_sum(tile_partials(_terms(ue, fe, geo, self.h, 1, self.mode,
                                                        False), geo)))
-        return torch.cat(blocks), S.psum(raws) * K.shard_err_scale(self.mode, N, self.h)
+        return torch.cat(blocks), S.psum(raws, _layout(self.bounds)) * K.shard_err_scale(self.mode, N, self.h)
 
     def step(self, k):
         """(iterate k, its error), k >= 1."""
@@ -172,6 +178,7 @@ def ring_trigger(u, f, bounds, h, mode, trigger, max_sweeps, batch=0, rows=32, m
     B = min(batch or 7, 8 - res, max_sweeps, rows_min - res)
     H = B + res
     scale = K.shard_err_scale(mode, N, h)
+    lay = _layout(bounds)
     blk = [u[a:b].clone() for a, b in zip(bounds[:-1], bounds[1:])]
     fb = [f[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
     nan = torch.full((H, N), NAN)
@@ -218,7 +225,7 @@ def ring_trigger(u, f, bounds, h, mode, trigger, max_sweeps, batch=0, rows=32, m
         for s in range(P):
             dst[s].copy_(new[s])
             post(s, dst[s], ((k + kb) & 1) if mutate == "sweep_parity" else (par ^ 1))
-        totals = [S.psum([raws[s][j] for s in range(P)]) * scale for j in range(kb)]
+        totals = [S.psum([raws[s][j] for s in range(P)], lay) * scale for j in range(kb)]
         stop, err = _stop(totals, k, err, slopes, trigger, max_sweeps)
         if stop:
             k += stop
@@ -271,8 +278,7 @@ def test_matches_one_sweep_loop(layout, mode):
         want = ref(trig, 100)
         assert want[2] == stop
         _same(got, want, f"trigger {trig:.6g}")
-        lay = S.Layout(N, tuple(zip(bounds[:-1], bounds[1:])), ((0, N),),
-                       tuple((torch.device("cpu"),) for _ in bounds[1:]))
+        lay = _layout(bounds)
         tu, te, tk = rdma.rdma_trigger_torch(S.shard(u, lay), S.shard(f, lay), h, OMEGA,
                                              {"cpu": True, "clean": False, "gpu": "gpu"}[mode],
                                              trig, 100)

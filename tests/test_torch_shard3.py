@@ -156,7 +156,7 @@ def test_zplane_split_and_halos(ndev):
     other = S.layout_of(_policy(5, threshold=2), n)
     assert torch.equal(S.gather(S.as_level(us, _policy(5, threshold=2), n)), u)
     assert S.as_level(us, _policy(5, threshold=2), n).layout == other
-    assert torch.equal(S.psum([torch.tensor(1.5, dtype=torch.float64)] * ndev),
+    assert torch.equal(S.psum([torch.tensor(1.5, dtype=torch.float64)] * ndev, us),
                        torch.tensor(1.5 * ndev, dtype=torch.float64))
 
 
